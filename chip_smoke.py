@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``dislib_tpu_torch``) on one NVIDIA card.
+
+Run from the root of a checkout::
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``dislib_tpu_torch/csrc``, holds each
+kernel against its plain PyTorch version on the card, then drives the main
+path through the entry points a user calls — ``KMeans`` fit/predict/score on
+a 1,000,000 x 100 ds-array with k = 10, and ``matmul(..., algorithm="summa")``
+of two 16384 x 16384 ds-arrays under both precision policies with
+``DSLIB_OVERLAP=pallas`` — and checks every result.  Each phase prints one
+JSON line; the line before the last lists every kernel with its launches on
+the main path, its error against the plain version, its time, the plain
+version's and the library call's time, and the least time the card could
+take (``bound_ms``).  The last line is::
+
+    {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
+
+Any failed check raises, and the script exits non-zero without that line.
+It also exits non-zero, printing no result, when there is no CUDA device or
+the port is not importable next to it.  It needs no network and imports no
+JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+# published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
+# data sheet, dense): FP32 outside the tensor cores, bf16 tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+KM_M, KM_N, KM_K = 1_000_000, 100, 10
+GEMM_N = 16384
+DEVICE = "cuda:0"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, what) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def bound(flops, nbytes, peak_flops):
+    """(bound_ms, bound_by): the larger of the operations over the peak
+    rate for their type and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one "
+              "NVIDIA card", file=sys.stderr)
+        return 1
+    try:
+        import dislib_tpu_torch as dst
+    except ImportError as exc:
+        print(f"chip_smoke: cannot import dislib_tpu_torch ({exc}); run "
+              "from the root of a checkout", file=sys.stderr)
+        return 1
+    import numpy as np
+    from dislib_tpu_torch import _build
+    from dislib_tpu_torch.cluster import kmeans as km_mod
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    dst.init(device=dev)
+
+    def cuda_ms(fn, reps):
+        """Mean device time of ``fn`` over ``reps`` launches after one
+        warm-up, by CUDA events."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def gemm_err(c, ref, a, b):
+        """ERROR_BOUNDS' matmul metric: max |C - C_ref| /
+        (||A||_F ||B||_F / sqrt(k))."""
+        scale = (torch.linalg.norm(a.double()) * torch.linalg.norm(b.double())
+                 / float(a.shape[1]) ** 0.5)
+        return float((c.double() - ref.double()).abs().max() / scale)
+
+    def dist_err(d, ref, a, b):
+        """Distance error relative to the magnitudes that cancel in
+        ‖a‖² − 2a·b + ‖b‖²: max |D - D_ref| / (max ‖a‖² + max ‖b‖²)."""
+        scale = float((a.double() ** 2).sum(1).max()
+                      + (b.double() ** 2).sum(1).max())
+        return float((d.double() - ref.double()).abs().max()) / scale
+
+    # -- (0) the card ----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "card", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # -- (1) the build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.build_all()
+    for name in _build.SIGNATURES:
+        _build.library(name)
+    build_s = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": build_s,
+          "kernels": {n: {"seconds": i["seconds"], "cached": i["cached"],
+                          "ptxas": [ln.strip() for ln in i["log"].splitlines()
+                                    if "registers" in ln or "spill" in ln]}
+                      for n, i in _build.BUILD_INFO.items()}})
+
+    # -- (2) each kernel against its plain version on the card --------------------
+    g = torch.Generator(device=dev).manual_seed(0)
+    gemm_tol = px.ERROR_BOUNDS[("matmul", "float32")]
+    dist_tol = 1e-5
+    for (m, k, n) in [(1000, 77, 33), (129, 257, 130), (1, 5, 300)]:
+        a = torch.randn((m, k), generator=g, device=dev)
+        b = torch.randn((k, n), generator=g, device=dev)
+        for pol in (px.FLOAT32, px.BFLOAT16):
+            err = gemm_err(K.panel_gemm(a, b, pol),
+                           K.panel_gemm_plain(a, b, pol), a, b)
+            check(err <= gemm_tol, f"panel_gemm {pol.name} {(m, k, n)}: "
+                  f"normalized error {err} vs plain > {gemm_tol}")
+        bt = b.T.contiguous()
+        err = dist_err(K.distances_sq(a, bt), K.distances_sq_plain(a, bt),
+                       a, bt)
+        check(err <= dist_tol, f"distances_sq {(m, k, n)}: error {err} vs "
+              f"plain > {dist_tol}")
+    torch.cuda.synchronize()
+    emit({"phase": "ragged", "ok": True})
+
+    kernels = {}
+    # panel_gemm at the main path's shape: SUMMA's one panel on one card
+    a = torch.randn((GEMM_N, GEMM_N), generator=g, device=dev)
+    b = torch.randn((GEMM_N, GEMM_N), generator=g, device=dev)
+    rows = torch.randperm(GEMM_N, generator=g, device=dev)[:256]
+    ref_rows = a[rows].double() @ b.double()
+    flops = 2.0 * GEMM_N ** 3
+    nbytes = 3 * 4.0 * GEMM_N ** 2
+    for pol, peak in ((px.FLOAT32, PEAK_FP32_FLOPS),
+                      (px.BFLOAT16, PEAK_BF16_FLOPS)):
+        out = K.panel_gemm(a, b, pol)
+        plain = K.panel_gemm_plain(a, b, pol)
+        err_plain = gemm_err(out, plain, a, b)
+        err_f64 = gemm_err(out[rows], ref_rows, a, b)
+        check(err_plain <= gemm_tol, f"panel_gemm {pol.name}: normalized "
+              f"error {err_plain} vs plain > {gemm_tol}")
+        check(err_f64 <= px.ERROR_BOUNDS[("matmul", pol.name)],
+              f"panel_gemm {pol.name}: normalized error {err_f64} vs f64 "
+              "rows > ERROR_BOUNDS")
+        max_abs = float((out - plain).abs().max())
+        del out, plain
+        ms = cuda_ms(lambda: K.panel_gemm(a, b, pol), 3)
+        plain_ms = cuda_ms(lambda: K.panel_gemm_plain(a, b, pol), 3)
+        if pol is px.FLOAT32:
+            lib_call = "torch.matmul (f32, TF32 off)"
+
+            def lib():
+                with px.precise():
+                    return torch.matmul(a, b)
+        else:
+            a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+            try:
+                torch.mm(a16[:8, :8], b16[:8, :8], out_dtype=torch.float32)
+                lib_call = "torch.mm(bf16, bf16, out_dtype=float32)"
+
+                def lib():
+                    return torch.mm(a16, b16, out_dtype=torch.float32)
+            except (TypeError, RuntimeError):  # no out_dtype here
+                lib_call = "torch.matmul(bf16, bf16) (bf16 output)"
+
+                def lib():
+                    return torch.matmul(a16, b16)
+        library_ms = cuda_ms(lib, 3)
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        kernels[f"panel_gemm/{pol.name}"] = {
+            "name": "panel_gemm", "policy": pol.name, "route": "cuda",
+            "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+            "shape": [GEMM_N, GEMM_N, GEMM_N],
+            "max_abs_err": max_abs, "normalized_err_vs_plain": err_plain,
+            "normalized_err_vs_f64_rows": err_f64, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": lib_call, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        emit({"phase": "kernel", **kernels[f"panel_gemm/{pol.name}"]})
+    del a, b, a16, b16, ref_rows
+    torch.cuda.empty_cache()
+
+    # KMeans data — bench.py's draw: rand(1M, 100) and k rows from seed 0
+    rng = np.random.RandomState(0)
+    x_host = rng.rand(KM_M, KM_N).astype(np.float32)
+    init = x_host[rng.choice(KM_M, KM_K, replace=False)].copy()
+    xd = torch.from_numpy(x_host).to(dev)
+    cd = torch.from_numpy(init).to(dev)
+    out = K.distances_sq(xd, cd)
+    plain = K.distances_sq_plain(xd, cd, precision="highest")
+    err = dist_err(out, plain, xd, cd)
+    check(err <= dist_tol, f"distances_sq: error {err} vs plain > {dist_tol}")
+    check(bool((out >= 0).all()), "distances_sq: negative distance")
+    max_abs = float((out - plain).abs().max())
+    del out, plain
+    ms = cuda_ms(lambda: K.distances_sq(xd, cd), 20)
+    plain_ms = cuda_ms(lambda: K.distances_sq_plain(xd, cd, "highest"), 20)
+    bound_ms, bound_by = bound(
+        2.0 * KM_M * KM_K * KM_N + 2.0 * (KM_M + KM_K) * KM_N
+        + 3.0 * KM_M * KM_K,
+        4.0 * (KM_M * KM_N + KM_K * KM_N + KM_M * KM_K), PEAK_FP32_FLOPS)
+    kernels["distances_sq"] = {
+        "name": "distances_sq", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "shape": [KM_M, KM_K, KM_N], "max_abs_err": max_abs,
+        "normalized_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "library_call": None, "bound_ms": bound_ms,
+        "bound_by": bound_by}
+    emit({"phase": "kernel", **kernels["distances_sq"]})
+    del xd
+
+    # -- (3) KMeans, 1M x 100, k = 10 -----------------------------------------------
+    x = dst.array(x_host)
+    check(x.device == dev, f"ds.array landed on {x.device}")
+    # gate: one device iteration against a NumPy float64 Lloyd iteration
+    x64, c64 = x_host.astype(np.float64), init.astype(np.float64)
+    d64 = ((x64 * x64).sum(1)[:, None] - 2.0 * (x64 @ c64.T)
+           + (c64 * c64).sum(1)[None])
+    lab64 = d64.argmin(1)
+    onehot = np.zeros((KM_M, KM_K))
+    onehot[np.arange(KM_M), lab64] = 1.0
+    counts = onehot.sum(0)
+    sums = onehot.T @ x64
+    want = np.where(counts[:, None] > 0,
+                    sums / np.maximum(counts, 1)[:, None], c64)
+    del x64, d64, onehot
+    got = km_mod._kmeans_fit(x._data, x.shape, cd, 1, 0.0)[0].cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    dst.KMeans(n_clusters=KM_K, init=init, max_iter=2, tol=0.0).fit(x)  # warm
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    km10 = dst.KMeans(n_clusters=KM_K, init=init, max_iter=10,
+                      tol=0.0).fit(x)
+    t10 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    km = dst.KMeans(n_clusters=KM_K, init=init, max_iter=500, tol=0.0).fit(x)
+    t500 = time.perf_counter() - t0
+    labels = km.predict(x)
+    score = km.score(x)
+    launches_km = dict(K.LAUNCHES)
+
+    check(km10.n_iter_ == 10 and km.n_iter_ == 500,
+          f"n_iter {km10.n_iter_}, {km.n_iter_}")
+    check(launches_km["distances_sq"] >= 10 + 500,
+          f"distances_sq launched {launches_km['distances_sq']} times in "
+          "510 KMeans iterations")
+    check(np.isfinite(km.centers_).all() and km.centers_.shape == (KM_K, KM_N),
+          "KMeans centers not finite / wrong shape")
+    check(np.isfinite(km.history_).all() and len(km.history_) == 500,
+          "KMeans history")
+    lab = labels._data[:, 0]
+    check(labels.shape == (KM_M, 1) and lab.dtype == torch.int32
+          and int(lab.min()) >= 0 and int(lab.max()) < KM_K,
+          "predict labels: shape / dtype / range")
+    c_fit = torch.from_numpy(km.centers_).to(dev)
+    d_plain = K.distances_sq_plain(x._data, c_fit, "highest")
+    agree = float((d_plain.argmin(1).to(torch.int32) == lab).double().mean())
+    check(agree >= 0.999, f"predict agrees with the plain argmin on only "
+          f"{agree} of rows")
+    want_score = -float(d_plain.min(1).values.double().sum())
+    check(np.isfinite(score) and abs(score - want_score) <= 1e-4 *
+          abs(want_score), f"score {score} vs plain {want_score}")
+    # where the time of an iteration goes: 50 iterations under
+    # torch.profiler, device spans summed by kernel, the busy share of the
+    # wall time (the profiler's own host cost lowers it)
+    from torch.profiler import ProfilerActivity, profile
+    iters = 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dst.KMeans(n_clusters=KM_K, init=init, max_iter=iters,
+                   tol=0.0).fit(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(spans, "the profiler recorded no device work in a KMeans fit")
+    per_kernel, busy, end = {}, 0.0, float("-inf")
+    for s, e, name in spans:
+        per_kernel[name[:90]] = per_kernel.get(name[:90], 0.0) + (e - s)
+        busy += max(0.0, e - max(s, end))      # union of the spans
+        end = max(end, e)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "kmeans_profile", "iterations": iters,
+          "wall_ms_per_iter": wall_us / iters / 1e3,
+          "device_busy_ms_per_iter": busy / iters / 1e3,
+          "device_idle_share": 1.0 - busy / wall_us,
+          "kernels_ms_per_iter": {n: t / iters / 1e3 for n, t in top}})
+
+    emit({"phase": "kmeans", "shape": [KM_M, KM_N], "k": KM_K,
+          "gate_1iter_vs_numpy_f64": "rtol/atol 2e-3 passed",
+          "iter_per_s_10": 10 / t10, "iter_per_s_500": 500 / t500,
+          "fit10_s": t10, "fit500_s": t500, "inertia": km.inertia_,
+          "score": score, "predict_agrees_with_plain": agree,
+          "launches": launches_km})
+    del x, labels, d_plain, c_fit, cd
+    torch.cuda.empty_cache()
+
+    # -- (4) matmul, 16384^2, SUMMA with the kernel consume step ------------------
+    os.environ["DSLIB_OVERLAP"] = "pallas"
+    ga = torch.randn((GEMM_N, GEMM_N), generator=g, device=dev)
+    gb = torch.randn((GEMM_N, GEMM_N), generator=g, device=dev)
+    rows = torch.randperm(GEMM_N, generator=g, device=dev)[:256]
+    ref_rows = ga[rows].double() @ gb.double()
+    A, B = dst.array(ga), dst.array(gb)
+    launches_mm = {}
+    for pol in ("float32", "bfloat16"):
+        dst.matmul(A, B, algorithm="summa", precision=pol)      # warm
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        C = dst.matmul(A, B, algorithm="summa", precision=pol)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        launches_mm[pol] = dict(K.LAUNCHES)
+        err = gemm_err(C._data[rows], ref_rows, ga, gb)
+        check(err <= px.ERROR_BOUNDS[("matmul", pol)],
+              f"matmul {pol}: normalized error {err} > ERROR_BOUNDS")
+        check(launches_mm[pol]["panel_gemm"] >= 1,
+              f"matmul {pol} did not launch panel_gemm")
+        check(C.shape == (GEMM_N, GEMM_N) and C.dtype == torch.float32,
+              f"matmul {pol}: shape {C.shape} dtype {C.dtype}")
+        emit({"phase": "matmul", "policy": pol, "n": GEMM_N,
+              "algorithm": "summa", "overlap": "pallas", "seconds": t,
+              "gflops": 2.0 * GEMM_N ** 3 / t / 1e9,
+              "normalized_err_vs_f64_rows": err,
+              "launches": launches_mm[pol]})
+        del C
+
+    # -- (5) the kernels line, then the result --------------------------------------
+    kernels["distances_sq"]["launches"] = launches_km["distances_sq"]
+    for pol in ("float32", "bfloat16"):
+        kernels[f"panel_gemm/{pol}"]["launches"] = \
+            launches_mm[pol]["panel_gemm"]
+    emit({"kernels": list(kernels.values()), "held_against_plain": True})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,139 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Needs a CUDA card and ``nvcc``; every test skips without a card.  The module
+imports neither JAX nor ``dislib_tpu``, so on a machine without JAX it runs
+without the repository's conftest::
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: ``panel_gemm`` within ``ERROR_BOUNDS[("matmul", "float32")]``
+(normalized) of the plain version — both accumulate the same (policy-
+rounded) operands in f32; ``distances_sq`` within 1e-5 of the plain version
+relative to max‖a‖² + max‖b‖², the magnitudes that cancel in the
+formulation.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import dislib_tpu_torch as dst
+from dislib_tpu_torch.cluster import kmeans as km_mod
+from dislib_tpu_torch.ops import kernels as K
+from dislib_tpu_torch.ops import precision as px
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(1, 5, 300), (129, 257, 130), (1000, 77, 33), (256, 128, 16)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    K.reset_launches()
+    return torch.device("cuda", 0)
+
+
+def _gemm_err(c, ref, a, b):
+    scale = (torch.linalg.norm(a.double()) * torch.linalg.norm(b.double())
+             / a.shape[1] ** 0.5)
+    return float((c.double() - ref.double()).abs().max() / scale)
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", SHAPES, ids=str)
+def test_panel_gemm_matches_plain(dev, policy, mkn):
+    m, k, n = mkn
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((k, n), generator=g, device=dev)
+    pol = px.resolve(policy)
+    got = K.panel_gemm(a, b, pol)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _gemm_err(got, K.panel_gemm_plain(a, b, pol), a, b) <= \
+        px.ERROR_BOUNDS[("matmul", "float32")]
+    assert K.LAUNCHES["panel_gemm"] == 1
+
+
+@pytest.mark.parametrize("mkn", SHAPES, ids=str)
+def test_distances_sq_matches_plain(dev, mkn):
+    m, d, k = mkn
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn((m, d), generator=g, device=dev)
+    b = torch.randn((k, d), generator=g, device=dev)
+    got = K.distances_sq(a, b)
+    torch.cuda.synchronize()
+    want = K.distances_sq_plain(a, b, precision="highest")
+    scale = float((a * a).sum(1).max() + (b * b).sum(1).max())
+    assert float((got - want).abs().max()) / scale <= 1e-5
+    assert bool((got >= 0).all())
+    assert K.LAUNCHES["distances_sq"] == 1
+
+
+def test_distances_sq_keeps_nan(dev):
+    a = torch.ones((3, 4), device=dev)
+    a[1, 2] = float("nan")
+    got = K.distances_sq(a, torch.zeros((2, 4), device=dev)).cpu()
+    assert torch.isnan(got[1]).all() and not torch.isnan(got[[0, 2]]).any()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.ones((8, 4), device=dev)
+    with pytest.raises(TypeError):
+        K.panel_gemm(x.double(), x.T.contiguous().double())
+    with pytest.raises(TypeError):
+        K.distances_sq(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.panel_gemm(x, x.T)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.distances_sq(x, x.cpu())
+    assert K.LAUNCHES == {"panel_gemm": 0, "distances_sq": 0}
+
+
+def test_kmeans_on_the_card_matches_the_cpu(dev):
+    # well-separated blobs, one initial center in each: no point is near a
+    # tie that f32 reassociation could flip between the kernel and the CPU
+    # plain version (two centers in one blob would split it at a boundary
+    # dense with near-ties)
+    rng = np.random.RandomState(0)
+    centers = rng.uniform(-20, 20, (6, 12))
+    x = (centers[rng.randint(0, 6, 5000)]
+         + rng.standard_normal((5000, 12))).astype(np.float32)
+    init = (centers + 0.5 * rng.standard_normal((6, 12))).astype(np.float32)
+    kw = dict(n_clusters=6, init=init, max_iter=8, tol=0.0)
+    gpu = dst.KMeans(**kw).fit(dst.array(x, device=dev))
+    cpu = dst.KMeans(**kw).fit(dst.array(x, device="cpu"))
+    assert K.LAUNCHES["distances_sq"] == 8
+    assert gpu.n_iter_ == cpu.n_iter_ == 8
+    np.testing.assert_allclose(gpu.centers_, cpu.centers_, rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(gpu.inertia_, cpu.inertia_, rtol=1e-4)
+
+
+def test_fit_kernel_leaves_its_results_on_the_card(dev):
+    x = dst.array(np.random.RandomState(0).rand(4096, 8).astype(np.float32),
+                  device=dev)
+    c0 = x._data[:4].clone()
+    torch.cuda.synchronize()
+    out = km_mod._kmeans_fit(x._data, x.shape, c0, 20, 0.0)
+    # nothing was read back yet: every result is still a device tensor
+    assert all(t.device.type == "cuda" for t in out)
+    assert K.LAUNCHES["distances_sq"] == 20
+
+
+def test_summa_matmul_on_the_card(dev, monkeypatch):
+    monkeypatch.setenv("DSLIB_OVERLAP", "pallas")
+    rng = np.random.RandomState(2)
+    a = rng.standard_normal((300, 200)).astype(np.float32)
+    b = rng.standard_normal((200, 170)).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    for policy in ("float32", "bfloat16"):
+        K.reset_launches()
+        got = dst.matmul(dst.array(a, device=dev), dst.array(b, device=dev),
+                         algorithm="summa", precision=policy).collect()
+        assert K.LAUNCHES["panel_gemm"] == 1
+        scale = np.linalg.norm(a) * np.linalg.norm(b) / np.sqrt(200)
+        assert np.abs(got - want).max() / scale <= \
+            px.ERROR_BOUNDS[("matmul", policy)]
