@@ -8,9 +8,12 @@ Run from the root of a checkout::
 It builds the port's CUDA kernels from ``dislib_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card, then drives the main
 path through the entry points a user calls — ``KMeans`` fit/predict/score on
-a 1,000,000 x 100 ds-array with k = 10, and ``matmul(..., algorithm="summa")``
+a 1,000,000 x 100 ds-array with k = 10, ``matmul(..., algorithm="summa")``
 of two 16384 x 16384 ds-arrays under both precision policies with
-``DSLIB_OVERLAP=pallas`` — and checks every result.  Each phase prints one
+``DSLIB_OVERLAP=pallas``, a 16-tree ``RandomForestClassifier`` at the
+default depth on 1,000,000 x 100 rows, a ``DecisionTreeClassifier`` fitted
+on the card and on the CPU, and an 8-tree ``RandomForestRegressor`` — and
+checks every result.  Each phase prints one
 JSON line; the line before the last lists every kernel with its launches on
 the main path, its error against the plain version, its time, the plain
 version's and the library call's time, and the least time the card could
@@ -40,6 +43,18 @@ PEAK_BYTES = 3.35e12
 
 KM_M, KM_N, KM_K = 1_000_000, 100, 10
 GEMM_N = 16384
+# the forest: bench.py's bench_forest data at 1M x 100, 16 trees
+RF_M, RF_N, RF_T = 1_000_000, 100, 16
+# the tree fitted on the card and on the CPU: bench.py's full forest shape
+DT_M, DT_N = 100_000, 20
+# node_histogram shapes held against the plain version: (T, m, n,
+# n_nodes, n_bins, S)
+HIST_RAGGED = [(3, 1000, 7, 4, 32, 2),        # ragged m, several chunks
+               (2, 50_001, 5, 2048, 32, 2),   # the deepest level: slices
+               (1, 20_011, 3, 64, 1024, 2),   # n_bins 1024
+               (2, 30_000, 4, 8, 32, 5),      # S 5
+               (1, 123_457, 10, 1, 32, 2),    # T 1, every row in one node
+               (16, 40_000, 6, 16, 32, 2)]    # T 16
 DEVICE = "cuda:0"
 
 
@@ -58,6 +73,75 @@ def bound(flops, nbytes, peak_flops):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def blobs(m, n, k, seed=0, std=0.08):
+    """bench.py's ``_blobs``: k gaussian blobs on the unit cube."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    centers = rng.rand(k, n).astype(np.float32)
+    lab = rng.randint(0, k, m)
+    x = centers[lab] + std * rng.standard_normal((m, n)).astype(np.float32)
+    return x.astype(np.float32), lab.astype(np.int64)
+
+
+def numpy_leaf_stats(est, xq):
+    """A NumPy walk of a fitted forest: every query row's leaf stats in
+    every tree, (T, q, S), from the fitted edges, splits and leaves."""
+    import numpy as np
+    edges = est._edges.cpu().numpy()
+    leaves = est._leaves.cpu().numpy()
+    bq = (xq[:, :, None] > edges[None]).sum(2)
+    r = np.arange(len(xq))
+    out = []
+    for t in range(est._feats.shape[0]):
+        node = np.zeros(len(xq), np.int64)
+        for lvl in range(est._depth):
+            f = est._feats[t, lvl][node]
+            b = est._tbins[t, lvl][node]
+            node = node * 2 + (bq[r, f] > b)
+        out.append(leaves[t][node])
+    return np.stack(out)
+
+
+def same_forest(a, b) -> bool:
+    import numpy as np
+    import torch
+    return (torch.equal(a._edges, b._edges) and torch.equal(a._leaves,
+                                                            b._leaves)
+            and np.array_equal(a._feats, b._feats)
+            and np.array_equal(a._tbins, b._tbins))
+
+
+def profile_device(fn):
+    """Run ``fn`` under torch.profiler; return the wall time, the device's
+    busy time (the union of its kernel spans) and the spans (start_us,
+    end_us, name) in start order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(spans, "the profiler recorded no device work")
+    busy, end = 0.0, float("-inf")
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))      # union of the spans
+        end = max(end, e)
+    return wall_us, busy, spans
+
+
+def top_kernels(spans, n=8, per=1.0):
+    per_kernel = {}
+    for s, e, name in spans:
+        per_kernel[name[:90]] = per_kernel.get(name[:90], 0.0) + (e - s)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:n]
+    return {name: t / per / 1e3 for name, t in top}
 
 
 def main() -> int:
@@ -150,8 +234,40 @@ def main() -> int:
                        a, bt)
         check(err <= dist_tol, f"distances_sq {(m, k, n)}: error {err} vs "
               f"plain > {dist_tol}")
+    # node_histogram: bit-equal to the plain version for integer
+    # contributions (sums of integers below 2^24 are exact in any order);
+    # for non-integer stats within 1e-5 of the f64 sums relative to each
+    # cell's sum of |w·stats| (the atomics add in a varying order, so an
+    # f32 sum of N terms strays by ~sqrt(N)·2^-24 of it, ~1e-6 here)
+    hist_tol = 1e-5
+
+    def hist_inputs(T, m, n, n_nodes, n_bins, S):
+        node = torch.randint(0, n_nodes, (T, m), generator=g, device=dev,
+                             dtype=torch.int32)
+        bx = torch.randint(0, n_bins, (m, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        w = torch.poisson(torch.ones((T, m), device=dev), generator=g)
+        return node, bx, w
+
+    for (T, m, n, nn, nb, S) in HIST_RAGGED:
+        node, bx, w = hist_inputs(T, m, n, nn, nb, S)
+        st = torch.randint(0, 3, (m, S), generator=g, device=dev).float()
+        check(torch.equal(K.node_histogram(node, bx, w, st, nn, nb),
+                          K.node_histogram_plain(node, bx, w, st, nn, nb)),
+              f"node_histogram {(T, m, n, nn, nb, S)}: not bit-equal to "
+              "plain for integer contributions")
+        st = torch.randn((m, S), generator=g, device=dev)
+        got = K.node_histogram(node, bx, w, st, nn, nb).double()
+        exact = K.node_histogram_plain(node, bx, w.double(), st.double(),
+                                       nn, nb)
+        scale = K.node_histogram_plain(node, bx, w, st.abs(), nn, nb)
+        check(bool(((got - exact).abs() <= hist_tol * scale).all()),
+              f"node_histogram {(T, m, n, nn, nb, S)}: non-integer stats "
+              f"off by more than {hist_tol} of sum |w*stats|")
     torch.cuda.synchronize()
-    emit({"phase": "ragged", "ok": True})
+    emit({"phase": "ragged", "ok": True,
+          "node_histogram_bit_equal_integer": len(HIST_RAGGED),
+          "node_histogram_non_integer_tol": hist_tol})
 
     kernels = {}
     # panel_gemm at the main path's shape: SUMMA's one panel on one card
@@ -241,6 +357,83 @@ def main() -> int:
     emit({"phase": "kernel", **kernels["distances_sq"]})
     del xd
 
+    # node_histogram at the forest's deepest level on the main path: 16
+    # trees, 1M rows x 100 features, 2048 nodes x 32 bins, one-hot labels
+    # times Poisson weights
+    T, m, n, nn, nb, S = RF_T, RF_M, RF_N, 2048, 32, 2
+    node, bx, w = hist_inputs(T, m, n, nn, nb, S)
+    st = torch.nn.functional.one_hot(
+        torch.randint(0, S, (m,), generator=g, device=dev), S).float()
+    out = K.node_histogram(node, bx, w, st, nn, nb)
+    plain = K.node_histogram_plain(node, bx, w, st, nn, nb)
+    check(torch.equal(out, plain), "node_histogram at the deepest level: "
+          "not bit-equal to plain")
+    max_abs = float((out - plain).abs().max())
+    del out, plain
+    ms = cuda_ms(lambda: K.node_histogram(node, bx, w, st, nn, nb), 5)
+    plain_ms = cuda_ms(
+        lambda: K.node_histogram_plain(node, bx, w, st, nn, nb), 2)
+    # the library call is the plain version's own: index_put_(accumulate=
+    # True), one per tree (one over the whole forest would need T·m·n int64
+    # indices, 12.8 GB, and their sort buffers), here on prebuilt indices
+    bins = bx.long()
+    feat = torch.arange(n, device=dev)[None, :].expand(m, n)
+    contrib = w[:, :, None] * st[None]
+
+    def library_ms_at(node_t, n_nodes, reps):
+        node_l = node_t.long()
+        lib_out = torch.zeros((T, n_nodes, n, nb, S), device=dev)
+
+        def lib():
+            for t in range(T):
+                lib_out[t].index_put_(
+                    (node_l[t][:, None].expand(m, n), feat, bins),
+                    contrib[t][:, None, :].expand(m, n, S), accumulate=True)
+
+        return cuda_ms(lib, reps)
+
+    library_ms = library_ms_at(node, nn, 2)
+
+    def hist_bound(n_nodes):
+        nbytes = 4.0 * (m * n + 2 * T * m + m * S
+                        + T * n_nodes * n * nb * S)
+        return bound(T * m * (n + 1) * S, nbytes, PEAK_FP32_FLOPS)
+
+    bound_ms, bound_by = hist_bound(nn)
+    # the kernel at each level's shape of a default-depth fit (nodes drawn
+    # uniformly: at level 0 every row is in the one node)
+    per_level, per_level_bound, plain_level, lib_level = {}, {}, {}, {}
+    for lvl in range(12):
+        lnode = torch.randint(0, 2 ** lvl, (T, m), generator=g, device=dev,
+                              dtype=torch.int32)
+        per_level[2 ** lvl] = cuda_ms(
+            lambda: K.node_histogram(lnode, bx, w, st, 2 ** lvl, nb), 3)
+        plain_level[2 ** lvl] = cuda_ms(
+            lambda: K.node_histogram_plain(lnode, bx, w, st, 2 ** lvl, nb), 1)
+        lib_level[2 ** lvl] = library_ms_at(lnode, 2 ** lvl, 1)
+        per_level_bound[2 ** lvl] = hist_bound(2 ** lvl)[0]
+    del lnode, bins, feat, contrib
+    kernels["node_histogram"] = {
+        "name": "node_histogram", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/node_histogram.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:149",
+        "shape": [T, m, n, nn, nb, S], "updates": T * m * n * S,
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library_call": "Tensor.index_put_(accumulate=True), one per tree "
+                        "(the plain version's call)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms_by_n_nodes": per_level, "bound_ms_by_n_nodes": per_level_bound,
+        "plain_ms_by_n_nodes": plain_level,
+        "library_ms_by_n_nodes": lib_level,
+        "ms_fit_levels": sum(per_level.values()),
+        "bound_ms_fit_levels": sum(per_level_bound.values()),
+        "plain_ms_fit_levels": sum(plain_level.values()),
+        "library_ms_fit_levels": sum(lib_level.values())}
+    emit({"phase": "kernel", **kernels["node_histogram"]})
+    del node, bx, w, st
+    torch.cuda.empty_cache()
+
     # -- (3) KMeans, 1M x 100, k = 10 -----------------------------------------------
     x = dst.array(x_host)
     check(x.device == dev, f"ds.array landed on {x.device}")
@@ -296,30 +489,15 @@ def main() -> int:
     # where the time of an iteration goes: 50 iterations under
     # torch.profiler, device spans summed by kernel, the busy share of the
     # wall time (the profiler's own host cost lowers it)
-    from torch.profiler import ProfilerActivity, profile
     iters = 50
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dst.KMeans(n_clusters=KM_K, init=init, max_iter=iters,
-                   tol=0.0).fit(x)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(spans, "the profiler recorded no device work in a KMeans fit")
-    per_kernel, busy, end = {}, 0.0, float("-inf")
-    for s, e, name in spans:
-        per_kernel[name[:90]] = per_kernel.get(name[:90], 0.0) + (e - s)
-        busy += max(0.0, e - max(s, end))      # union of the spans
-        end = max(end, e)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    wall_us, busy, spans = profile_device(
+        lambda: dst.KMeans(n_clusters=KM_K, init=init, max_iter=iters,
+                           tol=0.0).fit(x))
     emit({"phase": "kmeans_profile", "iterations": iters,
           "wall_ms_per_iter": wall_us / iters / 1e3,
           "device_busy_ms_per_iter": busy / iters / 1e3,
           "device_idle_share": 1.0 - busy / wall_us,
-          "kernels_ms_per_iter": {n: t / iters / 1e3 for n, t in top}})
+          "kernels_ms_per_iter": top_kernels(spans, per=iters)})
 
     emit({"phase": "kmeans", "shape": [KM_M, KM_N], "k": KM_K,
           "gate_1iter_vs_numpy_f64": "rtol/atol 2e-3 passed",
@@ -361,7 +539,154 @@ def main() -> int:
               "launches": launches_mm[pol]})
         del C
 
-    # -- (5) the kernels line, then the result --------------------------------------
+    del A, B, ga, gb, ref_rows
+    torch.cuda.empty_cache()
+
+    # -- (5) RandomForestClassifier, 1M x 100, 16 trees, default depth --------
+    from dislib_tpu_torch.trees import (DecisionTreeClassifier,
+                                        RandomForestClassifier,
+                                        RandomForestRegressor)
+    x_f, lab_f = blobs(RF_M, RF_N, 8, seed=5)
+    y_f = (lab_f % 2).astype(np.float32)[:, None]
+    X, Y = dst.array(x_f), dst.array(y_f)
+    torch.cuda.synchronize()
+
+    def fit_rf():
+        return RandomForestClassifier(n_estimators=RF_T,
+                                      random_state=0).fit(X, Y)
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rf = fit_rf()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches_rf = dict(K.LAUNCHES)
+    check(rf._depth == 12, f"default depth on 1M rows is {rf._depth}")
+    check(launches_rf["node_histogram"] == rf._depth,
+          f"node_histogram launched {launches_rf['node_histogram']} times "
+          f"in a fit of {rf._depth} levels")
+    t0 = time.perf_counter()
+    pred = rf.predict(X)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proba = rf.predict_proba(X)
+    torch.cuda.synchronize()
+    t_proba = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acc = rf.score(X, Y)
+    t_score = time.perf_counter() - t0
+    check(acc >= 0.95, f"forest train accuracy {acc} < 0.95")
+    check(proba.shape == (RF_M, 2) and bool(torch.isfinite(
+        proba._data).all()), "predict_proba: shape / finite")
+    # a NumPy walk of the fitted trees on sampled rows: the same soft vote
+    # in f64; rows whose two classes are within 1e-6 are near ties
+    rows = np.sort(np.random.RandomState(1).choice(RF_M, min(RF_M, 2000),
+                                                   replace=False))
+    c = numpy_leaf_stats(rf, x_f[rows]).astype(np.float64)
+    mean = (c / np.maximum(c.sum(2, keepdims=True), 1e-12)).mean(0)
+    clear = np.abs(mean[:, 0] - mean[:, 1]) > 1e-6
+    want = rf.classes_[mean.argmax(1)]
+    got = pred.collect().ravel()[rows]
+    check(np.array_equal(got[clear], want[clear]),
+          f"predict disagrees with the NumPy walk on "
+          f"{int((got[clear] != want[clear]).sum())} of {int(clear.sum())} "
+          "sampled rows")
+    rf2 = fit_rf()
+    check(same_forest(rf, rf2), "two fits with random_state=0 differ")
+    del pred, proba, rf2
+    # where a fit's time goes
+    wall_us, busy, spans = profile_device(fit_rf)
+    hist_levels = [(e - s_) / 1e3 for s_, e, name in spans
+                   if "node_histogram" in name]
+    emit({"phase": "forest_profile", "wall_ms": wall_us / 1e3,
+          "device_busy_ms": busy / 1e3, "device_idle_share":
+          1.0 - busy / wall_us, "node_histogram_ms_by_level": hist_levels,
+          "node_histogram_ms": sum(hist_levels),
+          "kernels_ms": top_kernels(spans, n=10)})
+    emit({"phase": "forest", "estimator": "RandomForestClassifier",
+          "shape": [RF_M, RF_N], "n_estimators": RF_T, "depth": rf._depth,
+          "fit_s": t_fit, "predict_s": t_pred, "predict_proba_s": t_proba,
+          "score_s": t_score, "train_accuracy": acc,
+          "numpy_walk_rows": int(clear.sum()),
+          "numpy_walk_near_ties": int((~clear).sum()),
+          "same_seed_bit_identical": True, "launches": launches_rf})
+
+    # -- (6) DecisionTreeClassifier: the card against the CPU ------------------
+    x_d, lab_d = blobs(DT_M, DT_N, 8, seed=5)
+    y_d = (lab_d % 2).astype(np.float32)[:, None]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    gpu = DecisionTreeClassifier().fit(dst.array(x_d), dst.array(y_d))
+    t_gpu = time.perf_counter() - t0
+    launches_dt = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = DecisionTreeClassifier().fit(dst.array(x_d, device="cpu"),
+                                       dst.array(y_d, device="cpu"))
+    t_cpu = time.perf_counter() - t0
+    check(launches_dt["node_histogram"] == gpu._depth,
+          f"node_histogram launched {launches_dt['node_histogram']} times "
+          f"in a tree of {gpu._depth} levels")
+    for name in ("_feats", "_tbins"):
+        a, b = getattr(gpu, name), getattr(cpu, name)
+        if not np.array_equal(a, b):
+            first = tuple(int(i) for i in np.argwhere(a != b)[0])
+            raise AssertionError(f"decision tree {name} differ between the "
+                                 f"card and the CPU, first at (tree, "
+                                 f"level, node) {first}")
+    check(torch.equal(gpu._edges.cpu(), cpu._edges)
+          and torch.equal(gpu._leaves.cpu(), cpu._leaves),
+          "decision tree edges / leaves differ between the card and the CPU")
+    emit({"phase": "tree_card_vs_cpu", "shape": [DT_M, DT_N],
+          "depth": gpu._depth, "identical": True, "fit_card_s": t_gpu,
+          "fit_cpu_s": t_cpu, "launches": launches_dt})
+    del gpu, cpu
+
+    # -- (7) RandomForestRegressor, 8 trees, depth 8, same x --------------------
+    y_r = (np.sin(6.0 * x_f[:, 0]) + 2.0 * x_f[:, 1] ** 2
+           + x_f[:, 2]).astype(np.float32)[:, None]
+    Yr = dst.array(y_r)
+
+    def fit_rr():
+        return RandomForestRegressor(n_estimators=8, max_depth=8,
+                                     random_state=0).fit(X, Yr)
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rr = fit_rr()
+    torch.cuda.synchronize()
+    t_rfit = time.perf_counter() - t0
+    launches_rr = dict(K.LAUNCHES)
+    r2 = rr.score(X, Yr)
+    # NumPy oracle of the fitted trees on 100,000 sampled rows
+    rows = np.sort(np.random.RandomState(2).choice(RF_M, min(RF_M, 100_000),
+                                                   replace=False))
+    st = numpy_leaf_stats(rr, x_f[rows]).astype(np.float64)
+    want = (st[:, :, 1] / np.maximum(st[:, :, 0], 1e-12)).mean(0)
+    got = rr.predict(X).collect().ravel()[rows].astype(np.float64)
+    truth = y_r.ravel()[rows].astype(np.float64)
+
+    def r2_of(p):
+        return 1.0 - ((truth - p) ** 2).sum() / ((truth - truth.mean())
+                                                  ** 2).sum()
+
+    check(launches_rr["node_histogram"] == rr._depth == 8,
+          f"node_histogram launched {launches_rr['node_histogram']} times "
+          f"in a regressor of {rr._depth} levels")
+    check(np.allclose(got, want, rtol=1e-5, atol=1e-5),
+          "regressor predict disagrees with the NumPy walk")
+    check(abs(r2_of(got) - r2_of(want)) <= 1e-5,
+          f"regressor R² {r2_of(got)} vs NumPy oracle {r2_of(want)}")
+    check(r2 >= 0.5, f"regressor R² {r2} < 0.5")
+    rr2 = fit_rr()
+    emit({"phase": "forest_regressor", "shape": [RF_M, RF_N],
+          "n_estimators": 8, "depth": rr._depth, "fit_s": t_rfit, "r2": r2,
+          "r2_sample_port": r2_of(got), "r2_sample_numpy": r2_of(want),
+          "same_seed_bit_identical": same_forest(rr, rr2),
+          "launches": launches_rr})
+
+    # -- (8) the kernels line, then the result --------------------------------------
+    kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["distances_sq"]["launches"] = launches_km["distances_sq"]
     for pol in ("float32", "bfloat16"):
         kernels[f"panel_gemm/{pol}"]["launches"] = \

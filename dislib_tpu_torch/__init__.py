@@ -15,7 +15,7 @@ from dislib_tpu_torch.parallel.mesh import init, get_mesh
 from dislib_tpu_torch.data.array import Array, array, zeros
 from dislib_tpu_torch.math.base import matmul
 from dislib_tpu_torch.cluster.kmeans import KMeans
-from dislib_tpu_torch import cluster
+from dislib_tpu_torch import cluster, trees
 
 __all__ = ["init", "get_mesh", "Array", "array", "zeros", "matmul",
-           "KMeans", "cluster"]
+           "KMeans", "cluster", "trees"]

@@ -42,6 +42,9 @@ SIGNATURES = {
     "distances_sq": {
         "dslib_distances_sq_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),
     },
+    "node_histogram": {
+        "dslib_node_histogram_f32": ([_P] * 5 + [_I] * 13 + [_P], _I),
+    },
 }
 
 _LIBS: dict = {}

@@ -59,6 +59,16 @@ def _place(data: torch.Tensor, padded_shape, logical_shape) -> torch.Tensor:
     return out
 
 
+def _place_region(v: torch.Tensor, pshape) -> torch.Tensor:
+    """Zero canvas of ``pshape`` with ``v`` written at (0, 0) — the
+    padded backing of a result whose logical region is ``v``."""
+    if tuple(v.shape) == tuple(pshape):
+        return v
+    out = torch.zeros(pshape, dtype=v.dtype, device=v.device)
+    out[: v.shape[0], : v.shape[1]] = v
+    return out
+
+
 def _default_block_size(shape, mesh):
     r, c = _mesh.mesh_shape(mesh)
     return (max(1, -(-shape[0] // r)), max(1, -(-shape[1] // c)))

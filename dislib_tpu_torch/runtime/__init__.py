@@ -1,2 +1,2 @@
 """Runtime layer (counterpart of ``dislib_tpu/runtime``): the health
-vector only, in this slice."""
+vector and ``NumericalDivergence`` only, in this slice."""

@@ -1,20 +1,36 @@
 """Runtime health layer — the fused numerical-health vector.
 
 Counterpart of ``dislib_tpu/runtime/health.py``, reduced to
-:func:`health_vec`, which the KMeans fit returns.  The guard, watchdog and
-rollback machinery around it (``ChunkGuard``, ``HealthPolicy``, the
-``ChunkedFitLoop``) is ROADMAP.md A.12.
+:func:`health_vec`, which the KMeans fit returns and the forest judges at
+adoption, and :class:`NumericalDivergence`, which that judgement raises.
+The guard, watchdog and rollback machinery around them (``ChunkGuard``,
+``HealthPolicy``, the ``ChunkedFitLoop``) is ROADMAP.md A.12.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["health_vec", "HEALTH_BASE_LEN"]
+__all__ = ["health_vec", "HEALTH_BASE_LEN", "NumericalDivergence"]
 
 # fixed slots of a health vector; per-carry (count, first_flat_index)
 # pairs follow
 HEALTH_BASE_LEN = 9
+
+
+class NumericalDivergence(RuntimeError):
+    """A fit's numerical state went bad (non-finite carries, diverging
+    loss, exploding norms).  Carries what a postmortem needs: the
+    estimator, the iteration the guard tripped at, which guard, and the
+    offending carry coordinates."""
+
+    def __init__(self, message, estimator=None, iteration=None, guard=None,
+                 detail=None):
+        super().__init__(message)
+        self.estimator = estimator
+        self.iteration = iteration
+        self.guard = guard
+        self.detail = detail or {}
 
 
 def _masked_max(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,12 @@ Tolerances: ``panel_gemm`` within ``ERROR_BOUNDS[("matmul", "float32")]``
 (normalized) of the plain version — both accumulate the same (policy-
 rounded) operands in f32; ``distances_sq`` within 1e-5 of the plain version
 relative to max‖a‖² + max‖b‖², the magnitudes that cancel in the
-formulation.
+formulation; ``node_histogram`` bit-equal to the plain version for integer
+contributions (sums of integers below 2^24 are exact in any order), and for
+non-integer ones within 1e-5 of the f64 sums relative to each cell's sum of
+|w·stats| (its atomics add in a varying order); a decision tree fitted on
+the card identical to the one fitted on the CPU (exact histograms, and
+the gain arithmetic in a fixed order on both devices).
 """
 
 import numpy as np
@@ -21,6 +26,8 @@ import dislib_tpu_torch as dst
 from dislib_tpu_torch.cluster import kmeans as km_mod
 from dislib_tpu_torch.ops import kernels as K
 from dislib_tpu_torch.ops import precision as px
+from dislib_tpu_torch.trees import (DecisionTreeClassifier,
+                                    RandomForestClassifier)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,7 +96,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.panel_gemm(x, x.T)
     with pytest.raises(ValueError, match="CUDA device"):
         K.distances_sq(x, x.cpu())
-    assert K.LAUNCHES == {"panel_gemm": 0, "distances_sq": 0}
+    assert K.LAUNCHES == {"panel_gemm": 0, "distances_sq": 0,
+                          "node_histogram": 0}
 
 
 def test_kmeans_on_the_card_matches_the_cpu(dev):
@@ -137,3 +145,76 @@ def test_summa_matmul_on_the_card(dev, monkeypatch):
         scale = np.linalg.norm(a) * np.linalg.norm(b) / np.sqrt(200)
         assert np.abs(got - want).max() / scale <= \
             px.ERROR_BOUNDS[("matmul", policy)]
+
+
+def _hist_inputs(dev, T, m, n, n_nodes, n_bins, S, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    node = torch.randint(0, n_nodes, (T, m), generator=g, device=dev,
+                         dtype=torch.int32)
+    bx = torch.randint(0, n_bins, (m, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    w = torch.poisson(torch.ones((T, m), device=dev), generator=g)
+    stats = torch.randint(0, 3, (m, S), generator=g, device=dev).float()
+    return node, bx, w, stats
+
+
+HIST_SHAPES = [(3, 1000, 7, 4, 32, 2),        # ragged m, several chunks
+               (2, 50_001, 5, 2048, 32, 2),   # the deepest level: slices
+               (1, 20_011, 3, 64, 1024, 2),   # n_bins 1024
+               (2, 30_000, 4, 8, 32, 5),      # S 5
+               (1, 123_457, 10, 1, 32, 2),    # T 1, every row in one node
+               (16, 40_000, 6, 16, 32, 2)]    # T 16
+
+
+@pytest.mark.parametrize("shape", HIST_SHAPES, ids=str)
+def test_node_histogram_bit_equal_to_plain(dev, shape):
+    T, m, n, n_nodes, n_bins, S = shape
+    node, bx, w, stats = _hist_inputs(dev, *shape)
+    got = K.node_histogram(node, bx, w, stats, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert got.shape == (T, n_nodes, n, n_bins, S)
+    assert torch.equal(got, K.node_histogram_plain(node, bx, w, stats,
+                                                   n_nodes, n_bins))
+    assert K.LAUNCHES["node_histogram"] == 1
+
+
+def test_node_histogram_non_integer_stats(dev):
+    node, bx, w, _ = _hist_inputs(dev, 2, 60_000, 6, 16, 32, 3)
+    g = torch.Generator(device=dev).manual_seed(1)
+    stats = torch.randn((60_000, 3), generator=g, device=dev)
+    got = K.node_histogram(node, bx, w, stats, 16, 32)
+    exact = K.node_histogram_plain(node, bx, w.double(), stats.double(),
+                                   16, 32)
+    scale = K.node_histogram_plain(node, bx, w, stats.abs(), 16, 32)
+    assert bool(((got.double() - exact).abs() <= 1e-5 * scale).all())
+
+
+def test_decision_tree_on_the_card_matches_the_cpu(dev):
+    rng = np.random.RandomState(5)
+    centers = rng.rand(8, 20).astype(np.float32)
+    lab = rng.randint(0, 8, 20_000)
+    x = centers[lab] + 0.08 * rng.standard_normal((20_000, 20)).astype(
+        np.float32)
+    y = (lab % 2).astype(np.float32)[:, None]
+    gpu = DecisionTreeClassifier().fit(dst.array(x, device=dev),
+                                       dst.array(y, device=dev))
+    assert K.LAUNCHES["node_histogram"] == gpu._depth
+    cpu = DecisionTreeClassifier().fit(dst.array(x, device="cpu"),
+                                       dst.array(y, device="cpu"))
+    assert torch.equal(gpu._edges.cpu(), cpu._edges)
+    np.testing.assert_array_equal(gpu._feats, cpu._feats)
+    np.testing.assert_array_equal(gpu._tbins, cpu._tbins)
+    assert torch.equal(gpu._leaves.cpu(), cpu._leaves)
+
+
+def test_forest_launches_the_kernel_once_per_level(dev):
+    rng = np.random.RandomState(6)
+    x = rng.rand(5000, 12).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] > 1).astype(np.float32)[:, None]
+    X, Y = dst.array(x, device=dev), dst.array(y, device=dev)
+    rf = RandomForestClassifier(n_estimators=4, random_state=0).fit(X, Y)
+    assert K.LAUNCHES["node_histogram"] == rf._depth
+    again = RandomForestClassifier(n_estimators=4, random_state=0).fit(X, Y)
+    np.testing.assert_array_equal(rf._feats, again._feats)
+    assert torch.equal(rf._leaves, again._leaves)
+    assert rf.score(X, Y) >= 0.95

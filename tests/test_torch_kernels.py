@@ -87,7 +87,8 @@ def test_panel_gemm_plain_matches_pallas(policy, shapes, request):
         if "tiled" in request.node.callspec.id:
             tol = _GEMM_TOL[policy]
             np.testing.assert_allclose(out, want, rtol=tol, atol=tol)
-    assert port_k.LAUNCHES == {"panel_gemm": 0, "distances_sq": 0}
+    assert port_k.LAUNCHES == {"panel_gemm": 0, "distances_sq": 0,
+                              "node_histogram": 0}
 
 
 # -- (b) distances_sq ----------------------------------------------------------
@@ -129,6 +130,11 @@ def test_wrappers_reject_mixed_devices():
         port_k.panel_gemm(cpu, meta)
     with pytest.raises(ValueError, match="CUDA device"):
         port_k.distances_sq(cpu, meta.T)
+    node = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        port_k.node_histogram(node, torch.zeros((4, 3), dtype=torch.int32),
+                              torch.ones((2, 4), device="meta"),
+                              torch.ones((4, 2)), 1, 8)
 
 
 # -- (g) the import rule -------------------------------------------------------
@@ -146,25 +152,23 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
 
 def test_package_source_has_no_forbidden_import():
     root = os.path.join(REPO, "dislib_tpu_torch")
-    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, files in os.walk(root):
-        for f in files:
-            if not f.endswith(".py"):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
                 continue
-            path = os.path.join(dirpath, f)
-            with open(path, encoding="utf-8") as fh:
-                tree = ast.parse(fh.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom):
-                    names = [node.module or ""]
-                else:
-                    continue
-                for n in names:
-                    top = n.split(".")[0]
-                    if top in ("jax", "jaxlib", "dislib_tpu"):
-                        offenders.append(f"{path}: {n}")
+            for n in names:
+                if n.split(".")[0] in ("jax", "jaxlib", "dislib_tpu"):
+                    offenders.append(f"{path}: {n}")
     assert not offenders, offenders
 
 
@@ -183,7 +187,8 @@ def test_default_device_is_cuda_and_never_silently_cpu(monkeypatch):
     km.predict(x)
     km.score(x)
     dst.matmul(x, x, transpose_b=True, algorithm="summa")
-    assert port_k.LAUNCHES == {"panel_gemm": 0, "distances_sq": 0}
+    assert port_k.LAUNCHES == {"panel_gemm": 0, "distances_sq": 0,
+                              "node_histogram": 0}
 
 
 def test_non_unit_mesh_names_the_roadmap_item():

@@ -1,0 +1,438 @@
+"""The port's forest against the reference's, on CPU.
+
+The same numpy inputs go through ``dislib_tpu`` (8 virtual CPU devices) and
+``dislib_tpu_torch`` on the CPU, where ``node_histogram`` runs its plain
+version.  The reference's Pallas histogram runs in interpret mode, as its
+own tests run it.
+
+Tolerances, and why:
+
+- histograms of integer contributions (Poisson weights × counts): bit-equal
+  — every partial sum is an integer below 2^24, exact in any order;
+- quantile edges and bins: bit-equal — the port writes out the reference's
+  folded f32 index arithmetic and its fused interpolation;
+- classification trees (splits, leaves, predictions): bit-equal, as they
+  are built from exact histograms;
+- regression: totals and leaves at rtol 1e-5 — sums of non-integer
+  ``y`` and ``y²`` in another order; splits equal on this data, whose best
+  gains are not near ties;
+- carried-across forests: ``predict`` and ``score`` equal, ``predict_proba``
+  at 1e-6 (a mean of per-tree ratios, whose division may be rounded
+  differently).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dislib_tpu as ds
+from dislib_tpu.ops import pallas_kernels as ref_pk
+from dislib_tpu.trees import decision_tree as ref_dt
+from dislib_tpu.trees import (DecisionTreeClassifier as RefDTC,
+                              DecisionTreeRegressor as RefDTR,
+                              RandomForestClassifier as RefRFC,
+                              RandomForestRegressor as RefRFR)
+
+import dislib_tpu_torch as dst
+from dislib_tpu_torch.ops import kernels as port_k
+from dislib_tpu_torch.parallel import mesh as port_mesh
+from dislib_tpu_torch.runtime.health import NumericalDivergence
+from dislib_tpu_torch.trees import decision_tree as port_dt
+from dislib_tpu_torch.trees import (DecisionTreeClassifier,
+                                    DecisionTreeRegressor,
+                                    RandomForestClassifier,
+                                    RandomForestRegressor, from_fitted_arrays)
+
+_ARRAYS = ("_edges", "_feats", "_tbins", "_depth", "_leaves", "n_features_")
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    dst.init(device="cpu")
+    port_k.reset_launches()
+    yield
+    assert port_k.LAUNCHES["node_histogram"] == 0
+
+
+def _class_data(seed, m=300, n=6, k=3):
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(k, n) * 3
+    lab = rng.randint(0, k, m)
+    x = centers[lab] + rng.randn(m, n) * 0.9
+    return x.astype(np.float32), lab.astype(np.float32)
+
+
+def _reg_data(seed, m=300, n=5):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(m, n).astype(np.float32) * 4
+    y = (np.sin(x[:, 0]) * 3 + x[:, 1] ** 2 - 2 * x[:, 2]).astype(np.float32)
+    return x, y
+
+
+def _hist_inputs(rng, T, m, n, n_nodes, n_bins, s, dtype=np.float32):
+    node = rng.randint(0, n_nodes, (T, m)).astype(np.int32)
+    bx = rng.randint(0, n_bins, (m, n)).astype(np.int32)
+    w = rng.poisson(1.0, (T, m)).astype(dtype)
+    stats = rng.randint(0, 3, (m, s)).astype(dtype)
+    return node, bx, w, stats
+
+
+def _port_hist(node, bx, w, stats, n_nodes, n_bins):
+    return port_k.node_histogram(
+        torch.from_numpy(node), torch.from_numpy(bx), torch.from_numpy(w),
+        torch.from_numpy(stats), n_nodes, n_bins).numpy()
+
+
+# -- node_histogram -------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(64, 3, 2, 4, 2), (128, 5, 4, 8, 3),
+                                   (200, 2, 8, 32, 1)], ids=str)
+def test_node_histogram_bit_equal_to_reference(shape):
+    if not ref_pk.hist_available():
+        pytest.skip("the reference's pallas histogram kernel is unavailable")
+    m, n, n_nodes, n_bins, s = shape
+    T = 3
+    node, bx, w, stats = _hist_inputs(np.random.RandomState(7), T, m, n,
+                                      n_nodes, n_bins, s)
+    got = _port_hist(node, bx, w, stats, n_nodes, n_bins)
+    assert got.shape == (T, n_nodes, n, n_bins, s)
+    assert got.dtype == np.float32
+    for t in range(T):
+        pallas = np.asarray(ref_pk.node_histogram(
+            jnp.asarray(node[t]), jnp.asarray(bx),
+            jnp.asarray(w[t][:, None] * stats), n_nodes, n_bins))
+        scatter = np.asarray(ref_dt._node_histogram(
+            jnp.asarray(node[t]), jnp.asarray(bx), jnp.asarray(w[t]),
+            jnp.asarray(stats), n_nodes, n_bins, hist="xla"))
+        np.testing.assert_array_equal(got[t], pallas)
+        np.testing.assert_array_equal(got[t], scatter)
+
+
+def test_node_histogram_bit_equal_f64_x64_mode():
+    if not ref_pk.hist_available():
+        pytest.skip("the reference's pallas histogram kernel is unavailable")
+    node, bx, w, stats = _hist_inputs(np.random.RandomState(8), 2, 96, 3, 4,
+                                      8, 2, dtype=np.float64)
+    got = _port_hist(node, bx, w, stats, 4, 8)
+    assert got.dtype == np.float64
+    with jax.enable_x64(True):
+        for t in range(2):
+            # the Pallas kernel keeps f64; the reference's forest router
+            # casts its result to the f32 compute dtype (same values here)
+            pallas = np.asarray(ref_pk.node_histogram(
+                jnp.asarray(node[t]), jnp.asarray(bx),
+                jnp.asarray(w[t][:, None] * stats), 4, 8))
+            assert pallas.dtype == np.float64
+            np.testing.assert_array_equal(got[t], pallas)
+            scatter = np.asarray(ref_dt._node_histogram(
+                jnp.asarray(node[t]), jnp.asarray(bx), jnp.asarray(w[t]),
+                jnp.asarray(stats), 4, 8, hist="xla"))
+            np.testing.assert_array_equal(got[t], scatter.astype(np.float64))
+
+
+def test_node_histogram_non_integer_stats():
+    # regression stats: sums of non-integers, whose order may differ from
+    # the reference's scatter — rtol 1e-5
+    rng = np.random.RandomState(9)
+    node, bx, w, _ = _hist_inputs(rng, 2, 150, 4, 4, 8, 3)
+    stats = rng.standard_normal((150, 3)).astype(np.float32)
+    got = _port_hist(node, bx, w, stats, 4, 8)
+    for t in range(2):
+        ref = np.asarray(ref_dt._node_histogram(
+            jnp.asarray(node[t]), jnp.asarray(bx), jnp.asarray(w[t]),
+            jnp.asarray(stats), 4, 8, hist="xla"))
+        np.testing.assert_allclose(got[t], ref, rtol=1e-5, atol=1e-5)
+
+
+def _emulate_kernel(node, bx, w, stats, n_nodes, n_bins, plan):
+    """The CUDA kernel's work items and offsets, in numpy: which rows an
+    item reads, where they land in its shared slice, and where the slice
+    is written out."""
+    T, m = node.shape
+    n, S = bx.shape[1], stats.shape[1]
+    nbs = n_bins * S
+    per_feat = n_nodes * nbs
+    out = np.zeros((T, n_nodes, n, n_bins, S), np.float32).reshape(-1)
+    owned = np.zeros(out.shape, np.int64)
+    for t in range(T):
+        for ch in range(plan.n_chunks):
+            rows = np.arange(ch * plan.rows_per_chunk,
+                             min(m, (ch + 1) * plan.rows_per_chunk))
+            for sl in range(plan.n_slices):
+                c0 = sl * plan.slice_len
+                clen = min(plan.slice_len, per_feat - c0)
+                p_lo, p_hi = c0 // nbs, (c0 + clen - 1) // nbs
+                for fgi in range(plan.n_fgroups):
+                    f0 = fgi * plan.fg
+                    nf = min(plan.fg, n - f0)
+                    assert nf * clen * 4 <= port_k.HIST_SMEM_BYTES
+                    hist = np.zeros(nf * clen, np.float32)
+                    for i in rows:
+                        p = node[t, i]
+                        if p < p_lo or p > p_hi:
+                            continue
+                        base = p * nbs - c0
+                        for s in range(S):
+                            c = np.float32(w[t, i] * stats[i, s])
+                            if c == 0:
+                                continue
+                            for f in range(nf):
+                                q = base + bx[i, f0 + f] * S + s
+                                if 0 <= q < clen:
+                                    hist[f * clen + q] += c
+                    k = np.arange(nf * clen)
+                    f = k // clen
+                    e = c0 + (k - f * clen)
+                    p = e // nbs
+                    g = ((t * n_nodes + p) * n + f0 + f) * nbs + (e - p * nbs)
+                    out[g] += hist
+                    owned[g] += 1
+    # every output entry is written by exactly one item per row chunk
+    assert (owned == plan.n_chunks).all()
+    return out.reshape(T, n_nodes, n, n_bins, S)
+
+
+@pytest.mark.parametrize("shape,smem", [
+    ((2, 50, 7, 1, 4, 2), 1 << 20),      # every feature in one item
+    ((2, 50, 5, 4, 8, 2), 160),          # feature groups of 2
+    ((1, 40, 3, 8, 4, 3), 100),          # slices that cut nodes
+    ((2, 30, 2, 2, 5, 1), 12)],          # slices shorter than a node
+    ids=["all-features", "groups", "slices", "short-slices"])
+def test_hist_plan_covers_the_histogram(shape, smem, monkeypatch):
+    T, m, n, n_nodes, n_bins, S = shape
+    monkeypatch.setattr(port_k, "HIST_SMEM_BYTES", smem)
+    monkeypatch.setattr(port_k, "_HIST_MIN_ROWS", 16)
+    plan = port_k.hist_plan(T, m, n, n_nodes, n_bins, S, n_sms=2,
+                            smem_bytes=smem)
+    assert plan.fg * plan.slice_len * 4 <= smem
+    assert plan.n_slices * plan.slice_len >= n_nodes * n_bins * S
+    assert plan.n_fgroups * plan.fg >= n
+    assert plan.n_chunks * plan.rows_per_chunk >= m
+    assert plan.direct == (plan.n_chunks == 1)
+    node, bx, w, stats = _hist_inputs(np.random.RandomState(10), T, m, n,
+                                      n_nodes, n_bins, S)
+    np.testing.assert_array_equal(
+        _emulate_kernel(node, bx, w, stats, n_nodes, n_bins, plan),
+        _port_hist(node, bx, w, stats, n_nodes, n_bins))
+
+
+@pytest.mark.parametrize("shape", [
+    (16, 1_000_000, 100, 2048, 32, 2),   # the main path's deepest level
+    (16, 1_000_000, 100, 1, 32, 2),      # its first level
+    (1, 100_000, 20, 2048, 1024, 5),     # n_bins 1024, S 5
+    (1, 7, 3, 1, 2, 1)], ids=str)
+def test_hist_plan_at_the_estimators_shapes(shape):
+    T, m, n, n_nodes, n_bins, S = shape
+    plan = port_k.hist_plan(T, m, n, n_nodes, n_bins, S, n_sms=132)
+    assert plan.fg * plan.slice_len * 4 <= port_k.HIST_SMEM_BYTES
+    assert plan.n_slices * plan.slice_len >= n_nodes * n_bins * S
+    assert (plan.n_slices - 1) * plan.slice_len < n_nodes * n_bins * S
+    assert plan.n_fgroups * plan.fg >= n
+    assert 0 <= m - (plan.n_chunks - 1) * plan.rows_per_chunk \
+        <= plan.rows_per_chunk
+
+
+# -- binning -------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n,n_bins", [(1001, 6, 32), (300, 5, 33),
+                                        (97, 3, 8), (5000, 4, 1024),
+                                        (64, 2, 2), (300, 6, 7),
+                                        (1000, 4, 9)], ids=str)
+def test_quantile_bins_and_bin_data_bit_equal(m, n, n_bins):
+    rng = np.random.RandomState(m)
+    x = (rng.standard_normal((m, n)) * rng.rand(n) * 10).astype(np.float32)
+    x[::7, 0] = x[3, 0]                   # ties, and rows on an edge
+    if n > 2:
+        x[5, 2] = np.nan                  # a NaN column: NaN edges, bin 0
+    ref_edges = np.asarray(ref_dt._quantile_bins(jnp.asarray(x), (m, n),
+                                                 n_bins))
+    ref_bx = np.asarray(ref_dt._bin_data(jnp.asarray(x), (m, n),
+                                         jnp.asarray(ref_edges)))
+    tx = torch.from_numpy(x)
+    edges = port_dt._quantile_bins(tx, (m, n), n_bins)
+    bx = port_dt._bin_data(tx, (m, n), edges)
+    assert edges.shape == (n, n_bins - 1) and edges.dtype == torch.float32
+    np.testing.assert_array_equal(edges.numpy(), ref_edges)
+    assert bx.dtype == torch.int32
+    np.testing.assert_array_equal(bx.numpy(), ref_bx)
+    # the binning of edges the reference computed, chunked
+    small = port_dt._BIN_CHUNK
+    try:
+        port_dt._BIN_CHUNK = 3 * n * (n_bins - 1)
+        np.testing.assert_array_equal(
+            port_dt._bin_data(tx, (m, n), torch.from_numpy(ref_edges.copy()))
+            .numpy(), ref_bx)
+    finally:
+        port_dt._BIN_CHUNK = small
+
+
+# -- one level of the forest ---------------------------------------------------
+
+@pytest.mark.parametrize("criterion", ["gini", "mse"])
+def test_forest_level_matches_reference(criterion):
+    rng = np.random.RandomState(11)
+    T, m, n, n_nodes, n_bins, tf = 3, 240, 6, 4, 8, 3
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    bx = np.asarray(ref_dt._bin_data(
+        jnp.asarray(x), (m, n),
+        ref_dt._quantile_bins(jnp.asarray(x), (m, n), n_bins)))
+    node = rng.randint(0, n_nodes, (T, m)).astype(np.int32)
+    w = rng.poisson(1.0, (T, m)).astype(np.float32)
+    if criterion == "gini":
+        lab = rng.randint(0, 3, m)
+        stats = np.eye(3, dtype=np.float32)[lab]
+    else:
+        y = (x[:, 0] * 2 + np.sin(x[:, 1])).astype(np.float32)
+        stats = np.stack([np.ones(m, np.float32), y, y * y], 1)
+    keys = jax.random.split(jax.random.PRNGKey(5), T)
+    scores = np.stack([np.asarray(jax.random.uniform(k, (n_nodes, n)))
+                       for k in keys])
+    ref = ref_dt._forest_level(
+        jnp.asarray(node), jnp.asarray(bx), jnp.asarray(w),
+        jnp.asarray(stats), keys, n_nodes, tf, 0.0, criterion, n_bins)
+    ref_feat, ref_tbin, ref_split, ref_node, ref_tot = \
+        (np.asarray(a) for a in ref[:5])
+    tnode = torch.from_numpy(node.copy())
+    feat, tbin, is_split, new_node, tot = port_dt._forest_level(
+        tnode, torch.from_numpy(bx), torch.from_numpy(w),
+        torch.from_numpy(stats), torch.from_numpy(scores), n_nodes, tf,
+        0.0, criterion, n_bins)
+    assert new_node is tnode                # updated in place
+    np.testing.assert_array_equal(feat.numpy(), ref_feat)
+    np.testing.assert_array_equal(tbin.numpy(), ref_tbin)
+    np.testing.assert_array_equal(is_split.numpy(), ref_split)
+    np.testing.assert_array_equal(new_node.numpy(), ref_node)
+    if criterion == "gini":
+        np.testing.assert_array_equal(tot.numpy(), ref_tot)
+    else:
+        np.testing.assert_allclose(tot.numpy(), ref_tot, rtol=1e-5)
+
+
+# -- whole estimators ----------------------------------------------------------
+
+def _fit_both(ref_cls, port_cls, x, y, **kw):
+    ref = ref_cls(**kw).fit(ds.array(x), ds.array(y[:, None]))
+    port = port_cls(**kw).fit(dst.array(x), dst.array(y[:, None]))
+    return ref, port
+
+
+@pytest.mark.parametrize("seed,n_bins,depth",
+                         [(0, 32, np.inf), (1, 7, 4)], ids=str)
+def test_decision_tree_classifier_matches_reference(seed, n_bins, depth):
+    x, y = _class_data(seed)
+    ref, port = _fit_both(RefDTC, DecisionTreeClassifier, x, y,
+                          n_bins=n_bins, max_depth=depth)
+    assert port._depth == ref._depth
+    np.testing.assert_array_equal(np.asarray(port._edges),
+                                  np.asarray(ref._edges))
+    np.testing.assert_array_equal(port._feats, ref._feats)
+    np.testing.assert_array_equal(port._tbins, ref._tbins)
+    np.testing.assert_array_equal(port._leaves.numpy(),
+                                  np.asarray(ref._leaves))
+    np.testing.assert_array_equal(port.classes_, ref.classes_)
+    np.testing.assert_array_equal(
+        port.predict(dst.array(x)).collect(), ref.predict(ds.array(x))
+        .collect())
+
+
+def test_decision_tree_regressor_matches_reference():
+    x, y = _reg_data(2)
+    ref, port = _fit_both(RefDTR, DecisionTreeRegressor, x, y, max_depth=5)
+    np.testing.assert_array_equal(port._feats, ref._feats)
+    np.testing.assert_array_equal(port._tbins, ref._tbins)
+    np.testing.assert_allclose(port._leaves.numpy(), np.asarray(ref._leaves),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        port.predict(dst.array(x)).collect(),
+        ref.predict(ds.array(x)).collect(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["soft", "hard", "regressor"])
+def test_carried_forest_predicts_like_reference(kind):
+    if kind == "regressor":
+        x, y = _reg_data(3)
+        ref = RefRFR(n_estimators=5, random_state=0, max_depth=6)
+        cls, params = RandomForestRegressor, {}
+    else:
+        x, y = _class_data(4, k=3)
+        ref = RefRFC(n_estimators=5, random_state=0,
+                     hard_vote=kind == "hard")
+        cls, params = RandomForestClassifier, {"hard_vote": kind == "hard"}
+    ref.fit(ds.array(x), ds.array(y[:, None]))
+    names = _ARRAYS + (("classes_",) if kind != "regressor" else ())
+    arrays = {k: np.asarray(getattr(ref, k)) for k in names}
+    port = from_fitted_arrays(cls, arrays, device="cpu", **params)
+    assert type(port) is cls and port.get_params()["random_state"] is None
+    q = np.random.RandomState(5).permutation(x)[:97]   # a ragged query
+    X, Q = (dst.array(x), dst.array(q))
+    rX, rQ = (ds.array(x), ds.array(q))
+    want = ref.predict(rQ).collect()
+    got = port.predict(Q).collect()
+    assert got.dtype == want.dtype and got.shape == (97, 1)
+    if kind == "regressor":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        assert port.score(X, dst.array(y[:, None])) == pytest.approx(
+            ref.score(rX, ds.array(y[:, None])), abs=1e-6)
+        return
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(port.predict_proba(Q).collect(),
+                               ref.predict_proba(rQ).collect(), atol=1e-6)
+    assert port.score(X, dst.array(y[:, None])) == \
+        ref.score(rX, ds.array(y[:, None]))
+
+
+def test_forest_fit_is_seeded_and_predicts_well():
+    x, y = _class_data(6, m=400)
+    X, Y = dst.array(x), dst.array(y[:, None])
+    a = RandomForestClassifier(n_estimators=6, random_state=3).fit(X, Y)
+    b = RandomForestClassifier(n_estimators=6, random_state=3).fit(X, Y)
+    c = RandomForestClassifier(n_estimators=6, random_state=4).fit(X, Y)
+    np.testing.assert_array_equal(a._feats, b._feats)
+    np.testing.assert_array_equal(a._leaves.numpy(), b._leaves.numpy())
+    assert not np.array_equal(a._leaves.numpy(), c._leaves.numpy())
+    assert a.score(X, Y) >= 0.95
+    proba = a.predict_proba(X).collect()
+    assert proba.shape == (400, 3)
+    np.testing.assert_allclose(proba.sum(1), 1.0, rtol=1e-6)
+    # the forest's trees are the trees it walks: the leaf counts of every
+    # tree sum to that tree's bootstrap weight
+    assert (a._leaves.sum(dim=(1, 2)) > 0).all()
+
+
+# -- what the port refuses ------------------------------------------------------
+
+def test_fit_checkpoint_and_health_are_not_ported():
+    x, y = _class_data(7, m=60)
+    for kw in ({"checkpoint": object()}, {"health": object()}):
+        with pytest.raises(NotImplementedError, match="A.12"):
+            RandomForestClassifier(n_estimators=2).fit(
+                dst.array(x), dst.array(y[:, None]), **kw)
+
+
+def test_non_finite_forest_is_refused_at_adoption():
+    x, y = _reg_data(8, m=80)
+    y[3] = np.nan
+    with pytest.raises(NumericalDivergence) as err:
+        DecisionTreeRegressor(max_depth=3).fit(dst.array(x),
+                                               dst.array(y[:, None]))
+    assert err.value.estimator == "forest"
+    assert err.value.guard == "nonfinite"
+    assert err.value.detail["carries"]["leaves"]["count"] >= 1
+
+
+def test_default_device_is_cuda_and_never_silently_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(port_mesh, "_default_mesh", None)
+    x, y = _class_data(9, m=40)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RandomForestClassifier(n_estimators=2).fit(dst.array(x),
+                                                   dst.array(y[:, None]))
+    arrays = {"_edges": np.zeros((6, 31), np.float32),
+              "_feats": np.zeros((1, 1, 1), np.int32),
+              "_tbins": np.zeros((1, 1, 1), np.int32), "_depth": 1,
+              "_leaves": np.zeros((1, 2, 3), np.float32), "n_features_": 6,
+              "classes_": np.arange(3.0)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_fitted_arrays(RandomForestClassifier, arrays)
