@@ -10,10 +10,12 @@ kernel against its plain PyTorch version on the card, then drives the main
 path through the entry points a user calls — ``KMeans`` fit/predict/score on
 a 1,000,000 x 100 ds-array with k = 10, ``matmul(..., algorithm="summa")``
 of two 16384 x 16384 ds-arrays under both precision policies with
-``DSLIB_OVERLAP=pallas``, a 16-tree ``RandomForestClassifier`` at the
-default depth on 1,000,000 x 100 rows, a ``DecisionTreeClassifier`` fitted
-on the card and on the CPU, and an 8-tree ``RandomForestRegressor`` — and
-checks every result.  Each phase prints one
+``DSLIB_OVERLAP=pallas`` (``panel_gemm`` on the tensor cores: one bf16
+product, or the float32-faithful 3xTF32 product, which must also come
+within 1/8 of a single-pass TF32 product's error), a 16-tree
+``RandomForestClassifier`` at the default depth on 1,000,000 x 100 rows, a
+``DecisionTreeClassifier`` fitted on the card and on the CPU, and an 8-tree
+``RandomForestRegressor`` — and checks every result.  Each phase prints one
 JSON line; the line before the last lists every kernel with its launches on
 the main path, its error against the plain version, its time, the plain
 version's and the library call's time, and the least time the card could
@@ -36,9 +38,11 @@ import sys
 import time
 
 # published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
-# data sheet, dense): FP32 outside the tensor cores, bf16 tensor cores, HBM3
+# data sheet, dense): FP32 outside the tensor cores, bf16 and TF32 tensor
+# cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 KM_M, KM_N, KM_K = 1_000_000, 100, 10
@@ -55,6 +59,16 @@ HIST_RAGGED = [(3, 1000, 7, 4, 32, 2),        # ragged m, several chunks
                (2, 30_000, 4, 8, 32, 5),      # S 5
                (1, 123_457, 10, 1, 32, 2),    # T 1, every row in one node
                (16, 40_000, 6, 16, 32, 2)]    # T 16
+# panel_gemm shapes held against the plain version: ragged in every
+# dimension, the last two over many K stages and several tiles each way
+GEMM_RAGGED = [(1000, 77, 33), (129, 257, 130), (1, 5, 300),
+               (300, 1000, 520), (4097, 2053, 259)]
+# device kernels by kind, for the profiled panel_gemm and matmul calls
+GEMM_PARTS = {"panel_gemm_mainloop": ("gemm_kernel",),
+              "panel_gemm_prep": ("split_rows", "transpose_prep"),
+              "to_compute_and_copies": ("copy",),
+              "acc_add": ("_add",),
+              "zero_fill": ("Fill",)}
 DEVICE = "cuda:0"
 
 
@@ -116,18 +130,31 @@ def same_forest(a, b) -> bool:
 def profile_device(fn):
     """Run ``fn`` under torch.profiler; return the wall time, the device's
     busy time (the union of its kernel spans) and the spans (start_us,
-    end_us, name) in start order."""
+    end_us, name) in start order.
+
+    The profiler's first kernels after it starts can go unrecorded or run
+    slow, so ``fn`` runs once untimed inside it first; only the device
+    spans that start inside the marked, timed second call are kept."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    mark = "chip_smoke:window"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with record_function(mark):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    opened = min(e.time_range.start for e in events
+                 if e.name == mark and e.device_type == DeviceType.CPU)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in events
+                   if e.device_type == DeviceType.CUDA and e.name != mark
+                   and e.time_range.start >= opened)
     check(spans, "the profiler recorded no device work")
     busy, end = 0.0, float("-inf")
     for s, e, _ in spans:
@@ -142,6 +169,28 @@ def top_kernels(spans, n=8, per=1.0):
         per_kernel[name[:90]] = per_kernel.get(name[:90], 0.0) + (e - s)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:n]
     return {name: t / per / 1e3 for name, t in top}
+
+
+def by_part(spans, parts=GEMM_PARTS):
+    """Device ms of each kind of kernel in ``spans`` (first matching
+    substring wins; the rest under "other")."""
+    out = {k: 0.0 for k in parts}
+    out["other"] = 0.0
+    for s, e, name in spans:
+        kind = next((k for k, subs in parts.items()
+                     if any(x in name for x in subs)), "other")
+        out[kind] += (e - s) / 1e3
+    return out
+
+
+def sass_counts(lib_path, nvcc):
+    """Lines of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
+    SASS of a built kernel library, by ``cuobjdump`` from nvcc's toolkit."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    lines = sass.splitlines()
+    return {op: sum(op in ln for ln in lines) for op in ("HGMMA", "UTMALDG")}
 
 
 def main() -> int:
@@ -211,7 +260,20 @@ def main() -> int:
     for name in _build.SIGNATURES:
         _build.library(name)
     build_s = time.perf_counter() - t0
+    # the panel_gemm library must hold wgmma and TMA instructions, and the
+    # wrapper's launch plan must be the compiled one
+    gemm_sass = sass_counts(_build.BUILD_INFO["panel_gemm"]["path"],
+                            _build.find_nvcc())
+    check(all(gemm_sass.values()), f"panel_gemm SASS lacks wgmma or TMA: "
+          f"{gemm_sass}")
+    for dt in (torch.float32, torch.bfloat16):
+        p = K.gemm_plan(GEMM_N, GEMM_N, GEMM_N, dt)
+        check(K.gemm_compiled_plan(dt) == (p.bm, p.bn, p.bk, p.stages,
+                                           p.smem_bytes),
+              f"panel_gemm {dt}: compiled plan {K.gemm_compiled_plan(dt)} "
+              f"differs from gemm_plan {p}")
     emit({"phase": "build", "seconds": build_s,
+          "panel_gemm_sass": gemm_sass,
           "kernels": {n: {"seconds": i["seconds"], "cached": i["cached"],
                           "ptxas": [ln.strip() for ln in i["log"].splitlines()
                                     if "registers" in ln or "spill" in ln]}
@@ -221,7 +283,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     gemm_tol = px.ERROR_BOUNDS[("matmul", "float32")]
     dist_tol = 1e-5
-    for (m, k, n) in [(1000, 77, 33), (129, 257, 130), (1, 5, 300)]:
+    for (m, k, n) in GEMM_RAGGED:
         a = torch.randn((m, k), generator=g, device=dev)
         b = torch.randn((k, n), generator=g, device=dev)
         for pol in (px.FLOAT32, px.BFLOAT16):
@@ -265,7 +327,7 @@ def main() -> int:
               f"node_histogram {(T, m, n, nn, nb, S)}: non-integer stats "
               f"off by more than {hist_tol} of sum |w*stats|")
     torch.cuda.synchronize()
-    emit({"phase": "ragged", "ok": True,
+    emit({"phase": "ragged", "ok": True, "panel_gemm_shapes": GEMM_RAGGED,
           "node_histogram_bit_equal_integer": len(HIST_RAGGED),
           "node_histogram_non_integer_tol": hist_tol})
 
@@ -275,10 +337,22 @@ def main() -> int:
     b = torch.randn((GEMM_N, GEMM_N), generator=g, device=dev)
     rows = torch.randperm(GEMM_N, generator=g, device=dev)[:256]
     ref_rows = a[rows].double() @ b.double()
+    # the faithfulness yardstick: a single-pass TF32 product of the same
+    # rows (cuBLAS with TF32 allowed), timed nowhere
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err_tf32 = gemm_err(torch.matmul(a[rows], b), ref_rows, a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
     flops = 2.0 * GEMM_N ** 3
     nbytes = 3 * 4.0 * GEMM_N ** 2
-    for pol, peak in ((px.FLOAT32, PEAK_FP32_FLOPS),
-                      (px.BFLOAT16, PEAK_BF16_FLOPS)):
+    # FLOAT32 is the 3xTF32 product: three TF32 tensor-core products
+    for pol, ops, peak, basis in (
+            (px.FLOAT32, 3 * flops, PEAK_TF32_FLOPS,
+             "3xTF32: three 2n^3 TF32 tensor-core products at 495 TFLOP/s"),
+            (px.BFLOAT16, flops, PEAK_BF16_FLOPS,
+             "one 2n^3 bf16 tensor-core product at 989 TFLOP/s")):
         out = K.panel_gemm(a, b, pol)
         plain = K.panel_gemm_plain(a, b, pol)
         err_plain = gemm_err(out, plain, a, b)
@@ -288,9 +362,15 @@ def main() -> int:
         check(err_f64 <= px.ERROR_BOUNDS[("matmul", pol.name)],
               f"panel_gemm {pol.name}: normalized error {err_f64} vs f64 "
               "rows > ERROR_BOUNDS")
+        if pol is px.FLOAT32:
+            check(err_f64 <= err_tf32 / 8, f"panel_gemm float32 is not "
+                  f"float32-faithful: error {err_f64} vs f64 rows > 1/8 of "
+                  f"a single-pass TF32 product's {err_tf32}")
         max_abs = float((out - plain).abs().max())
         del out, plain
         ms = cuda_ms(lambda: K.panel_gemm(a, b, pol), 3)
+        _, _, spans = profile_device(lambda: K.panel_gemm(a, b, pol))
+        parts = by_part(spans)
         plain_ms = cuda_ms(lambda: K.panel_gemm_plain(a, b, pol), 3)
         if pol is px.FLOAT32:
             lib_call = "torch.matmul (f32, TF32 off)"
@@ -312,17 +392,19 @@ def main() -> int:
                 def lib():
                     return torch.matmul(a16, b16)
         library_ms = cuda_ms(lib, 3)
-        bound_ms, bound_by = bound(flops, nbytes, peak)
+        bound_ms, bound_by = bound(ops, nbytes, peak)
         kernels[f"panel_gemm/{pol.name}"] = {
             "name": "panel_gemm", "policy": pol.name, "route": "cuda",
             "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
             "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
             "shape": [GEMM_N, GEMM_N, GEMM_N],
             "max_abs_err": max_abs, "normalized_err_vs_plain": err_plain,
-            "normalized_err_vs_f64_rows": err_f64, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_call": lib_call, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "normalized_err_vs_f64_rows": err_f64,
+            "tf32_single_pass_err_vs_f64_rows": err_tf32, "ms": ms,
+            "ms_by_part_profiled": parts, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_call": lib_call,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_basis": basis}
         emit({"phase": "kernel", **kernels[f"panel_gemm/{pol.name}"]})
     del a, b, a16, b16, ref_rows
     torch.cuda.empty_cache()
@@ -532,12 +614,20 @@ def main() -> int:
               f"matmul {pol} did not launch panel_gemm")
         check(C.shape == (GEMM_N, GEMM_N) and C.dtype == torch.float32,
               f"matmul {pol}: shape {C.shape} dtype {C.dtype}")
+        del C
+        # where a call's time goes: one profiled call, device spans by kind
+        wall_us, busy, spans = profile_device(
+            lambda: dst.matmul(A, B, algorithm="summa", precision=pol))
         emit({"phase": "matmul", "policy": pol, "n": GEMM_N,
               "algorithm": "summa", "overlap": "pallas", "seconds": t,
               "gflops": 2.0 * GEMM_N ** 3 / t / 1e9,
               "normalized_err_vs_f64_rows": err,
-              "launches": launches_mm[pol]})
-        del C
+              "launches": launches_mm[pol],
+              "profiled": {"wall_ms": wall_us / 1e3,
+                           "device_busy_ms": busy / 1e3,
+                           "device_idle_share": 1.0 - busy / wall_us,
+                           "ms_by_part": by_part(spans),
+                           "kernels_ms": top_kernels(spans)}})
 
     del A, B, ga, gb, ref_rows
     torch.cuda.empty_cache()

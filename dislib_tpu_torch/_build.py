@@ -36,8 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "panel_gemm": {
-        "dslib_panel_gemm_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),
-        "dslib_panel_gemm_bf16": ([_P, _P, _P, _I, _I, _I, _P], _I),
+        "dslib_panel_gemm_f32": ([_P] * 7 + [_I] * 4 + [_P], _I),
+        "dslib_panel_gemm_bf16": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "dslib_panel_gemm_config": ([_I, ctypes.POINTER(_I)], _I),
     },
     "distances_sq": {
         "dslib_distances_sq_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),

@@ -2,7 +2,8 @@
 
 Counterpart of ``dislib_tpu/ops/pallas_kernels.py``:
 
-- :func:`panel_gemm` — SUMMA's panel GEMM (``csrc/panel_gemm.cu``);
+- :func:`panel_gemm` — SUMMA's panel GEMM on the tensor cores
+  (``csrc/panel_gemm.cu``; launch plan :func:`gemm_plan`);
 - :func:`distances_sq` — ‖a‖² − 2a·bᵀ + ‖b‖² clamped at zero
   (``csrc/distances_sq.cu``), the KMeans E-step, predict and score;
 - :func:`node_histogram` — the forest's per-level weighted (node, feature,
@@ -20,6 +21,7 @@ its main path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -31,10 +33,8 @@ from dislib_tpu_torch.ops import precision as px
 LAUNCHES = {"panel_gemm": 0, "distances_sq": 0, "node_histogram": 0}
 
 _INT_MAX = 2**31 - 1
-# grid.y of panel_gemm tiles the columns in 128s; 65535 is CUDA's limit
-_GEMM_MAX_N = 65535 * 128
-# precisions the f32 kernel implements: None inherits the scope, and on
-# this kernel every scope is f32 FMA, the float32-faithful contraction
+# precisions the distance kernel implements: None inherits the scope, and
+# on that kernel every scope is f32 FMA, the float32-faithful contraction
 _F32_PRECISIONS = (None, "highest", "float32")
 
 
@@ -76,6 +76,57 @@ def _raise_on_error(name, rc):
 # panel_gemm
 # ---------------------------------------------------------------------------
 
+#: shared memory a block may use on Hopper (227 KB)
+GEMM_SMEM_LIMIT = 232_448
+# the kernel's tile plan per operand dtype (``Gemm<T>`` in the source):
+# rows of C per block, columns, K per stage (128 bytes), stages, operand
+# parts (FLOAT32 keeps hi and lo)
+_GEMM_TILES = {torch.bfloat16: (128, 256, 64, 4, 1),
+               torch.float32: (128, 128, 32, 3, 2)}
+
+
+class GemmPlan(NamedTuple):
+    """How one ``panel_gemm`` launch cuts C = A @ B (``csrc/panel_gemm.cu``).
+    """
+    k_pad: int        # k rounded up so a K-major row is a multiple of 16 B
+    bm: int           # rows of C per block
+    bn: int           # columns of C per block
+    bk: int           # K per stage, elements (128 bytes)
+    stages: int       # depth of the shared-memory ring
+    tiles_m: int
+    tiles_n: int
+    k_tiles: int      # stages a block consumes; the last may run past k_pad
+    smem_bytes: int   # dynamic shared memory of a block (1 KB for alignment)
+    pad_a: bool       # BFLOAT16: A is copied into a zero-padded buffer first
+
+
+def gemm_plan(m: int, n: int, k: int, dtype: torch.dtype,
+              a_ptr: int = 0) -> GemmPlan:
+    """The launch plan of ``panel_gemm`` for (m, k) @ (k, n) operands of
+    ``dtype`` (float32 or bfloat16, after the policy's rounding).
+
+    TMA needs a 16-byte aligned base and row strides that are multiples of
+    16 bytes: every K-major operand the kernel reads has ``k_pad`` columns,
+    k rounded up to 4 f32 or 8 bf16 values, zero past k.  The FLOAT32 prep
+    pass always writes fresh buffers; a bfloat16 A is read in place unless
+    k needs padding or ``a_ptr`` is not 16-byte aligned (``pad_a``)."""
+    if dtype not in _GEMM_TILES:
+        raise TypeError(f"panel_gemm: no kernel plan for {dtype}")
+    bm, bn, bk, stages, split = _GEMM_TILES[dtype]
+    esize = torch.empty((), dtype=dtype).element_size()
+    per16 = 16 // esize
+    k_pad = -(-k // per16) * per16
+    tiles_m, tiles_n = -(-m // bm), -(-n // bn)
+    smem = stages * split * (bm + bn) * 128 + 1024
+    plan = GemmPlan(k_pad, bm, bn, bk, stages, tiles_m, tiles_n,
+                    -(-k_pad // bk), smem, dtype == torch.bfloat16
+                    and (k_pad != k or a_ptr % 16 != 0))
+    if max(m, n, k_pad) > _INT_MAX or tiles_m * tiles_n > _INT_MAX:
+        raise ValueError(f"panel_gemm: (m, n, k) = {(m, n, k)} exceeds the "
+                         "kernel's 32-bit sizes")
+    return plan
+
+
 def panel_gemm_plain(a: torch.Tensor, b: torch.Tensor,
                      policy: px.Policy = px.FLOAT32) -> torch.Tensor:
     """``A @ B`` in plain PyTorch: :func:`~px.pdot`'s contract — operands
@@ -87,16 +138,19 @@ def panel_gemm_plain(a: torch.Tensor, b: torch.Tensor,
 def panel_gemm(a: torch.Tensor, b: torch.Tensor,
                policy: px.Policy = px.FLOAT32) -> torch.Tensor:
     """``A @ B`` — the SUMMA panel GEMM (reference:
-    ``pallas_kernels.panel_gemm``).  The wrapper rounds the operands with
-    ``to_compute(policy)`` and allocates the float32 output; the kernel
-    accumulates in f32 FMA.  A float64 CUDA operand raises ``TypeError``
-    (the plain version keeps f64)."""
+    ``pallas_kernels.panel_gemm``), on the tensor cores.  The wrapper
+    rounds the operands with ``to_compute(policy)`` and allocates the
+    float32 output and the kernel's K-major scratch operands.  BFLOAT16: one
+    bf16 wgmma product.  FLOAT32: the float32-faithful 3xTF32 product (each
+    operand split into TF32 hi and lo, lo·hi + hi·lo + hi·hi accumulated in
+    f32).  A float64 CUDA operand raises ``TypeError`` (the plain version
+    keeps f64)."""
     if _on_cpu(a, b):
         return panel_gemm_plain(a, b, policy)
     _check_cuda("panel_gemm", a, b)
     a = px.to_compute(a, policy)
     b = px.to_compute(b, policy)
-    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+    if a.dtype != b.dtype or a.dtype not in _GEMM_TILES:
         raise TypeError(
             f"panel_gemm: the CUDA kernel takes float32 or bfloat16 "
             f"operands of one dtype after the {policy.name} policy's "
@@ -105,21 +159,52 @@ def panel_gemm(a: torch.Tensor, b: torch.Tensor,
     if k != k2:
         raise ValueError(f"panel_gemm: inner dimensions differ: "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    if n > _GEMM_MAX_N:
-        raise ValueError(f"panel_gemm: n = {n} exceeds the kernel's grid "
-                         f"limit {_GEMM_MAX_N}")
-    out = torch.empty((m, n), dtype=px.accum_dtype(policy), device=a.device)
+    dev = a.device
+    out = torch.empty((m, n), dtype=px.accum_dtype(policy), device=dev)
     if m == 0 or n == 0:
         return out
+    if k == 0:
+        return out.zero_()
+    plan = gemm_plan(m, n, k, a.dtype, a.data_ptr())
     lib = _build.library("panel_gemm")
-    fn = lib.dslib_panel_gemm_f32 if a.dtype == torch.float32 \
-        else lib.dslib_panel_gemm_bf16
-    with torch.cuda.device(a.device):
-        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                torch.cuda.current_stream(a.device).cuda_stream)
+
+    def scratch(rows):
+        return torch.empty((rows, plan.k_pad), dtype=a.dtype, device=dev)
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if a.dtype == torch.float32:
+            a_hi, a_lo, bt_hi, bt_lo = scratch(m), scratch(m), scratch(n), \
+                scratch(n)
+            rc = lib.dslib_panel_gemm_f32(
+                a.data_ptr(), b.data_ptr(), a_hi.data_ptr(), a_lo.data_ptr(),
+                bt_hi.data_ptr(), bt_lo.data_ptr(), out.data_ptr(), m, n, k,
+                plan.k_pad, stream)
+        else:
+            if plan.pad_a:
+                a = torch.nn.functional.pad(a, (0, plan.k_pad - k))
+            bt = scratch(n)
+            rc = lib.dslib_panel_gemm_bf16(
+                a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), m,
+                n, k, plan.k_pad, stream)
+    if rc >= 1000:
+        raise RuntimeError(
+            "panel_gemm: " + ("cuTensorMapEncodeTiled not found in the "
+                              "driver" if rc < 2000 else
+                              f"the TMA descriptor was refused (CUresult "
+                              f"{rc - 2000})"))
     _raise_on_error("panel_gemm", rc)
     LAUNCHES["panel_gemm"] += 1
     return out
+
+
+def gemm_compiled_plan(dtype: torch.dtype) -> tuple:
+    """(bm, bn, bk, stages, smem_bytes) as compiled into the kernel
+    library, to hold :func:`gemm_plan` against on a card."""
+    out = (ctypes.c_int * 5)()
+    _build.library("panel_gemm").dslib_panel_gemm_config(
+        int(dtype == torch.float32), out)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@ bounds (:data:`ERROR_BOUNDS`) and the selection rule (:func:`resolve`,
 held to the reference's own contract, so the two tables must never drift.
 
 - ``float32`` (default): operands contract at float32-faithful precision.
-  On an NVIDIA card that means no TF32 tensor-core passes: :func:`precise`
+  On an NVIDIA card that means no single-pass TF32 product: :func:`precise`
   turns ``torch.backends.cuda.matmul.allow_tf32`` and
-  ``torch.backends.cudnn.allow_tf32`` off for its scope.
+  ``torch.backends.cudnn.allow_tf32`` off for its scope, and the hand
+  ``panel_gemm`` kernel runs the 3xTF32 split (``ops/kernels.py``).
 - ``bfloat16``: GEMM operands are rounded to bfloat16 and contracted with
   float32 accumulation.  The product of two bf16 values is exact in f32,
   so upcasting the rounded operands and contracting in f32 is the same

@@ -15,7 +15,9 @@ contributions (sums of integers below 2^24 are exact in any order), and for
 non-integer ones within 1e-5 of the f64 sums relative to each cell's sum of
 |w·stats| (its atomics add in a varying order); a decision tree fitted on
 the card identical to the one fitted on the CPU (exact histograms, and
-the gain arithmetic in a fixed order on both devices).
+the gain arithmetic in a fixed order on both devices).  ``panel_gemm``
+FLOAT32 is also held to float32 faithfulness: its error against float64 at
+most 1/8 of a single-pass TF32 product's (cuBLAS with TF32 allowed).
 """
 
 import numpy as np
@@ -31,7 +33,9 @@ from dislib_tpu_torch.trees import (DecisionTreeClassifier,
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(1, 5, 300), (129, 257, 130), (1000, 77, 33), (256, 128, 16)]
+# the last two span many K stages and several tiles in both directions
+SHAPES = [(1, 5, 300), (129, 257, 130), (1000, 77, 33), (256, 128, 16),
+          (300, 1000, 520), (4097, 2053, 259)]
 
 
 @pytest.fixture
@@ -62,6 +66,44 @@ def test_panel_gemm_matches_plain(dev, policy, mkn):
     assert _gemm_err(got, K.panel_gemm_plain(a, b, pol), a, b) <= \
         px.ERROR_BOUNDS[("matmul", "float32")]
     assert K.LAUNCHES["panel_gemm"] == 1
+
+
+def test_panel_gemm_float32_is_float32_faithful(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn((2048, 8192), generator=g, device=dev)
+    b = torch.randn((8192, 2048), generator=g, device=dev)
+    ref = a.double() @ b.double()
+    got = K.panel_gemm(a, b, px.FLOAT32)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    err, err_tf32 = _gemm_err(got, ref, a, b), _gemm_err(tf32, ref, a, b)
+    assert err <= px.ERROR_BOUNDS[("matmul", "float32")]
+    assert err <= err_tf32 / 8, (err, err_tf32)
+
+
+def test_panel_gemm_bf16_copies_an_unaligned_or_ragged_a(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    for m, k, n in [(130, 64, 70), (130, 77, 70)]:
+        base = torch.randn(m * k + 1, generator=g, device=dev).bfloat16()
+        a = base[1:].view(m, k)              # contiguous, 2 bytes off
+        b = torch.randn((k, n), generator=g, device=dev).bfloat16()
+        assert a.data_ptr() % 16 != 0
+        assert K.gemm_plan(m, n, k, a.dtype, a.data_ptr()).pad_a
+        got = K.panel_gemm(a, b, px.BFLOAT16)
+        want = K.panel_gemm_plain(a, b, px.BFLOAT16)
+        assert _gemm_err(got, want, a.float(), b.float()) <= \
+            px.ERROR_BOUNDS[("matmul", "float32")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_panel_gemm_plan_is_the_compiled_one(dev, dtype):
+    p = K.gemm_plan(16384, 16384, 16384, dtype)
+    assert K.gemm_compiled_plan(dtype) == (p.bm, p.bn, p.bk, p.stages,
+                                           p.smem_bytes)
 
 
 @pytest.mark.parametrize("mkn", SHAPES, ids=str)
