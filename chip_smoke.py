@@ -58,11 +58,23 @@ HIST_RAGGED = [(3, 1000, 7, 4, 32, 2),        # ragged m, several chunks
                (1, 20_011, 3, 64, 1024, 2),   # n_bins 1024
                (2, 30_000, 4, 8, 32, 5),      # S 5
                (1, 123_457, 10, 1, 32, 2),    # T 1, every row in one node
-               (16, 40_000, 6, 16, 32, 2)]    # T 16
+               (16, 40_000, 6, 16, 32, 2),    # T 16
+               (16, 200_000, 20, 2, 32, 2)]   # private copies per warp
+# node layouts at a deep level's shape that stress the partition: every
+# row in one node, half the nodes empty, rows dropped for node -1, a NaN
+# stat on a weight-0 row (kept and added: 0·NaN is NaN)
+HIST_LAYOUTS = ["one-node", "half-empty", "node-minus-1",
+                "nan-on-zero-weight"]
+# distances_sq: feature widths (100 aligned takes the bulk-copy stream,
+# the rest the slices), k across the chunk of 16, an unaligned view of a
+DIST_D, DIST_K = [1, 3, 33, 100], [1, 10, 17, 257]
 # panel_gemm shapes held against the plain version: ragged in every
 # dimension, the last two over many K stages and several tiles each way
 GEMM_RAGGED = [(1000, 77, 33), (129, 257, 130), (1, 5, 300),
                (300, 1000, 520), (4097, 2053, 259)]
+# node_histogram's parts in a profiled call
+HIST_PARTS = {"partition": ("part_count", "part_scan", "part_scatter"),
+              "histogram": ("hist_kernel",)}
 # device kernels by kind, for the profiled panel_gemm and matmul calls
 GEMM_PARTS = {"panel_gemm_mainloop": ("gemm_kernel",),
               "panel_gemm_prep": ("split_rows", "transpose_prep"),
@@ -183,14 +195,27 @@ def by_part(spans, parts=GEMM_PARTS):
     return out
 
 
-def sass_counts(lib_path, nvcc):
-    """Lines of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
-    SASS of a built kernel library, by ``cuobjdump`` from nvcc's toolkit."""
+def split_calls(spans, first):
+    """The spans cut into calls, each starting at a kernel whose name holds
+    ``first``; spans before the first such kernel are dropped."""
+    calls = []
+    for sp in spans:
+        if first in sp[2]:
+            calls.append([])
+        if calls:
+            calls[-1].append(sp)
+    return calls
+
+
+def sass_counts(lib_path, nvcc, ops=("HGMMA", "UTMALDG")):
+    """Lines of each instruction in ``ops`` (by default HGMMA, wgmma, and
+    UTMALDG, a TMA load) in the SASS of a built kernel library, by
+    ``cuobjdump`` from nvcc's toolkit."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     lines = sass.splitlines()
-    return {op: sum(op in ln for ln in lines) for op in ("HGMMA", "UTMALDG")}
+    return {op: sum(op in ln for ln in lines) for op in ops}
 
 
 def main() -> int:
@@ -272,8 +297,14 @@ def main() -> int:
                                            p.smem_bytes),
               f"panel_gemm {dt}: compiled plan {K.gemm_compiled_plan(dt)} "
               f"differs from gemm_plan {p}")
+    # the bulk copies of distances_sq, the shared atomics of node_histogram
+    other_sass = {name: sass_counts(_build.BUILD_INFO[name]["path"],
+                                    _build.find_nvcc(), ops)
+                  for name, ops in (("distances_sq", ("UBLKCP", "SYNCS")),
+                                    ("node_histogram",
+                                     ("ATOMS.CAST", "ATOMS.ADD", "MATCH")))}
     emit({"phase": "build", "seconds": build_s,
-          "panel_gemm_sass": gemm_sass,
+          "panel_gemm_sass": gemm_sass, "other_sass": other_sass,
           "kernels": {n: {"seconds": i["seconds"], "cached": i["cached"],
                           "ptxas": [ln.strip() for ln in i["log"].splitlines()
                                     if "registers" in ln or "spill" in ln]}
@@ -296,6 +327,22 @@ def main() -> int:
                        a, bt)
         check(err <= dist_tol, f"distances_sq {(m, k, n)}: error {err} vs "
               f"plain > {dist_tol}")
+    for d in DIST_D:
+        for k in DIST_K:
+            for offset in (0, 1):
+                base = torch.randn(3001 * d + offset, generator=g, device=dev)
+                a = base[offset:].view(3001, d)
+                b = torch.randn((k, d), generator=g, device=dev)
+                err = dist_err(K.distances_sq(a, b),
+                               K.distances_sq_plain(a, b, "highest"), a, b)
+                check(err <= dist_tol, f"distances_sq d={d} k={k} offset="
+                      f"{offset}: error {err} vs plain > {dist_tol}")
+    a = torch.ones((1000, 100), device=dev)
+    a[513, 2] = float("nan")
+    got = K.distances_sq(a, torch.zeros((10, 100), device=dev))
+    check(bool(torch.isnan(got[513]).all()) and not bool(
+        torch.isnan(got[torch.arange(1000, device=dev) != 513]).any()),
+          "distances_sq: NaN not passed through on the stream")
     # node_histogram: bit-equal to the plain version for integer
     # contributions (sums of integers below 2^24 are exact in any order);
     # for non-integer stats within 1e-5 of the f64 sums relative to each
@@ -326,8 +373,31 @@ def main() -> int:
         check(bool(((got - exact).abs() <= hist_tol * scale).all()),
               f"node_histogram {(T, m, n, nn, nb, S)}: non-integer stats "
               f"off by more than {hist_tol} of sum |w*stats|")
+    for kind in HIST_LAYOUTS:
+        T, m, n, nn, nb, S = 2, 60_001, 7, 2048, 32, 2
+        node, bx, w = hist_inputs(T, m, n, nn, nb, S)
+        st = torch.randint(0, 3, (m, S), generator=g, device=dev).float()
+        if kind == "one-node":
+            node.fill_(1234)
+        elif kind == "half-empty":
+            node.mul_(2).remainder_(nn)
+        elif kind == "node-minus-1":
+            node[:, ::3] = -1
+        else:
+            w[:, 17] = 0
+            st[17, 1] = float("nan")
+        got = K.node_histogram(node, bx, w, st, nn, nb)
+        want = K.node_histogram_plain(node, bx, w, st, nn, nb)
+        check(torch.equal(torch.nan_to_num(got, nan=-1.0),
+                          torch.nan_to_num(want, nan=-1.0))
+              and bool(torch.isnan(got).any()) == (kind ==
+                                                   "nan-on-zero-weight"),
+              f"node_histogram layout {kind}: not bit-equal to plain")
     torch.cuda.synchronize()
     emit({"phase": "ragged", "ok": True, "panel_gemm_shapes": GEMM_RAGGED,
+          "distances_sq_d": DIST_D, "distances_sq_k": DIST_K,
+          "distances_sq_unaligned": True,
+          "node_histogram_layouts": HIST_LAYOUTS,
           "node_histogram_bit_equal_integer": len(HIST_RAGGED),
           "node_histogram_non_integer_tol": hist_tol})
 
@@ -428,10 +498,12 @@ def main() -> int:
         2.0 * KM_M * KM_K * KM_N + 2.0 * (KM_M + KM_K) * KM_N
         + 3.0 * KM_M * KM_K,
         4.0 * (KM_M * KM_N + KM_K * KM_N + KM_M * KM_K), PEAK_FP32_FLOPS)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     kernels["distances_sq"] = {
         "name": "distances_sq", "route": "cuda",
         "source": "dislib_tpu_torch/csrc/distances_sq.cu",
         "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "plan": K.dist_plan(KM_M, KM_N, xd.data_ptr(), n_sms)._asdict(),
         "shape": [KM_M, KM_K, KM_N], "max_abs_err": max_abs,
         "normalized_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": None, "library_call": None, "bound_ms": bound_ms,
@@ -453,6 +525,7 @@ def main() -> int:
     max_abs = float((out - plain).abs().max())
     del out, plain
     ms = cuda_ms(lambda: K.node_histogram(node, bx, w, st, nn, nb), 5)
+
     plain_ms = cuda_ms(
         lambda: K.node_histogram_plain(node, bx, w, st, nn, nb), 2)
     # the library call is the plain version's own: index_put_(accumulate=
@@ -484,17 +557,62 @@ def main() -> int:
     bound_ms, bound_by = hist_bound(nn)
     # the kernel at each level's shape of a default-depth fit (nodes drawn
     # uniformly: at level 0 every row is in the one node)
+    def other_copies(node_t, bx_t, n_nodes):
+        """The plan's time and that of the other choice of histogram
+        copies (one per warp where the plan shares one, and back), through
+        the wrapper with the plan's choice forced."""
+        plan_hist = K.hist_plan
+        nf = bx_t.shape[1]
+        private = plan_hist(T, m, nf, n_nodes, nb, S, n_sms).private
+        plan_ms = cuda_ms(
+            lambda: K.node_histogram(node_t, bx_t, w, st, n_nodes, nb), 3)
+        K.hist_plan = lambda *a, **kw: plan_hist(*a, **kw,
+                                                 private=not private)
+        try:
+            other = K.hist_plan(T, m, nf, n_nodes, nb, S, n_sms)
+            check(torch.equal(
+                K.node_histogram(node_t, bx_t, w, st, n_nodes, nb),
+                K.node_histogram_plain(node_t, bx_t, w, st, n_nodes, nb)),
+                f"node_histogram, {nf} features, {n_nodes} nodes, the other"
+                " copies: not bit-equal to plain")
+            return {"plan_private": private, "plan_ms": plan_ms,
+                    "other_plan": other._asdict(),
+                    "other_ms": cuda_ms(lambda: K.node_histogram(
+                        node_t, bx_t, w, st, n_nodes, nb), 3)}
+        finally:
+            K.hist_plan = plan_hist
+
     per_level, per_level_bound, plain_level, lib_level = {}, {}, {}, {}
+    lnodes, private_level = [], {}
     for lvl in range(12):
         lnode = torch.randint(0, 2 ** lvl, (T, m), generator=g, device=dev,
                               dtype=torch.int32)
+        lnodes.append(lnode)
         per_level[2 ** lvl] = cuda_ms(
             lambda: K.node_histogram(lnode, bx, w, st, 2 ** lvl, nb), 3)
+        private_level[2 ** lvl] = other_copies(lnode, bx, 2 ** lvl)
         plain_level[2 ** lvl] = cuda_ms(
             lambda: K.node_histogram_plain(lnode, bx, w, st, 2 ** lvl, nb), 1)
         lib_level[2 ** lvl] = library_ms_at(lnode, 2 ** lvl, 1)
         per_level_bound[2 ** lvl] = hist_bound(2 ** lvl)[0]
-    del lnode, bins, feat, contrib
+    # the partition and the histogram at each level: one profiled pass
+    # over the 12 level shapes (one profiler session; many in a row can
+    # record nothing), split where each call's part_count starts
+    _, _, spans = profile_device(
+        lambda: [K.node_histogram(ln, bx, w, st, ln_n, nb)
+                 for ln, ln_n in zip(lnodes, per_level)])
+    calls = split_calls(spans, "part_count")
+    check(len(calls) == len(per_level), f"profiled {len(calls)} of "
+          f"{len(per_level)} node_histogram calls")
+    parts_level = {ln_n: by_part(c, HIST_PARTS)
+                   for ln_n, c in zip(per_level, calls)}
+    parts = parts_level[nn]
+    # the same choice at 20 features, where eight copies fit in one group
+    bx20 = bx[:, :20].contiguous()
+    private_20 = {ln_n: other_copies(ln, bx20, ln_n)
+                  for ln, ln_n in zip(lnodes, per_level) if ln_n in (1, 64)}
+    del bx20
+    del lnode, lnodes, bins, feat, contrib
     kernels["node_histogram"] = {
         "name": "node_histogram", "route": "cuda",
         "source": "dislib_tpu_torch/csrc/node_histogram.cu",
@@ -511,7 +629,14 @@ def main() -> int:
         "ms_fit_levels": sum(per_level.values()),
         "bound_ms_fit_levels": sum(per_level_bound.values()),
         "plain_ms_fit_levels": sum(plain_level.values()),
-        "library_ms_fit_levels": sum(lib_level.values())}
+        "library_ms_fit_levels": sum(lib_level.values()),
+        "plan": K.hist_plan(T, m, n, nn, nb, S, n_sms)._asdict(),
+        "blocks_per_sm": K.hist_occupancy(K.hist_plan(T, m, n, nn, nb, S,
+                                                      n_sms)),
+        "ms_by_part_profiled": parts,
+        "ms_by_part_by_n_nodes": parts_level,
+        "other_copies_ms_by_n_nodes": private_level,
+        "other_copies_ms_at_20_features": private_20}
     emit({"phase": "kernel", **kernels["node_histogram"]})
     del node, bx, w, st
     torch.cuda.empty_cache()
@@ -687,12 +812,17 @@ def main() -> int:
     del pred, proba, rf2
     # where a fit's time goes
     wall_us, busy, spans = profile_device(fit_rf)
-    hist_levels = [(e - s_) / 1e3 for s_, e, name in spans
-                   if "node_histogram" in name]
+    hist_spans = [sp for sp in spans
+                  if any(x in sp[2] for subs in HIST_PARTS.values()
+                         for x in subs)]
+    hist_parts_fit = by_part(hist_spans, HIST_PARTS)
+    hist_levels = [sum(e - s_ for s_, e, _ in c) / 1e3
+                   for c in split_calls(hist_spans, "part_count")]
     emit({"phase": "forest_profile", "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3, "device_idle_share":
           1.0 - busy / wall_us, "node_histogram_ms_by_level": hist_levels,
-          "node_histogram_ms": sum(hist_levels),
+          "node_histogram_ms": sum(hist_parts_fit.values()),
+          "node_histogram_ms_by_part": hist_parts_fit,
           "kernels_ms": top_kernels(spans, n=10)})
     emit({"phase": "forest", "estimator": "RandomForestClassifier",
           "shape": [RF_M, RF_N], "n_estimators": RF_T, "depth": rf._depth,

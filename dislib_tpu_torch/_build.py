@@ -41,10 +41,12 @@ SIGNATURES = {
         "dslib_panel_gemm_config": ([_I, ctypes.POINTER(_I)], _I),
     },
     "distances_sq": {
-        "dslib_distances_sq_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),
+        "dslib_distances_sq_f32": ([_P] * 3 + [_I] * 6 + [_P], _I),
     },
     "node_histogram": {
-        "dslib_node_histogram_f32": ([_P] * 5 + [_I] * 13 + [_P], _I),
+        "dslib_node_histogram_f32": ([_P] * 6 + [_I] * 16 + [_P], _I),
+        "dslib_node_histogram_occupancy": ([_I] * 3 + [ctypes.POINTER(_I)],
+                                           _I),
     },
 }
 

@@ -121,6 +121,37 @@ def test_distances_sq_matches_plain(dev, mkn):
     assert K.LAUNCHES["distances_sq"] == 1
 
 
+@pytest.mark.parametrize("k", [1, 10, 17, 257])
+@pytest.mark.parametrize("d", [1, 3, 33, 100])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_distances_sq_ragged_shapes(dev, d, k, offset):
+    # d = 100 on an aligned a takes the bulk-copy stream, the rest the
+    # slices; an a that starts 4 bytes into its storage is never streamed
+    m = 3001
+    g = torch.Generator(device=dev).manual_seed(d * 1000 + k)
+    base = torch.randn(m * d + offset, generator=g, device=dev)
+    a = base[offset:].view(m, d)
+    b = torch.randn((k, d), generator=g, device=dev)
+    plan = K.dist_plan(m, d, a.data_ptr(), 132)
+    assert (plan.rows > 0) == (d == 100 and offset == 0)
+    got = K.distances_sq(a, b)
+    torch.cuda.synchronize()
+    want = K.distances_sq_plain(a, b, precision="highest")
+    scale = float((a * a).sum(1).max() + (b * b).sum(1).max())
+    assert float((got - want).abs().max()) / scale <= 1e-5
+    assert K.LAUNCHES["distances_sq"] == 1
+
+
+@pytest.mark.parametrize("d", [4, 100])
+def test_distances_sq_stream_keeps_nan(dev, d):
+    a = torch.ones((1000, d), device=dev)
+    a[513, 2] = float("nan")
+    assert K.dist_plan(1000, d, a.data_ptr(), 132).rows > 0
+    got = K.distances_sq(a, torch.zeros((10, d), device=dev)).cpu()
+    assert torch.isnan(got[513]).all()
+    assert not torch.isnan(got[torch.arange(1000) != 513]).any()
+
+
 def test_distances_sq_keeps_nan(dev):
     a = torch.ones((3, 4), device=dev)
     a[1, 2] = float("nan")
@@ -205,18 +236,50 @@ HIST_SHAPES = [(3, 1000, 7, 4, 32, 2),        # ragged m, several chunks
                (1, 20_011, 3, 64, 1024, 2),   # n_bins 1024
                (2, 30_000, 4, 8, 32, 5),      # S 5
                (1, 123_457, 10, 1, 32, 2),    # T 1, every row in one node
-               (16, 40_000, 6, 16, 32, 2)]    # T 16
+               (16, 40_000, 6, 16, 32, 2),    # T 16
+               (16, 200_000, 20, 2, 32, 2)]   # private copies per warp
 
 
 @pytest.mark.parametrize("shape", HIST_SHAPES, ids=str)
 def test_node_histogram_bit_equal_to_plain(dev, shape):
     T, m, n, n_nodes, n_bins, S = shape
     node, bx, w, stats = _hist_inputs(dev, *shape)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    private = K.hist_plan(T, m, n, n_nodes, n_bins, S, nsm).private
+    assert private == (shape == HIST_SHAPES[-1])
     got = K.node_histogram(node, bx, w, stats, n_nodes, n_bins)
     torch.cuda.synchronize()
     assert got.shape == (T, n_nodes, n, n_bins, S)
     assert torch.equal(got, K.node_histogram_plain(node, bx, w, stats,
                                                    n_nodes, n_bins))
+    assert K.LAUNCHES["node_histogram"] == 1
+
+
+@pytest.mark.parametrize("kind", ["one-node", "half-empty", "node-minus-1",
+                                  "nan-on-zero-weight"])
+def test_node_histogram_layouts_bit_equal_to_plain(dev, kind):
+    # the deepest level's shape with the node layouts that stress the
+    # partition: every row in one node (split into items that add), half
+    # the nodes empty (items that write zeros), rows dropped for node -1,
+    # and a NaN stat on a weight-0 row (kept: 0·NaN is NaN)
+    T, m, n, n_nodes, n_bins, S = 2, 60_001, 7, 2048, 32, 2
+    node, bx, w, stats = _hist_inputs(dev, T, m, n, n_nodes, n_bins, S,
+                                      seed=5)
+    if kind == "one-node":
+        node.fill_(1234)
+    elif kind == "half-empty":
+        node.mul_(2).remainder_(n_nodes)
+    elif kind == "node-minus-1":
+        node[:, ::3] = -1
+    else:
+        w[:, 17] = 0
+        stats[17, 1] = float("nan")
+    got = K.node_histogram(node, bx, w, stats, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    want = K.node_histogram_plain(node, bx, w, stats, n_nodes, n_bins)
+    assert torch.equal(torch.nan_to_num(got, nan=-1.0),
+                       torch.nan_to_num(want, nan=-1.0))
+    assert torch.isnan(want).any() == (kind == "nan-on-zero-weight")
     assert K.LAUNCHES["node_histogram"] == 1
 
 

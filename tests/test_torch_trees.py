@@ -146,76 +146,196 @@ def test_node_histogram_non_integer_stats():
         np.testing.assert_allclose(got[t], ref, rtol=1e-5, atol=1e-5)
 
 
-def _emulate_kernel(node, bx, w, stats, n_nodes, n_bins, plan):
-    """The CUDA kernel's work items and offsets, in numpy: which rows an
-    item reads, where they land in its shared slice, and where the slice
-    is written out."""
+def _emulate_partition(node, w, stats, n_nodes, plan):
+    """The CUDA partition in numpy: per-(node, chunk) counts, their
+    node-major exclusive scan, and the stable scatter in which warp v of a
+    chunk owns rows [v·rows_per_warp, (v+1)·rows_per_warp) and places them
+    after the chunk's slot for the node and the earlier warps' rows.
+    Returns (idx (T, m) with −1 past each tree's kept rows, node_start
+    (T, n_nodes + 1))."""
     T, m = node.shape
-    n, S = bx.shape[1], stats.shape[1]
-    nbs = n_bins * S
-    per_feat = n_nodes * nbs
-    out = np.zeros((T, n_nodes, n, n_bins, S), np.float32).reshape(-1)
-    owned = np.zeros(out.shape, np.int64)
+    rpw = plan.rows_per_warp
+    chunk = port_k._PART_WARPS * rpw
+    contrib = w[:, :, None] * stats[None]                     # f32
+    key = np.where((node >= 0) & (node < n_nodes)
+                   & (contrib != 0).any(axis=2), node, -1)
+    counts = np.zeros((T, n_nodes, plan.n_pchunks), np.int64)
     for t in range(T):
-        for ch in range(plan.n_chunks):
-            rows = np.arange(ch * plan.rows_per_chunk,
-                             min(m, (ch + 1) * plan.rows_per_chunk))
-            for sl in range(plan.n_slices):
-                c0 = sl * plan.slice_len
-                clen = min(plan.slice_len, per_feat - c0)
-                p_lo, p_hi = c0 // nbs, (c0 + clen - 1) // nbs
-                for fgi in range(plan.n_fgroups):
-                    f0 = fgi * plan.fg
-                    nf = min(plan.fg, n - f0)
-                    assert nf * clen * 4 <= port_k.HIST_SMEM_BYTES
-                    hist = np.zeros(nf * clen, np.float32)
-                    for i in rows:
-                        p = node[t, i]
-                        if p < p_lo or p > p_hi:
-                            continue
-                        base = p * nbs - c0
-                        for s in range(S):
-                            c = np.float32(w[t, i] * stats[i, s])
-                            if c == 0:
-                                continue
-                            for f in range(nf):
-                                q = base + bx[i, f0 + f] * S + s
-                                if 0 <= q < clen:
-                                    hist[f * clen + q] += c
-                    k = np.arange(nf * clen)
-                    f = k // clen
-                    e = c0 + (k - f * clen)
-                    p = e // nbs
-                    g = ((t * n_nodes + p) * n + f0 + f) * nbs + (e - p * nbs)
-                    out[g] += hist
-                    owned[g] += 1
-    # every output entry is written by exactly one item per row chunk
-    assert (owned == plan.n_chunks).all()
+        for c in range(plan.n_pchunks):
+            k = key[t, c * chunk:(c + 1) * chunk]
+            counts[t, :, c] = np.bincount(k[k >= 0], minlength=n_nodes)
+    flat = counts.reshape(T, -1)
+    offs = (np.cumsum(flat, axis=1) - flat).reshape(counts.shape)
+    node_start = np.concatenate([offs[:, :, 0], flat.sum(1)[:, None]], 1)
+    idx = np.full((T, m), -1, np.int64)
+    for t in range(T):
+        for c in range(plan.n_pchunks):
+            cursor = offs[t, :, c].copy()
+            for v in range(port_k._PART_WARPS):      # warps in row order
+                for i in range(c * chunk + v * rpw,
+                               min(m, c * chunk + (v + 1) * rpw)):
+                    if key[t, i] >= 0:
+                        idx[t, cursor[key[t, i]]] = i
+                        cursor[key[t, i]] += 1
+    return idx, node_start
+
+
+def _emulate_histogram(bx, w, stats, idx, node_start, n_nodes, n_bins,
+                       plan):
+    """The CUDA histogram items in numpy, from the partition's output: each
+    (node, row chunk, feature group, slice) adds its rows into
+    [copy][slot][entry][lane] and stores (a node of one item, zeros for no
+    rows) or adds its non-zero entries to the output that the partition
+    zeroed (a node of several items).  Every other entry stays NaN."""
+    T = idx.shape[0]
+    n, S = bx.shape[1], stats.shape[1]
+    E = n_bins * S
+    copies = port_k._HIST_WARPS if plan.private else 1
+    out = np.full((T, n_nodes, n, E), np.nan, np.float32)
+    for t in range(T):
+        for p in range(n_nodes):
+            ns, ne = node_start[t, p], node_start[t, p + 1]
+            n_items = max(1, -(-(ne - ns) // plan.rows_per_item))
+            if n_items > 1:
+                out[t, p] = 0
+            for ch in range(n_items):
+                rs = ns + ch * plan.rows_per_item
+                re = min(ne, rs + plan.rows_per_item)
+                for fg in range(plan.n_fgroups):
+                    f0 = fg * plan.fgs
+                    nf = min(plan.fgs, n - f0)
+                    f = np.arange(nf)
+                    slot, lane = f // 32, f % 32
+                    assert slot.max() < plan.J
+                    for sl in range(plan.n_slices):
+                        e0 = sl * plan.slice_len
+                        el = min(plan.slice_len, E - e0)
+                        hist = np.zeros((copies, plan.J, plan.slice_len, 32),
+                                        np.float32)
+                        for r in range(rs, re):
+                            i = idx[t, r]
+                            cp = ((r - rs) // 32) % port_k._HIST_WARPS \
+                                if plan.private else 0
+                            b = bx[i, f0:f0 + nf]
+                            for s in range(S):
+                                c = np.float32(w[t, i] * stats[i, s])
+                                if c == 0:
+                                    continue
+                                e = b * S + s - e0
+                                ok = (b >= 0) & (b < n_bins) & (e >= 0) \
+                                    & (e < el)
+                                np.add.at(hist[cp], (slot[ok], e[ok],
+                                                     lane[ok]), c)
+                        v = hist.sum(0)[slot, :el, lane]        # (nf, el)
+                        dst = out[t, p, f0:f0 + nf, e0:e0 + el]
+                        if n_items == 1:
+                            dst[...] = v
+                        else:
+                            dst += np.where(v != 0, v, np.float32(0))
     return out.reshape(T, n_nodes, n, n_bins, S)
 
 
-@pytest.mark.parametrize("shape,smem", [
-    ((2, 50, 7, 1, 4, 2), 1 << 20),      # every feature in one item
-    ((2, 50, 5, 4, 8, 2), 160),          # feature groups of 2
-    ((1, 40, 3, 8, 4, 3), 100),          # slices that cut nodes
-    ((2, 30, 2, 2, 5, 1), 12)],          # slices shorter than a node
-    ids=["all-features", "groups", "slices", "short-slices"])
-def test_hist_plan_covers_the_histogram(shape, smem, monkeypatch):
+def _small_plan(monkeypatch, shape, smem, private_rows=1 << 30,
+                part_rows=(4, 8), item_rows=16, n_sms=4):
+    """``hist_plan`` at a small shape, with the thresholds shrunk so that
+    chunks, items, groups, slices and private copies all occur."""
     T, m, n, n_nodes, n_bins, S = shape
-    monkeypatch.setattr(port_k, "HIST_SMEM_BYTES", smem)
-    monkeypatch.setattr(port_k, "_HIST_MIN_ROWS", 16)
-    plan = port_k.hist_plan(T, m, n, n_nodes, n_bins, S, n_sms=2,
+    monkeypatch.setattr(port_k, "_HIST_PRIVATE_ROWS", private_rows)
+    monkeypatch.setattr(port_k, "_PART_MIN_ROWS", part_rows[0])
+    monkeypatch.setattr(port_k, "_PART_MAX_ROWS", part_rows[1])
+    monkeypatch.setattr(port_k, "_HIST_MIN_ITEM_ROWS", item_rows)
+    plan = port_k.hist_plan(T, m, n, n_nodes, n_bins, S, n_sms=n_sms,
                             smem_bytes=smem)
-    assert plan.fg * plan.slice_len * 4 <= smem
-    assert plan.n_slices * plan.slice_len >= n_nodes * n_bins * S
-    assert plan.n_fgroups * plan.fg >= n
-    assert plan.n_chunks * plan.rows_per_chunk >= m
-    assert plan.direct == (plan.n_chunks == 1)
-    node, bx, w, stats = _hist_inputs(np.random.RandomState(10), T, m, n,
-                                      n_nodes, n_bins, S)
-    np.testing.assert_array_equal(
-        _emulate_kernel(node, bx, w, stats, n_nodes, n_bins, plan),
-        _port_hist(node, bx, w, stats, n_nodes, n_bins))
+    assert port_k.hist_smem_bytes(plan) - port_k._HIST_TILE_BYTES <= smem
+    assert plan.J <= 4 and plan.fgs <= 32 * plan.J
+    assert plan.n_fgroups * plan.fgs >= n
+    assert plan.n_slices * plan.slice_len >= n_bins * S
+    assert plan.slice_len % 4 == 0
+    assert plan.n_pchunks * port_k._PART_WARPS * plan.rows_per_warp >= m
+    return plan
+
+
+def _layout(kind, rng, T, m, n_nodes):
+    """Node assignments of the emulator cases."""
+    if kind == "one-node":
+        return np.full((T, m), n_nodes // 2 + 1, np.int32)
+    if kind == "half-empty":
+        return (2 * rng.randint(0, n_nodes // 2, (T, m))).astype(np.int32)
+    if kind == "out-of-range":
+        return rng.randint(-1, n_nodes + 2, (T, m)).astype(np.int32)
+    return rng.randint(0, n_nodes, (T, m)).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("random", (3, 300, 4, 8, 4, 2)),
+    ("one-node", (2, 211, 3, 16, 4, 2)),
+    ("half-empty", (2, 257, 3, 16, 4, 1)),
+    ("out-of-range", (3, 190, 2, 4, 4, 2)),
+    ("nan-on-zero-weight", (2, 150, 2, 4, 4, 3))], ids=str)
+def test_partition_is_a_stable_sort_by_node(kind, shape, monkeypatch):
+    T, m, n, n_nodes, n_bins, S = shape
+    rng = np.random.RandomState(11)
+    node, bx, w, stats = _hist_inputs(rng, T, m, n, n_nodes, n_bins, S)
+    node = _layout(kind, rng, T, m, n_nodes)
+    if kind == "nan-on-zero-weight":
+        w[:, 7] = 0
+        stats[7, 1] = np.nan            # 0·NaN is NaN: kept
+        stats[9] = 0                    # every product ±0: dropped
+    plan = _small_plan(monkeypatch, shape, 1 << 16)
+    assert plan.n_pchunks > 1
+    idx, node_start = _emulate_partition(node, w, stats, n_nodes, plan)
+    contrib = w[:, :, None] * stats[None]
+    for t in range(T):
+        key = np.where((node[t] >= 0) & (node[t] < n_nodes)
+                       & (contrib[t] != 0).any(axis=1), node[t], n_nodes)
+        order = np.argsort(key, kind="stable")
+        kept = int((key < n_nodes).sum())
+        np.testing.assert_array_equal(idx[t, :kept], order[:kept])
+        assert (idx[t, kept:] == -1).all()
+        np.testing.assert_array_equal(
+            node_start[t], np.concatenate([[0], np.cumsum(np.bincount(
+                key[key < n_nodes], minlength=n_nodes))]))
+    if kind == "nan-on-zero-weight":
+        assert 7 in idx[0] and 9 not in idx[0]
+    if kind == "out-of-range":
+        assert not np.isin(np.flatnonzero(node[0] < 0), idx[0]).any()
+
+
+@pytest.mark.parametrize("kind,shape,smem,private", [
+    ("one-node", (2, 400, 5, 16, 8, 2), 1 << 16, False),     # deep, 1 node
+    ("half-empty", (2, 300, 4, 8, 8, 2), 1 << 16, False),
+    ("out-of-range", (2, 250, 3, 4, 4, 2), 1 << 16, False),
+    ("random", (1, 120, 70, 2, 4, 2), 3 * 32 * 8 * 4, False),  # groups
+    ("random", (1, 60, 3, 2, 1024, 5), 32 * 1024, False),      # slices
+    ("nan-on-zero-weight", (2, 200, 3, 4, 8, 2), 1 << 16, False),
+    ("random", (2, 300, 40, 2, 4, 2), 1 << 16, True),          # private
+], ids=["one-node", "half-empty", "node-minus-1", "feature-groups",
+        "sliced-features", "nan-on-zero-weight", "private-copies"])
+def test_histogram_items_bit_equal_to_plain(kind, shape, smem, private,
+                                            monkeypatch):
+    T, m, n, n_nodes, n_bins, S = shape
+    rng = np.random.RandomState(12)
+    node, bx, w, stats = _hist_inputs(rng, T, m, n, n_nodes, n_bins, S)
+    node = _layout(kind, rng, T, m, n_nodes)
+    if kind == "nan-on-zero-weight":
+        w[:, 5] = 0
+        stats[5, 0] = np.nan
+    plan = _small_plan(monkeypatch, shape, smem,
+                       private_rows=1 if private else 1 << 30)
+    assert bool(plan.private) == private
+    if kind == "feature-groups":
+        assert plan.n_fgroups > 1
+    if kind == "sliced-features":
+        assert plan.n_slices > 1
+    idx, node_start = _emulate_partition(node, w, stats, n_nodes, plan)
+    got = _emulate_histogram(bx, w, stats, idx, node_start, n_nodes, n_bins,
+                             plan)
+    want = _port_hist(node, bx, w, stats, n_nodes, n_bins)
+    np.testing.assert_array_equal(got, want)
+    if kind == "one-node":                # split into items that add
+        assert node_start[0, -1] > 2 * plan.rows_per_item
+    if kind == "nan-on-zero-weight":
+        assert np.isnan(want).any()
 
 
 @pytest.mark.parametrize("shape", [
@@ -226,12 +346,15 @@ def test_hist_plan_covers_the_histogram(shape, smem, monkeypatch):
 def test_hist_plan_at_the_estimators_shapes(shape):
     T, m, n, n_nodes, n_bins, S = shape
     plan = port_k.hist_plan(T, m, n, n_nodes, n_bins, S, n_sms=132)
-    assert plan.fg * plan.slice_len * 4 <= port_k.HIST_SMEM_BYTES
-    assert plan.n_slices * plan.slice_len >= n_nodes * n_bins * S
-    assert (plan.n_slices - 1) * plan.slice_len < n_nodes * n_bins * S
-    assert plan.n_fgroups * plan.fg >= n
-    assert 0 <= m - (plan.n_chunks - 1) * plan.rows_per_chunk \
-        <= plan.rows_per_chunk
+    assert port_k.hist_smem_bytes(plan) <= port_k.HIST_SMEM_BYTES \
+        + port_k._HIST_TILE_BYTES <= 227 * 1024
+    assert plan.n_slices * plan.slice_len >= n_bins * S
+    assert (plan.n_slices - 1) * plan.slice_len < n_bins * S
+    assert plan.n_fgroups * plan.fgs >= n and plan.fgs <= 32 * plan.J
+    assert plan.n_pchunks * port_k._PART_WARPS * plan.rows_per_warp >= m
+    assert (plan.n_pchunks - 1) * port_k._PART_WARPS * plan.rows_per_warp < m
+    # the partition's per-warp counters fit beside nothing else
+    assert port_k._PART_WARPS * n_nodes * 4 <= 227 * 1024
 
 
 # -- binning -------------------------------------------------------------------
