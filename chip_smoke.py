@@ -15,11 +15,17 @@ product, or the float32-faithful 3xTF32 product, which must also come
 within 1/8 of a single-pass TF32 product's error), a 16-tree
 ``RandomForestClassifier`` at the default depth on 1,000,000 x 100 rows, a
 ``DecisionTreeClassifier`` fitted on the card and on the CPU, and an 8-tree
-``RandomForestRegressor`` — and checks every result.  Each phase prints one
-JSON line; the line before the last lists every kernel with its launches on
-the main path, its error against the plain version, its time, the plain
-version's and the library call's time, and the least time the card could
-take (``bound_ms``).  The last line is::
+``RandomForestRegressor`` — then the blocked linear algebra at bench.py's
+full widths under both precision policies (``tsqr`` 65536 x 256 by both
+local-QR routes, ``qr`` economic 32768 x 1024 and full 4096 x 512,
+``random_svd`` and ``PCA`` on 32768 x 1024, ``svd`` 4096 x 512 and
+4096 x 100, ``polar`` 16384 x 1024, ``lanczos_svd`` and ``kron``), each
+against a float64 NumPy oracle within its ``ERROR_BOUNDS`` row and with
+its host reads and one profiled call — and checks every result.  Each
+phase prints one JSON line; the line before the last lists every kernel
+with its launches on the main path, its error against the plain version,
+its time, the plain version's and the library call's time, and the least
+time the card could take (``bound_ms``).  The last line is::
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
 
@@ -82,6 +88,19 @@ GEMM_PARTS = {"panel_gemm_mainloop": ("gemm_kernel",),
               "acc_add": ("_add",),
               "zero_fill": ("Fill",)}
 DEVICE = "cuda:0"
+# the blocked linear algebra at bench.py's full widths: tsqr_65536x256,
+# randomsvd_32768x1024 (nsv 64, iters 2), svd_4096x512, polar_16384x1024;
+# qr economic over 4 panels of 256, qr full through the complement
+# (m - n > 256), the scalar svd tier (n < 128), and lanczos and kron at
+# sizes a float64 oracle checks in seconds
+TSQR = (65536, 256)
+QR_ECON, QR_FULL = (32768, 1024), (4096, 512)
+RSVD, RSVD_NSV, RSVD_ITERS = (32768, 1024), 64, 2
+SVD_BLOCK, SVD_SCALAR = (4096, 512), (4096, 100)
+POLAR = (16384, 1024)
+LANCZOS, LANCZOS_K = (8192, 512), 6
+KRON = ((64, 64), (64, 64))
+POLICIES = ("float32", "bfloat16")
 
 
 def emit(obj) -> None:
@@ -146,7 +165,10 @@ def profile_device(fn):
 
     The profiler's first kernels after it starts can go unrecorded or run
     slow, so ``fn`` runs once untimed inside it first; only the device
-    spans that start inside the marked, timed second call are kept."""
+    spans that start inside the marked, timed second call are kept.  The
+    device's and the host's clocks can disagree by microseconds, which
+    once dropped the window's first kernel, so a 50 ms gap separates the
+    two calls and the window opens 25 ms early."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -155,6 +177,7 @@ def profile_device(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
         with record_function(mark):
             t0 = time.perf_counter()
             fn()
@@ -162,7 +185,8 @@ def profile_device(fn):
             wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
     opened = min(e.time_range.start for e in events
-                 if e.name == mark and e.device_type == DeviceType.CPU)
+                 if e.name == mark and e.device_type == DeviceType.CPU) \
+        - 25_000                        # µs: half the gap
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events
                    if e.device_type == DeviceType.CUDA and e.name != mark
@@ -216,6 +240,308 @@ def sass_counts(lib_path, nvcc, ops=("HGMMA", "UTMALDG")):
                           text=True, timeout=300, check=True).stdout
     lines = sass.splitlines()
     return {op: sum(op in ln for ln in lines) for op in ops}
+
+
+def med_s(fn, reps=5):
+    """Median wall seconds of ``fn`` over ``reps`` synchronised calls."""
+    import numpy as np
+    import torch
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def numpy_random_svd(x, sketch, iters, seed=0):
+    """bench.py's ``_numpy_random_svd``: the same algorithm in NumPy, the
+    proxy of ``bench_randomsvd``'s 1% gate."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    omega = rng.standard_normal((x.shape[1], sketch)).astype(np.float32)
+    q, _ = np.linalg.qr(x @ omega)
+    for _ in range(iters):
+        qz, _ = np.linalg.qr(x.T @ q)
+        q, _ = np.linalg.qr(x @ qz)
+    b = q.T @ x
+    ub, s, vt = np.linalg.svd(b, full_matrices=False)
+    return q @ ub, s, vt
+
+
+def orth_err(q):
+    """‖QᵀQ − I‖_max in float64 on the host."""
+    import numpy as np
+    q = q.astype(np.float64)
+    return float(np.abs(q.T @ q - np.eye(q.shape[1])).max())
+
+
+def rel_resid(approx, x):
+    """‖approx − X‖_F / ‖X‖_F in float64 on the host."""
+    import numpy as np
+    x = x.astype(np.float64)
+    return float(np.linalg.norm(approx - x) / np.linalg.norm(x))
+
+
+def linalg_phases(dev):
+    """The ds-array's blocked linear algebra through its entry points at
+    bench.py's full widths, under both precision policies.  Each result
+    is checked on the host against a float64 NumPy oracle within its
+    ``ERROR_BOUNDS`` row (and bench.py's own gate where the row has one).
+    Each entry point prints its first and its timed (second) call's wall
+    time, synchronised, the timed call's host reads and kernel launches
+    (none: this slice runs no hand kernel), and one profiled FLOAT32
+    call's device busy/idle and top kernels.  Returns the tsqr route A/B
+    and the wall times."""
+    import importlib
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.utils import profiling as prof
+    bounds = px.ERROR_BOUNDS
+    summary, launches = {}, {}
+
+    def drive(name, fn, gate, policies=POLICIES):
+        res = {}
+        for pol in policies:
+            t0 = time.perf_counter()
+            out = fn(pol)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            gates = gate(out, pol)
+            del out
+            prof.reset_host_reads()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(pol)
+            torch.cuda.synchronize()
+            res[pol] = {"first_call_s": first,
+                        "seconds": time.perf_counter() - t0,
+                        "host_reads": dict(prof.HOST_READS),
+                        "launches": dict(K.LAUNCHES), **gates}
+            for k, n in K.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + n
+            del out
+        wall_us, busy, spans = profile_device(lambda: fn(policies[0]))
+        res["profiled_" + policies[0]] = {
+            "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "kernels_ms": top_kernels(spans)}
+        emit({"phase": "linalg", "entry": name, **res})
+        summary[name] = {pol: res[pol]["seconds"] for pol in policies}
+        torch.cuda.empty_cache()
+        return res
+
+    def qr_gate(key, x):
+        def gate(out, pol):
+            q, r = (a.collect() for a in out)
+            o = orth_err(q)
+            rr = rel_resid(q.astype(np.float64) @ r, x)
+            check(o <= bounds[(key + "_orth", pol)]
+                  and rr <= bounds[(key + "_resid", pol)],
+                  f"{key} {pol} {x.shape}: orth {o}, resid {rr} outside "
+                  "ERROR_BOUNDS")
+            return {"orth_err": o, "resid": rr}
+        return gate
+
+    # -- tsqr: bench_tsqr's data, both local-QR routes ------------------------
+    rng = np.random.RandomState(0)
+    x = rng.standard_normal(TSQR).astype(np.float32)
+    X = dst.array(x)
+    tsqr_gate = qr_gate("tsqr", x)
+
+    def tsqr_bench_gate(out, pol):
+        got = tsqr_gate(out, pol)
+        q, r = (a.collect() for a in out)
+        # bench_tsqr's own gate
+        np.testing.assert_allclose(q @ r, x, rtol=1e-2, atol=1e-2)
+        np.testing.assert_allclose(q.T @ q, np.eye(TSQR[1]), atol=1e-2)
+        return got
+
+    routes = {}
+    saved = os.environ.get("DSLIB_TSQR_CHOLQR")
+    try:
+        for route, flag in (("tree", "0"), ("cholqr2", "1")):
+            os.environ["DSLIB_TSQR_CHOLQR"] = flag
+            drive(f"tsqr[{route}]",
+                  lambda pol: dst.tsqr(X, precision=pol), tsqr_bench_gate)
+            routes[route] = med_s(lambda: dst.tsqr(X))
+    finally:
+        if saved is None:
+            os.environ.pop("DSLIB_TSQR_CHOLQR", None)
+        else:
+            os.environ["DSLIB_TSQR_CHOLQR"] = saved
+    tsqr_mod = importlib.import_module("dislib_tpu_torch.decomposition.tsqr")
+    auto = "cholqr2" if tsqr_mod._use_cholqr(dev) else "tree"
+    # do batched factorisations run as one call or loop over the batch?
+    g = torch.Generator(device=dev).manual_seed(1)
+    panels = torch.randn((32, 2048, 256), generator=g, device=dev)
+    pairs = torch.randn((4, 128, 128), generator=g, device=dev)
+    batched = {
+        "qr_32x2048x256": {
+            "batched_s": med_s(lambda: torch.linalg.qr(panels)),
+            "one_panel_s": med_s(lambda: torch.linalg.qr(panels[0])),
+            "loop_s": med_s(lambda: [torch.linalg.qr(p) for p in panels])},
+        "svd_4x128x128": {
+            "batched_s": med_s(lambda: torch.linalg.svd(pairs)),
+            "one_s": med_s(lambda: torch.linalg.svd(pairs[0])),
+            "loop_s": med_s(lambda: [torch.linalg.svd(p) for p in pairs])}}
+    del panels, pairs
+    # the route DSLIB_TSQR_CHOLQR=auto takes on the card must be the faster
+    check(routes[auto] <= min(routes.values()),
+          f"tsqr: auto takes {auto}, but the routes measured {routes}")
+    emit({"phase": "tsqr_routes", "shape": list(TSQR),
+          "median_s": routes, "auto_route": auto,
+          "batched_factorisations": batched})
+    del X
+
+    # -- qr: the blocked panel loop (economic) and the complement (full) ------
+    x = rng.standard_normal(QR_ECON).astype(np.float32)
+    X = dst.array(x)
+    drive("qr[economic]", lambda pol: dst.qr(X, mode="economic",
+                                              precision=pol),
+          qr_gate("qr", x))
+    x = rng.standard_normal(QR_FULL).astype(np.float32)
+    X = dst.array(x)
+
+    def full_gate(out, pol):
+        got = qr_gate("qr", x)(out, pol)
+        check(out[0].shape == (QR_FULL[0], QR_FULL[0]) and out[1].shape
+              == QR_FULL, f"qr full shapes {out[0].shape}, {out[1].shape}")
+        return got
+
+    drive("qr[full]", lambda pol: dst.qr(X, mode="full", precision=pol),
+          full_gate)
+
+    # -- random_svd and PCA on bench_randomsvd's data ------------------------
+    rng = np.random.RandomState(0)
+    x = (rng.standard_normal(RSVD) * 0.95 ** np.arange(RSVD[1])).astype(
+        np.float32)
+    x64 = x.astype(np.float64)
+    mu = x64.mean(0)
+    gram = x64.T @ x64
+    s_exact = np.sqrt(np.maximum(np.linalg.eigvalsh(gram)[::-1], 0.0))
+    var_exact = np.linalg.eigvalsh((gram - RSVD[0] * np.outer(mu, mu))
+                                   / (RSVD[0] - 1))[::-1]
+    del gram
+    _, s_proxy, _ = numpy_random_svd(x, RSVD_NSV + 10, RSVD_ITERS)
+    X = dst.array(x)
+
+    def rsvd_gate(out, pol):
+        u, s, v = out
+        s = s.collect().ravel()
+        check(u.shape == (RSVD[0], RSVD_NSV) and v.shape == (RSVD[1],
+                                                             RSVD_NSV),
+              f"random_svd shapes {u.shape}, {v.shape}")
+        # bench_randomsvd's gate, then the bound on the same 16 values
+        np.testing.assert_allclose(s[:16], s_proxy[:16], rtol=1e-2)
+        err = float(np.abs(s[:16] - s_exact[:16]).max() / s_exact[0])
+        check(err <= bounds[("randomsvd_values", pol)],
+              f"random_svd {pol}: top-16 error {err} > ERROR_BOUNDS")
+        return {"top16_err_vs_exact": err,
+                "top16_rel_vs_numpy_proxy": float(np.max(np.abs(
+                    s[:16] - s_proxy[:16]) / s_proxy[:16]))}
+
+    drive("random_svd", lambda pol: dst.random_svd(
+        X, iters=RSVD_ITERS, nsv=RSVD_NSV, oversample=10, random_state=0,
+        precision=pol), rsvd_gate)
+
+    def pca_gate(method):
+        def gate(est, pol):
+            var = est.explained_variance_.collect().ravel()
+            err = float(np.abs(var[:RSVD_NSV] - var_exact[:RSVD_NSV]).max()
+                        / var_exact[0])
+            # the reference's PCA policy bound: 2e-2 under bfloat16
+            tol = 1e-4 if pol == "float32" else 2e-2
+            back = est.inverse_transform(est.transform(X)).collect()
+            recon = rel_resid(back.astype(np.float64), x)
+            check(err <= tol and recon <= tol,
+                  f"PCA {method} {pol}: variance error {err}, "
+                  f"reconstruction {recon} > {tol}")
+            return {"top64_var_err_vs_f64_eigh": err,
+                    "reconstruction_err": recon}
+        return gate
+
+    for method in ("eig", "svd"):
+        drive(f"PCA[{method}]", lambda pol: dst.PCA(
+            method=method, precision=pol).fit(X), pca_gate(method))
+    del X, x64
+
+    # -- svd: the block tier (bench_svd's data) and the scalar tier ----------
+    for shape, tier in ((SVD_BLOCK, "block"), (SVD_SCALAR, "scalar")):
+        x = np.random.RandomState(0).rand(*shape).astype(np.float32)
+        s64 = np.linalg.svd(x.astype(np.float64), compute_uv=False)
+        X = dst.array(x)
+
+        def svd_gate(out, pol):
+            u, s, v = (a.collect() for a in out)
+            s = s.ravel()
+            # bench_svd's gate, then the bounds
+            np.testing.assert_allclose(s, s64, rtol=1e-3, atol=1e-3 * s64[0])
+            verr = float(np.abs(s - s64).max() / s64[0])
+            rr = rel_resid((u.astype(np.float64) * s) @ v.T, x)
+            check(verr <= bounds[("svd_values", pol)]
+                  and rr <= bounds[("svd_resid", pol)],
+                  f"svd {shape} {pol}: values {verr}, resid {rr} outside "
+                  "ERROR_BOUNDS")
+            return {"values_err": verr, "resid": rr}
+
+        drive(f"svd[{tier}]", lambda pol: dst.svd(X, precision=pol),
+              svd_gate)
+
+    # -- polar: bench_polar's data and gates ----------------------------------
+    x = np.random.RandomState(0).standard_normal(POLAR).astype(np.float32)
+    X = dst.array(x)
+
+    def polar_gate(out, pol):
+        u, h, nfo = out
+        uh = u.collect()
+        o = orth_err(uh)
+        rr = rel_resid(uh.astype(np.float64) @ h.collect(), x)
+        check(o <= bounds[("polar_orth", pol)]
+              and rr <= bounds[("polar_resid", pol)],
+              f"polar {pol}: orth {o}, resid {rr} outside ERROR_BOUNDS")
+        if pol == "float32":      # bench_polar's gates
+            check(o <= bounds[("polar_orth", pol)] * 10 and rr <= 1e-4,
+                  f"polar: bench gate, orth {o}, recon {rr}")
+        return {"orth_err": o, "resid": rr, "iterations": nfo["iterations"],
+                "reported_ortho_err": nfo["ortho_err"]}
+
+    drive("polar", lambda pol: dst.polar(X, precision=pol, info=True),
+          polar_gate)
+
+    # -- lanczos_svd and kron --------------------------------------------------
+    rng = np.random.RandomState(6)
+    x = (rng.standard_normal(LANCZOS) * 0.9 ** np.arange(LANCZOS[1])).astype(
+        np.float32)
+    s64 = np.linalg.svd(x.astype(np.float64), compute_uv=False)
+    X = dst.array(x)
+
+    def lanczos_gate(out, pol):
+        s = out[1].collect().ravel()
+        err = float(np.abs(s - s64[:LANCZOS_K]).max() / s64[0])
+        check(err <= bounds[("lanczos_values", pol)],
+              f"lanczos_svd {pol}: values error {err} > ERROR_BOUNDS")
+        return {"values_err": err}
+
+    drive("lanczos_svd", lambda pol: dst.lanczos_svd(
+        X, k=LANCZOS_K, random_state=0, precision=pol), lanczos_gate)
+    a = rng.standard_normal(KRON[0]).astype(np.float32)
+    b = rng.standard_normal(KRON[1]).astype(np.float32)
+    A, Bk = dst.array(a), dst.array(b)
+
+    def kron_gate(out, pol):
+        check(np.array_equal(out.collect(), np.kron(a, b)),
+              "kron differs from np.kron")
+        return {"bit_equal_to_np_kron": True}
+
+    drive("kron", lambda pol: dst.kron(A, Bk), kron_gate,
+          policies=("float32",))
+    return {"tsqr_routes_s": routes, "tsqr_auto_route": auto,
+            "seconds": summary, "launches_in_timed_calls": launches}
 
 
 def main() -> int:
@@ -905,7 +1231,15 @@ def main() -> int:
           "same_seed_bit_identical": same_forest(rr, rr2),
           "launches": launches_rr})
 
-    # -- (8) the kernels line, then the result --------------------------------------
+    # -- (8) the blocked linear algebra ------------------------------------------
+    del X, Y, Yr, x_f, y_r
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    la = linalg_phases(dev)
+    emit({"phase": "linalg_summary", "seconds": time.perf_counter() - t0,
+          **la})
+
+    # -- (9) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["distances_sq"]["launches"] = launches_km["distances_sq"]
     for pol in ("float32", "bfloat16"):

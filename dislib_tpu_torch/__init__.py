@@ -12,10 +12,18 @@ wrapper runs its plain PyTorch version.  This package imports neither
 """
 
 from dislib_tpu_torch.parallel.mesh import init, get_mesh
-from dislib_tpu_torch.data.array import Array, array, zeros
-from dislib_tpu_torch.math.base import matmul
+from dislib_tpu_torch.data.array import (
+    Array, array, random_array, zeros, full, ones, identity, eye,
+    apply_along_axis, concat_rows, concat_cols, rechunk, ensure_canonical,
+)
+from dislib_tpu_torch.math import matmul, kron, svd, qr, polar
+from dislib_tpu_torch.decomposition import tsqr, random_svd, lanczos_svd, PCA
 from dislib_tpu_torch.cluster.kmeans import KMeans
-from dislib_tpu_torch import cluster, trees
+from dislib_tpu_torch import cluster, decomposition, math, trees
 
-__all__ = ["init", "get_mesh", "Array", "array", "zeros", "matmul",
-           "KMeans", "cluster", "trees"]
+__all__ = ["init", "get_mesh", "Array", "array", "random_array", "zeros",
+           "full", "ones", "identity", "eye", "apply_along_axis",
+           "concat_rows", "concat_cols", "rechunk", "ensure_canonical",
+           "matmul", "kron", "svd", "qr", "polar",
+           "tsqr", "random_svd", "lanczos_svd", "PCA",
+           "KMeans", "cluster", "decomposition", "math", "trees"]

@@ -97,6 +97,11 @@ def resolve(precision=None) -> Policy:
     return _POLICIES[key]
 
 
+def of_name(name: str) -> Policy:
+    """Policy from its canonical name (``"float32"`` | ``"bfloat16"``)."""
+    return _POLICIES[name]
+
+
 def compute_dtype(policy: Policy) -> torch.dtype:
     return _DTYPES[policy.compute]
 
@@ -170,3 +175,16 @@ def pdot(a: torch.Tensor, b: torch.Tensor,
     acc = result_dtype(a, b, policy)
     with _f32_scope():
         return torch.matmul(a.to(acc), b.to(acc))
+
+
+def peinsum(subscripts: str, a: torch.Tensor, b: torch.Tensor,
+            policy: Policy = FLOAT32) -> torch.Tensor:
+    """The policy-routed einsum — :func:`pdot` for contractions a plain
+    matmul cannot spell (the block-Jacobi SVD's batched pair updates).
+    Same contract as :func:`pdot`: operands rounded to the policy compute
+    dtype, contracted in the accumulation dtype with TF32 off."""
+    a = to_compute(a, policy)
+    b = to_compute(b, policy)
+    acc = result_dtype(a, b, policy)
+    with _f32_scope():
+        return torch.einsum(subscripts, a.to(acc), b.to(acc))

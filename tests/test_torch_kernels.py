@@ -140,14 +140,24 @@ def test_wrappers_reject_mixed_devices():
 # -- (g) the import rule -------------------------------------------------------
 
 def test_import_pulls_in_neither_jax_nor_the_reference():
-    code = ("import sys, dislib_tpu_torch; "
+    """Every module of the package, imported in a fresh interpreter,
+    leaves neither JAX nor the reference in ``sys.modules``."""
+    code = ("import importlib, pkgutil, sys, dislib_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'dislib_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'dislib_tpu' "
-            "or m.startswith('dislib_tpu.')]; print(bad)")
+            "or m.startswith('dislib_tpu.')]; print(len(mods), bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
-    assert out.stdout.strip() == "[]", out.stdout
+    n_mods, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]", out.stdout
+    on_disk = sum(f.endswith(".py") for _, _, files in
+                  os.walk(os.path.join(REPO, "dislib_tpu_torch"))
+                  for f in files) - 1       # the package's own __init__
+    assert int(n_mods) == on_disk, out.stdout
 
 
 def test_package_source_has_no_forbidden_import():

@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Measure what two repairs in the port's linear algebra guard against, and
+time a forest's first fit.
+
+Run from the root of a checkout::
+
+    PYTHONPATH=. python3 tools/torch_linalg_diag.py         # on the card
+    PYTHONPATH=. python3 tools/torch_linalg_diag.py --cpu   # on the CPU
+    PYTHONPATH=. python3 <this file> --forest   # from any checkout's root
+
+The default mode prints one JSON line per measurement, after the card's
+name and power limit:
+
+- ``pair_svd``: the (4, 128, 128) R factors of the block-Jacobi SVD's first
+  round on ``bench_svd``'s data (uniform 4096 x 512, seed 0), factored by
+  ``torch.linalg.svd`` alone and by ``math.base._pair_svd``: max |UᵀU − I|,
+  max |VVᵀ − I| and the reconstruction error relative to max |R|;
+- ``svd``: that data through ``svd`` with ``_pair_svd`` and with
+  ``torch.linalg.svd`` in its place: the values' error relative to σ₁ and
+  the residual ‖A − U S Vᵀ‖_F / ‖A‖_F against float64 NumPy, and sweeps;
+- ``qr_full``: ``qr(mode="full")`` of a standard normal 4096 x 512 (seed 0)
+  with the complement projected against Q₁ once (the reference's
+  algorithm) and twice (the port's), under both policies: ‖QᵀQ − I‖_max
+  and max |Q₁ᵀQ₂|.
+
+``--forest`` prints the wall time of a 16-tree ``RandomForestClassifier``
+fit on 1,000,000 x 100 rows (``bench.py``'s ``bench_forest`` draw) three
+times in one fresh process: the first fit carries the process's first-call
+costs.  Run it from the root of two checkouts in turns to compare them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def synced(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def forest_fits(dev) -> None:
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch import _build
+    from dislib_tpu_torch.trees import RandomForestClassifier
+    dst.init(device=dev)
+    _build.build_all()
+    rng = np.random.RandomState(5)              # bench.py's _blobs
+    centers = rng.rand(8, 100).astype(np.float32)
+    lab = rng.randint(0, 8, 1_000_000)
+    x = (centers[lab] + 0.08 * rng.standard_normal(
+        (1_000_000, 100)).astype(np.float32)).astype(np.float32)
+    X = dst.array(x)
+    Y = dst.array((lab % 2).astype(np.float32)[:, None])
+    synced(dev)
+    fits = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        RandomForestClassifier(n_estimators=16, random_state=0).fit(X, Y)
+        synced(dev)
+        fits.append(time.perf_counter() - t0)
+    emit({"forest_fits_s": fits, "package": dst.__file__})
+
+
+def _orth(q: torch.Tensor) -> float:
+    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+    return float((q.transpose(-2, -1) @ q - eye).abs().max())
+
+
+def pair_svd(dev, x) -> None:
+    from dislib_tpu_torch.math import base
+    from dislib_tpu_torch.ops import precision as px
+    a = torch.from_numpy(x).to(dev)
+    i, j = (torch.as_tensor(base._round_robin_pairs(8)[0], device=dev).T)
+    blocks = a.view(a.shape[0], 8, 64)
+    w = torch.cat([blocks[:, i], blocks[:, j]], dim=-1).transpose(0, 1)
+    with px.precise():
+        _, r = torch.linalg.qr(w)
+        for name, fn in (("torch.linalg.svd", torch.linalg.svd),
+                         ("_pair_svd", base._pair_svd)):
+            u, s, vh = fn(r)
+            rec = float(((u * s[:, None, :]) @ vh - r).abs().max()
+                        / r.abs().max())
+            emit({"measure": "pair_svd", "factoring": name,
+                  "orth_u": _orth(u), "orth_v": _orth(vh.transpose(1, 2)),
+                  "reconstruction": rec})
+
+
+def svd(dev, x) -> None:
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.math import base
+    from dislib_tpu_torch.utils import profiling as prof
+    s64 = np.linalg.svd(x.astype(np.float64), compute_uv=False)
+    refined = base._pair_svd
+    try:
+        for name, fn in (("_pair_svd", refined),
+                         ("torch.linalg.svd", torch.linalg.svd)):
+            base._pair_svd = fn
+            prof.reset_host_reads()
+            u, s, v = (t.collect().astype(np.float64)
+                       for t in dst.svd(dst.array(x, device=dev)))
+            s = s.ravel()
+            emit({"measure": "svd", "shape": list(x.shape),
+                  "pair_factoring": name,
+                  "values_err": float(np.abs(s - s64).max() / s64[0]),
+                  "resid": float(np.linalg.norm((u * s) @ v.T - x)
+                                 / np.linalg.norm(x)),
+                  "sweeps": prof.HOST_READS.get("svd_sweep")})
+    finally:
+        base._pair_svd = refined
+
+
+def qr_full(dev) -> None:
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import precision as px
+    qr_mod = importlib.import_module("dislib_tpu_torch.math.qr")
+    twice = qr_mod._qr_full_distributed
+
+    def once(a, m, n, mesh, p, policy=px.FLOAT32):
+        """The reference's algorithm: one projection pass of the seed."""
+        cholqr = qr_mod._use_cholqr(a.device)
+        q1, r = qr_mod._qr_blocked(a._data, (m, n), mesh, p, qr_mod._PANEL,
+                                   cholqr=cholqr, policy=policy)
+        g = qr_mod._qr_complement_seed(q1, (m, n), m - n, mesh, policy)
+        q2, _ = qr_mod._qr_blocked(g, (m, m - n), mesh, p, qr_mod._PANEL,
+                                   cholqr=cholqr, policy=policy)
+        q = torch.cat([q1[:, :n], q2[:, :m - n]], dim=1)[:m]
+        return dst.Array._from_logical(q, mesh), None
+
+    x = np.random.RandomState(0).standard_normal((4096, 512)).astype(
+        np.float32)
+    n = x.shape[1]
+    try:
+        for name, fn in (("once", once), ("twice", twice)):
+            qr_mod._qr_full_distributed = fn
+            for pol in ("float32", "bfloat16"):
+                q = dst.qr(dst.array(x, device=dev),
+                           precision=pol)[0].collect().astype(np.float64)
+                emit({"measure": "qr_full", "shape": list(x.shape),
+                      "complement_passes": name, "policy": pol,
+                      "orth": float(np.abs(q.T @ q - np.eye(q.shape[0]))
+                                    .max()),
+                      "q1_q2": float(np.abs(q[:, :n].T @ q[:, n:]).max())})
+    finally:
+        qr_mod._qr_full_distributed = twice
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--forest", action="store_true",
+                    help="time a forest's first and later fits")
+    args = ap.parse_args()
+    if not args.cpu and not torch.cuda.is_available():
+        print("no CUDA device; pass --cpu", file=sys.stderr)
+        return 1
+    dev = torch.device("cpu" if args.cpu else "cuda:0")
+    if dev.type == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip(), flush=True)
+    if args.forest:
+        forest_fits(dev)
+        return 0
+    x = np.random.RandomState(0).rand(4096, 512).astype(np.float32)
+    pair_svd(dev, x)
+    svd(dev, x)
+    qr_full(dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
