@@ -15,7 +15,15 @@ product, or the float32-faithful 3xTF32 product, which must also come
 within 1/8 of a single-pass TF32 product's error), a 16-tree
 ``RandomForestClassifier`` at the default depth on 1,000,000 x 100 rows, a
 ``DecisionTreeClassifier`` fitted on the card and on the CPU, and an 8-tree
-``RandomForestRegressor`` — then the blocked linear algebra at bench.py's
+``RandomForestRegressor`` (two fits with one seed must be identical);
+KMeans with ``tol > 0`` (it must stop within a chunk of its convergence),
+``MiniBatchKMeans`` over the KMeans data in 4096-row batches (each update
+against a float64 NumPy replay), ``GaussianMixture`` at BASELINE config 5
+(1,000,000 x 50, k = 16, full covariances; one EM step against bench.py's
+NumPy EM step in float64), ``StandardScaler``/``MinMaxScaler``,
+``LinearRegression`` and ``Lasso`` on 1,000,000 x 100 against float64
+NumPy, ``matmul``'s default route under both policies — then the blocked
+linear algebra at bench.py's
 full widths under both precision policies (``tsqr`` 65536 x 256 by both
 local-QR routes, ``qr`` economic 32768 x 1024 and full 4096 x 512,
 ``random_svd`` and ``PCA`` on 32768 x 1024, ``svd`` 4096 x 512 and
@@ -50,6 +58,11 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# the kernel torch.cuda._sleep launches; it marks a profiled window's start
+WINDOW_MARK = "spin_kernel"
+PROFILE_SESSIONS = 5    # profiler sessions a profiled call may take
+PROFILE_PRIME = 300     # spin kernels that open each profiler session
+PROFILE_LOG = []        # each profiled call's sessions and clock gap
 
 KM_M, KM_N, KM_K = 1_000_000, 100, 10
 GEMM_N = 16384
@@ -101,10 +114,29 @@ POLAR = (16384, 1024)
 LANCZOS, LANCZOS_K = (8192, 512), 6
 KRON = ((64, 64), (64, 64))
 POLICIES = ("float32", "bfloat16")
+# GaussianMixture: BASELINE config 5 / bench.py's bench_gmm, 5 EM
+# iterations from the random init, full covariances
+GM_M, GM_N, GM_K, GM_ITERS = 1_000_000, 50, 16, 5
+# MiniBatchKMeans on the KMeans data: one epoch of 4096-row batches
+MBK_BATCH = 4096
+# the scalers (column means near 1000) and the regressions
+SC_M, SC_N = 1_000_000, 100
+LR_M, LR_N = 1_000_000, 100
+# Lasso: kappa = lmbd / rho = 0.05; the solution is about the soft
+# threshold of beta at lmbd / ||x_j||² ≈ 0.005, so the zero and the small
+# coefficients of beta come out 0
+LASSO_LMBD, LASSO_RHO, LASSO_ITERS = 5e3, 1e5, 500
+# the regressor's node_histogram: 8 trees, 1M x 100, depth 8, [w, wy, wy²]
+RR_T, RR_DEPTH, RR_S = 8, 8, 3
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def check(cond, what) -> None:
@@ -163,34 +195,55 @@ def profile_device(fn):
     busy time (the union of its kernel spans) and the spans (start_us,
     end_us, name) in start order.
 
-    The profiler's first kernels after it starts can go unrecorded or run
-    slow, so ``fn`` runs once untimed inside it first; only the device
-    spans that start inside the marked, timed second call are kept.  The
-    device's and the host's clocks can disagree by microseconds, which
-    once dropped the window's first kernel, so a 50 ms gap separates the
-    two calls and the window opens 25 ms early."""
+    Late in a long run the profiler can drop a leading stretch of a
+    session's device work (up to ~0.13 s of it in the runs seen).  So ``fn`` runs once
+    untimed, then ``PROFILE_PRIME`` spin kernels (``torch.cuda._sleep``,
+    ~1 ms each on an H100) give the loss something else to take, then a
+    short spin kernel marks the window, and only the device spans of the
+    timed call that follows it are kept: the window is cut on the
+    device's own clock, which the host's, as the profiler aligns them,
+    can miss by ms.  The loss being a leading stretch, a recorded marker
+    shows that all of the call was recorded; a session without it is taken
+    again, at most ``PROFILE_SESSIONS`` in all.  ``PROFILE_LOG`` gets, for
+    each call, the sessions taken, the spins the last one lost and the
+    marker's start on the device less its launch on the host (a launch's
+    latency plus the two clocks' disagreement)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    mark = "chip_smoke:window"
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        with record_function(mark):
+    host_mark = "chip_smoke:window"
+    for session in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(PROFILE_PRIME):
+                torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+            with record_function(host_mark):
+                torch.cuda._sleep(1000)        # the window's marker
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    opened = min(e.time_range.start for e in events
-                 if e.name == mark and e.device_type == DeviceType.CPU) \
-        - 25_000                        # µs: half the gap
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in events
-                   if e.device_type == DeviceType.CUDA and e.name != mark
-                   and e.time_range.start >= opened)
+        events = prof.events()
+        device = [(e.time_range.start, e.time_range.end, e.name)
+                  for e in events
+                  if e.device_type == DeviceType.CUDA and e.name != host_mark]
+        spins = [sp for sp in device if WINDOW_MARK in sp[2]]
+        marks = [sp for sp in spins if sp[1] - sp[0] < 100.0]     # µs
+        if len(marks) == 1:
+            break
+    check(len(marks) == 1, f"{PROFILE_SESSIONS} profiler sessions recorded "
+          f"no window marker (the last: {len(device)} device spans)")
+    launched = min(e.time_range.start for e in events
+                   if e.name == host_mark and e.device_type == DeviceType.CPU)
+    PROFILE_LOG.append({"sessions": session,
+                        "spins_lost": PROFILE_PRIME + 1 - len(spins),
+                        "clock_gap_us": marks[0][0] - launched})
+    spans = sorted(sp for sp in device
+                   if sp[0] >= marks[0][0] and WINDOW_MARK not in sp[2])
     check(spans, "the profiler recorded no device work")
     busy, end = 0.0, float("-inf")
     for s, e, _ in spans:
@@ -284,6 +337,423 @@ def rel_resid(approx, x):
     return float(np.linalg.norm(approx - x) / np.linalg.norm(x))
 
 
+def numpy_gmm_iter(x, weights, means, covs, reg=1e-6):
+    """bench.py's ``_numpy_gmm_iter``: one full-covariance EM iteration
+    (log-domain responsibilities), here in the dtype of its inputs
+    (float64 in the gate)."""
+    import numpy as np
+    m, n = x.shape
+    k = means.shape[0]
+    log_prob = np.empty((m, k), x.dtype)
+    for j in range(k):
+        chol = np.linalg.cholesky(covs[j])
+        dev = np.linalg.solve(chol, (x - means[j]).T)
+        log_det = 2.0 * np.log(np.diag(chol)).sum()
+        log_prob[:, j] = -0.5 * (n * np.log(2 * np.pi) + log_det
+                                 + (dev * dev).sum(0))
+    wlp = log_prob + np.log(weights)[None]
+    norm = wlp.max(1, keepdims=True)
+    resp = np.exp(wlp - norm)
+    resp /= resp.sum(1, keepdims=True)
+    nk = resp.sum(0) + 1e-10
+    means = resp.T @ x / nk[:, None]
+    covs = np.empty_like(covs)
+    for j in range(k):
+        diff = x - means[j]
+        covs[j] = (resp[:, j, None] * diff).T @ diff / nk[j] \
+            + reg * np.eye(n, dtype=x.dtype)
+    return nk / m, means, covs
+
+
+def numpy_admm(x, y, rho, kappa, abstol, reltol, max_iter):
+    """Consensus ADMM with one agent and the soft-threshold prox in
+    float64 NumPy, the port's iteration and stopping test
+    (``optimization/admm.py``).  Returns (z, n_iter, converged)."""
+    import numpy as np
+    n = x.shape[1]
+    chol = np.linalg.cholesky(x.T @ x + rho * np.eye(n))
+    atb = x.T @ y[:, 0]
+    z, u = np.zeros(n), np.zeros(n)
+    for it in range(1, max_iter + 1):
+        xi = np.linalg.solve(chol.T, np.linalg.solve(chol, atb + rho * (z - u)))
+        z_old = z
+        v = xi + u
+        z = np.sign(v) * np.maximum(np.abs(v) - kappa, 0.0)
+        u = u + xi - z
+        r = np.linalg.norm(xi - z)
+        s = rho * np.linalg.norm(z - z_old)
+        e_pri = np.sqrt(n) * abstol + reltol * max(np.linalg.norm(xi),
+                                                   np.linalg.norm(z))
+        e_dual = np.sqrt(n) * abstol + reltol * np.linalg.norm(rho * u)
+        if r < e_pri and s < e_dual:
+            return z, it, True
+    return z, max_iter, False
+
+
+def nondecreasing(hist, what):
+    """The EM lower bound is finite and does not fall (beyond f32
+    rounding of a mean over 1M rows: 1e-6 of its size)."""
+    import numpy as np
+    h = np.asarray(hist, np.float64)
+    check(len(h) and np.isfinite(h).all(), f"{what}: lower bound not finite")
+    drop = float(np.max(h[:-1] - h[1:])) if len(h) > 1 else 0.0
+    check(drop <= 1e-6 * max(1.0, float(np.abs(h).max())),
+          f"{what}: lower bound fell by {drop}")
+    return drop
+
+
+def gm_phase(dev, cuda_ms):
+    """GaussianMixture at BASELINE config 5 (bench_gmm): 1M x 50, k = 16,
+    full covariances.  Gate: one EM step from explicit inits against a
+    float64 NumPy step; timing as bench_gmm (the median of 5 fits of 5
+    iterations from the random init, tol = 0); the default KMeans init
+    once (at most 11 distances_sq launches); each other covariance type
+    with tol = 1e-3; one profiled fit.  Returns the kernel entry of
+    distances_sq at the init's shape."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.runtime.loop import EVERY
+    from dislib_tpu_torch.utils import profiling as prof
+    rng = np.random.RandomState(0)
+    x_host = rng.standard_normal((GM_M, GM_N)).astype(np.float32)
+    means0 = x_host[rng.choice(GM_M, GM_K, replace=False)].copy()
+    X = dst.array(x_host)
+    w0 = np.full(GM_K, 1.0 / GM_K, np.float32)
+    covs0 = np.tile(np.eye(GM_N, dtype=np.float32)[None], (GM_K, 1, 1))
+    t0 = time.perf_counter()
+    want = numpy_gmm_iter(x_host.astype(np.float64), w0.astype(np.float64),
+                          means0.astype(np.float64), covs0.astype(np.float64))
+    numpy_step_s = time.perf_counter() - t0
+    one = dst.GaussianMixture(
+        n_components=GM_K, max_iter=1, tol=0.0, init_params="random",
+        random_state=0, weights_init=w0, means_init=means0,
+        precisions_init=covs0).fit(X)
+    # f32 sums over 1M rows against float64: 1e-4 absolute and relative
+    errs = {}
+    for name, got, ref in (("weights", one.weights_, want[0]),
+                           ("means", one.means_, want[1]),
+                           ("covariances", one.covariances_, want[2])):
+        errs[name] = float(np.max(np.abs(got - ref)
+                                  / (1e-4 + 1e-4 * np.abs(ref))))
+        check(errs[name] <= 1.0, f"gm: one EM step's {name} off the float64 "
+              f"NumPy step by {errs[name]} of 1e-4 + 1e-4·|ref|")
+
+    def fit_bench():
+        return dst.GaussianMixture(n_components=GM_K, max_iter=GM_ITERS,
+                                   tol=0.0, init_params="random",
+                                   random_state=0).fit(X)
+
+    fit_bench()                                            # warm
+    times = []
+    for _ in range(5):
+        prof.reset_host_reads()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        gm = fit_bench()
+        times.append(time.perf_counter() - t0)
+    bench_s = float(np.median(times))
+    reads_bench = dict(prof.HOST_READS)
+    check(gm.n_iter_ == GM_ITERS and np.isfinite(gm.lower_bound_),
+          f"gm bench fit: n_iter {gm.n_iter_}, lower bound {gm.lower_bound_}")
+    drop_bench = nondecreasing(gm.history_, "gm bench fit")
+    score = gm.score(X)
+    check(np.isfinite(score), f"gm score {score} not finite")
+    labels = gm.predict(X)
+    lab = labels._data[:, 0]
+    check(labels.shape == (GM_M, 1) and int(lab.min()) >= 0
+          and int(lab.max()) < GM_K, "gm predict labels: shape / range")
+    wall_us, busy, spans = profile_device(fit_bench)
+    # the default KMeans init, once: <= 10 Lloyd steps and one predict
+    prof.reset_host_reads()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    gk = dst.GaussianMixture(n_components=GM_K, random_state=0).fit(X)
+    torch.cuda.synchronize()
+    kmeans_init_s = time.perf_counter() - t0
+    launches_init = dict(K.LAUNCHES)
+    reads_init = dict(prof.HOST_READS)
+    check(1 <= launches_init["distances_sq"] <= 11,
+          f"gm kmeans init launched distances_sq "
+          f"{launches_init['distances_sq']} times (<= 11)")
+    drop_init = nondecreasing(gk.history_, "gm kmeans-init fit")
+    check(reads_init.get("gm", 0) + 1 <= -(-gk.max_iter // EVERY) + 1,
+          f"gm: {reads_init} host reads")
+    types = {"full": {"seconds": kmeans_init_s, "n_iter": gk.n_iter_,
+                      "converged": gk.converged_,
+                      "lower_bound": gk.lower_bound_,
+                      "host_reads": reads_init,
+                      "launches": launches_init,
+                      "largest_drop": drop_init}}
+    for cov in ("tied", "diag", "spherical"):
+        prof.reset_host_reads()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        g2 = dst.GaussianMixture(n_components=GM_K, covariance_type=cov,
+                                 tol=1e-3, random_state=0).fit(X)
+        torch.cuda.synchronize()
+        types[cov] = {"seconds": time.perf_counter() - t0,
+                      "n_iter": g2.n_iter_, "converged": g2.converged_,
+                      "lower_bound": g2.lower_bound_,
+                      "host_reads": dict(prof.HOST_READS),
+                      "launches": dict(K.LAUNCHES),
+                      "largest_drop": nondecreasing(g2.history_,
+                                                    f"gm {cov}")}
+    emit({"phase": "gm", "shape": [GM_M, GM_N], "k": GM_K,
+          "covariance_type": "full", "iterations": GM_ITERS,
+          "gate_one_em_step_vs_numpy_f64": errs,
+          "numpy_f64_em_step_s": numpy_step_s,
+          "bench_fit_s_median": bench_s, "bench_fit_s_mean":
+          float(np.mean(times)), "bench_fits_s": times,
+          "s_per_em_iteration": bench_s / GM_ITERS,
+          "bench_host_reads": reads_bench, "score": score,
+          "bench_largest_lb_drop": drop_bench,
+          "profiled_fit": {"wall_ms": wall_us / 1e3,
+                           "device_busy_ms": busy / 1e3,
+                           "device_idle_share": 1.0 - busy / wall_us,
+                           "kernels_ms": top_kernels(spans, n=10)},
+          "by_covariance_type_tol_1e-3": types})
+    # distances_sq at the KMeans init's shape: d = 50 takes the slices
+    xd = X._data
+    cd = torch.from_numpy(means0).to(dev)
+    out = K.distances_sq(xd, cd)
+    plain = K.distances_sq_plain(xd, cd, "highest")
+    scale = float((xd.double() ** 2).sum(1).max()
+                  + (cd.double() ** 2).sum(1).max())
+    err = float((out.double() - plain.double()).abs().max()) / scale
+    check(err <= 1e-5, f"distances_sq at the gm init's shape: error {err}")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = K.dist_plan(GM_M, GM_N, xd.data_ptr(), n_sms)
+    check(plan.rows == 0, "distances_sq at d = 50 should take the slices")
+    entry = dist_entry(K, "gm_init", GM_M, GM_K, GM_N, out, plain, err,
+                       cuda_ms(lambda: K.distances_sq(xd, cd), 20),
+                       cuda_ms(lambda: K.distances_sq_plain(xd, cd,
+                                                            "highest"), 20),
+                       plan)
+    entry["launches"] = launches_init["distances_sq"]
+    return entry
+
+
+def dist_entry(K, tag, m, k, d, out, plain, err, ms, plain_ms, plan):
+    """The kernels-line entry of distances_sq at one shape."""
+    bound_ms, bound_by = bound(
+        2.0 * m * k * d + 2.0 * (m + k) * d + 3.0 * m * k,
+        4.0 * (m * d + k * d + m * k), PEAK_FP32_FLOPS)
+    return {"name": "distances_sq", "at": tag, "route": "cuda",
+            "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+            "plan": plan._asdict(), "shape": [m, k, d],
+            "max_abs_err": float((out - plain).abs().max()),
+            "normalized_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "library_call": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def minibatch_phase(X, x_host, init, dev, cuda_ms):
+    """MiniBatchKMeans on the KMeans data: one epoch of MBK_BATCH-row
+    batches through ``fit``.  Gate: a replay, batch by batch, of each
+    update in float64 NumPy given the port's labels (the distance kernel
+    on the port's previous centers), the labels equal to float64 NumPy's
+    on rows that are not near ties.  Returns the kernel entry of
+    distances_sq at the batch's shape."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.utils import profiling as prof
+    m, k = x_host.shape[0], init.shape[0]
+    n_batches = -(-m // MBK_BATCH)
+
+    def est():
+        return dst.MiniBatchKMeans(n_clusters=k, init=init,
+                                   batch_size=MBK_BATCH)
+
+    est().partial_fit(X[:MBK_BATCH, :])                     # warm
+    torch.cuda.synchronize()
+    prof.reset_host_reads()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    mbk = est().fit(X)
+    fit_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    reads = dict(prof.HOST_READS)
+    check(mbk.n_batches_ == n_batches and launches["distances_sq"]
+          == n_batches, f"minibatch: {mbk.n_batches_} batches, "
+          f"{launches['distances_sq']} distances_sq launches")
+    # the replay
+    rep = est()
+    centers, counts = init.astype(np.float64), np.zeros(k)
+    worst, clear_rows, rows = 0.0, 0, 0
+    for s in range(0, m, MBK_BATCH):
+        xb = x_host[s: s + MBK_BATCH].astype(np.float64)
+        prev = torch.as_tensor(rep.centers_ if s else init, device=dev)
+        lab = K.distances_sq(X._data[s: s + MBK_BATCH], prev).argmin(1) \
+            .cpu().numpy()
+        rep.partial_fit(X[s: s + MBK_BATCH, :])
+        p64 = prev.double().cpu().numpy()
+        bc = np.bincount(lab, minlength=k).astype(np.float64)
+        bmean = np.zeros_like(p64)
+        np.add.at(bmean, lab, xb)
+        bmean /= np.maximum(bc, 1.0)[:, None]
+        counts = counts + bc
+        eta = (bc / np.maximum(counts, 1.0))[:, None]
+        centers = np.where(bc[:, None] > 0, p64 + eta * (bmean - p64), p64)
+        check(np.array_equal(rep.counts_, counts),
+              f"minibatch batch at row {s}: counts differ")
+        # f32 batch means of 4096 rows against float64: 2e-5 absolute
+        worst = max(worst, float(np.abs(rep.centers_ - centers).max()))
+        check(worst <= 2e-5, f"minibatch batch at row {s}: centers off the "
+              f"float64 replay by {worst}")
+        d = ((xb[:, None, :] - p64[None]) ** 2).sum(-1)
+        two = np.sort(d, axis=1)[:, :2]
+        clear = two[:, 1] - two[:, 0] > 1e-4 * ((xb ** 2).sum(1)
+                                                + (p64 ** 2).sum(1).max())
+        check(np.array_equal(lab[clear], d.argmin(1)[clear]),
+              f"minibatch batch at row {s}: labels differ from NumPy")
+        clear_rows += int(clear.sum())
+        rows += len(xb)
+    check(np.array_equal(rep.centers_, mbk.centers_),
+          "minibatch: the replayed stream differs from fit")
+    emit({"phase": "minibatch_kmeans", "shape": [m, x_host.shape[1]],
+          "k": k, "batch_size": MBK_BATCH, "epochs": 1,
+          "batches": n_batches, "fit_s": fit_s,
+          "ms_per_batch": 1e3 * fit_s / n_batches, "host_reads": reads,
+          "launches": launches, "inertia_last_batch": mbk.inertia_,
+          "gate_centers_max_abs_vs_f64_replay": worst,
+          "gate_label_rows_clear": clear_rows, "gate_label_rows": rows})
+    xb = X._data[:MBK_BATCH]
+    cb = torch.as_tensor(init, device=dev)
+    out = K.distances_sq(xb, cb)
+    plain = K.distances_sq_plain(xb, cb, "highest")
+    scale = float((xb.double() ** 2).sum(1).max()
+                  + (cb.double() ** 2).sum(1).max())
+    err = float((out.double() - plain.double()).abs().max()) / scale
+    check(err <= 1e-5, f"distances_sq at a batch's shape: error {err}")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    entry = dist_entry(K, "minibatch", MBK_BATCH, k, x_host.shape[1], out,
+                       plain, err,
+                       cuda_ms(lambda: K.distances_sq(xb, cb), 200),
+                       cuda_ms(lambda: K.distances_sq_plain(xb, cb,
+                                                            "highest"), 200),
+                       K.dist_plan(MBK_BATCH, x_host.shape[1],
+                                   xb.data_ptr(), n_sms))
+    entry["launches"] = launches["distances_sq"]
+    return entry
+
+
+def scalers_and_regression_phases(dev):
+    """StandardScaler and MinMaxScaler on 1M x 100 with column means near
+    1000, LinearRegression and Lasso on 1M x 100 with a sparse beta, each
+    against float64 NumPy."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.utils import profiling as prof
+    rng = np.random.RandomState(7)
+    x = (1000.0 + rng.uniform(-5, 5, SC_N)
+         + rng.standard_normal((SC_M, SC_N))).astype(np.float32)
+    X = dst.array(x)
+    x64 = x.astype(np.float64)
+    res = {}
+    for cls in (dst.StandardScaler, dst.MinMaxScaler):
+        cls().fit(X)                                        # warm
+        t0 = time.perf_counter()
+        sc = cls().fit(X)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        t = sc.transform(X)
+        torch.cuda.synchronize()
+        transform_s = time.perf_counter() - t0
+        back = sc.inverse_transform(t).collect()
+        # f32 values near 1000 carry 6.1e-5 ulps: the round trip within 5
+        round_trip = float(np.abs(back - x).max())
+        check(round_trip <= 3e-4, f"{cls.__name__} round trip off by "
+              f"{round_trip}")
+        if cls is dst.StandardScaler:
+            mean_err = float(np.abs(sc.mean_.collect().ravel()
+                                    - x64.mean(0)).max() / 1000.0)
+            var_err = float(np.max(np.abs(sc.var_.collect().ravel()
+                                          - x64.var(0)) / x64.var(0)))
+            # the two-pass variance in f32 at |mean| 1000: 1e-4 relative
+            check(mean_err <= 1e-6 and var_err <= 1e-4,
+                  f"StandardScaler mean {mean_err}, var {var_err} vs "
+                  "float64")
+            tc = t.collect()
+            errs = {"mean_rel_err": mean_err, "var_rel_err": var_err,
+                    "transform_std": float(tc.std())}
+        else:
+            check(np.array_equal(sc.data_min_.collect().ravel(), x.min(0))
+                  and np.array_equal(sc.data_max_.collect().ravel(),
+                                     x.max(0)), "MinMaxScaler min/max")
+            errs = {"min_max_exact": True}
+        res[cls.__name__] = {"fit_s": fit_s, "transform_s": transform_s,
+                             "round_trip_max_abs": round_trip, **errs}
+        del t
+    emit({"phase": "scalers", "shape": [SC_M, SC_N], **res})
+    del X, x, x64
+    # LinearRegression and Lasso: y = x·beta + noise, beta half zeros
+    rng = np.random.RandomState(8)
+    x = rng.standard_normal((LR_M, LR_N)).astype(np.float32)
+    beta = rng.standard_normal(LR_N)
+    beta[::2] = 0.0
+    beta[1::10] = 1e-3                      # under the Lasso's threshold
+    noise = 0.1 * rng.standard_normal(LR_M)
+    y = (x @ beta + 0.5 + noise).astype(np.float32)[:, None]
+    X, Y = dst.array(x), dst.array(y)
+    x64 = x.astype(np.float64)
+    dst.LinearRegression().fit(X, Y)                        # warm
+    t0 = time.perf_counter()
+    lr = dst.LinearRegression().fit(X, Y)
+    lr_s = time.perf_counter() - t0
+    xa = np.concatenate([x64, np.ones((LR_M, 1))], 1)
+    sol = np.linalg.lstsq(xa, y.astype(np.float64), rcond=None)[0]
+    lr_err = float(max(np.abs(lr.coef_ - sol[:-1]).max(),
+                       np.abs(lr.intercept_ - sol[-1]).max()))
+    # f32 normal equations over 1M rows: 1e-4
+    check(lr_err <= 1e-4, f"LinearRegression off lstsq by {lr_err}")
+    r2 = lr.score(X, Y)
+    del xa
+    emit({"phase": "linear_regression", "shape": [LR_M, LR_N],
+          "fit_s": lr_s, "coef_max_abs_err_vs_lstsq": lr_err, "r2": r2})
+    yl = (x @ beta + noise).astype(np.float32)[:, None]
+    Yl = dst.array(yl)
+
+    def lasso():
+        return dst.Lasso(lmbd=LASSO_LMBD, rho=LASSO_RHO,
+                         max_iter=LASSO_ITERS).fit(X, Yl)
+
+    lasso()                                                # warm
+    prof.reset_host_reads()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    la = lasso()
+    la_s = time.perf_counter() - t0
+    reads = dict(prof.HOST_READS)
+    z, n_iter, conv = numpy_admm(x64, yl.astype(np.float64), LASSO_RHO,
+                                 LASSO_LMBD / LASSO_RHO, 1e-4, 1e-2,
+                                 LASSO_ITERS)
+    la_err = float(np.abs(la.coef_ - z).max())
+    check(la.n_iter_ == n_iter and la.converged_ == conv,
+          f"Lasso: {la.n_iter_} iterations (converged {la.converged_}), "
+          f"the float64 NumPy ADMM {n_iter} ({conv})")
+    check(la_err <= 1e-4, f"Lasso coef off the float64 ADMM by {la_err}")
+    zeros = int((la.coef_ == 0).sum())
+    check(0 < zeros < LR_N and zeros == int((z == 0).sum()),
+          f"Lasso: {zeros} zero coefficients, NumPy {(z == 0).sum()}")
+    pred = la.predict(X).collect()
+    check(pred.shape == (LR_M, 1) and np.isfinite(pred).all(),
+          "Lasso predict")
+    emit({"phase": "lasso", "shape": [LR_M, LR_N], "lmbd": LASSO_LMBD,
+          "rho": LASSO_RHO, "fit_s": la_s, "n_iter": la.n_iter_,
+          "numpy_n_iter": n_iter, "converged": la.converged_,
+          "zero_coefs": zeros, "coef_max_abs_err_vs_numpy_admm": la_err,
+          "host_reads": reads, "r2": la.score(X, Yl),
+          "launches": dict(K.LAUNCHES)})
+
+
 def linalg_phases(dev):
     """The ds-array's blocked linear algebra through its entry points at
     bench.py's full widths, under both precision policies.  Each result
@@ -304,7 +774,7 @@ def linalg_phases(dev):
     bounds = px.ERROR_BOUNDS
     summary, launches = {}, {}
 
-    def drive(name, fn, gate, policies=POLICIES):
+    def drive(name, fn, gate, policies=POLICIES, profiled=POLICIES[:1]):
         res = {}
         for pol in policies:
             t0 = time.perf_counter()
@@ -325,11 +795,12 @@ def linalg_phases(dev):
             for k, n in K.LAUNCHES.items():
                 launches[k] = launches.get(k, 0) + n
             del out
-        wall_us, busy, spans = profile_device(lambda: fn(policies[0]))
-        res["profiled_" + policies[0]] = {
-            "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us,
-            "kernels_ms": top_kernels(spans)}
+        for pol in profiled:
+            wall_us, busy, spans = profile_device(lambda: fn(pol))
+            res["profiled_" + pol] = {
+                "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                "device_idle_share": 1.0 - busy / wall_us,
+                "kernels_ms": top_kernels(spans)}
         emit({"phase": "linalg", "entry": name, **res})
         summary[name] = {pol: res[pol]["seconds"] for pol in policies}
         torch.cuda.empty_cache()
@@ -447,7 +918,7 @@ def linalg_phases(dev):
 
     drive("random_svd", lambda pol: dst.random_svd(
         X, iters=RSVD_ITERS, nsv=RSVD_NSV, oversample=10, random_state=0,
-        precision=pol), rsvd_gate)
+        precision=pol), rsvd_gate, profiled=POLICIES)
 
     def pca_gate(method):
         def gate(est, pol):
@@ -511,7 +982,7 @@ def linalg_phases(dev):
                 "reported_ortho_err": nfo["ortho_err"]}
 
     drive("polar", lambda pol: dst.polar(X, precision=pol, info=True),
-          polar_gate)
+          polar_gate, profiled=POLICIES)
 
     # -- lanczos_svd and kron --------------------------------------------------
     rng = np.random.RandomState(6)
@@ -561,6 +1032,8 @@ def main() -> int:
     from dislib_tpu_torch.cluster import kmeans as km_mod
     from dislib_tpu_torch.ops import kernels as K
     from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.runtime.loop import EVERY
+    from dislib_tpu_torch.utils import profiling as prof
 
     dev = torch.device(DEVICE)
     torch.cuda.set_device(dev)
@@ -684,21 +1157,31 @@ def main() -> int:
         w = torch.poisson(torch.ones((T, m), device=dev), generator=g)
         return node, bx, w
 
+    # both orders of the sums: the integer path (atomics, any order) and
+    # the fixed-order path, which must also repeat its bits call to call
     for (T, m, n, nn, nb, S) in HIST_RAGGED:
         node, bx, w = hist_inputs(T, m, n, nn, nb, S)
         st = torch.randint(0, 3, (m, S), generator=g, device=dev).float()
-        check(torch.equal(K.node_histogram(node, bx, w, st, nn, nb),
-                          K.node_histogram_plain(node, bx, w, st, nn, nb)),
-              f"node_histogram {(T, m, n, nn, nb, S)}: not bit-equal to "
-              "plain for integer contributions")
+        want = K.node_histogram_plain(node, bx, w, st, nn, nb)
+        for integer in (True, False):
+            check(torch.equal(K.node_histogram(node, bx, w, st, nn, nb,
+                                               integer=integer), want),
+                  f"node_histogram {(T, m, n, nn, nb, S)} integer={integer}"
+                  ": not bit-equal to plain for integer contributions")
         st = torch.randn((m, S), generator=g, device=dev)
-        got = K.node_histogram(node, bx, w, st, nn, nb).double()
         exact = K.node_histogram_plain(node, bx, w.double(), st.double(),
                                        nn, nb)
         scale = K.node_histogram_plain(node, bx, w, st.abs(), nn, nb)
-        check(bool(((got - exact).abs() <= hist_tol * scale).all()),
-              f"node_histogram {(T, m, n, nn, nb, S)}: non-integer stats "
-              f"off by more than {hist_tol} of sum |w*stats|")
+        for integer in (True, False):
+            got = K.node_histogram(node, bx, w, st, nn, nb, integer=integer)
+            check(bool(((got.double() - exact).abs()
+                        <= hist_tol * scale).all()),
+                  f"node_histogram {(T, m, n, nn, nb, S)} integer={integer}"
+                  f": non-integer stats off by more than {hist_tol} of sum "
+                  "|w*stats|")
+        check(torch.equal(got, K.node_histogram(node, bx, w, st, nn, nb)),
+              f"node_histogram {(T, m, n, nn, nb, S)}: the fixed-order "
+              "sums differ between two calls")
     for kind in HIST_LAYOUTS:
         T, m, n, nn, nb, S = 2, 60_001, 7, 2048, 32, 2
         node, bx, w = hist_inputs(T, m, n, nn, nb, S)
@@ -712,20 +1195,23 @@ def main() -> int:
         else:
             w[:, 17] = 0
             st[17, 1] = float("nan")
-        got = K.node_histogram(node, bx, w, st, nn, nb)
         want = K.node_histogram_plain(node, bx, w, st, nn, nb)
-        check(torch.equal(torch.nan_to_num(got, nan=-1.0),
-                          torch.nan_to_num(want, nan=-1.0))
-              and bool(torch.isnan(got).any()) == (kind ==
-                                                   "nan-on-zero-weight"),
-              f"node_histogram layout {kind}: not bit-equal to plain")
+        for integer in (True, False):
+            got = K.node_histogram(node, bx, w, st, nn, nb, integer=integer)
+            check(torch.equal(torch.nan_to_num(got, nan=-1.0),
+                              torch.nan_to_num(want, nan=-1.0))
+                  and bool(torch.isnan(got).any()) == (kind ==
+                                                       "nan-on-zero-weight"),
+                  f"node_histogram layout {kind} integer={integer}: not "
+                  "bit-equal to plain")
     torch.cuda.synchronize()
     emit({"phase": "ragged", "ok": True, "panel_gemm_shapes": GEMM_RAGGED,
           "distances_sq_d": DIST_D, "distances_sq_k": DIST_K,
           "distances_sq_unaligned": True,
           "node_histogram_layouts": HIST_LAYOUTS,
           "node_histogram_bit_equal_integer": len(HIST_RAGGED),
-          "node_histogram_non_integer_tol": hist_tol})
+          "node_histogram_non_integer_tol": hist_tol,
+          "node_histogram_fixed_order_bit_identical": len(HIST_RAGGED)})
 
     kernels = {}
     # panel_gemm at the main path's shape: SUMMA's one panel on one card
@@ -844,13 +1330,13 @@ def main() -> int:
     node, bx, w = hist_inputs(T, m, n, nn, nb, S)
     st = torch.nn.functional.one_hot(
         torch.randint(0, S, (m,), generator=g, device=dev), S).float()
-    out = K.node_histogram(node, bx, w, st, nn, nb)
+    out = K.node_histogram(node, bx, w, st, nn, nb, integer=True)
     plain = K.node_histogram_plain(node, bx, w, st, nn, nb)
     check(torch.equal(out, plain), "node_histogram at the deepest level: "
           "not bit-equal to plain")
     max_abs = float((out - plain).abs().max())
     del out, plain
-    ms = cuda_ms(lambda: K.node_histogram(node, bx, w, st, nn, nb), 5)
+    ms = cuda_ms(lambda: K.node_histogram(node, bx, w, st, nn, nb, integer=True), 5)
 
     plain_ms = cuda_ms(
         lambda: K.node_histogram_plain(node, bx, w, st, nn, nb), 2)
@@ -890,21 +1376,22 @@ def main() -> int:
         plan_hist = K.hist_plan
         nf = bx_t.shape[1]
         private = plan_hist(T, m, nf, n_nodes, nb, S, n_sms).private
-        plan_ms = cuda_ms(
-            lambda: K.node_histogram(node_t, bx_t, w, st, n_nodes, nb), 3)
+        plan_ms = cuda_ms(lambda: K.node_histogram(
+            node_t, bx_t, w, st, n_nodes, nb, integer=True), 3)
         K.hist_plan = lambda *a, **kw: plan_hist(*a, **kw,
                                                  private=not private)
         try:
             other = K.hist_plan(T, m, nf, n_nodes, nb, S, n_sms)
             check(torch.equal(
-                K.node_histogram(node_t, bx_t, w, st, n_nodes, nb),
+                K.node_histogram(node_t, bx_t, w, st, n_nodes, nb,
+                                 integer=True),
                 K.node_histogram_plain(node_t, bx_t, w, st, n_nodes, nb)),
                 f"node_histogram, {nf} features, {n_nodes} nodes, the other"
                 " copies: not bit-equal to plain")
             return {"plan_private": private, "plan_ms": plan_ms,
                     "other_plan": other._asdict(),
                     "other_ms": cuda_ms(lambda: K.node_histogram(
-                        node_t, bx_t, w, st, n_nodes, nb), 3)}
+                        node_t, bx_t, w, st, n_nodes, nb, integer=True), 3)}
         finally:
             K.hist_plan = plan_hist
 
@@ -915,7 +1402,8 @@ def main() -> int:
                               dtype=torch.int32)
         lnodes.append(lnode)
         per_level[2 ** lvl] = cuda_ms(
-            lambda: K.node_histogram(lnode, bx, w, st, 2 ** lvl, nb), 3)
+            lambda: K.node_histogram(lnode, bx, w, st, 2 ** lvl, nb,
+                                     integer=True), 3)
         private_level[2 ** lvl] = other_copies(lnode, bx, 2 ** lvl)
         plain_level[2 ** lvl] = cuda_ms(
             lambda: K.node_histogram_plain(lnode, bx, w, st, 2 ** lvl, nb), 1)
@@ -925,7 +1413,7 @@ def main() -> int:
     # over the 12 level shapes (one profiler session; many in a row can
     # record nothing), split where each call's part_count starts
     _, _, spans = profile_device(
-        lambda: [K.node_histogram(ln, bx, w, st, ln_n, nb)
+        lambda: [K.node_histogram(ln, bx, w, st, ln_n, nb, integer=True)
                  for ln, ln_n in zip(lnodes, per_level)])
     calls = split_calls(spans, "part_count")
     check(len(calls) == len(per_level), f"profiled {len(calls)} of "
@@ -961,10 +1449,99 @@ def main() -> int:
                                                       n_sms)),
         "ms_by_part_profiled": parts,
         "ms_by_part_by_n_nodes": parts_level,
+        "profile": PROFILE_LOG[-1],
         "other_copies_ms_by_n_nodes": private_level,
         "other_copies_ms_at_20_features": private_20}
     emit({"phase": "kernel", **kernels["node_histogram"]})
-    del node, bx, w, st
+    del node, w, st
+
+    # the regressor's levels (8 trees, depth 8, [w, wy, wy²]): the
+    # fixed-order sums it runs now against the atomics it ran before
+    # (the integer path, whose adds vary in order for non-integer stats)
+    Tr, nnr = RR_T, 2 ** (RR_DEPTH - 1)
+    wr = torch.poisson(torch.ones((Tr, m), device=dev), generator=g)
+    yr = torch.rand((m,), generator=g, device=dev)
+    str_ = torch.stack([torch.ones_like(yr), yr, yr * yr], dim=1)
+    rr_level, rr_level_atomic, rr_bound, rr_err = {}, {}, {}, {}
+
+    def hold_rr(lnode, nn, split):
+        """The fixed-order sums at one level: equal between two calls and
+        within hist_tol of sum |w*stats| of the float64 sums; ``split``:
+        the plan must cut some node into several row chunks, so that the
+        partial slots and reduce_partials run."""
+        what = f"node_histogram at the regressor's level of {nn} nodes"
+        plan = K.hist_plan(Tr, m, n, nn, nb, RR_S, n_sms, fixed_order=True)
+        rows = int(torch.stack([torch.bincount(lnode[t].long(), minlength=nn)
+                                for t in range(Tr)]).max())
+        check((-(-rows // plan.rows_per_item) > 1) == split,
+              f"{what}: {rows} rows in a node, {plan.rows_per_item} per "
+              f"item: expected split={split}")
+        out = K.node_histogram(lnode, bx, wr, str_, nn, nb)
+        check(torch.equal(out, K.node_histogram(lnode, bx, wr, str_, nn, nb)),
+              f"{what}: the fixed-order sums differ between two calls")
+        exact = K.node_histogram_plain(lnode, bx, wr.double(), str_.double(),
+                                       nn, nb)
+        scale = K.node_histogram_plain(lnode, bx, wr, str_.abs(), nn, nb)
+        check(bool(((out.double() - exact).abs() <= hist_tol * scale).all()),
+              f"{what}: off the f64 sums by more than {hist_tol} of "
+              "sum |w*stats|")
+        rr_err[nn] = float((out - K.node_histogram_plain(
+            lnode, bx, wr, str_, nn, nb)).abs().max())
+
+    for lvl in range(RR_DEPTH):
+        lnode = torch.randint(0, 2 ** lvl, (Tr, m), generator=g,
+                              device=dev, dtype=torch.int32)
+        rr_level[2 ** lvl] = cuda_ms(lambda: K.node_histogram(
+            lnode, bx, wr, str_, 2 ** lvl, nb), 3)
+        rr_level_atomic[2 ** lvl] = cuda_ms(lambda: K.node_histogram(
+            lnode, bx, wr, str_, 2 ** lvl, nb, integer=True), 3)
+        rr_bound[2 ** lvl] = bound(
+            Tr * m * (n + 1) * RR_S, 4.0 * (m * n + 2 * Tr * m + m * RR_S
+                                            + Tr * 2 ** lvl * n * nb * RR_S),
+            PEAK_FP32_FLOPS)[0]
+        # the first levels split nodes into row chunks (partials summed by
+        # reduce_partials); at the deepest, each node is one item
+        if 2 ** lvl in (1, 16, nnr):
+            hold_rr(lnode, 2 ** lvl, split=2 ** lvl < nnr)
+    max_abs = max(rr_err.values())
+    bins = bx.long()
+    feat = torch.arange(n, device=dev)[None, :].expand(m, n)
+    contrib = wr[:, :, None] * str_[None]
+    lib_out = torch.zeros((Tr, nnr, n, nb, RR_S), device=dev)
+
+    def lib_rr():
+        for t in range(Tr):
+            lib_out[t].index_put_(
+                (lnode[t].long()[:, None].expand(m, n), feat, bins),
+                contrib[t][:, None, :].expand(m, n, RR_S), accumulate=True)
+
+    kernels["node_histogram/regressor"] = {
+        "name": "node_histogram", "at": "regressor", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/node_histogram.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:149",
+        "shape": [Tr, m, n, nnr, nb, RR_S], "fixed_order": True,
+        "max_abs_err": max_abs, "ms": rr_level[nnr],
+        "ms_integer_path_atomics": rr_level_atomic[nnr],
+        "plain_ms": cuda_ms(lambda: K.node_histogram_plain(
+            lnode, bx, wr, str_, nnr, nb), 1),
+        "library_ms": cuda_ms(lib_rr, 1),
+        "library_call": "Tensor.index_put_(accumulate=True), one per tree",
+        "bound_ms": rr_bound[nnr], "bound_by": bound(
+            Tr * m * (n + 1) * RR_S, 4.0 * (m * n + 2 * Tr * m + m * RR_S
+                                            + Tr * nnr * n * nb * RR_S),
+            PEAK_FP32_FLOPS)[1],
+        "ms_by_n_nodes": rr_level,
+        "ms_integer_path_by_n_nodes": rr_level_atomic,
+        "max_abs_err_by_n_nodes": rr_err,
+        "bound_ms_by_n_nodes": rr_bound,
+        "ms_fit_levels": sum(rr_level.values()),
+        "ms_integer_path_fit_levels": sum(rr_level_atomic.values()),
+        "plan": K.hist_plan(Tr, m, n, nnr, nb, RR_S, n_sms,
+                            fixed_order=True)._asdict(),
+        "plan_first_level": K.hist_plan(Tr, m, n, 1, nb, RR_S, n_sms,
+                                        fixed_order=True)._asdict()}
+    emit({"phase": "kernel", **kernels["node_histogram/regressor"]})
+    del lnode, bx, wr, yr, str_, bins, feat, contrib, lib_out
     torch.cuda.empty_cache()
 
     # -- (3) KMeans, 1M x 100, k = 10 -----------------------------------------------
@@ -987,13 +1564,17 @@ def main() -> int:
     dst.KMeans(n_clusters=KM_K, init=init, max_iter=2, tol=0.0).fit(x)  # warm
 
     K.reset_launches()
+    prof.reset_host_reads()
     t0 = time.perf_counter()
     km10 = dst.KMeans(n_clusters=KM_K, init=init, max_iter=10,
                       tol=0.0).fit(x)
     t10 = time.perf_counter() - t0
+    reads10 = dict(prof.HOST_READS)
+    prof.reset_host_reads()
     t0 = time.perf_counter()
     km = dst.KMeans(n_clusters=KM_K, init=init, max_iter=500, tol=0.0).fit(x)
     t500 = time.perf_counter() - t0
+    reads500 = dict(prof.HOST_READS)
     labels = km.predict(x)
     score = km.score(x)
     launches_km = dict(K.LAUNCHES)
@@ -1037,8 +1618,39 @@ def main() -> int:
           "iter_per_s_10": 10 / t10, "iter_per_s_500": 500 / t500,
           "fit10_s": t10, "fit500_s": t500, "inertia": km.inertia_,
           "score": score, "predict_agrees_with_plain": agree,
-          "launches": launches_km})
-    del x, labels, d_plain, c_fit, cd
+          "launches": launches_km, "loop_every": EVERY,
+          "host_reads_fit10": reads10, "host_reads_fit500": reads500})
+    del labels, d_plain, c_fit, cd
+
+    # -- (3b) KMeans with tol > 0: the fit stops within a chunk -------------
+    K.reset_launches()
+    prof.reset_host_reads()
+    t0 = time.perf_counter()
+    kt = dst.KMeans(n_clusters=KM_K, init=init, max_iter=300,
+                    tol=1e-4).fit(x)
+    t_tol = time.perf_counter() - t0
+    steps = K.LAUNCHES["distances_sq"]
+    reads = sum(prof.HOST_READS.values())    # the loop's and the results'
+    check(kt.n_iter_ <= steps <= kt.n_iter_ + EVERY - 1,
+          f"kmeans tol=1e-4: {steps} steps run for n_iter {kt.n_iter_}")
+    check(reads <= -(-300 // EVERY) + 1,
+          f"kmeans tol=1e-4: {reads} host reads")
+    emit({"phase": "kmeans_tol", "shape": [KM_M, KM_N], "k": KM_K,
+          "tol": 1e-4, "max_iter": 300, "n_iter": kt.n_iter_,
+          "steps_run": steps, "loop_every": EVERY, "host_reads": reads,
+          "fit_s": t_tol, "iter_per_s": steps / t_tol})
+
+    # -- (3c) MiniBatchKMeans on the same data -------------------------------
+    mbk_entry = minibatch_phase(x, x_host, init, dev, cuda_ms)
+    del x, x_host
+    torch.cuda.empty_cache()
+
+    # -- (3d) GaussianMixture, BASELINE config 5 --------------------------------
+    gm_entry = gm_phase(dev, cuda_ms)
+    torch.cuda.empty_cache()
+
+    # -- (3e) the scalers, LinearRegression and Lasso -----------------------------
+    scalers_and_regression_phases(dev)
     torch.cuda.empty_cache()
 
     # -- (4) matmul, 16384^2, SUMMA with the kernel consume step ------------------
@@ -1079,6 +1691,29 @@ def main() -> int:
                            "device_idle_share": 1.0 - busy / wall_us,
                            "ms_by_part": by_part(spans),
                            "kernels_ms": top_kernels(spans)}})
+
+    # the default route, algorithm="auto": on one card it picks xla, the
+    # policy product pdot (FLOAT32 with TF32 off; BFLOAT16 a native bf16
+    # product with a float32 result)
+    auto = {}
+    for pol in ("float32", "bfloat16"):
+        dst.matmul(A, B, precision=pol)                         # warm
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        C = dst.matmul(A, B, precision=pol)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        err = gemm_err(C._data[rows], ref_rows, ga, gb)
+        check(err <= px.ERROR_BOUNDS[("matmul", pol)],
+              f"matmul auto {pol}: normalized error {err} > ERROR_BOUNDS")
+        del C
+        auto[pol] = {"seconds": t, "seconds_median_of_3": med_s(
+            lambda: dst.matmul(A, B, precision=pol), 3),
+            "gflops": 2.0 * GEMM_N ** 3 / t / 1e9,
+            "normalized_err_vs_f64_rows": err, "launches": dict(K.LAUNCHES)}
+    emit({"phase": "matmul_auto", "n": GEMM_N, "algorithm": "auto",
+          "route": "xla (one card)", **auto})
 
     del A, B, ga, gb, ref_rows
     torch.cuda.empty_cache()
@@ -1225,11 +1860,14 @@ def main() -> int:
           f"regressor R² {r2_of(got)} vs NumPy oracle {r2_of(want)}")
     check(r2 >= 0.5, f"regressor R² {r2} < 0.5")
     rr2 = fit_rr()
+    # the fixed-order sums of node_histogram and of the leaves make a
+    # regressor fitted on the card reproducible per seed
+    check(same_forest(rr, rr2), "two regressor fits with random_state=0 "
+          "differ")
     emit({"phase": "forest_regressor", "shape": [RF_M, RF_N],
           "n_estimators": 8, "depth": rr._depth, "fit_s": t_rfit, "r2": r2,
           "r2_sample_port": r2_of(got), "r2_sample_numpy": r2_of(want),
-          "same_seed_bit_identical": same_forest(rr, rr2),
-          "launches": launches_rr})
+          "same_seed_bit_identical": True, "launches": launches_rr})
 
     # -- (8) the blocked linear algebra ------------------------------------------
     del X, Y, Yr, x_f, y_r
@@ -1241,14 +1879,21 @@ def main() -> int:
 
     # -- (9) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
+    kernels["node_histogram/regressor"]["launches"] = \
+        launches_rr["node_histogram"]
     kernels["distances_sq"]["launches"] = launches_km["distances_sq"]
+    kernels["distances_sq/gm_init"] = gm_entry
+    kernels["distances_sq/minibatch"] = mbk_entry
     for pol in ("float32", "bfloat16"):
         kernels[f"panel_gemm/{pol}"]["launches"] = \
             launches_mm[pol]["panel_gemm"]
-    emit({"kernels": list(kernels.values()), "held_against_plain": True})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit({"phase": "profiler", "calls": PROFILE_LOG})
+    emit({"phase": "end"})
+    print(json.dumps({"kernels": list(kernels.values()),
+                      "held_against_plain": True}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -18,12 +18,30 @@ from dislib_tpu_torch.data.array import (
 )
 from dislib_tpu_torch.math import matmul, kron, svd, qr, polar
 from dislib_tpu_torch.decomposition import tsqr, random_svd, lanczos_svd, PCA
-from dislib_tpu_torch.cluster.kmeans import KMeans
-from dislib_tpu_torch import cluster, decomposition, math, trees
+from dislib_tpu_torch.base import from_fitted_arrays
+from dislib_tpu_torch import cluster, decomposition, math, trees, \
+    preprocessing, regression, optimization  # noqa: E402,F401
+
+# estimator classes re-exported at top level, as the reference does
+# (their canonical homes stay the submodules above)
+from dislib_tpu_torch.cluster import KMeans, MiniBatchKMeans, GaussianMixture
+from dislib_tpu_torch.trees import (
+    RandomForestClassifier, RandomForestRegressor,
+    DecisionTreeClassifier, DecisionTreeRegressor,
+)
+from dislib_tpu_torch.regression import LinearRegression, Lasso
+from dislib_tpu_torch.optimization import ADMM
+from dislib_tpu_torch.preprocessing import StandardScaler, MinMaxScaler
 
 __all__ = ["init", "get_mesh", "Array", "array", "random_array", "zeros",
            "full", "ones", "identity", "eye", "apply_along_axis",
            "concat_rows", "concat_cols", "rechunk", "ensure_canonical",
            "matmul", "kron", "svd", "qr", "polar",
-           "tsqr", "random_svd", "lanczos_svd", "PCA",
-           "KMeans", "cluster", "decomposition", "math", "trees"]
+           "tsqr", "random_svd", "lanczos_svd", "PCA", "from_fitted_arrays",
+           "KMeans", "MiniBatchKMeans", "GaussianMixture",
+           "RandomForestClassifier", "RandomForestRegressor",
+           "DecisionTreeClassifier", "DecisionTreeRegressor",
+           "LinearRegression", "Lasso", "ADMM",
+           "StandardScaler", "MinMaxScaler",
+           "cluster", "decomposition", "math", "trees", "preprocessing",
+           "regression", "optimization"]

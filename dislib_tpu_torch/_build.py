@@ -44,7 +44,7 @@ SIGNATURES = {
         "dslib_distances_sq_f32": ([_P] * 3 + [_I] * 6 + [_P], _I),
     },
     "node_histogram": {
-        "dslib_node_histogram_f32": ([_P] * 6 + [_I] * 16 + [_P], _I),
+        "dslib_node_histogram_f32": ([_P] * 7 + [_I] * 17 + [_P], _I),
         "dslib_node_histogram_occupancy": ([_I] * 3 + [ctypes.POINTER(_I)],
                                            _I),
     },

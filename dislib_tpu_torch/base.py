@@ -78,6 +78,26 @@ class BaseEstimator:
         return f"{type(self).__name__}({params})"
 
 
+def from_fitted_arrays(cls, arrays: dict, device=None, **params):
+    """A fitted ``cls`` built from a fitted reference estimator's
+    attributes, given as NumPy arrays under the reference's names, so both
+    packages predict and transform with the same model.  Each estimator's
+    ``_carry_in`` takes its own: a forest's ``_edges``, ``_feats``,
+    ``_tbins``, ``_depth``, ``_leaves``, ``n_features_`` (and
+    ``classes_``); GaussianMixture's ``weights_``, ``means_``,
+    ``covariances_`` and ``covariance_type``; MiniBatchKMeans'
+    ``centers_`` and ``counts_``; LinearRegression's ``coef_`` and
+    ``intercept_``; Lasso's ``coef_``; StandardScaler's ``mean_`` and
+    ``var_``; MinMaxScaler's ``data_min_`` and ``data_max_``.  ``params``
+    go to the constructor.  Device-resident attributes land on ``device``
+    (default: the default mesh's, ``cuda``)."""
+    from dislib_tpu_torch.parallel import mesh as _mesh
+    dev = _mesh.get_mesh().device if device is None else torch.device(device)
+    est = cls(**params)
+    est._carry_in(arrays, dev)
+    return est
+
+
 def clone(estimator):
     """Fresh unfitted copy with the same hyperparameters (sklearn.clone)."""
     return type(estimator)(**deepcopy(estimator.get_params()))

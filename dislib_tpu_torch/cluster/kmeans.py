@@ -1,12 +1,15 @@
 """KMeans — the north-star estimator.
 
 Counterpart of ``dislib_tpu/cluster/kmeans.py`` (dense).  Lloyd's iteration
-runs on the device with ONE host sync per fit, as in the reference's
-``lax.while_loop``: :func:`_kmeans_fit` enqueues ``max_iter`` steps without
-reading anything back, and a step is active only while ``shift >= tol``.
-An inactive step keeps the centers, does not advance ``n_iter`` and does not
-write ``hist``, so the results equal the reference's early-exiting loop.
-``fit`` reads them all back in one transfer at the end.
+runs on the device as the reference's ``lax.while_loop`` does, through
+:func:`runtime.loop.run_chunked`: :func:`_kmeans_fit` enqueues masked steps
+in chunks of ``loop.EVERY`` and reads ``shift >= tol`` once after each
+chunk, so a fit stops at most ``EVERY − 1`` steps past convergence (at
+``tol <= 0`` it runs ``max_iter`` steps with no read).  A step
+is active only while ``shift >= tol``; an inactive step keeps the centers,
+does not advance ``n_iter`` and does not write ``hist``, so the results
+equal the reference's early-exiting loop.  ``fit`` reads them all back in
+one transfer at the end.
 
 Per step: the E-step is the hand CUDA kernel ``distances_sq``
 (``ops/base.distances_sq(..., use_kernel=True)``), then argmin; the M-step
@@ -31,6 +34,8 @@ from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.ops.base import distances_sq as _distances_sq, precise
 from dislib_tpu_torch.runtime import health as _health
+from dislib_tpu_torch.runtime.loop import run_chunked
+from dislib_tpu_torch.utils.profiling import count_read
 
 
 class KMeans(BaseEstimator):
@@ -44,8 +49,8 @@ class KMeans(BaseEstimator):
     tol : float, default 1e-4 — convergence on ‖Δcenters‖².
     arity : int — ignored (reference reduction-tree fan-in).
     random_state : int or None
-    verbose : bool — accepted for parity; the fit reads nothing back until
-        it ends, so there is no per-iteration log.
+    verbose : bool — accepted for parity; the fit reads only its loop
+        condition until it ends, so there is no per-iteration log.
 
     Attributes
     ----------
@@ -102,8 +107,8 @@ class KMeans(BaseEstimator):
         return rows
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
-        """Fit on ``x``: ``max_iter`` Lloyd steps on the device, one host
-        read at the end."""
+        """Fit on ``x``: Lloyd steps on the device until ``shift < tol`` or
+        ``max_iter``; one read per chunk of steps and one at the end."""
         if checkpoint is not None or health is not None:
             raise NotImplementedError(
                 "KMeans.fit checkpoint=/health=: the ChunkedFitLoop is not "
@@ -144,7 +149,9 @@ class KMeans(BaseEstimator):
 
 def _to_host(*tensors):
     """Read device tensors back in ONE transfer: pack into float64 (exact
-    for float32 and int32 values), copy, split."""
+    for float32 and int32 values), copy, split.  Counted as one host read
+    under ``"results"``."""
+    count_read("results")
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
     host = flat.cpu().numpy()
     out, pos = [], 0
@@ -172,9 +179,11 @@ def _crop(xp: torch.Tensor, shape):
 
 @precise
 def _kmeans_fit(xp, shape, centers0, max_iter, tol):
-    """``max_iter`` Lloyd steps on the padded backing ``xp`` of logical
-    ``shape`` from ``centers0``.  Returns ``(centers, n_iter, inertia,
-    shift, hist, hvec)`` as device tensors — the reference's 6-tuple."""
+    """Lloyd steps on the padded backing ``xp`` of logical ``shape`` from
+    ``centers0`` until ``shift < tol`` or ``max_iter`` (the reference's
+    ``cond``), in chunks of masked steps (:func:`run_chunked`).  Returns
+    ``(centers, n_iter, inertia, shift, hist, hvec)`` as device tensors —
+    the reference's 6-tuple."""
     xv, w = _crop(xp, shape)
     k = centers0.shape[0]
     dev, dt = xv.device, xv.dtype
@@ -184,7 +193,9 @@ def _kmeans_fit(xp, shape, centers0, max_iter, tol):
     n_iter = torch.zeros((), dtype=torch.int32, device=dev)
     inertia = torch.zeros((), dtype=dt, device=dev)
     hist = torch.zeros((max_iter,), dtype=dt, device=dev)
-    for t in range(max_iter):
+
+    def step(t):
+        nonlocal centers, shift, n_iter, inertia
         active = shift >= tol
         d = _distances_sq(xv, centers, use_kernel=True)
         min_d, labels = torch.min(d, dim=1)   # first index on ties
@@ -201,6 +212,11 @@ def _kmeans_fit(xp, shape, centers0, max_iter, tol):
         inertia = torch.where(active, step_inertia, inertia)
         hist[t] = torch.where(active, step_inertia, hist[t])
         n_iter = n_iter + active.to(torch.int32)
+
+    # at tol <= 0 only a NaN shift stops the loop, and the masks already
+    # freeze the state after one
+    run_chunked(step, None if tol <= 0 else lambda: shift >= tol, max_iter,
+                "kmeans")
     hvec = _health.health_vec(carries=(centers,), hist=hist, n_done=n_iter)
     return centers, n_iter, inertia, shift, hist, hvec
 

@@ -21,7 +21,8 @@
 // output; reading bx once for several trees is later work.
 //
 // Design: a counting sort of the rows by node, then a histogram over the
-// sorted rows.  Four kernels, launched in order on one stream by one call:
+// sorted rows.  Four kernels (five on the fixed-order path), launched in
+// order on one stream by one call:
 //
 //  1. part_count   grid (partition chunk, tree): the rows of a chunk of
 //     CHUNK = 8 warps x rows_per_warp rows are counted per node in shared
@@ -34,16 +35,17 @@
 //     counts in node-major order gives each (node, chunk) its first slot in
 //     the tree's sorted index list, and node_start[p]; a second scan gives
 //     each node's first work item: ceil(count / rows_per_item) items, at
-//     least one, so an empty node still writes its zeros.
+//     least one, so an empty node still writes its zeros; a third gives
+//     each node of several items its first partial slot (split_start).
 //  3. part_scatter grid (partition chunk, tree): a stable scatter.  Warp w
 //     of a block owns rows [w * rows_per_warp, (w + 1) * rows_per_warp) of
 //     the chunk; it counts its rows per node into its own shared counters,
 //     the block turns them into per-warp offsets (warps in row order), and
 //     each warp walks its rows again, ranking equal nodes among its lanes
 //     with __match_any_sync.  Every node's rows land in ascending order, so
-//     the histogram's gathers of bx walk memory forward.  The same kernel
-//     zeroes the output of every node that has more than one work item
-//     (those items meet with global atomics).
+//     the histogram's gathers of bx walk memory forward.  Where the items
+//     of a node add with global atomics (below), the same kernel zeroes
+//     the output of every node that has more than one work item.
 //  4. hist_kernel  grid (G, tree), persistent: a work item is (node, row
 //     chunk of the node, feature group, slice of the node's n_bins * S
 //     entries).  It reads only its own rows.  Lanes run over features: a
@@ -62,17 +64,30 @@
 //     with plain loads and stores.  An item writes its histogram out
 //     through a small tile per warp (32 features x 8 entries), so that
 //     every store writes whole 32-byte sectors.  An item that owns its
-//     whole node stores plainly (and need not have zeroed output); the
-//     items of a node with several row chunks add their non-zero entries
-//     with global atomics into the output zeroed by part_scatter.
+//     whole node stores plainly (and need not have zeroed output).  The
+//     items of a node with several row chunks either add their non-zero
+//     entries with global atomics into the output zeroed by part_scatter
+//     (the integer path), or store them plainly into their own partial
+//     slot (the fixed-order path), and
+//  5. reduce_partials  grid (entry block, tree): sums each split node's
+//     partials in row-chunk order into the output.
 //
 // Exactness.  Every sum is a sum of f32 products w * stats[s], each formed
 // by one multiply as in the reference.  For classification the products
 // are integers (Poisson weights x one-hot counts) and every partial sum
 // stays below 2^24, so the order of the adds does not matter and the result
-// is bit-equal to the plain scatter.  A product that is +0 or -0 is
-// skipped: the sums start at +0, and adding a zero of either sign to a sum
-// leaves its bits unchanged.  Rows whose node is out of range, and bins out
+// is bit-equal to the plain scatter: the integer path adds with shared and
+// global atomics.  For non-integer products (a regressor's w * y) the
+// order sets the last bits, so the fixed-order path fixes it: every warp
+// keeps its own copy of the item's histogram (PRIVATE; the plan cuts the
+// features into groups until eight copies fit), a warp adds its rows in
+// sorted order, the copies are
+// summed in warp order, and a split node's row chunks meet in
+// reduce_partials in chunk order.  The sorted order is the stable
+// partition's, so the same inputs give the same bits on every run (on one
+// kind of card: the plan depends on the SM count).  A product that is +0
+// or -0 is skipped: the sums start at +0, and adding a zero of either sign
+// to a sum leaves its bits unchanged.  Rows whose node is out of range, and bins out
 // of [0, n_bins), are dropped.
 //
 // Costs this version still pays: with fewer than 32 features per group the
@@ -92,6 +107,7 @@ constexpr int TILE_E = 8;               // the flush's tile: 32 features x
 constexpr int TILE_STRIDE = TILE_E + 1; // TILE_E entries, per warp
 constexpr int SCAN_THREADS = 1024;
 constexpr int SCAN_PER_THREAD = 16;
+constexpr int RTHREADS = 256;          // threads of a reduce block
 constexpr unsigned FULL = 0xffffffffu;
 
 // the partition's key of row i of tree t: its node, or -1 if dropped
@@ -184,12 +200,13 @@ __device__ long long block_scan(int* v, long long len) {
 
 __global__ void __launch_bounds__(SCAN_THREADS)
 part_scan(int* __restrict__ counts, int* __restrict__ node_start,
-          int* __restrict__ item_start, int n_nodes, int n_pc,
-          int rows_per_item) {
+          int* __restrict__ item_start, int* __restrict__ split_start,
+          int n_nodes, int n_pc, int rows_per_item) {
     const int t = blockIdx.x;
     int* cnt = counts + (long long)t * n_nodes * n_pc;
     int* ns = node_start + (long long)t * (n_nodes + 1);
     int* is = item_start + (long long)t * (n_nodes + 1);
+    int* ss = split_start + (long long)t * (n_nodes + 1);
     const long long total = block_scan(cnt, (long long)n_nodes * n_pc);
     __syncthreads();
     for (int p = threadIdx.x; p < n_nodes; p += SCAN_THREADS)
@@ -199,10 +216,13 @@ part_scan(int* __restrict__ counts, int* __restrict__ node_start,
     for (int p = threadIdx.x; p < n_nodes; p += SCAN_THREADS) {
         const int rows = ns[p + 1] - ns[p];
         is[p] = max(1, (rows + rows_per_item - 1) / rows_per_item);
+        ss[p] = is[p] > 1 ? is[p] : 0;    // partial slots of a split node
     }
     __syncthreads();
     const long long items = block_scan(is, n_nodes);
     if (threadIdx.x == 0) is[n_nodes] = (int)items;
+    const long long slots = block_scan(ss, n_nodes);
+    if (threadIdx.x == 0) ss[n_nodes] = (int)slots;
 }
 
 __global__ void __launch_bounds__(PTHREADS)
@@ -210,7 +230,8 @@ part_scatter(const int* __restrict__ node, const float* __restrict__ w,
              const float* __restrict__ stats, const int* __restrict__ counts,
              const int* __restrict__ item_start, int* __restrict__ idx,
              float* __restrict__ out, int m, int n_nodes, int S,
-             int rows_per_warp, int n_pc, long long node_entries) {
+             int rows_per_warp, int n_pc, long long node_entries,
+             int zero_split) {
     extern __shared__ int wcnt[];                  // [PWARPS][n_nodes]
     const int c = blockIdx.x, t = blockIdx.y;
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -257,7 +278,9 @@ part_scatter(const int* __restrict__ node, const float* __restrict__ w,
         if (key >= 0 && lane == __ffs(peers) - 1) mine[key] += __popc(peers);
         __syncwarp();
     }
-    // the output of every node split into several items starts at zero
+    // on the integer path the output of every node split into several
+    // items starts at zero (its items add into it)
+    if (!zero_split) return;
     const int* is = item_start + (long long)t * (n_nodes + 1);
     for (int p = c; p < n_nodes; p += n_pc) {
         if (is[p + 1] - is[p] < 2) continue;
@@ -300,9 +323,11 @@ struct HistArgs {
     const int* idx;
     const int* node_start;
     const int* item_start;
+    const int* split_start;
     float* out;
+    float* partial;      // null on the integer path
     int m, n, n_nodes, n_bins, S;
-    int fgs, n_fgroups, slice_len, n_slices, rows_per_item;
+    int fgs, n_fgroups, slice_len, n_slices, rows_per_item, max_slots;
 };
 
 // J: feature slots per lane (features f0 + 32 j + lane); PRIVATE: one
@@ -353,6 +378,14 @@ hist_kernel(const HistArgs a) {
         const int el = min(a.slice_len, E - e0);
         float* o = a.out + ((long long)t * a.n_nodes + p) * node_entries
                    + (long long)f0 * E + e0;
+        // the fixed-order path: a split node's item stores its rows'
+        // sums into its own partial slot, for reduce_partials
+        float* po = nullptr;
+        if (!direct && a.partial != nullptr)
+            po = a.partial
+                 + ((long long)t * a.max_slots
+                    + a.split_start[(long long)t * (a.n_nodes + 1) + p] + ch)
+                 * node_entries + (long long)f0 * E + e0;
         // units of (slot, TILE_E entries); in a store, lane = (feature
         // r = lane / TILE_E + 4 k, entry lane % TILE_E): 32-byte runs
         const int units = J * ((el + TILE_E - 1) / TILE_E);
@@ -447,14 +480,40 @@ hist_kernel(const HistArgs a) {
             if (eb + le < el) {
                 for (int r = lane / TILE_E; r < rows; r += 32 / TILE_E) {
                     const float v = tile[r * TILE_STRIDE + le];
-                    float* dst = o + (long long)(j * 32 + r) * E + eb + le;
-                    if (direct) *dst = v;
-                    else if (v != 0.f) atomicAdd(dst, v);
+                    const long long at = (long long)(j * 32 + r) * E + eb
+                                         + le;
+                    if (direct) o[at] = v;
+                    else if (po != nullptr) po[at] = v;
+                    else if (v != 0.f) atomicAdd(o + at, v);
                 }
             }
             __syncwarp();
         }
         __syncthreads();       // hist is zeroed again by the next item
+    }
+}
+
+// The fixed-order path's last part: out[t, p, e] of every node p split
+// into several row chunks is the sum of its chunks' partials, added from
+// zero in chunk order.  Thread = entry e of the node's n * n_bins * S.
+__global__ void __launch_bounds__(RTHREADS)
+reduce_partials(const float* __restrict__ partial,
+                const int* __restrict__ item_start,
+                const int* __restrict__ split_start, float* __restrict__ out,
+                int n_nodes, int max_slots, long long node_entries) {
+    const int t = blockIdx.y;
+    const long long e = (long long)blockIdx.x * RTHREADS + threadIdx.x;
+    const int* is = item_start + (long long)t * (n_nodes + 1);
+    const int* ss = split_start + (long long)t * (n_nodes + 1);
+    if (e >= node_entries || ss[n_nodes] == 0) return;
+    const float* pt = partial + (long long)t * max_slots * node_entries + e;
+    for (int p = 0; p < n_nodes; ++p) {
+        const int chunks = is[p + 1] - is[p];
+        if (chunks < 2) continue;
+        const float* src = pt + (long long)ss[p] * node_entries;
+        float v = 0.f;
+        for (int c = 0; c < chunks; ++c) v += src[(long long)c * node_entries];
+        out[((long long)t * n_nodes + p) * node_entries + e] = v;
     }
 }
 
@@ -493,19 +552,24 @@ extern "C" int dslib_node_histogram_occupancy(int J, int priv, int smem,
 // C entry point, bound with ctypes.  node (T, m) int32, bx (m, n) int32,
 // w (T, m) float32, stats (m, S) float32, all row-major and contiguous;
 // out (T, n_nodes, n, n_bins, S) float32, allocated by the caller (not
-// zeroed); scratch int32 of T*m + T*n_nodes*n_pc + 2*T*(n_nodes+1)
-// entries.  The plan (rows_per_warp .. grid_x) comes from the caller
-// (ops/kernels.py, hist_plan).  Launches the four kernels on `stream`;
-// returns the first cudaError_t (0 = all launched).
+// zeroed); scratch int32 of T*m + T*n_nodes*n_pc + 3*T*(n_nodes+1)
+// entries.  partial: null for the integer path (atomics), else the
+// fixed-order path's float32 (T, max_slots, n * n_bins * S) buffer
+// (max_slots >= the row chunks of the split nodes of a tree; it needs
+// priv).  The plan (rows_per_warp .. grid_x) comes from the caller
+// (ops/kernels.py, hist_plan).  Launches the four kernels (five on the
+// fixed-order path) on `stream`; returns the first cudaError_t (0 = all
+// launched).
 extern "C" int dslib_node_histogram_f32(
         const void* node, const void* bx, const void* w, const void* stats,
-        void* out, void* scratch, int T, int m, int n, int n_nodes,
-        int n_bins, int S, int rows_per_warp, int n_pc, int J, int fgs,
-        int n_fgroups, int slice_len, int n_slices, int priv,
-        int rows_per_item, int grid_x, void* stream) {
+        void* out, void* scratch, void* partial, int T, int m, int n,
+        int n_nodes, int n_bins, int S, int max_slots, int rows_per_warp,
+        int n_pc, int J, int fgs, int n_fgroups, int slice_len, int n_slices,
+        int priv, int rows_per_item, int grid_x, void* stream) {
     if (T <= 0 || m <= 0 || n <= 0 || n_nodes <= 0 || n_bins <= 0 || S <= 0)
         return 0;
-    if (J < 1 || J > 4 || slice_len % 4 != 0 || rows_per_item <= 0)
+    if (J < 1 || J > 4 || slice_len % 4 != 0 || rows_per_item <= 0
+        || (partial != nullptr && (!priv || max_slots <= 0)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int* node_p = static_cast<const int*>(node);
@@ -516,6 +580,8 @@ extern "C" int dslib_node_histogram_f32(
     int* counts = idx + (long long)T * m;
     int* node_start = counts + (long long)T * n_nodes * n_pc;
     int* item_start = node_start + (long long)T * (n_nodes + 1);
+    int* split_start = item_start + (long long)T * (n_nodes + 1);
+    float* partial_p = static_cast<float*>(partial);
     const int chunk = PWARPS * rows_per_warp;
     const long long node_entries = (long long)n * n_bins * S;
 
@@ -532,16 +598,18 @@ extern "C" int dslib_node_histogram_f32(
     part_count<<<dim3(n_pc, T), PTHREADS, count_smem, st>>>(
         node_p, w_p, stats_p, counts, m, n_nodes, S, chunk, n_pc);
     part_scan<<<T, SCAN_THREADS, 0, st>>>(counts, node_start, item_start,
-                                          n_nodes, n_pc, rows_per_item);
+                                          split_start, n_nodes, n_pc,
+                                          rows_per_item);
     part_scatter<<<dim3(n_pc, T), PTHREADS, scatter_smem, st>>>(
         node_p, w_p, stats_p, counts, item_start, idx, out_p, m, n_nodes, S,
-        rows_per_warp, n_pc, node_entries);
+        rows_per_warp, n_pc, node_entries, partial_p == nullptr);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
 
     const HistArgs a{static_cast<const int*>(bx), w_p, stats_p, idx,
-                     node_start, item_start, out_p, m, n, n_nodes, n_bins, S,
-                     fgs, n_fgroups, slice_len, n_slices, rows_per_item};
+                     node_start, item_start, split_start, out_p, partial_p,
+                     m, n, n_nodes, n_bins, S, fgs, n_fgroups, slice_len,
+                     n_slices, rows_per_item, max_slots};
     const size_t smem = ((size_t)(priv ? HWARPS : 1) * J * slice_len * 32
                          + HWARPS * 32 * TILE_STRIDE) * sizeof(float);
     switch (J * 2 + (priv ? 1 : 0)) {
@@ -554,5 +622,10 @@ extern "C" int dslib_node_histogram_f32(
         case 8: e = launch_hist<4, false>(a, grid_x, T, smem, st); break;
         default: e = launch_hist<4, true>(a, grid_x, T, smem, st); break;
     }
-    return (int)e;
+    if (e != cudaSuccess || partial_p == nullptr) return (int)e;
+    const long long rblocks = (node_entries + RTHREADS - 1) / RTHREADS;
+    reduce_partials<<<dim3((unsigned)rblocks, T), RTHREADS, 0, st>>>(
+        partial_p, item_start, split_start, out_p, n_nodes, max_slots,
+        node_entries);
+    return (int)cudaGetLastError();
 }

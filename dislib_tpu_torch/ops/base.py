@@ -31,3 +31,13 @@ def distances_sq(a: torch.Tensor, b: torch.Tensor, precision=None,
     if use_kernel:
         return _k.distances_sq(a, b, precision=precision)
     return _k.distances_sq_plain(a, b, precision=precision)
+
+
+def cholesky_nan(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of ``a`` (..., n, n), NaN where a matrix is
+    not positive definite: ``jnp.linalg.cholesky``'s result, where
+    ``torch.linalg.cholesky`` raises.  ``cholesky_ex`` reports the failure
+    on the device, so there is no host sync."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], chol,
+                       torch.full_like(chol, float("nan")))

@@ -369,7 +369,8 @@ def hist_smem_bytes(plan: HistPlan) -> int:
 
 
 def hist_plan(T, m, n, n_nodes, n_bins, S, n_sms,
-              smem_bytes=HIST_SMEM_BYTES, private=None) -> HistPlan:
+              smem_bytes=HIST_SMEM_BYTES, private=None,
+              fixed_order=False) -> HistPlan:
     """The plan of one call.  A node's histogram of one feature has
     ``n_bins·S`` entries and a block keeps ``32·J`` features (one per lane
     and slot, J ≤ 4) of them in ``smem_bytes``: features are cut into
@@ -381,9 +382,13 @@ def hist_plan(T, m, n, n_nodes, n_bins, S, n_sms,
     measured slower than one shared copy at every level, while at 20
     features they measured faster (``chip_smoke.py``, PERF.md).
     ``private`` True or False forces the choice (True cuts feature groups
-    until eight copies fit), to measure the other one.  The grid is eight
-    blocks for each resident slot, split evenly among
-    the trees; items take at most ``rows_per_item`` rows of a node, sized
+    until eight copies fit), to measure the other one.  ``fixed_order``
+    (the sums of non-integer contributions) always keeps eight copies,
+    cutting feature groups until they fit, as ``private=True`` does
+    (narrower slices of entries instead measured 3× slower at the
+    regressor's deepest level on an H100: each slice reads its rows' bins
+    again; PERF.md).  The grid is eight blocks for each resident slot,
+    split evenly among the trees; items take at most ``rows_per_item`` rows of a node, sized
     so that the first levels give about eight items for each slot; a deep
     level's nodes are then one item each, which stores plainly."""
     cap = smem_bytes // 4
@@ -392,7 +397,12 @@ def hist_plan(T, m, n, n_nodes, n_bins, S, n_sms,
     J = min(4, _cdiv(n, 32))
     while J > 1 and J * 32 * E4 > cap:
         J -= 1
-    if private is None:
+    if fixed_order:
+        if private is False:
+            raise ValueError("node_histogram: the fixed-order sums need a "
+                             "histogram copy per warp")
+        private = True
+    elif private is None:
         # and enough rows for private items (at least a quarter of
         # _HIST_PRIVATE_ROWS each) to give two blocks per SM
         private = m // n_nodes >= _HIST_PRIVATE_ROWS \
@@ -446,8 +456,17 @@ def hist_occupancy(plan: HistPlan) -> int:
 
 def hist_scratch_len(T, m, n_nodes, plan: HistPlan) -> int:
     """int32 entries of the call's scratch: the sorted row indices (T, m),
-    the (node, chunk) counts, and the per-node first row and first item."""
-    return T * m + T * n_nodes * plan.n_pchunks + 2 * T * (n_nodes + 1)
+    the (node, chunk) counts, and the per-node first row, first item and
+    first partial slot."""
+    return T * m + T * n_nodes * plan.n_pchunks + 3 * T * (n_nodes + 1)
+
+
+def hist_partial_slots(m, plan: HistPlan) -> int:
+    """Partial slots a tree needs on the fixed-order path, at most: the
+    row chunks of its nodes of several chunks.  A node of r > rows_per_item
+    rows has ceil(r / rows_per_item) < 2r / rows_per_item chunks, and the
+    rows of a tree are at most m."""
+    return 2 * _cdiv(m, plan.rows_per_item)
 
 
 def node_histogram_plain(node: torch.Tensor, bx: torch.Tensor,
@@ -487,20 +506,27 @@ def node_histogram_plain(node: torch.Tensor, bx: torch.Tensor,
 
 
 def node_histogram(node: torch.Tensor, bx: torch.Tensor, w: torch.Tensor,
-                   stats: torch.Tensor, n_nodes: int,
-                   n_bins: int) -> torch.Tensor:
+                   stats: torch.Tensor, n_nodes: int, n_bins: int,
+                   integer: bool = False) -> torch.Tensor:
     """The weighted (node, feature, bin) histogram of one tree level for
     every tree (reference: ``pallas_kernels.node_histogram``, vmapped over
     trees): ``out[t, p, f, b] = Σ w[t, i]·stats[i]`` over the rows ``i``
     with ``node[t, i] == p`` and ``bx[i, f] == b``; rows whose node is not
     in ``[0, n_nodes)`` are dropped.  CUDA operands: node and bx int32, w
     and stats float32, all contiguous, ``n_nodes ≤ HIST_MAX_NODES``.  One
-    call launches the kernel's four parts (partition count, scan and
-    scatter, then the histogram) and counts as one launch in
-    :data:`LAUNCHES`.  Bit-equal to the plain version when every
-    ``w·stats`` is an integer and every sum stays below 2^24; otherwise
-    the global atomics of nodes split into several items add in an order
-    that varies from run to run."""
+    call launches the kernel's parts (partition count, scan and scatter,
+    the histogram, and on the fixed-order path the sum of the partials)
+    and counts as one launch in :data:`LAUNCHES`.
+
+    How the sums are ordered is the caller's declaration: ``integer=True``
+    says every ``w·stats`` is an integer and every sum stays below 2^24
+    (the classifier's Poisson weights times one-hot classes).  Any order
+    of the adds then gives the same bits, bit-equal to the plain version,
+    and the kernel adds with shared and global atomics.  Otherwise (the
+    default) the sums run in a fixed order (``hist_plan(...,
+    fixed_order=True)``; ``csrc/node_histogram.cu``): the same inputs
+    give the same bits on every call, within f32 rounding of the plain
+    version's row-order sums.  The plain version ignores ``integer``."""
     if _on_cpu(node, bx, w, stats):
         return node_histogram_plain(node, bx, w, stats, n_nodes, n_bins)
     _check_cuda("node_histogram", node, bx, w, stats)
@@ -528,17 +554,23 @@ def node_histogram(node: torch.Tensor, bx: torch.Tensor, w: torch.Tensor,
     if m == 0 or 0 in shape:
         return torch.zeros(shape, dtype=torch.float32, device=dev)
     plan = hist_plan(T, m, n, n_nodes, n_bins, S, torch.cuda
-                     .get_device_properties(dev).multi_processor_count)
-    # every entry is stored by its item, or zeroed by the partition first
+                     .get_device_properties(dev).multi_processor_count,
+                     fixed_order=not integer)
+    # every entry is stored by its item or the sum of its partials, or
+    # zeroed by the partition first
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     scratch = torch.empty(hist_scratch_len(T, m, n_nodes, plan),
                           dtype=torch.int32, device=dev)
+    slots = 0 if integer else hist_partial_slots(m, plan)
+    partial = torch.empty((T, slots, n * n_bins * S) if slots else (0,),
+                          dtype=torch.float32, device=dev)
     lib = _build.library("node_histogram")
     with torch.cuda.device(dev):
         rc = lib.dslib_node_histogram_f32(
             node.data_ptr(), bx.data_ptr(), w.data_ptr(), stats.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), T, m, n, n_nodes, n_bins, S,
-            *plan, torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), scratch.data_ptr(),
+            partial.data_ptr() if slots else None, T, m, n, n_nodes, n_bins,
+            S, slots, *plan, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on_error("node_histogram", rc)
     LAUNCHES["node_histogram"] += 1
     return out

@@ -12,9 +12,14 @@ held to the reference's own contract, so the two tables must never drift.
   ``torch.backends.cudnn.allow_tf32`` off for its scope, and the hand
   ``panel_gemm`` kernel runs the 3xTF32 split (``ops/kernels.py``).
 - ``bfloat16``: GEMM operands are rounded to bfloat16 and contracted with
-  float32 accumulation.  The product of two bf16 values is exact in f32,
-  so upcasting the rounded operands and contracting in f32 is the same
-  function as a bf16-in / f32-accumulate tensor-core GEMM.
+  float32 accumulation, as the reference contracts them with
+  ``preferred_element_type=float32``.  On CUDA tensors :func:`pdot` and
+  :func:`peinsum` run that product natively: bf16 operands on the tensor
+  cores with a float32 result (``torch.mm``/``torch.bmm`` with
+  ``out_dtype=torch.float32``; a bf16 *result* would round the sums).  CPU
+  torch has no such product (``aten::mm.dtype``), so CPU tensors upcast
+  the rounded operands and contract in f32 with TF32 off: the product of
+  two bf16 values is exact in f32, so that is the same function.
 """
 
 from __future__ import annotations
@@ -165,13 +170,96 @@ def precise(fn=None):
     return wrapped
 
 
+def _bf16_native(a: torch.Tensor, b: torch.Tensor, policy: Policy) -> bool:
+    """Whether a policy product of the rounded ``a`` and ``b`` runs as a
+    native bf16 product with a float32 result (CUDA, BFLOAT16)."""
+    return (policy.compute == "bfloat16" and a.device.type == "cuda"
+            and a.dtype == b.dtype == torch.bfloat16)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) @ (k, n) of bf16 CUDA operands, f32 result."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched (B, m, k) @ (B, k, n) of bf16 CUDA operands, f32 result."""
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _matmul_f32_out(a: torch.Tensor, b: torch.Tensor, mm=_mm_f32,
+                    bmm=_bmm_f32) -> torch.Tensor:
+    """``torch.matmul(a, b)`` with a float32 result, through ``mm``/``bmm``
+    (``torch.matmul`` takes no ``out_dtype``): 1-D operands are lifted to
+    a row or a column, batch dimensions broadcast and flatten into one.
+    ``mm`` and ``bmm`` are the products (a test hands in CPU ones)."""
+    vec_a, vec_b = a.dim() == 1, b.dim() == 1
+    a = a[None] if vec_a else a
+    b = b[:, None] if vec_b else b
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    (m, k), n = a.shape[-2:], b.shape[-1]
+    if not batch:
+        out = mm(a, b)
+    else:
+        out = bmm(a.expand(*batch, m, k).reshape(-1, m, k),
+                  b.expand(*batch, k, n).reshape(-1, k, n)).reshape(
+                      *batch, m, n)
+    if vec_a:
+        out = out.squeeze(-2)
+    if vec_b:
+        out = out.squeeze(-1)
+    return out
+
+
+def _einsum_as_bmm(subscripts: str, a: torch.Tensor, b: torch.Tensor,
+                   bmm=_bmm_f32) -> torch.Tensor:
+    """A two-operand einsum written as one batched product: indices in
+    both operands and the output batch, in both and not the output
+    contract, the rest are each operand's free indices.  Each operand is
+    permuted to (batch, free, contracted) / (batch, contracted, free) and
+    flattened, and the result permuted to the output's order."""
+    ins, out = subscripts.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    if len(set(sa)) != len(sa) or len(set(sb)) != len(sb) \
+            or any(c not in sa + sb for c in out):
+        raise ValueError(f"peinsum: {subscripts!r} is not a batched "
+                         "product of two operands")
+    batch = [c for c in sa if c in sb and c in out]
+    contr = [c for c in sa if c in sb and c not in out]
+    free_a = [c for c in sa if c not in sb]
+    free_b = [c for c in sb if c not in sa]
+    if sorted(out) != sorted(batch + free_a + free_b):
+        raise ValueError(f"peinsum: {subscripts!r} sums an index of one "
+                         "operand only")
+    size = {**dict(zip(sa, a.shape)), **dict(zip(sb, b.shape))}
+
+    def prod(cs):
+        p = 1
+        for c in cs:
+            p *= size[c]
+        return p
+
+    a3 = a.permute([sa.index(c) for c in batch + free_a + contr]).reshape(
+        prod(batch), prod(free_a), prod(contr))
+    b3 = b.permute([sb.index(c) for c in batch + contr + free_b]).reshape(
+        prod(batch), prod(contr), prod(free_b))
+    res = bmm(a3, b3).reshape([size[c] for c in batch + free_a + free_b])
+    order = batch + free_a + free_b
+    return res.permute([order.index(c) for c in out])
+
+
 def pdot(a: torch.Tensor, b: torch.Tensor,
          policy: Policy = FLOAT32) -> torch.Tensor:
     """THE library GEMM: operands rounded to the policy compute dtype,
     contracted with float32 accumulation (float64 for float64 operands
-    under the float32 floor).  Output dtype is the accumulation dtype."""
+    under the float32 floor).  Output dtype is the accumulation dtype.
+    BFLOAT16 on CUDA tensors is one native bf16 product with a float32
+    result; everything else contracts in the accumulation dtype with TF32
+    off."""
     a = to_compute(a, policy)
     b = to_compute(b, policy)
+    if _bf16_native(a, b, policy):
+        return _matmul_f32_out(a, b)
     acc = result_dtype(a, b, policy)
     with _f32_scope():
         return torch.matmul(a.to(acc), b.to(acc))
@@ -182,9 +270,13 @@ def peinsum(subscripts: str, a: torch.Tensor, b: torch.Tensor,
     """The policy-routed einsum — :func:`pdot` for contractions a plain
     matmul cannot spell (the block-Jacobi SVD's batched pair updates).
     Same contract as :func:`pdot`: operands rounded to the policy compute
-    dtype, contracted in the accumulation dtype with TF32 off."""
+    dtype, contracted in the accumulation dtype with TF32 off, or under
+    BFLOAT16 on CUDA as one native batched bf16 product with a float32
+    result (:func:`_einsum_as_bmm`)."""
     a = to_compute(a, policy)
     b = to_compute(b, policy)
+    if _bf16_native(a, b, policy):
+        return _einsum_as_bmm(subscripts, a, b)
     acc = result_dtype(a, b, policy)
     with _f32_scope():
         return torch.einsum(subscripts, a.to(acc), b.to(acc))

@@ -113,12 +113,16 @@ def _bin_data(xp: torch.Tensor, shape, edges: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _node_histogram(node, bx, w, stats, n_nodes, n_bins) -> torch.Tensor:
+def _node_histogram(node, bx, w, stats, n_nodes, n_bins,
+                    integer=False) -> torch.Tensor:
     """Per-tree, per-sample ``w·stats`` histogrammed into (T, n_nodes, n,
     n_bins, S).  The reference routes between an XLA scatter and its
     Pallas kernel; here CUDA tensors always go to the hand kernel (which
-    launches or raises) and CPU tensors to its plain scatter."""
-    return _k.node_histogram(node, bx, w, stats, n_nodes, n_bins)
+    launches or raises) and CPU tensors to its plain scatter.
+    ``integer``: every ``w·stats`` is an integer (the kernel may add in
+    any order); otherwise it sums in a fixed order."""
+    return _k.node_histogram(node, bx, w, stats, n_nodes, n_bins,
+                             integer=integer)
 
 
 def _scan(x: torch.Tensor) -> torch.Tensor:
@@ -212,7 +216,10 @@ def _forest_level(node, bx, w, stats, scores, n_nodes, try_features,
     judged at adoption, here too."""
     T = node.shape[0]
     m, n = bx.shape
-    hist = _node_histogram(node, bx, w, stats, n_nodes, n_bins)
+    # gini's stats are one-hot classes and w Poisson counts: integers, and
+    # every sum below 2^24 at the sizes the forest takes
+    hist = _node_histogram(node, bx, w, stats, n_nodes, n_bins,
+                           integer=criterion == "gini")
     gain, totals = _gain_and_split(hist, criterion)
     del hist
     gain = _mask_features(gain, scores, try_features)
@@ -237,17 +244,26 @@ def _forest_level(node, bx, w, stats, scores, n_nodes, try_features,
 
 def _leaf_stats(node, w, stats, n_leaves):
     """Final-level per-leaf stat sums (T, n_leaves, S) f32, and the health
-    vector over them.  The sums are one ``index_add_``; on a CUDA tensor
-    it adds with atomics, so like the histogram it is exact for integer
-    contributions and varies in the last bits from run to run otherwise."""
+    vector over them.  The sums run in a fixed order on every device: the
+    rows are sorted stably by (tree, leaf) and each stat's column is
+    reduced per leaf by ``torch.segment_reduce`` on its own 1-D column (on
+    CUDA one thread block per leaf, in a fixed order; on the CPU from zero
+    in row order, the reference scatter's), so a regressor's non-integer
+    sums give the same bits on every run (an ``index_add_`` adds with
+    atomics on CUDA)."""
     T, S = node.shape[0], stats.shape[1]
-    contrib = (w[:, :, None] * stats[None]).to(torch.float32)
-    idx = (node.long() + torch.arange(T, device=node.device)[:, None]
-           * n_leaves).reshape(-1)
-    leaves = torch.zeros((T * n_leaves, S), dtype=torch.float32,
-                         device=node.device)
-    leaves.index_add_(0, idx, contrib.reshape(-1, S))
-    leaves = leaves.reshape(T, n_leaves, S)
+    dev = node.device
+    n_seg = T * n_leaves
+    contrib = (w[:, :, None] * stats[None]).to(torch.float32).reshape(-1, S)
+    key = (node.to(torch.int32) + torch.arange(
+        T, dtype=torch.int32, device=dev)[:, None] * n_leaves).reshape(-1)
+    sorted_key, order = torch.sort(key, stable=True)
+    lengths = torch.searchsorted(sorted_key, torch.arange(
+        n_seg + 1, dtype=torch.int32, device=dev)).diff()
+    cols = contrib[order].T.contiguous()              # (S, T·m)
+    leaves = torch.stack([torch.segment_reduce(c, "sum", lengths=lengths,
+                                               unsafe=True) for c in cols],
+                         dim=1).reshape(T, n_leaves, S)
     return leaves, _health.health_vec(carries=(leaves,))
 
 
@@ -401,6 +417,23 @@ class _BaseTreeEnsemble(BaseEstimator):
             x.device, self._edges, self._feats, self._tbins)
         return _forest_apply_core(x._data, x.shape, edges, feats.long(),
                                   tbins, self._depth)
+
+    def _carry_in(self, arrays: dict, device):
+        """Hold a forest given as NumPy arrays under the reference's
+        attribute names (``_edges``, ``_feats``, ``_tbins``, ``_depth``,
+        ``_leaves``, ``n_features_`` and, for a classifier, ``classes_``);
+        the edges and leaves land on ``device``."""
+        # copies: the arrays may be read-only views of another package's
+        self._edges = torch.as_tensor(np.array(arrays["_edges"]),
+                                      device=device)
+        self._feats = np.asarray(arrays["_feats"], np.int32)
+        self._tbins = np.asarray(arrays["_tbins"], np.int32)
+        self._depth = int(arrays["_depth"])
+        self._leaves = torch.as_tensor(np.array(arrays["_leaves"],
+                                                np.float32), device=device)
+        self.n_features_ = int(arrays["n_features_"])
+        if self._criterion == "gini":
+            self.classes_ = np.asarray(arrays["classes_"])
 
     def _check_fitted(self):
         if not hasattr(self, "_leaves"):

@@ -6,9 +6,9 @@ Counterpart of ``dislib_tpu/trees/forest.py``; the growth machinery is in
 nodes of its array graph; here they run eagerly on the query's device and
 the result is wrapped with ``Array._from_padded``.
 
-:func:`from_fitted_arrays` builds a fitted port estimator from a fitted
-reference forest's arrays (NumPy only), so both packages can predict with
-the same forest.
+:func:`~dislib_tpu_torch.base.from_fitted_arrays` (exported here too)
+builds a fitted port estimator from a fitted reference forest's arrays
+(NumPy only), so both packages can predict with the same forest.
 
 Not ported yet: ``_score_async`` (with ``model_selection``, ROADMAP.md A.8).
 """
@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dislib_tpu_torch.base import from_fitted_arrays
 from dislib_tpu_torch.data.array import Array, _padded_dim, _place_region
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.trees.decision_tree import _BaseTreeEnsemble
@@ -210,28 +211,6 @@ class DecisionTreeRegressor(_RegressorMixin, _BaseTreeEnsemble):
 
     def _fit_spec(self):
         return 1, False
-
-
-def from_fitted_arrays(cls, arrays: dict, device=None, **params):
-    """A fitted ``cls`` (one of the four estimators above) holding a
-    forest given as NumPy arrays under the reference's attribute names:
-    ``_edges``, ``_feats``, ``_tbins``, ``_depth``, ``_leaves``,
-    ``n_features_`` and, for a classifier, ``classes_``.  ``params`` go to
-    the constructor (``hard_vote=True``, for one).  The edges and leaves
-    land on ``device`` (default: the default mesh's, ``cuda``)."""
-    dev = _mesh.get_mesh().device if device is None else torch.device(device)
-    est = cls(**params)
-    # copies: the arrays may be read-only views of another package's
-    est._edges = torch.as_tensor(np.array(arrays["_edges"]), device=dev)
-    est._feats = np.asarray(arrays["_feats"], np.int32)
-    est._tbins = np.asarray(arrays["_tbins"], np.int32)
-    est._depth = int(arrays["_depth"])
-    est._leaves = torch.as_tensor(np.array(arrays["_leaves"], np.float32),
-                                  device=dev)
-    est.n_features_ = int(arrays["n_features_"])
-    if issubclass(cls, _ClassifierMixin):
-        est.classes_ = np.asarray(arrays["classes_"])
-    return est
 
 
 __all__ = ["RandomForestClassifier", "RandomForestRegressor",

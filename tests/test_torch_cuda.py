@@ -13,11 +13,18 @@ relative to max‖a‖² + max‖b‖², the magnitudes that cancel in the
 formulation; ``node_histogram`` bit-equal to the plain version for integer
 contributions (sums of integers below 2^24 are exact in any order), and for
 non-integer ones within 1e-5 of the f64 sums relative to each cell's sum of
-|w·stats| (its atomics add in a varying order); a decision tree fitted on
+|w·stats| (the integer path's atomics add in a varying order; the
+fixed-order path is also bit-identical from call to call, and so are the
+leaf sums and a regressor's fit); a decision tree fitted on
 the card identical to the one fitted on the CPU (exact histograms, and
 the gain arithmetic in a fixed order on both devices).  ``panel_gemm``
 FLOAT32 is also held to float32 faithfulness: its error against float64 at
 most 1/8 of a single-pass TF32 product's (cuBLAS with TF32 allowed).
+Under BFLOAT16 on the card, ``pdot``/``peinsum`` are native bf16 products
+with a float32 result: within ``ERROR_BOUNDS`` of float64, and within
+1e-4 of the CPU's f32 contraction of the same rounded operands (the card
+sums in another order).  The new estimators on the card match the CPU at
+1e-4.
 """
 
 import numpy as np
@@ -247,7 +254,7 @@ def test_node_histogram_bit_equal_to_plain(dev, shape):
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     private = K.hist_plan(T, m, n, n_nodes, n_bins, S, nsm).private
     assert private == (shape == HIST_SHAPES[-1])
-    got = K.node_histogram(node, bx, w, stats, n_nodes, n_bins)
+    got = K.node_histogram(node, bx, w, stats, n_nodes, n_bins, integer=True)
     torch.cuda.synchronize()
     assert got.shape == (T, n_nodes, n, n_bins, S)
     assert torch.equal(got, K.node_histogram_plain(node, bx, w, stats,
@@ -274,24 +281,98 @@ def test_node_histogram_layouts_bit_equal_to_plain(dev, kind):
     else:
         w[:, 17] = 0
         stats[17, 1] = float("nan")
-    got = K.node_histogram(node, bx, w, stats, n_nodes, n_bins)
-    torch.cuda.synchronize()
     want = K.node_histogram_plain(node, bx, w, stats, n_nodes, n_bins)
-    assert torch.equal(torch.nan_to_num(got, nan=-1.0),
-                       torch.nan_to_num(want, nan=-1.0))
+    # both orders of the sums: any order (atomics) and the fixed one
+    for integer in (True, False):
+        got = K.node_histogram(node, bx, w, stats, n_nodes, n_bins,
+                               integer=integer)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.nan_to_num(got, nan=-1.0),
+                           torch.nan_to_num(want, nan=-1.0))
     assert torch.isnan(want).any() == (kind == "nan-on-zero-weight")
-    assert K.LAUNCHES["node_histogram"] == 1
+    assert K.LAUNCHES["node_histogram"] == 2
 
 
 def test_node_histogram_non_integer_stats(dev):
     node, bx, w, _ = _hist_inputs(dev, 2, 60_000, 6, 16, 32, 3)
     g = torch.Generator(device=dev).manual_seed(1)
     stats = torch.randn((60_000, 3), generator=g, device=dev)
-    got = K.node_histogram(node, bx, w, stats, 16, 32)
     exact = K.node_histogram_plain(node, bx, w.double(), stats.double(),
                                    16, 32)
     scale = K.node_histogram_plain(node, bx, w, stats.abs(), 16, 32)
-    assert bool(((got.double() - exact).abs() <= 1e-5 * scale).all())
+    for integer in (True, False):
+        got = K.node_histogram(node, bx, w, stats, 16, 32, integer=integer)
+        assert bool(((got.double() - exact).abs() <= 1e-5 * scale).all())
+
+
+# the regressor's shapes and the partition's stress layouts: (T, m, n,
+# n_nodes, n_bins, S, layout)
+FIXED_SHAPES = [(8, 1_000_000, 100, 1, 32, 3, "random"),   # first level
+                (8, 1_000_000, 100, 128, 32, 3, "random"),  # deepest
+                (2, 60_001, 7, 2048, 32, 3, "one-node"),
+                (2, 60_001, 7, 2048, 32, 3, "half-empty"),
+                (3, 1000, 7, 4, 32, 2, "random"),
+                (1, 20_011, 3, 64, 1024, 2, "random"),
+                (16, 200_000, 20, 2, 32, 2, "random")]
+
+
+@pytest.mark.parametrize("shape", FIXED_SHAPES, ids=str)
+def test_node_histogram_fixed_order_is_bit_identical(dev, shape):
+    # non-integer contributions (a regressor's w·y): two calls give the same
+    # bits, within f32 rounding of the f64 sums (1e-5 of each cell's sum of
+    # |w·stats|)
+    T, m, n, n_nodes, n_bins, S, layout = shape
+    node, bx, w, _ = _hist_inputs(dev, T, m, n, n_nodes, n_bins, S, seed=7)
+    if layout == "one-node":
+        node.fill_(1234)
+    elif layout == "half-empty":
+        node.mul_(2).remainder_(n_nodes)
+    g = torch.Generator(device=dev).manual_seed(8)
+    stats = torch.randn((m, S), generator=g, device=dev)
+    first = K.node_histogram(node, bx, w, stats, n_nodes, n_bins)
+    second = K.node_histogram(node, bx, w, stats, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    exact = K.node_histogram_plain(node, bx, w.double(), stats.double(),
+                                   n_nodes, n_bins)
+    scale = K.node_histogram_plain(node, bx, w, stats.abs(), n_nodes, n_bins)
+    assert bool(((first.double() - exact).abs() <= 1e-5 * scale).all())
+    assert K.LAUNCHES["node_histogram"] == 2
+    if n_nodes == 1:        # the first level: its node is cut into chunks
+        plan = K.hist_plan(T, m, n, n_nodes, n_bins, S, torch.cuda
+                           .get_device_properties(dev).multi_processor_count,
+                           fixed_order=True)
+        assert m > plan.rows_per_item
+
+
+def test_leaf_stats_on_the_card_are_bit_identical(dev):
+    from dislib_tpu_torch.trees import decision_tree as dt
+    g = torch.Generator(device=dev).manual_seed(9)
+    T, m, n_leaves = 8, 500_000, 256
+    node = torch.randint(0, n_leaves, (T, m), generator=g, device=dev,
+                         dtype=torch.int32)
+    w = torch.poisson(torch.ones((T, m), device=dev), generator=g)
+    stats = torch.randn((m, 3), generator=g, device=dev)
+    first = dt._leaf_stats(node, w, stats, n_leaves)[0]
+    second = dt._leaf_stats(node, w, stats, n_leaves)[0]
+    assert torch.equal(first, second)
+    cpu = dt._leaf_stats(node.cpu(), w.cpu(), stats.cpu(), n_leaves)[0]
+    torch.testing.assert_close(first.cpu(), cpu, rtol=1e-5, atol=1e-3)
+
+
+def test_regressor_fit_on_the_card_is_reproducible(dev):
+    from dislib_tpu_torch.trees import RandomForestRegressor
+    rng = np.random.RandomState(3)
+    x = rng.rand(100_000, 12).astype(np.float32)
+    y = (np.sin(6 * x[:, :1]) + x[:, 1:2] ** 2).astype(np.float32)
+    X, Y = dst.array(x, device=dev), dst.array(y, device=dev)
+    a = RandomForestRegressor(n_estimators=4, max_depth=8,
+                              random_state=0).fit(X, Y)
+    b = RandomForestRegressor(n_estimators=4, max_depth=8,
+                              random_state=0).fit(X, Y)
+    assert torch.equal(a._leaves, b._leaves)
+    assert np.array_equal(a._feats, b._feats)
+    assert np.array_equal(a._tbins, b._tbins)
 
 
 def test_decision_tree_on_the_card_matches_the_cpu(dev):
@@ -528,3 +609,128 @@ def test_decompositions_on_the_card_match_the_cpu(dev):
     np.testing.assert_array_equal(
         dst.kron(dst.array(a, device=dev), dst.array(b, device=dev))
         .collect(), np.kron(a, b))
+
+
+@pytest.mark.parametrize("shape", [((1_000_000, 50), 16), ((4096, 100), 10)],
+                         ids=["gm-kmeans-init", "minibatch-batch"])
+def test_distances_sq_at_this_slices_shapes(dev, shape):
+    # GaussianMixture's KMeans init (d = 50 takes the slices: d % 4 != 0)
+    # and a MiniBatchKMeans batch
+    (m, d), k = shape
+    g = torch.Generator(device=dev).manual_seed(10)
+    a = torch.randn((m, d), generator=g, device=dev)
+    b = torch.randn((k, d), generator=g, device=dev)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (K.dist_plan(m, d, a.data_ptr(), nsm).rows == 0) == (d % 4 != 0)
+    got = K.distances_sq(a, b)
+    want = K.distances_sq_plain(a, b, "highest")
+    scale = float((a.double() ** 2).sum(1).max()
+                  + (b.double() ** 2).sum(1).max())
+    assert float((got.double() - want.double()).abs().max()) / scale <= 1e-5
+    assert K.LAUNCHES["distances_sq"] == 1
+
+
+@pytest.mark.parametrize("sa,sb", [((512, 300), (300, 200)),
+                                   ((4, 257, 64), (4, 64, 130)),
+                                   ((300, 64), (64,))], ids=str)
+def test_pdot_bfloat16_on_the_card_is_a_native_product(dev, sa, sb,
+                                                       monkeypatch):
+    # BFLOAT16 on CUDA tensors: one bf16 product with a float32 result
+    # (aten::mm.dtype / bmm.dtype), within ERROR_BOUNDS of float64, and
+    # within f32 accumulation of the CPU's contraction of the same rounded
+    # operands
+    calls = []
+    native = px._matmul_f32_out
+    monkeypatch.setattr(px, "_matmul_f32_out",
+                        lambda a, b: calls.append(1) or native(a, b))
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn(sa, generator=g, device=dev)
+    b = torch.randn(sb, generator=g, device=dev)
+    got = px.pdot(a, b, px.BFLOAT16)
+    assert calls and got.dtype == torch.float32
+    ref = torch.matmul(a.double(), b.double())
+    k = sa[-1]
+    scale = float(torch.linalg.norm(a.double()) * torch.linalg.norm(
+        b.double())) / k ** 0.5
+    assert float((got.double() - ref).abs().max()) / scale <= \
+        px.ERROR_BOUNDS[("matmul", "bfloat16")]
+    cpu = px.pdot(a.cpu(), b.cpu(), px.BFLOAT16)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("subscripts,sa,sb", [
+    ("wmi,wij->mwj", (4, 512, 128), (4, 128, 128)),
+    ("nwi,wji->nwj", (512, 4, 128), (4, 128, 128))])
+def test_peinsum_bfloat16_on_the_card_is_one_bmm(dev, subscripts, sa, sb,
+                                                 monkeypatch):
+    calls = []
+    native = px._einsum_as_bmm
+    monkeypatch.setattr(px, "_einsum_as_bmm",
+                        lambda *a: calls.append(1) or native(*a))
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = torch.randn(sa, generator=g, device=dev)
+    b = torch.randn(sb, generator=g, device=dev)
+    got = px.peinsum(subscripts, a, b, px.BFLOAT16)
+    assert calls and got.dtype == torch.float32
+    cpu = px.peinsum(subscripts, a.cpu(), b.cpu(), px.BFLOAT16)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_bfloat16_linalg_on_the_card_within_error_bounds(dev):
+    # the linear algebra under BFLOAT16 now runs native bf16 products: the
+    # svd block tier (peinsum) and random_svd (pdot) hold their bounds
+    rng = np.random.RandomState(13)
+    x = rng.rand(1024, 256).astype(np.float32)
+    s64 = np.linalg.svd(x.astype(np.float64), compute_uv=False)
+    u, s, v = dst.svd(dst.array(x, device=dev), precision="bfloat16")
+    s = s.collect().ravel()
+    assert np.abs(s - s64).max() / s64[0] <= \
+        px.ERROR_BOUNDS[("svd_values", "bfloat16")]
+    approx = (u.collect().astype(np.float64) * s) @ v.collect().T
+    assert np.linalg.norm(approx - x) / np.linalg.norm(x) <= \
+        px.ERROR_BOUNDS[("svd_resid", "bfloat16")]
+    xr = (rng.standard_normal((8192, 512)) * 0.95 ** np.arange(512)).astype(
+        np.float32)
+    _, sr, _ = dst.random_svd(dst.array(xr, device=dev), iters=2, nsv=16,
+                              random_state=0, precision="bfloat16")
+    exact = np.linalg.svd(xr.astype(np.float64), compute_uv=False)[:16]
+    assert np.abs(sr.collect().ravel() - exact).max() / exact[0] <= \
+        px.ERROR_BOUNDS[("randomsvd_values", "bfloat16")]
+
+
+def test_new_estimators_on_the_card_match_the_cpu(dev):
+    # GaussianMixture (its KMeans init launches distances_sq),
+    # MiniBatchKMeans, the scalers, LinearRegression and Lasso: the card
+    # against the CPU at 1e-4 (f32 sums in other orders)
+    rng = np.random.RandomState(14)
+    centers = rng.uniform(-5, 5, (4, 10))
+    x = (centers[rng.randint(0, 4, 20_000)]
+         + rng.standard_normal((20_000, 10))).astype(np.float32)
+    y = (x @ rng.standard_normal((10, 1)) + 0.1).astype(np.float32)
+    on = {d: (dst.array(x, device=d), dst.array(y, device=d))
+          for d in (dev, "cpu")}
+
+    def both(fit, *attrs):
+        outs = [fit(*on[d]) for d in (dev, "cpu")]
+        for a in attrs:
+            np.testing.assert_allclose(getattr(outs[0], a),
+                                       getattr(outs[1], a), rtol=1e-4,
+                                       atol=1e-4, err_msg=a)
+        return outs
+
+    K.reset_launches()
+    gpu, cpu = both(lambda X, Y: dst.GaussianMixture(
+        n_components=4, random_state=0, tol=1e-3).fit(X),
+        "weights_", "means_", "covariances_")
+    assert gpu.n_iter_ == cpu.n_iter_
+    assert 1 <= K.LAUNCHES["distances_sq"] <= 11
+    both(lambda X, Y: dst.MiniBatchKMeans(
+        n_clusters=4, batch_size=4096, random_state=0).fit(X),
+        "centers_", "counts_")
+    gpu, cpu = both(lambda X, Y: dst.StandardScaler().fit(X))
+    np.testing.assert_allclose(gpu.var_.collect(), cpu.var_.collect(),
+                               rtol=1e-5)
+    both(lambda X, Y: dst.LinearRegression().fit(X, Y), "coef_",
+         "intercept_")
+    gpu, cpu = both(lambda X, Y: dst.Lasso(lmbd=50.0).fit(X, Y), "coef_")
+    assert gpu.n_iter_ == cpu.n_iter_

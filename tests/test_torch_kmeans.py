@@ -74,6 +74,27 @@ def test_kmeans_fit_kernel_matches_reference(data, max_iter, tol):
     assert port_k.LAUNCHES["distances_sq"] == 0
 
 
+def test_kmeans_tol_zero_reads_nothing_and_matches_a_nan_stop():
+    # at tol = 0 the loop reads no condition; a NaN row makes the first
+    # shift NaN, which stops the reference's while_loop after one step:
+    # the port's masked steps leave the same state and n_iter
+    from dislib_tpu_torch.utils import profiling
+    x = _uniform()
+    x[7, 2] = np.nan
+    c0 = _init_rows(_uniform(), 3)
+    a = ds.array(x)
+    rc, rn, _, rs, rh, _ = [np.asarray(v) for v in ref_km._kmeans_fit(
+        a._data, a.shape, jnp.asarray(c0), 12, 0.0)]
+    profiling.reset_host_reads()
+    p = dst.array(x)
+    gc, gn, _, gs, gh, _ = [v.numpy() for v in port_km._kmeans_fit(
+        p._data, p.shape, torch.from_numpy(c0), 12, 0.0)]
+    assert profiling.HOST_READS.get("kmeans", 0) == 0
+    assert int(gn) == int(rn) == 1 and np.isnan(gs) and np.isnan(rs)
+    np.testing.assert_allclose(gc, rc, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gh, rh, rtol=1e-5, atol=1e-5)
+
+
 def _clear_rows(x, centers):
     """Rows whose two smallest reference distances differ by more than
     1e-4·(‖x‖² + max‖c‖²): their argmin cannot flip under float32
@@ -145,3 +166,57 @@ def test_kmeans_get_set_params_and_clone():
         km.set_params(bogus=1)
     with pytest.raises(RuntimeError, match="not fitted"):
         km.predict(dst.array(_uniform()))
+
+
+@pytest.mark.parametrize("data", sorted(DATA))
+def test_kmeans_tol_fit_stops_within_a_chunk_of_convergence(data,
+                                                            monkeypatch):
+    # every Lloyd step the port enqueues runs distances_sq once: count them
+    from dislib_tpu_torch.runtime import loop
+    from dislib_tpu_torch.utils import profiling
+    steps = []
+    dist = port_km._distances_sq
+    monkeypatch.setattr(port_km, "_distances_sq",
+                        lambda *a, **kw: steps.append(1) or dist(*a, **kw))
+    make, k = DATA[data]
+    x = make()
+    kw = dict(n_clusters=k, init=_init_rows(x, k), max_iter=300, tol=1e-4)
+    ref = RefKMeans(**kw).fit(ds.array(x))
+    profiling.reset_host_reads()
+    port = PortKMeans(**kw).fit(dst.array(x))
+    n = ref.n_iter_
+    assert port.n_iter_ == n < 300
+    assert n <= len(steps) <= n + loop.EVERY - 1
+    # one read per chunk run, never a read after the last possible chunk
+    assert profiling.HOST_READS["kmeans"] == -(-len(steps) // loop.EVERY) \
+        <= -(-300 // loop.EVERY)
+    np.testing.assert_allclose(port.centers_, ref.centers_, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(port.history_, ref.history_, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_run_chunked_counts_its_steps_and_reads(monkeypatch):
+    from dislib_tpu_torch.runtime import loop
+    from dislib_tpu_torch.utils import profiling
+    profiling.reset_host_reads()
+    seen = []
+    # the condition turns false after step 5: the loop ends with its chunk
+    monkeypatch.setattr(loop, "EVERY", 4)
+    ran = loop.run_chunked(seen.append, lambda: torch.tensor(len(seen) < 6),
+                           20, "t")
+    assert ran == 8 and seen == list(range(8))
+    assert profiling.HOST_READS["t"] == 2
+    # never true: max_iter steps, and no read after the last chunk
+    profiling.reset_host_reads()
+    assert loop.run_chunked(lambda t: None, lambda: torch.tensor(True), 10,
+                            "t") == 10
+    assert profiling.HOST_READS["t"] == 2
+    # no condition (a tolerance <= 0): max_iter steps and no read at all
+    profiling.reset_host_reads()
+    seen.clear()
+    assert loop.run_chunked(seen.append, None, 10, "t") == 10
+    assert seen == list(range(10)) and profiling.HOST_READS.get("t", 0) == 0
+    # a NaN shift stops KMeans as the reference's cond does
+    shift = torch.tensor(float("nan"))
+    assert not bool(shift >= 1e-4)

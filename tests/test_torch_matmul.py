@@ -198,3 +198,53 @@ def test_precise_scopes_tf32_and_to_compute_floor():
     assert port_px.to_compute(x64, port_px.BFLOAT16).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="unknown precision policy"):
         port_px.resolve("fp8")
+
+
+@pytest.mark.parametrize("subscripts,sa,sb", [
+    ("wmi,wij->mwj", (3, 5, 4), (3, 4, 6)),     # the block-Jacobi pair
+    ("nwi,wji->nwj", (5, 3, 4), (3, 6, 4)),     # updates of math.base.svd
+    ("ij,jk->ik", (3, 4), (4, 5)),
+    ("bij,bjk->bik", (2, 3, 4), (2, 4, 5))])
+def test_bfloat16_einsum_as_one_batched_product(subscripts, sa, sb):
+    # BFLOAT16 on a card runs peinsum as one bmm with a float32 result
+    # (aten::bmm.dtype, CUDA only); the layout around it is plain torch,
+    # held here with a float64 bmm in its place
+    from dislib_tpu_torch.ops import precision as px
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(sa, generator=g), torch.randn(sb, generator=g)
+
+    def bmm(x, y):
+        return torch.bmm(x.double(), y.double())
+
+    got = px._einsum_as_bmm(subscripts, a, b, bmm=bmm)
+    want = torch.einsum(subscripts, a.double(), b.double())
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("sa,sb", [((3, 4), (4,)), ((4,), (4, 5)),
+                                   ((2, 3, 4), (2, 4, 5)),
+                                   ((2, 3, 4), (4, 5)), ((3, 4), (2, 4, 5))])
+def test_bfloat16_matmul_as_mm_or_bmm(sa, sb):
+    # pdot's native bf16 route: torch.matmul's broadcasting through mm/bmm
+    from dislib_tpu_torch.ops import precision as px
+    g = torch.Generator().manual_seed(1)
+    a, b = torch.randn(sa, generator=g), torch.randn(sb, generator=g)
+    got = px._matmul_f32_out(
+        a, b, mm=lambda x, y: torch.mm(x.double(), y.double()),
+        bmm=lambda x, y: torch.bmm(x.double(), y.double()))
+    want = torch.matmul(a.double(), b.double())
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_bfloat16_on_the_cpu_keeps_the_f32_contraction():
+    # CPU torch has no aten::mm.dtype: CPU tensors upcast the bf16-rounded
+    # operands and contract in f32, the same function
+    from dislib_tpu_torch.ops import precision as px
+    g = torch.Generator().manual_seed(2)
+    a, b = torch.randn((7, 5), generator=g), torch.randn((5, 3), generator=g)
+    got = px.pdot(a, b, px.BFLOAT16)
+    want = a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -181,22 +181,34 @@ def _emulate_partition(node, w, stats, n_nodes, plan):
 
 
 def _emulate_histogram(bx, w, stats, idx, node_start, n_nodes, n_bins,
-                       plan):
+                       plan, fixed_order=False):
     """The CUDA histogram items in numpy, from the partition's output: each
     (node, row chunk, feature group, slice) adds its rows into
     [copy][slot][entry][lane] and stores (a node of one item, zeros for no
     rows) or adds its non-zero entries to the output that the partition
-    zeroed (a node of several items).  Every other entry stays NaN."""
+    zeroed (a node of several items).  Every other entry stays NaN.
+
+    ``fixed_order``: a node of several items stores each row chunk's sums
+    in its own partial slot, ``split_start[p] + chunk`` (the scan of the
+    chunk counts of split nodes), and the reduce adds the slots from zero
+    in chunk order, in float32.  Returns ``(out, slots used per tree)``."""
     T = idx.shape[0]
     n, S = bx.shape[1], stats.shape[1]
     E = n_bins * S
     copies = port_k._HIST_WARPS if plan.private else 1
     out = np.full((T, n_nodes, n, E), np.nan, np.float32)
+    slots = port_k.hist_partial_slots(idx.shape[1], plan)
+    partial = np.full((T, slots, n, E), np.nan, np.float32)
+    used = np.zeros(T, np.int64)
     for t in range(T):
         for p in range(n_nodes):
             ns, ne = node_start[t, p], node_start[t, p + 1]
             n_items = max(1, -(-(ne - ns) // plan.rows_per_item))
-            if n_items > 1:
+            first = used[t]
+            if n_items > 1 and fixed_order:
+                used[t] += n_items
+                assert used[t] <= slots
+            elif n_items > 1:
                 out[t, p] = 0
             for ch in range(n_items):
                 rs = ns + ch * plan.rows_per_item
@@ -226,13 +238,23 @@ def _emulate_histogram(bx, w, stats, idx, node_start, n_nodes, n_bins,
                                     & (e < el)
                                 np.add.at(hist[cp], (slot[ok], e[ok],
                                                      lane[ok]), c)
-                        v = hist.sum(0)[slot, :el, lane]        # (nf, el)
+                        v = np.zeros((nf, el), np.float32)
+                        for cp in range(copies):       # copies in warp order
+                            v += hist[cp][slot, :el, lane]
                         dst = out[t, p, f0:f0 + nf, e0:e0 + el]
                         if n_items == 1:
                             dst[...] = v
+                        elif fixed_order:
+                            partial[t, first + ch, f0:f0 + nf,
+                                    e0:e0 + el] = v
                         else:
                             dst += np.where(v != 0, v, np.float32(0))
-    return out.reshape(T, n_nodes, n, n_bins, S)
+            if n_items > 1 and fixed_order:
+                acc = np.zeros((n, E), np.float32)
+                for ch in range(n_items):              # chunk order
+                    acc += partial[t, first + ch]
+                out[t, p] = acc
+    return out.reshape(T, n_nodes, n, n_bins, S), used
 
 
 def _small_plan(monkeypatch, shape, smem, private_rows=1 << 30,
@@ -328,14 +350,92 @@ def test_histogram_items_bit_equal_to_plain(kind, shape, smem, private,
     if kind == "sliced-features":
         assert plan.n_slices > 1
     idx, node_start = _emulate_partition(node, w, stats, n_nodes, plan)
-    got = _emulate_histogram(bx, w, stats, idx, node_start, n_nodes, n_bins,
-                             plan)
+    got, _ = _emulate_histogram(bx, w, stats, idx, node_start, n_nodes,
+                                n_bins, plan)
     want = _port_hist(node, bx, w, stats, n_nodes, n_bins)
     np.testing.assert_array_equal(got, want)
     if kind == "one-node":                # split into items that add
         assert node_start[0, -1] > 2 * plan.rows_per_item
     if kind == "nan-on-zero-weight":
         assert np.isnan(want).any()
+
+
+@pytest.mark.parametrize("kind,shape,smem", [
+    ("one-node", (2, 400, 5, 16, 8, 3), 1 << 16),        # split nodes
+    ("random", (2, 300, 40, 2, 4, 3), 1 << 16),          # 40 features
+    ("random", (1, 200, 70, 2, 8, 3), 8 * 3 * 32 * 4 * 4),  # narrow slices
+    ("half-empty", (2, 300, 4, 8, 8, 3), 1 << 16)],
+    ids=["one-node", "random", "narrow-slices", "half-empty"])
+def test_fixed_order_items_match_plain(kind, shape, smem, monkeypatch):
+    # the regressor's path: non-integer w·stats summed in a fixed order
+    # (a copy per warp, split nodes through partial slots added in chunk
+    # order) — within f32 rounding of the plain version's row-order sums,
+    # every slot written, and no more slots than hist_partial_slots
+    T, m, n, n_nodes, n_bins, S = shape
+    rng = np.random.RandomState(13)
+    node, bx, w, _ = _hist_inputs(rng, T, m, n, n_nodes, n_bins, S)
+    node = _layout(kind, rng, T, m, n_nodes)
+    stats = rng.standard_normal((m, S)).astype(np.float32)
+    monkeypatch.setattr(port_k, "_PART_MIN_ROWS", 4)
+    monkeypatch.setattr(port_k, "_PART_MAX_ROWS", 8)
+    monkeypatch.setattr(port_k, "_HIST_MIN_ITEM_ROWS", 16)
+    monkeypatch.setattr(port_k, "_HIST_PRIVATE_ROWS", 64)
+    plan = port_k.hist_plan(T, m, n, n_nodes, n_bins, S, n_sms=4,
+                            smem_bytes=smem, fixed_order=True)
+    assert plan.private == 1
+    # eight copies: feature groups first, then narrower slices where eight
+    # copies of one feature's entries do not fit
+    one = port_k.hist_plan(T, m, n, n_nodes, n_bins, S, n_sms=4,
+                           smem_bytes=smem, private=False)
+    if kind == "narrow-slices":
+        assert plan.J == 1 and plan.n_fgroups > one.n_fgroups
+        assert plan.n_slices > one.n_slices
+    idx, node_start = _emulate_partition(node, w, stats, n_nodes, plan)
+    got, used = _emulate_histogram(bx, w, stats, idx, node_start, n_nodes,
+                                   n_bins, plan, fixed_order=True)
+    if kind == "one-node":
+        assert used.min() > 1
+    assert not np.isnan(got).any()
+    exact = _port_hist(node, bx, w.astype(np.float64),
+                       stats.astype(np.float64), n_nodes, n_bins)
+    scale = _port_hist(node, bx, w, np.abs(stats), n_nodes, n_bins)
+    assert (np.abs(got - exact) <= 1e-5 * scale + 1e-30).all()
+
+
+def test_fixed_order_plan_at_the_regressors_shapes():
+    # 8 trees, 1M x 100, 32 bins, S 3 ([w, wy, wy²]): eight copies of the
+    # whole 96-entry histogram, in four groups of 25 features
+    plan = port_k.hist_plan(8, 1_000_000, 100, 1, 32, 3, n_sms=132,
+                            fixed_order=True)
+    assert (plan.private, plan.J, plan.n_fgroups, plan.n_slices) == \
+        (1, 1, 4, 1)
+    assert port_k.hist_smem_bytes(plan) <= 227 * 1024
+    assert port_k.hist_partial_slots(1_000_000, plan) * plan.rows_per_item \
+        >= 2 * 1_000_000
+    with pytest.raises(ValueError, match="copy per warp"):
+        port_k.hist_plan(8, 1000, 10, 1, 32, 3, n_sms=132, private=False,
+                         fixed_order=True)
+
+
+def test_leaf_stats_sum_in_row_order():
+    # the stable sort + segmented sum adds each leaf's contributions from
+    # zero in row order: bit-equal to a sequential row-order scatter, with
+    # empty leaves 0
+    rng = np.random.RandomState(14)
+    T, m, n_leaves, S = 3, 500, 16, 3
+    node = rng.randint(0, n_leaves // 2, (T, m)).astype(np.int32) * 2
+    w = rng.poisson(1.0, (T, m)).astype(np.float32)
+    stats = rng.standard_normal((m, S)).astype(np.float32)
+    leaves, hvec = port_dt._leaf_stats(torch.from_numpy(node),
+                                       torch.from_numpy(w),
+                                       torch.from_numpy(stats), n_leaves)
+    want = np.zeros((T, n_leaves, S), np.float32)
+    for t in range(T):
+        for i in range(m):
+            want[t, node[t, i]] += np.float32(w[t, i] * stats[i])
+    np.testing.assert_array_equal(leaves.numpy(), want)
+    assert (leaves.numpy()[:, 1::2] == 0).all()
+    assert float(hvec[0]) == 0.0
 
 
 @pytest.mark.parametrize("shape", [

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Measure what two repairs in the port's linear algebra guard against, and
-time a forest's first fit.
+time the calls a change can move, in one fresh process.
 
 Run from the root of a checkout::
 
     PYTHONPATH=. python3 tools/torch_linalg_diag.py         # on the card
     PYTHONPATH=. python3 tools/torch_linalg_diag.py --cpu   # on the CPU
-    PYTHONPATH=. python3 <this file> --forest   # from any checkout's root
+    PYTHONPATH=. python3 <this file> --ab          # from any checkout's root
+    PYTHONPATH=. python3 tools/torch_linalg_diag.py --loop-every
 
 The default mode prints one JSON line per measurement, after the card's
 name and power limit:
@@ -23,10 +24,27 @@ name and power limit:
   algorithm) and twice (the port's), under both policies: ‖QᵀQ − I‖_max
   and max |Q₁ᵀQ₂|.
 
-``--forest`` prints the wall time of a 16-tree ``RandomForestClassifier``
-fit on 1,000,000 x 100 rows (``bench.py``'s ``bench_forest`` draw) three
-times in one fresh process: the first fit carries the process's first-call
-costs.  Run it from the root of two checkouts in turns to compare them.
+``--ab`` prints one JSON line of timings, to compare two checkouts: run it
+from the root of each in turns on one card (parent, change, change,
+parent).  It imports the package and ``chip_smoke.py`` (for its
+``profile_device`` and ``med_s``) found first on the path, so the file may
+come from either checkout:
+
+- ``kmeans``: KMeans on 1,000,000 x 100 (bench.py's draw), k = 10,
+  ``tol=0``: iterations per second of a 500-iteration fit;
+- ``random_svd`` (32768 x 1024, nsv 64, iters 2), ``polar``
+  (16384 x 1024) and ``lanczos_svd`` (8192 x 512, k 6), under each policy:
+  the median wall time of 5 calls, and the wall and device busy time of
+  one profiled call;
+- ``forest``: the wall times of four fits of a 16-tree
+  ``RandomForestClassifier`` on 1,000,000 x 100 rows (``bench.py``'s
+  ``bench_forest`` draw), the first carrying the process's first-call
+  costs, and the device busy time of one more.
+
+``--loop-every`` times that KMeans at ``tol=1e-4`` (``max_iter`` 300) and
+at ``tol=1e-30`` (a read after every chunk, 500 steps) with
+``runtime.loop.EVERY`` set to 1, 2, 4, 8 and 16 in turn, and at ``tol=0``
+(no reads): seconds, steps run, ``n_iter_`` and host reads of each fit.
 """
 
 from __future__ import annotations
@@ -51,27 +69,101 @@ def synced(dev) -> None:
         torch.cuda.synchronize()
 
 
-def forest_fits(dev) -> None:
+def _km_data():
+    rng = np.random.RandomState(0)
+    x = rng.rand(1_000_000, 100).astype(np.float32)
+    return x, x[rng.choice(len(x), 10, replace=False)].copy()
+
+
+def ab(dev) -> None:
+    import chip_smoke as cs
     import dislib_tpu_torch as dst
     from dislib_tpu_torch import _build
     from dislib_tpu_torch.trees import RandomForestClassifier
     dst.init(device=dev)
     _build.build_all()
+    out = {"package": dst.__file__}
+    x, init = _km_data()
+    X = dst.array(x)
+    dst.KMeans(n_clusters=10, init=init, max_iter=5, tol=0.0).fit(X)
+    t0 = time.perf_counter()
+    dst.KMeans(n_clusters=10, init=init, max_iter=500, tol=0.0).fit(X)
+    out["kmeans_iter_per_s_500"] = 500 / (time.perf_counter() - t0)
+    del X
+    rng = np.random.RandomState(0)
+    xr = (rng.standard_normal((32768, 1024)) * 0.95 ** np.arange(1024)) \
+        .astype(np.float32)
+    xp = np.random.RandomState(0).standard_normal((16384, 1024)).astype(
+        np.float32)
+    rng = np.random.RandomState(6)
+    xl = (rng.standard_normal((8192, 512)) * 0.9 ** np.arange(512)).astype(
+        np.float32)
+    R, P, L = dst.array(xr), dst.array(xp), dst.array(xl)
+    for pol in ("float32", "bfloat16"):
+        calls = {
+            "random_svd": lambda: dst.random_svd(
+                R, iters=2, nsv=64, oversample=10, random_state=0,
+                precision=pol),
+            "polar": lambda: dst.polar(P, precision=pol),
+            "lanczos_svd": lambda: dst.lanczos_svd(
+                L, k=6, random_state=0, precision=pol)}
+        for name, fn in calls.items():
+            fn()
+            wall_us, busy_us, _ = cs.profile_device(fn)
+            out[f"{name}_{pol}"] = {"median_s": cs.med_s(fn, 5),
+                                    "profiled_wall_ms": wall_us / 1e3,
+                                    "device_busy_ms": busy_us / 1e3}
+    del R, P, L
     rng = np.random.RandomState(5)              # bench.py's _blobs
     centers = rng.rand(8, 100).astype(np.float32)
     lab = rng.randint(0, 8, 1_000_000)
-    x = (centers[lab] + 0.08 * rng.standard_normal(
+    xf = (centers[lab] + 0.08 * rng.standard_normal(
         (1_000_000, 100)).astype(np.float32)).astype(np.float32)
-    X = dst.array(x)
-    Y = dst.array((lab % 2).astype(np.float32)[:, None])
+    XF = dst.array(xf)
+    YF = dst.array((lab % 2).astype(np.float32)[:, None])
+
+    def fit():
+        RandomForestClassifier(n_estimators=16, random_state=0).fit(XF, YF)
+
     synced(dev)
-    fits = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        RandomForestClassifier(n_estimators=16, random_state=0).fit(X, Y)
+    fits = [cs.med_s(fit, 1) for _ in range(4)]
+    out["forest_fit"] = {"fits_s": fits,
+                         "device_busy_ms": cs.profile_device(fit)[1] / 1e3}
+    emit(out)
+
+
+def loop_every(dev) -> None:
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch import _build
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.runtime import loop
+    from dislib_tpu_torch.utils import profiling as prof
+    dst.init(device=dev)
+    _build.build_all()
+    x, init = _km_data()
+    X = dst.array(x)
+    dst.KMeans(n_clusters=10, init=init, max_iter=5, tol=0.0).fit(X)
+
+    def fit(tol, max_iter):
+        K.reset_launches()
+        prof.reset_host_reads()
         synced(dev)
-        fits.append(time.perf_counter() - t0)
-    emit({"forest_fits_s": fits, "package": dst.__file__})
+        t0 = time.perf_counter()
+        km = dst.KMeans(n_clusters=10, init=init, max_iter=max_iter,
+                        tol=tol).fit(X)
+        return {"seconds": time.perf_counter() - t0, "n_iter": km.n_iter_,
+                "steps_run": K.LAUNCHES["distances_sq"],
+                "host_reads": dict(prof.HOST_READS)}
+
+    every = loop.EVERY
+    try:
+        emit({"loop_every": "none", "tol_0": fit(0.0, 500)})
+        for e in (1, 2, 4, 8, 16):
+            loop.EVERY = e
+            emit({"loop_every": e, "tol_1e-4": fit(1e-4, 300),
+                  "tol_1e-30": fit(1e-30, 500)})
+    finally:
+        loop.EVERY = every
 
 
 def _orth(q: torch.Tensor) -> float:
@@ -160,8 +252,11 @@ def qr_full(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
-    ap.add_argument("--forest", action="store_true",
-                    help="time a forest's first and later fits")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--ab", action="store_true",
+                      help="time KMeans, three linalg calls and a forest")
+    mode.add_argument("--loop-every", action="store_true",
+                      help="time KMeans fits at several loop.EVERY")
     args = ap.parse_args()
     if not args.cpu and not torch.cuda.is_available():
         print("no CUDA device; pass --cpu", file=sys.stderr)
@@ -172,8 +267,8 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip(), flush=True)
-    if args.forest:
-        forest_fits(dev)
+    if args.ab or args.loop_every:
+        (ab if args.ab else loop_every)(dev)
         return 0
     x = np.random.RandomState(0).rand(4096, 512).astype(np.float32)
     pair_svd(dev, x)
