@@ -29,7 +29,14 @@ local-QR routes, ``qr`` economic 32768 x 1024 and full 4096 x 512,
 ``random_svd`` and ``PCA`` on 32768 x 1024, ``svd`` 4096 x 512 and
 4096 x 100, ``polar`` 16384 x 1024, ``lanczos_svd`` and ``kron``), each
 against a float64 NumPy oracle within its ``ERROR_BOUNDS`` row and with
-its host reads and one profiled call — and checks every result.  Each
+its host reads and one profiled call — then ``NearestNeighbors`` at
+bench_knn's sizes (1,000,000 x 10 fit rows, 10,000 queries, k = 10;
+against a float64 brute force on 512 queries), the single-rank ring kNN
+with its cross term on ``panel_gemm`` (against the chunked path),
+``GridSearchCV`` over KMeans and over ``KNeighborsClassifier`` at
+bench_gridsearch's 200,000 x 20 (each split score against a sequential
+fit and score) and ``shuffle``/``train_test_split`` of the KMeans data
+(bit-equal to NumPy's permutation) — and checks every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -128,6 +135,16 @@ LR_M, LR_N = 1_000_000, 100
 LASSO_LMBD, LASSO_RHO, LASSO_ITERS = 5e3, 1e5, 500
 # the regressor's node_histogram: 8 trees, 1M x 100, depth 8, [w, wy, wy²]
 RR_T, RR_DEPTH, RR_S = 8, 8, 3
+# kNN at bench_knn's sizes (bench.py:3112): 1M fit rows x 10 features,
+# 10,000 queries, k = 10, the gate on 512 queries; the single-rank ring
+# at 65,536 fit rows (it holds the whole (queries, fit rows) block)
+KNN_MF, KNN_N, KNN_MQ, KNN_K, KNN_GATE_Q = 1_000_000, 10, 10_000, 10, 512
+RING_MF = 65_536
+# the searches at bench_gridsearch's size (bench.py:3090), KMeans on its
+# rand(200000, 20) draw and the kNN classifier on _blobs(200000, 20, 8);
+# shuffle and train_test_split of the KMeans data
+GS_M, GS_N = 200_000, 20
+SPLIT_M, SPLIT_N = 1_000_000, 100
 
 
 _T0 = time.perf_counter()
@@ -517,37 +534,55 @@ def gm_phase(dev, cuda_ms):
     # distances_sq at the KMeans init's shape: d = 50 takes the slices
     xd = X._data
     cd = torch.from_numpy(means0).to(dev)
-    out = K.distances_sq(xd, cd)
-    plain = K.distances_sq_plain(xd, cd, "highest")
-    scale = float((xd.double() ** 2).sum(1).max()
-                  + (cd.double() ** 2).sum(1).max())
-    err = float((out.double() - plain.double()).abs().max()) / scale
-    check(err <= 1e-5, f"distances_sq at the gm init's shape: error {err}")
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = K.dist_plan(GM_M, GM_N, xd.data_ptr(), n_sms)
-    check(plan.rows == 0, "distances_sq at d = 50 should take the slices")
-    entry = dist_entry(K, "gm_init", GM_M, GM_K, GM_N, out, plain, err,
-                       cuda_ms(lambda: K.distances_sq(xd, cd), 20),
-                       cuda_ms(lambda: K.distances_sq_plain(xd, cd,
-                                                            "highest"), 20),
-                       plan)
+    entry = dist_entry(K, "gm_init", xd, cd, cuda_ms, 20)
+    check(entry["plan"]["rows"] == 0,
+          "distances_sq at d = 50 should take the slices")
     entry["launches"] = launches_init["distances_sq"]
     return entry
 
 
-def dist_entry(K, tag, m, k, d, out, plain, err, ms, plain_ms, plan):
-    """The kernels-line entry of distances_sq at one shape."""
+def dist_entry(K, tag, a, b, cuda_ms, reps):
+    """The kernels-line entry of distances_sq at the shape of ``a`` (m, d)
+    and ``b`` (k, d): the kernel held against its plain version (1e-5 of
+    max ‖a‖² + max ‖b‖², the magnitudes that cancel), its time, the plain
+    version's and ``torch.cdist``'s (the same clamped GEMM formulation,
+    then a square root), and the bound."""
+    import torch
+    from dislib_tpu_torch.ops import precision as px
+    (m, d), k = a.shape, b.shape[0]
+    out = K.distances_sq(a, b)
+    plain = K.distances_sq_plain(a, b, "highest")
+    scale = float((a.double() ** 2).sum(1).max()
+                  + (b.double() ** 2).sum(1).max())
+    err = float((out.double() - plain.double()).abs().max()) / scale
+    check(err <= 1e-5, f"distances_sq at the {tag} shape: error {err}")
+    check(bool((out >= 0).all()), f"distances_sq at the {tag} shape: "
+          "negative distance")
+    max_abs = float((out - plain).abs().max())
+    del out, plain
+
+    def cdist():
+        with px.precise():
+            return torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist")
+
     bound_ms, bound_by = bound(
         2.0 * m * k * d + 2.0 * (m + k) * d + 3.0 * m * k,
         4.0 * (m * d + k * d + m * k), PEAK_FP32_FLOPS)
+    n_sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     return {"name": "distances_sq", "at": tag, "route": "cuda",
             "source": "dislib_tpu_torch/csrc/distances_sq.cu",
             "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
-            "plan": plan._asdict(), "shape": [m, k, d],
-            "max_abs_err": float((out - plain).abs().max()),
-            "normalized_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "library_call": None, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "plan": K.dist_plan(m, d, a.data_ptr(), n_sms)._asdict(),
+            "shape": [m, k, d], "max_abs_err": max_abs,
+            "normalized_err_vs_plain": err,
+            "ms": cuda_ms(lambda: K.distances_sq(a, b), reps),
+            "plain_ms": cuda_ms(lambda: K.distances_sq_plain(a, b,
+                                                             "highest"), reps),
+            "library_ms": cuda_ms(cdist, reps),
+            "library_call": "torch.cdist(a, b, compute_mode="
+                            "'use_mm_for_euclid_dist'), TF32 off (includes "
+                            "a square root)",
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def minibatch_phase(X, x_host, init, dev, cuda_ms):
@@ -623,21 +658,8 @@ def minibatch_phase(X, x_host, init, dev, cuda_ms):
           "gate_centers_max_abs_vs_f64_replay": worst,
           "gate_label_rows_clear": clear_rows, "gate_label_rows": rows})
     xb = X._data[:MBK_BATCH]
-    cb = torch.as_tensor(init, device=dev)
-    out = K.distances_sq(xb, cb)
-    plain = K.distances_sq_plain(xb, cb, "highest")
-    scale = float((xb.double() ** 2).sum(1).max()
-                  + (cb.double() ** 2).sum(1).max())
-    err = float((out.double() - plain.double()).abs().max()) / scale
-    check(err <= 1e-5, f"distances_sq at a batch's shape: error {err}")
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    entry = dist_entry(K, "minibatch", MBK_BATCH, k, x_host.shape[1], out,
-                       plain, err,
-                       cuda_ms(lambda: K.distances_sq(xb, cb), 200),
-                       cuda_ms(lambda: K.distances_sq_plain(xb, cb,
-                                                            "highest"), 200),
-                       K.dist_plan(MBK_BATCH, x_host.shape[1],
-                                   xb.data_ptr(), n_sms))
+    entry = dist_entry(K, "minibatch", xb, torch.as_tensor(init, device=dev),
+                       cuda_ms, 200)
     entry["launches"] = launches["distances_sq"]
     return entry
 
@@ -1015,6 +1037,270 @@ def linalg_phases(dev):
             "seconds": summary, "launches_in_timed_calls": launches}
 
 
+def knn_phases(dev, cuda_ms):
+    """The seventh slice: ``NearestNeighbors`` at bench_knn's sizes, the
+    single-rank ring with its cross term on ``panel_gemm``, GridSearchCV
+    over KMeans (bench_gridsearch) and over the kNN classifier, and
+    shuffle / train_test_split of the KMeans data.  Returns the kernel
+    entries of ``distances_sq`` at a kNN chunk and at a search chunk, and
+    of ``panel_gemm`` at the ring's cross term."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.neighbors import base as nb
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.ops.ring import ring_kneighbors
+    from dislib_tpu_torch.utils import profiling as prof
+    entries = {}
+    # -- knn: bench_knn's draws, through ds.array --------------------------
+    rng = np.random.RandomState(1)
+    fit_host = rng.rand(KNN_MF, KNN_N).astype(np.float32)
+    q_host = rng.rand(KNN_MQ, KNN_N).astype(np.float32)
+    F, Q = dst.array(fit_host), dst.array(q_host)
+    nn = dst.NearestNeighbors(n_neighbors=KNN_K).fit(F)
+    nn.kneighbors(Q)                                       # warm
+    torch.cuda.synchronize()
+    K.reset_launches()
+    d_arr, i_arr = nn.kneighbors(Q)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    n_chunks = -(-KNN_MF // nb._CHUNK)
+    check(launches["distances_sq"] == n_chunks,
+          f"knn: {launches['distances_sq']} distances_sq launches in one "
+          f"kneighbors call, expected {n_chunks}")
+    dist, idx = d_arr.collect(), i_arr.collect()
+    check(dist.shape == (KNN_MQ, KNN_K) and idx.dtype == np.int32,
+          f"knn: distances {dist.shape}, indices {idx.dtype}")
+    # gate: a float64 NumPy brute force on the first KNN_GATE_Q queries
+    f64 = fit_host.astype(np.float64)
+    fsq = (f64 * f64).sum(1)
+    d_err = 0.0
+    for s in range(0, KNN_GATE_Q, 64):
+        q64 = q_host[s: s + 64].astype(np.float64)
+        d2 = np.maximum((q64 * q64).sum(1)[:, None] - 2.0 * (q64 @ f64.T)
+                        + fsq[None], 0.0)
+        top = np.sqrt(np.sort(np.partition(d2, KNN_K - 1, axis=1)
+                              [:, :KNN_K], axis=1))
+        d_err = max(d_err, float(np.abs(dist[s: s + 64] - top).max()))
+        got = np.sqrt(d2[np.arange(len(q64))[:, None], idx[s: s + 64]])
+        check(bool((got <= top[:, -1:] + 1e-4).all()),
+              f"knn: an index of queries {s}..{s + 63} is farther than the "
+              "oracle's 10th distance + 1e-4")
+        del d2
+    check(d_err <= 1e-4, f"knn: distances off the float64 brute force by "
+          f"{d_err}")
+    del f64, fsq
+    call_s = med_s(lambda: nn.kneighbors(Q), 5)
+    wall_us, busy, spans = profile_device(lambda: nn.kneighbors(Q))
+    dist_spans = [sp for sp in spans if "dist_" in sp[2]]
+    emit({"phase": "knn", "fit_rows": KNN_MF, "n_features": KNN_N,
+          "queries": KNN_MQ, "k": KNN_K, "chunk": nb._CHUNK,
+          "gate_queries": KNN_GATE_Q, "gate_max_abs_dist_err_vs_f64": d_err,
+          "queries_per_s": KNN_MQ / call_s, "call_s_median_of_5": call_s,
+          "launches_per_call": launches,
+          "profiled_call": {
+              "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+              "device_idle_share": 1.0 - busy / wall_us,
+              "distances_sq_launches": len(dist_spans),
+              "distances_sq_ms_per_launch": sum(e - s_ for s_, e, _
+                                                in dist_spans)
+              / max(1, len(dist_spans)) / 1e3,
+              "kernels_ms": top_kernels(spans, n=10)}})
+    qd = Q._data
+    entries["distances_sq/knn"] = dist_entry(K, "knn", qd, F._data[:nb._CHUNK],
+                                             cuda_ms, 50)
+    entries["distances_sq/knn"]["launches"] = launches["distances_sq"]
+    del nn, d_arr, i_arr
+    # -- knn_ring: one rank, the cross term on panel_gemm -------------------
+    fr = F._data[:RING_MF]
+    K.reset_launches()
+    d2r, idxr = ring_kneighbors(qd, fr, dst.get_mesh(), KNN_K, RING_MF,
+                                overlap="kernel")
+    torch.cuda.synchronize()
+    launches_ring = dict(K.LAUNCHES)
+    check(launches_ring["panel_gemm"] >= 1,
+          f"knn_ring launched panel_gemm {launches_ring['panel_gemm']} times")
+    od, oi = dst.NearestNeighbors(n_neighbors=KNN_K + 1).fit(
+        dst.array(fit_host[:RING_MF])).kneighbors(Q)
+    od, oi = od.collect(), oi.collect()
+    rd, ri = torch.sqrt(d2r).cpu().numpy(), idxr.cpu().numpy()
+    ring_err = float(np.abs(rd - od[:, :KNN_K]).max())
+    check(ring_err <= 1e-5, f"knn_ring: distances off the chunked path by "
+          f"{ring_err}")
+    # position j is clear when the oracle's distances j-1, j, j+1 differ
+    # by more than 1e-5
+    gap = np.diff(od, axis=1) > 1e-5
+    clear = np.concatenate([gap[:, :1], gap[:, :-1] & gap[:, 1:]], axis=1)
+    check(np.array_equal(ri[clear], oi[:, :KNN_K][clear]),
+          f"knn_ring: indices differ from the chunked path at "
+          f"{int((ri[clear] != oi[:, :KNN_K][clear]).sum())} clear places")
+    ring_s = med_s(lambda: ring_kneighbors(qd, fr, dst.get_mesh(), KNN_K,
+                                           RING_MF, overlap="kernel"), 3)
+    emit({"phase": "knn_ring", "queries": KNN_MQ, "fit_rows": RING_MF,
+          "k": KNN_K, "overlap": "kernel", "launches": launches_ring,
+          "gate_max_abs_dist_err_vs_chunked": ring_err,
+          "gate_clear_places": int(clear.sum()),
+          "call_s_median_of_3": ring_s})
+    del d2r, idxr, od, oi
+    ft = fr.T.contiguous()
+    out = K.panel_gemm(qd, ft, px.FLOAT32)
+    plain = K.panel_gemm_plain(qd, ft, px.FLOAT32)
+    scale = float(torch.linalg.norm(qd.double()) * torch.linalg.norm(
+        ft.double()) / KNN_N ** 0.5)
+    g_err = float((out.double() - plain.double()).abs().max()) / scale
+    check(g_err <= px.ERROR_BOUNDS[("matmul", "float32")],
+          f"panel_gemm at the ring's shape: normalized error {g_err}")
+    g_abs = float((out - plain).abs().max())
+    del out, plain
+
+    def mm():
+        with px.precise():
+            return torch.mm(qd, ft)
+
+    m_, n_ = KNN_MQ, RING_MF
+    bound_ms, bound_by = bound(3 * 2.0 * m_ * n_ * KNN_N,
+                               4.0 * (m_ * KNN_N + KNN_N * n_ + m_ * n_),
+                               PEAK_TF32_FLOPS)
+    entries["panel_gemm/ring"] = {
+        "name": "panel_gemm", "at": "ring", "policy": "float32",
+        "route": "cuda", "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+        "shape": [m_, KNN_N, n_], "launches": launches_ring["panel_gemm"],
+        "max_abs_err": g_abs, "normalized_err_vs_plain": g_err,
+        "ms": cuda_ms(lambda: K.panel_gemm(qd, ft, px.FLOAT32), 20),
+        "plain_ms": cuda_ms(lambda: K.panel_gemm_plain(qd, ft, px.FLOAT32),
+                            20),
+        "library_ms": cuda_ms(mm, 20),
+        "library_call": "torch.mm (f32, TF32 off)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": "3xTF32 at 495 TFLOP/s against 4 bytes per element "
+                       "of q, f^T and the product"}
+    emit({"phase": "kernel", **entries["panel_gemm/ring"]})
+    del F, Q, qd, fr, ft, fit_host, q_host
+    torch.cuda.empty_cache()
+    # -- search: bench_gridsearch over KMeans, then the kNN classifier ------
+    rng = np.random.RandomState(0)
+    XG = dst.array(rng.rand(GS_M, GS_N).astype(np.float32))
+    km_kw = dict(random_state=0, max_iter=10, tol=0.0)
+    km_grid = {"n_clusters": [4, 8, 12]}
+
+    def km_search():
+        return dst.GridSearchCV(dst.KMeans(**km_kw), km_grid, cv=3,
+                                refit=False).fit(XG)
+
+    xb, lab = blobs(GS_M, GS_N, 8)
+    XB, YB = dst.array(xb), dst.array(lab.astype(np.float32)[:, None])
+    knn_grid = {"n_neighbors": [5, 15], "weights": ["uniform", "distance"]}
+
+    def knn_search():
+        return dst.GridSearchCV(dst.KNeighborsClassifier(), knn_grid,
+                                cv=3).fit(XB, YB)
+
+    # one kNN trial, fit and score, queues on the card with no
+    # synchronisation at all (torch raises on any in "error" mode)
+    xt, yt, xv, yv = next(dst.KFold(3).split(XB, YB))
+    trial = dst.KNeighborsClassifier(n_neighbors=5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v = trial._score_async(trial._fit_async(xt, yt), xv, yv)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(isinstance(v, torch.Tensor) and v.device.type == dev.type,
+          "search knn: a trial's score is not a tensor on the card")
+    del xt, yt, xv, yv, trial, v
+    res = {}
+    # reads: the scores, in the search's own loop; the kNN refit reads
+    # its classes_ once (HOST_READS["results"])
+    for name, run, X, Y, est, refit_reads in (
+            ("kmeans", km_search, XG, None,
+             lambda p: dst.KMeans(**km_kw, **p), {}),
+            ("knn", knn_search, XB, YB,
+             lambda p: dst.KNeighborsClassifier(**p), {"results": 1})):
+        run()                                             # warm
+        torch.cuda.synchronize()
+        walls = []
+        for rep in range(3):
+            prof.reset_host_reads()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            gs = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if rep == 0:
+                reads, launches_gs = dict(prof.HOST_READS), dict(K.LAUNCHES)
+        n_trials = len(gs.cv_results_["params"]) * 3
+        check(reads == {"search": n_trials, **refit_reads},
+              f"search {name}: host reads {reads}, expected the "
+              f"{n_trials} scores and the refit's {refit_reads}")
+        # gate: each split score equals a sequential fit, then score
+        worst = 0.0
+        for j, (xt, yt, xv, yv) in enumerate(dst.KFold(3).split(X, Y)):
+            for ci, p in enumerate(gs.cv_results_["params"]):
+                e = est(p).fit(xt) if Y is None else est(p).fit(xt, yt)
+                want = e.score(xv) if Y is None else e.score(xv, yv)
+                got = gs.cv_results_[f"split{j}_test_score"][ci]
+                worst = max(worst, abs(got - want) / max(1.0, abs(want)))
+        check(worst <= 1e-6, f"search {name}: a split score is off the "
+              f"sequential fit and score by {worst}")
+        wall_us, busy, spans = profile_device(run)
+        res[name] = {"wall_s_median_of_3": float(np.median(walls)),
+                     "profiled": {"wall_ms": wall_us / 1e3,
+                                  "device_busy_ms": busy / 1e3,
+                                  "device_idle_share": 1.0 - busy / wall_us,
+                                  "kernels_ms": top_kernels(spans, n=8)},
+                     "walls_s": walls, "trials": n_trials,
+                     "host_reads": reads, "launches": launches_gs,
+                     "best_params": gs.best_params_,
+                     "best_score": gs.best_score_,
+                     "gate_max_rel_err_vs_sequential": worst}
+    check(res["knn"]["best_score"] >= 0.95,
+          f"search knn: best score {res['knn']['best_score']} < 0.95")
+    emit({"phase": "search", "kmeans_shape": [GS_M, GS_N],
+          "knn_shape": [GS_M, GS_N], "cv": 3, **res})
+    xt, _, xv, _ = next(dst.KFold(3).split(XB))
+    entries["distances_sq/knn_search"] = dist_entry(
+        K, "knn_search", xv._data, xt._data[:nb._CHUNK], cuda_ms, 20)
+    entries["distances_sq/knn_search"]["launches"] = \
+        res["knn"]["launches"]["distances_sq"]
+    del XG, XB, YB, xb, xt, xv
+    torch.cuda.empty_cache()
+    # -- split: shuffle and train_test_split of the KMeans data -------------
+    x_host = np.random.RandomState(0).rand(SPLIT_M, SPLIT_N).astype(
+        np.float32)
+    X = dst.array(x_host)
+    Y = dst.array(np.arange(SPLIT_M, dtype=np.float32)[:, None])
+    dst.shuffle(X, random_state=1)                          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, ys = dst.shuffle(X, Y, random_state=3)
+    torch.cuda.synchronize()
+    shuffle_s = time.perf_counter() - t0
+    perm = np.random.RandomState(3).permutation(SPLIT_M)
+    check(np.array_equal(xs.collect(), x_host[perm])
+          and np.array_equal(ys.collect().ravel(), perm.astype(np.float32)),
+          "shuffle differs from NumPy's x[RandomState(3).permutation(m)]")
+    del xs, ys
+    t0 = time.perf_counter()
+    tr, te, ytr, yte = dst.train_test_split(X, Y, random_state=4)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    perm = np.random.RandomState(4).permutation(SPLIT_M)
+    n_test = int(round(SPLIT_M * 0.25))
+    n_train = SPLIT_M - n_test
+    check(np.array_equal(tr.collect(), x_host[perm[:n_train]])
+          and np.array_equal(te.collect(), x_host[perm[n_train:]])
+          and np.array_equal(yte.collect().ravel(),
+                             perm[n_train:].astype(np.float32)),
+          "train_test_split differs from NumPy's permuted rows")
+    emit({"phase": "split", "shape": [SPLIT_M, SPLIT_N],
+          "shuffle_x_and_y_s": shuffle_s, "train_test_split_s": split_s,
+          "train_rows": n_train, "test_rows": n_test,
+          "bit_equal_to_numpy_permutation": True})
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1297,30 +1583,9 @@ def main() -> int:
     init = x_host[rng.choice(KM_M, KM_K, replace=False)].copy()
     xd = torch.from_numpy(x_host).to(dev)
     cd = torch.from_numpy(init).to(dev)
-    out = K.distances_sq(xd, cd)
-    plain = K.distances_sq_plain(xd, cd, precision="highest")
-    err = dist_err(out, plain, xd, cd)
-    check(err <= dist_tol, f"distances_sq: error {err} vs plain > {dist_tol}")
-    check(bool((out >= 0).all()), "distances_sq: negative distance")
-    max_abs = float((out - plain).abs().max())
-    del out, plain
-    ms = cuda_ms(lambda: K.distances_sq(xd, cd), 20)
-    plain_ms = cuda_ms(lambda: K.distances_sq_plain(xd, cd, "highest"), 20)
-    bound_ms, bound_by = bound(
-        2.0 * KM_M * KM_K * KM_N + 2.0 * (KM_M + KM_K) * KM_N
-        + 3.0 * KM_M * KM_K,
-        4.0 * (KM_M * KM_N + KM_K * KM_N + KM_M * KM_K), PEAK_FP32_FLOPS)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kernels["distances_sq"] = {
-        "name": "distances_sq", "route": "cuda",
-        "source": "dislib_tpu_torch/csrc/distances_sq.cu",
-        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
-        "plan": K.dist_plan(KM_M, KM_N, xd.data_ptr(), n_sms)._asdict(),
-        "shape": [KM_M, KM_K, KM_N], "max_abs_err": max_abs,
-        "normalized_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": None, "library_call": None, "bound_ms": bound_ms,
-        "bound_by": bound_by}
+    kernels["distances_sq"] = dist_entry(K, "kmeans", xd, cd, cuda_ms, 20)
     emit({"phase": "kernel", **kernels["distances_sq"]})
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     del xd
 
     # node_histogram at the forest's deepest level on the main path: 16
@@ -1877,7 +2142,13 @@ def main() -> int:
     emit({"phase": "linalg_summary", "seconds": time.perf_counter() - t0,
           **la})
 
-    # -- (9) the kernels line, then the result --------------------------------------
+    # -- (9) kNN, the ring, the searches and the splits ---------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.update(knn_phases(dev, cuda_ms))
+    emit({"phase": "knn_summary", "seconds": time.perf_counter() - t0})
+
+    # -- (10) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

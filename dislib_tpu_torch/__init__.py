@@ -19,8 +19,10 @@ from dislib_tpu_torch.data.array import (
 from dislib_tpu_torch.math import matmul, kron, svd, qr, polar
 from dislib_tpu_torch.decomposition import tsqr, random_svd, lanczos_svd, PCA
 from dislib_tpu_torch.base import from_fitted_arrays
-from dislib_tpu_torch import cluster, decomposition, math, trees, \
-    preprocessing, regression, optimization  # noqa: E402,F401
+from dislib_tpu_torch.utils.base import shuffle, train_test_split
+from dislib_tpu_torch import cluster, classification, decomposition, \
+    math, model_selection, neighbors, trees, preprocessing, regression, \
+    optimization  # noqa: E402,F401
 
 # estimator classes re-exported at top level, as the reference does
 # (their canonical homes stay the submodules above)
@@ -32,16 +34,25 @@ from dislib_tpu_torch.trees import (
 from dislib_tpu_torch.regression import LinearRegression, Lasso
 from dislib_tpu_torch.optimization import ADMM
 from dislib_tpu_torch.preprocessing import StandardScaler, MinMaxScaler
+from dislib_tpu_torch.classification import KNeighborsClassifier
+from dislib_tpu_torch.neighbors import NearestNeighbors
+from dislib_tpu_torch.model_selection import (
+    KFold, GridSearchCV, RandomizedSearchCV,
+)
 
 __all__ = ["init", "get_mesh", "Array", "array", "random_array", "zeros",
            "full", "ones", "identity", "eye", "apply_along_axis",
            "concat_rows", "concat_cols", "rechunk", "ensure_canonical",
            "matmul", "kron", "svd", "qr", "polar",
            "tsqr", "random_svd", "lanczos_svd", "PCA", "from_fitted_arrays",
+           "shuffle", "train_test_split",
            "KMeans", "MiniBatchKMeans", "GaussianMixture",
+           "KNeighborsClassifier",
            "RandomForestClassifier", "RandomForestRegressor",
            "DecisionTreeClassifier", "DecisionTreeRegressor",
-           "LinearRegression", "Lasso", "ADMM",
+           "NearestNeighbors", "LinearRegression", "Lasso", "ADMM",
            "StandardScaler", "MinMaxScaler",
-           "cluster", "decomposition", "math", "trees", "preprocessing",
+           "KFold", "GridSearchCV", "RandomizedSearchCV",
+           "cluster", "classification", "decomposition", "math",
+           "model_selection", "neighbors", "trees", "preprocessing",
            "regression", "optimization"]

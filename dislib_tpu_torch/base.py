@@ -1,9 +1,10 @@
 """sklearn-style estimator plumbing: get_params / set_params / clone.
 
-Counterpart of ``dislib_tpu/base.py``.  The reference's async-trial hooks
-(``_fit_async`` and friends, used by GridSearchCV) are not ported in this
-slice (ROADMAP.md A.8).  Its predict-parameter cache is: a plain cache of
-device copies per device (``_predict_leaves``), and ``_classes_leaf``.
+Counterpart of ``dislib_tpu/base.py``, with its async-trial protocol
+(``_fit_async``, ``_fit_finalize``, ``_score_async``: ``model_selection``
+dispatches every trial of a fold before it reads a score) and its
+predict-parameter cache: a plain cache of device copies per device
+(``_predict_leaves``), and ``_classes_leaf``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from copy import deepcopy
 
 import numpy as np
 import torch
+
+#: classes already reported as lacking an async fit path (notice once each)
+_ASYNC_FALLBACK_NOTICED: set = set()
 
 
 class BaseEstimator:
@@ -38,6 +42,45 @@ class BaseEstimator:
                                  f"{type(self).__name__}")
             setattr(self, k, v)
         return self
+
+    # -- async trial protocol (GridSearchCV submits all fits of a fold
+    # before waiting on any; estimators opt in by overriding these) ----------
+
+    def _fit_async(self, x, y=None):
+        """Enqueue this estimator's fit without reading device values back
+        to the host, returning an opaque state handle for
+        `_fit_finalize`/`_score_async`.  The default falls back to the
+        synchronous `fit` and returns None (the card still runs the fits'
+        kernels back to back; only the reads a fit makes serialise).  The
+        fallback is logged once per class, so a search that serialises is
+        visible."""
+        cls = type(self).__name__
+        if cls not in _ASYNC_FALLBACK_NOTICED:
+            _ASYNC_FALLBACK_NOTICED.add(cls)
+            from dislib_tpu_torch.utils.dlog import get_logger
+            get_logger("search").info(
+                "%s does not implement _fit_async; search trials over it run "
+                "synchronous fits (device work still overlaps, cross-trial "
+                "pipelining of host reads is lost)", cls)
+        self.fit(x, y) if y is not None else self.fit(x)
+        return None
+
+    def _fit_finalize(self, state):
+        """Set the fitted attributes from an async state handle (no-op for
+        the synchronous fallback)."""
+
+    def _score_async(self, state, x, y=None):
+        """Score a trial from its async state; may return a device scalar,
+        which the caller reads only after the next fold is dispatched.  The
+        fallback sets the fitted attributes first, so an estimator with
+        `_fit_async` but no `_score_async` of its own scores a fitted
+        model."""
+        if state is not None:
+            self._fit_finalize(state)
+        if not hasattr(self, "score"):
+            raise TypeError(f"{type(self).__name__} has no score(); "
+                            "pass scoring=")
+        return self.score(x, y) if y is not None else self.score(x)
 
     # -- device-resident predict parameters ----------------------------------
 
@@ -88,7 +131,9 @@ def from_fitted_arrays(cls, arrays: dict, device=None, **params):
     ``covariances_`` and ``covariance_type``; MiniBatchKMeans'
     ``centers_`` and ``counts_``; LinearRegression's ``coef_`` and
     ``intercept_``; Lasso's ``coef_``; StandardScaler's ``mean_`` and
-    ``var_``; MinMaxScaler's ``data_min_`` and ``data_max_``.  ``params``
+    ``var_``; MinMaxScaler's ``data_min_`` and ``data_max_``;
+    NearestNeighbors' ``_fit_data``; KNeighborsClassifier's ``_fit_x``,
+    ``_codes`` and ``classes_``.  ``params``
     go to the constructor.  Device-resident attributes land on ``device``
     (default: the default mesh's, ``cuda``)."""
     from dislib_tpu_torch.parallel import mesh as _mesh

@@ -35,6 +35,9 @@ Where the port departs from the reference's code:
   with :func:`~dislib_tpu_torch.ops.base.cholesky_nan`, which keeps the
   NaN, with no host sync.
 - ``predict`` is the reference's fusion-graph node body, called eagerly.
+
+``fit`` is ``_fit_finalize(_fit_async(x))``, the search's async-trial
+hooks; ``_score_async`` is the mean log-likelihood as a device scalar.
 """
 
 from __future__ import annotations
@@ -135,12 +138,24 @@ class GaussianMixture(BaseEstimator):
             raise NotImplementedError(
                 "GaussianMixture.fit checkpoint=/health=: the ChunkedFitLoop"
                 " is not ported yet (ROADMAP.md A.12)")
+        self._fit_finalize(self._fit_async(x))
+        return self
+
+    # async trial protocol: the EM fit (the KMeans init included) runs on
+    # the device; at tol > 0 its loops read their stop conditions once per
+    # chunk of steps (runtime/loop.run_chunked, counted in HOST_READS),
+    # where the reference's lax.while_loop reads nothing
+    def _fit_async(self, x, y=None):
         self._check_params(x)
-        out = _gm_fit(x._data, x.shape, self._init_resp(x),
-                      self.covariance_type, float(self.reg_covar),
-                      float(self.tol), int(self.max_iter),
-                      self._explicit_inits(x.device))
-        weights, means, covs, lb, n_iter, conv, hist, _ = _to_host(*out)
+        return _gm_fit(x._data, x.shape, self._init_resp(x),
+                       self.covariance_type, float(self.reg_covar),
+                       float(self.tol), int(self.max_iter),
+                       self._explicit_inits(x.device))
+
+    def _fit_finalize(self, state):
+        if state is None:
+            return
+        weights, means, covs, lb, n_iter, conv, hist, _ = _to_host(*state)
         self.weights_ = weights
         self.means_ = means
         self.covariances_ = covs
@@ -150,7 +165,12 @@ class GaussianMixture(BaseEstimator):
         self.history_ = np.asarray(hist[: self.n_iter_], dtype=np.float64)
         verbose_logger("gm", self.verbose).info(
             "iter %d: lower_bound=%.6g", self.n_iter_, self.lower_bound_)
-        return self
+
+    def _score_async(self, state, x, y=None):
+        if state is None:
+            return super()._score_async(state, x, y)
+        return _gm_loglik(x._data, x.shape, state[0], state[1], state[2],
+                          self.covariance_type)
 
     def _explicit_inits(self, device):
         """(weights, means, covs) overrides from the *_init parameters."""

@@ -16,6 +16,9 @@ Per step: the E-step is the hand CUDA kernel ``distances_sq``
 is ``onehotᵀ @ x`` as a plain f32-faithful product (it sits outside any
 kernel of the reference too).  ``predict`` and ``score`` run the same
 kernel.  Padded rows (none on the one-device mesh) carry weight 0.
+``fit`` is ``_fit_finalize(_fit_async(x))``: the async-trial hooks of the
+search split it at its one transfer, and ``_score_async`` scores the
+device centers as a device scalar.
 
 Not ported yet: ``checkpoint=``/``health=`` (the ``ChunkedFitLoop``,
 ROADMAP.md A.12), sparse input (A.10) and ``fast_distance=True`` (a
@@ -113,15 +116,32 @@ class KMeans(BaseEstimator):
             raise NotImplementedError(
                 "KMeans.fit checkpoint=/health=: the ChunkedFitLoop is not "
                 "ported yet (ROADMAP.md A.12)")
+        self._fit_finalize(self._fit_async(x))
+        return self
+
+    # async trial protocol: the fit runs on the device with no host read
+    # at tol <= 0; at tol > 0 its loop reads the stop condition once per
+    # chunk of steps (runtime/loop.run_chunked, counted in HOST_READS),
+    # where the reference's lax.while_loop reads nothing
+    def _fit_async(self, x, y=None):
         self._check_supported(x)
-        out = _kmeans_fit(x._data, x.shape, self._init_centers(x),
-                          int(self.max_iter), float(self.tol))
-        centers, n_iter, inertia, _, hist, _ = _to_host(*out)
+        return _kmeans_fit(x._data, x.shape, self._init_centers(x),
+                           int(self.max_iter), float(self.tol))
+
+    def _fit_finalize(self, state):
+        if state is None:
+            return
+        centers, n_iter, inertia, _, hist, _ = _to_host(*state)
         self.centers_ = centers
         self.n_iter_ = int(n_iter)
         self.inertia_ = float(inertia)
         self.history_ = np.asarray(hist[: self.n_iter_], dtype=np.float64)
-        return self
+
+    def _score_async(self, state, x, y=None):
+        if state is None:
+            return super()._score_async(state, x, y)
+        self._check_supported(x)
+        return _kmeans_score(x._data, x.shape, state[0])
 
     def fit_predict(self, x: Array, y=None) -> Array:
         return self.fit(x).predict(x)

@@ -628,6 +628,16 @@ def ensure_canonical(x: Array) -> Array:
     return rechunk(x)
 
 
+def require_dense(x, what: str) -> None:
+    """Raise ``NotImplementedError`` for anything but a dense ds-array
+    (a scipy matrix, the reference's ``SparseArray``): sparse input is
+    ROADMAP.md A.10."""
+    if not isinstance(x, Array):
+        raise NotImplementedError(
+            f"{what} on {type(x).__name__}: the port takes dense ds-arrays;"
+            " sparse input is ROADMAP.md A.10")
+
+
 def apply_along_axis(func, axis, x: Array, *args, **kwargs) -> Array:
     """Apply ``func`` to the 1-D slices of ``x`` along ``axis``, as
     ``np.apply_along_axis`` does (reference:

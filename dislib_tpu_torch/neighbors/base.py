@@ -1,0 +1,115 @@
+"""Nearest neighbours.
+
+Counterpart of ``dislib_tpu/neighbors/base.py`` (dense).  The all-pairs
+block product is the distance ‖q‖² − 2q·xᵀ + ‖x‖² and the k-best merge a
+top-k.  A fit set of at most 2·``_CHUNK`` rows takes the direct path (one
+(mq, mf) distance block); a larger one streams in fitted-row chunks of
+``_CHUNK`` rows with a running top-k (the chunk's k smallest merged with
+the carried k), so peak memory is O(mq·(k + chunk)), never O(mq·mf).
+Each chunk is a row slice of the fit set, made contiguous once per call,
+and every distance block is ``ops/base.distances_sq(..., use_kernel=True)``:
+on a card the hand kernel ``distances_sq``, on CPU tensors its plain
+version.  Ties go to the lower fit index, as the reference's
+``lax.top_k`` merges give (``ops/base.merge_smallest``).  Padded fit rows
+(none on one card) are never neighbours; padded query rows return 0.
+
+``ring``: the reference takes the ring schedule of ``ops/ring.py`` only on
+a mesh of more than one row (``ring_kneighbors`` is not inner-tiled; with
+one row it would materialise the whole (mq, mf) block).  The port's mesh
+has one row until ROADMAP.md A.2, so every setting takes the path above;
+``ring=True`` says so in a warning.  The ring stays reachable by a direct
+call.
+
+Not ported yet: sparse fit sets and queries (ROADMAP.md A.10), which
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from dislib_tpu_torch.base import BaseEstimator
+from dislib_tpu_torch.data.array import Array, array, require_dense
+from dislib_tpu_torch.ops.base import distances_sq, merge_smallest, \
+    precise, split_keys
+
+# fitted-row chunk of the streaming path; fit sets up to 2×_CHUNK rows
+# take the direct path (module-level so tests can shrink it)
+_CHUNK = 4096
+
+
+class NearestNeighbors(BaseEstimator):
+    """Exact brute-force kNN index over a ds-array.
+
+    ``ring``: the reference's ring switch; on the port's one-row mesh no
+    setting takes the ring schedule (``ring=True`` warns).
+    """
+
+    def __init__(self, n_neighbors=5, ring=None):
+        self.n_neighbors = n_neighbors
+        self.ring = ring
+
+    def fit(self, x: Array, y=None):
+        require_dense(x, "NearestNeighbors")
+        self._fit_data = x
+        return self
+
+    def kneighbors(self, x: Array, n_neighbors=None, return_distance=True):
+        """Distances (mq, k) float32 and indices (mq, k) int32 ds-arrays of
+        the k nearest fitted rows of each query row, nearest first."""
+        if not hasattr(self, "_fit_data"):
+            raise RuntimeError("NearestNeighbors is not fitted")
+        k = self.n_neighbors if n_neighbors is None else n_neighbors
+        f = self._fit_data
+        if not 1 <= k <= f.shape[0]:
+            raise ValueError(f"n_neighbors {k} not in [1, {f.shape[0]}]")
+        require_dense(x, "NearestNeighbors.kneighbors")
+        if self.ring:
+            warnings.warn("NearestNeighbors(ring=True): the ring schedule "
+                          "needs a mesh of more than one row (ROADMAP.md "
+                          "A.2); the chunked path runs", UserWarning,
+                          stacklevel=2)
+        d, idx = _kneighbors(x._data, f._data, x.shape, f.shape, k,
+                             chunk=_CHUNK)
+        shape = (x.shape[0], k)
+        i_arr = Array._from_padded(idx, shape, x._mesh)
+        if return_distance:
+            return Array._from_padded(d, shape, x._mesh), i_arr
+        return i_arr
+
+    def _carry_in(self, arrays: dict, device):
+        self._fit_data = array(np.array(arrays["_fit_data"], np.float32),
+                               device=device)
+
+
+def _finish(d2, idx, mq):
+    """Distances ``sqrt(max(d², 0))``; 0 and index 0 on padded query
+    rows."""
+    dist = torch.sqrt(torch.clamp_min(d2, 0.0))
+    if dist.shape[0] > mq:
+        dist[mq:] = 0.0
+        idx[mq:] = 0
+    return dist, idx
+
+
+@precise
+def _kneighbors(qp, fp, q_shape, f_shape, k, chunk=None):
+    """(distances (mq_pad, k) float32, indices (mq_pad, k) int32) of the
+    ``k`` nearest of the first ``f_shape[0]`` rows of ``fp`` for each row
+    of ``qp``: one distance block when the fit set has at most ``2·chunk``
+    rows, else a running top-k over chunks of ``chunk`` rows in index
+    order."""
+    mq, d = q_shape
+    mf = f_shape[0]
+    chunk = _CHUNK if chunk is None else chunk
+    qv = qp[:, :d].contiguous()
+    fv = fp[:mf, :d].contiguous()
+    step = mf if mf <= 2 * chunk else chunk
+    best = None
+    for off in range(0, mf, step):
+        best = merge_smallest(best, distances_sq(qv, fv[off: off + step],
+                                                 use_kernel=True), k, off)
+    return _finish(*split_keys(best), mq)

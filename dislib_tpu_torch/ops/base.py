@@ -41,3 +41,75 @@ def cholesky_nan(a: torch.Tensor) -> torch.Tensor:
     chol, info = torch.linalg.cholesky_ex(a)
     return torch.where((info == 0)[..., None, None], chol,
                        torch.full_like(chol, float("nan")))
+
+
+# ---------------------------------------------------------------------------
+# the k smallest distances, ties to the lower index
+# ---------------------------------------------------------------------------
+#
+# The reference's kNN merges rely on ``lax.top_k`` keeping the lower
+# position on ties: carried candidates precede a chunk, and chunks arrive
+# in index order, so of two equal distances the lower fit index wins.
+# ``torch.topk`` promises no order for ties — neither which of several
+# equal values it keeps at the k-th place nor their order — on the CPU or
+# on CUDA.  So a chunk's k smallest are chosen in two steps.  A float32
+# top-k gives the k smallest values, which are right whatever it does with
+# ties: every distance below the k-th value v is among them.  The places
+# left are v's, and they go to the lowest indices where the chunk holds v,
+# found by a cumulative count of ``d2 == v`` along the row.  The k chosen
+# candidates then become int64 keys, their distance's float32 bits high
+# and their index low: distances are clamped at 0, and the bits of a
+# non-negative float32 (+inf included) order as the float does, so the
+# integer order of the keys is the order of (distance, index).  Only 2k
+# keys are ever sorted (the carried k and the chunk's k), never the chunk.
+# A NaN distance (non-finite input) gives an unspecified neighbour.
+
+def _keys(d2: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Keys int64 ``bits(d2)·2^32 + id`` of candidates ``d2`` float32 ≥ 0
+    with indices ``ids`` in [0, 2^31), elementwise (``+ 0.0`` turns a
+    -0.0 into +0.0, whose bits order first)."""
+    return torch.add(ids.to(torch.int64), (d2 + 0.0).view(torch.int32),
+                     alpha=1 << 32)
+
+
+def chunk_smallest(d2: torch.Tensor, k: int, off: int = 0) -> torch.Tensor:
+    """Keys (rows, min(k, n)) int64, ascending, of the k smallest of the
+    chunk ``d2`` (rows, n) float32 ≥ 0 whose column j is fit row
+    ``off + j``, ties to the lower index."""
+    n = d2.shape[1]
+    kk = min(k, n)
+    vals, pos = torch.topk(d2, kk, dim=1, largest=False, sorted=True)
+    v = vals[:, -1:]                                  # the k-th value
+    n_lt = torch.sum(vals < v, dim=1, keepdim=True)   # places below v
+    # v's ties counted along the row: int32 written by the compare itself
+    # and scanned in place (no bool copy, no cast pass)
+    seen = torch.eq(d2, v, out=torch.empty(d2.shape, dtype=torch.int32,
+                                           device=d2.device)).cumsum_(1)
+    want = torch.arange(1, kk + 1, dtype=torch.int32, device=d2.device)
+    tie_pos = torch.searchsorted(seen, want.expand(d2.shape[0], kk)
+                                 .contiguous())       # j-th v in the row
+    slot = torch.arange(kk, device=d2.device)
+    below = slot < n_lt
+    tie_pos = torch.gather(tie_pos, 1, (slot - n_lt).clamp_min_(0))
+    pos = torch.where(below, pos, tie_pos.clamp_max_(n - 1))
+    keys = _keys(torch.where(below, vals, v), pos + off)
+    return torch.sort(keys, dim=1).values
+
+
+def merge_smallest(best, d2: torch.Tensor, k: int, off: int = 0):
+    """Keys (rows, ≤ k) int64, ascending, of the k smallest of the carried
+    keys ``best`` (None to start) and the chunk ``d2`` (rows, n) whose
+    column j is fit row ``off + j``: the chunk's own k smallest
+    (:func:`chunk_smallest`) joined with ``best``, 2k candidates."""
+    sel = chunk_smallest(d2, k, off)
+    if best is None:
+        return sel
+    cand = torch.cat((best, sel), dim=1)
+    return torch.topk(cand, min(k, cand.shape[1]), dim=1, largest=False,
+                      sorted=True).values
+
+
+def split_keys(keys: torch.Tensor):
+    """(d2 float32, idx int32) of keys from :func:`merge_smallest`."""
+    return (keys >> 32).to(torch.int32).view(torch.float32), \
+        (keys & 0xFFFFFFFF).to(torch.int32)

@@ -17,7 +17,8 @@ stops on the reference's test (both residuals under their tolerances)
 through :func:`runtime.loop.run_chunked`: masked steps in chunks, one
 read per chunk.  ``p`` is the port mesh's rows (:func:`_agents`: 1 on
 one card).  Everything runs under
-:func:`~dislib_tpu_torch.ops.precision.precise` (TF32 off).
+:func:`~dislib_tpu_torch.ops.precision.precise` (TF32 off).  ``fit`` is
+``_fit_finalize(_fit_async(x, y))``, the search's async-trial hooks.
 """
 
 from __future__ import annotations
@@ -81,6 +82,14 @@ class ADMM(BaseEstimator):
     def fit(self, x: Array, y: Array):
         """Solve consensus least-squares + prox over row blocks of
         (x, y)."""
+        self._fit_finalize(self._fit_async(x, y))
+        return self
+
+    # async trial protocol: the handle is the loop's device outputs; at
+    # tolerances > 0 the loop reads its stop condition once per chunk of
+    # steps (runtime/loop.run_chunked, counted in HOST_READS), where the
+    # reference's lax.while_loop reads nothing
+    def _fit_async(self, x: Array, y: Array):
         if not isinstance(x, Array) or not isinstance(y, Array):
             raise NotImplementedError(
                 "ADMM takes dense ds-arrays; sparse input is ROADMAP.md "
@@ -92,10 +101,15 @@ class ADMM(BaseEstimator):
             raise ValueError(f"x and y row counts differ: {x.shape[0]} != "
                              f"{y.shape[0]}")
         prox = self.z_prox if self.z_prox is not None else identity_prox
-        z, n_iter, conv, hist = _to_host(*_admm_fit(
-            x._data, y._data, x.shape, float(self.rho),
-            float(self.prox_kappa), float(self.abstol), float(self.reltol),
-            int(self.max_iter), prox, _agents()))
+        return _admm_fit(x._data, y._data, x.shape, float(self.rho),
+                         float(self.prox_kappa), float(self.abstol),
+                         float(self.reltol), int(self.max_iter), prox,
+                         _agents())
+
+    def _fit_finalize(self, state):
+        if state is None:
+            return
+        z, n_iter, conv, hist = _to_host(*state)
         self.z_ = z.ravel()
         self.n_iter_ = int(n_iter)
         self.converged_ = bool(conv)
@@ -103,7 +117,6 @@ class ADMM(BaseEstimator):
         verbose_logger("admm", self.verbose).info(
             "converged=%s n_iter=%d primal_residual=%.3g", self.converged_,
             self.n_iter_, self.history_[-1] if len(self.history_) else np.nan)
-        return self
 
 
 @precise

@@ -42,13 +42,32 @@ class Lasso(BaseEstimator):
                           abstol=self.atol, reltol=self.rtol)
 
     def fit(self, x: Array, y: Array):
+        self._fit_finalize(self._fit_async(x, y))
+        return self
+
+    # async trial protocol: ADMM's device handle
+    def _fit_async(self, x, y=None):
         if y is None:
             raise ValueError("Lasso requires y")
-        admm = self._admm().fit(x, y)
+        admm = self._admm()
+        return (admm, admm._fit_async(x, y))
+
+    def _fit_finalize(self, state):
+        if state is None:
+            return
+        admm, admm_state = state
+        admm._fit_finalize(admm_state)
         self.coef_ = admm.z_
         self.n_iter_ = admm.n_iter_
         self.converged_ = admm.converged_
-        return self
+
+    def _score_async(self, state, x, y=None):
+        if state is None:
+            return super()._score_async(state, x, y)
+        coef = state[1][0].reshape(-1, 1)         # the device consensus z
+        return _r2_score(x._data, y._data, x.shape, y.shape, coef,
+                         torch.zeros((1,), dtype=coef.dtype,
+                                     device=coef.device))
 
     def predict(self, x: Array) -> Array:
         """x @ coef_ through ``matmul``, (m, 1); the weight ds-array is

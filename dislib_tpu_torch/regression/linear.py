@@ -6,7 +6,9 @@ on the device (a masked ones-column carries the intercept) and the
 inputs.  Multi-output y is supported; sparse input raises
 ``NotImplementedError`` (ROADMAP.md A.10).  Everything runs under
 :func:`~dislib_tpu_torch.ops.precision.precise` (TF32 off).  ``predict``
-is the reference's fusion-graph node body, called eagerly.
+is the reference's fusion-graph node body, called eagerly.  ``fit`` is
+``_fit_finalize(_fit_async(x, y))``, the search's async-trial hooks;
+``_score_async`` is the R² as a device scalar.
 """
 
 from __future__ import annotations
@@ -34,6 +36,12 @@ class LinearRegression(BaseEstimator):
         self.arity = arity  # reference parity; ignored
 
     def fit(self, x: Array, y: Array):
+        self._fit_finalize(self._fit_async(x, y))
+        return self
+
+    # async trial protocol: the handle is the (coef, intercept) device
+    # pair, read back only after the search has dispatched the fold
+    def _fit_async(self, x, y=None):
         if y is None:
             raise ValueError("LinearRegression requires y")
         if not isinstance(x, Array) or not isinstance(y, Array):
@@ -42,10 +50,18 @@ class LinearRegression(BaseEstimator):
                 "ROADMAP.md A.10")
         if x.shape[0] != y.shape[0]:
             raise ValueError("x and y row counts differ")
-        coef, intercept = _to_host(*_linreg_fit(
-            x._data, y._data, x.shape, y.shape, self.fit_intercept))
-        self.coef_, self.intercept_ = coef, intercept
-        return self
+        return _linreg_fit(x._data, y._data, x.shape, y.shape,
+                           self.fit_intercept)
+
+    def _fit_finalize(self, state):
+        if state is None:
+            return
+        self.coef_, self.intercept_ = _to_host(*state)
+
+    def _score_async(self, state, x, y=None):
+        if state is None:
+            return super()._score_async(state, x, y)
+        return _r2_score(x._data, y._data, x.shape, y.shape, *state)
 
     def predict(self, x: Array) -> Array:
         """ŷ = x @ coef + intercept, (m, n_targets)."""

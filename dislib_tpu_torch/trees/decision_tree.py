@@ -20,9 +20,13 @@ one ``torch.Generator`` on the data's device, seeded from
 ``random_state``: the same seed gives the same forest on the same device,
 but not the reference's draws (``jax.random`` is another generator).
 
+``fit`` is ``_fit_finalize(_fit_async(x, y))``: the search's async-trial
+hooks split it at the adoption, the fit's first host read; ``forest.py``
+scores the grown forest on the device (``_score_async``).
+
 Not ported yet: ``fit(checkpoint=..., health=...)``, the per-level
 snapshots and rollback of the reference's ``ChunkedFitLoop`` (ROADMAP.md
-A.12); the async-trial hooks used by ``model_selection`` (A.8).
+A.12).
 """
 
 from __future__ import annotations
@@ -267,6 +271,14 @@ def _leaf_stats(node, w, stats, n_leaves):
     return leaves, _health.health_vec(carries=(leaves,))
 
 
+def _pack_levels(levels, depth) -> torch.Tensor:
+    """The per-level (T, 2^lvl) splits of a grown forest, zero-padded and
+    stacked to (T, depth, 2^(depth-1)) on their device."""
+    wide = 2 ** (depth - 1)
+    return torch.stack([torch.nn.functional.pad(a, (0, wide - a.shape[1]))
+                        for a in levels], dim=1)
+
+
 def _forest_apply_core(qp, q_shape, edges, feats, tbins, depth):
     """Leaf index of every query row in every tree: (T, mq_pad) int64.
     ``feats``/``tbins`` are the packed (T, depth, 2^(depth-1)) splits."""
@@ -383,16 +395,9 @@ class _BaseTreeEnsemble(BaseEstimator):
                 f"grown forest is not numerically usable (detail: {detail})",
                 estimator="forest", guard="nonfinite", detail=detail)
         depth = grown["depth"]
-        wide = 2 ** (depth - 1)
-
-        def _pack(levels):
-            return torch.stack(
-                [torch.nn.functional.pad(a, (0, wide - a.shape[1]))
-                 for a in levels], dim=1).cpu().numpy()
-
         self._edges = grown["edges"]
-        self._feats = _pack(grown["feats"])
-        self._tbins = _pack(grown["tbins"])
+        self._feats = _pack_levels(grown["feats"], depth).cpu().numpy()
+        self._tbins = _pack_levels(grown["tbins"], depth).cpu().numpy()
         self._depth = depth
         self._leaves = leaves                           # (T, 2^depth, S)
         self.n_features_ = grown["n_features"]
@@ -404,12 +409,22 @@ class _BaseTreeEnsemble(BaseEstimator):
             raise NotImplementedError(
                 f"{type(self).__name__}.fit checkpoint=/health=: the "
                 "ChunkedFitLoop is not ported yet (ROADMAP.md A.12)")
+        self._fit_finalize(self._fit_async(x, y))
+        return self
+
+    # async trial protocol: growth reads nothing back; the handle is the
+    # grown-forest dict.  The label / target encoding reads the INPUT y
+    # (prep, not fit results) at dispatch time.
+    def _fit_async(self, x, y=None):
         if y is None:
             raise ValueError(f"{type(self).__name__} requires y")
         stats = self._encode_stats(x, y)
         n_trees, bootstrap = self._fit_spec()
-        return self._adopt_forest(
-            self._grow_forest(x, stats, n_trees, bootstrap))
+        return self._grow_forest(x, stats, n_trees, bootstrap)
+
+    def _fit_finalize(self, state):
+        if state is not None:
+            self._adopt_forest(state)
 
     def _apply(self, x: Array):
         """Leaf index of every row of x in every tree: (T, m_pad)."""
@@ -417,6 +432,16 @@ class _BaseTreeEnsemble(BaseEstimator):
             x.device, self._edges, self._feats, self._tbins)
         return _forest_apply_core(x._data, x.shape, edges, feats.long(),
                                   tbins, self._depth)
+
+    def _leaf_values(self, grown, x: Array) -> torch.Tensor:
+        """Per-tree leaf stats of every row of x under a grown (not yet
+        adopted) forest, (T, m_pad, S), on the device."""
+        depth = grown["depth"]
+        leaf = _forest_apply_core(
+            x._data, x.shape, grown["edges"],
+            _pack_levels(grown["feats"], depth).long(),
+            _pack_levels(grown["tbins"], depth), depth)
+        return torch.take_along_dim(grown["leaves"], leaf[:, :, None], dim=1)
 
     def _carry_in(self, arrays: dict, device):
         """Hold a forest given as NumPy arrays under the reference's

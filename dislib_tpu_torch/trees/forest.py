@@ -8,9 +8,9 @@ the result is wrapped with ``Array._from_padded``.
 
 :func:`~dislib_tpu_torch.base.from_fitted_arrays` (exported here too)
 builds a fitted port estimator from a fitted reference forest's arrays
-(NumPy only), so both packages can predict with the same forest.
-
-Not ported yet: ``_score_async`` (with ``model_selection``, ROADMAP.md A.8).
+(NumPy only), so both packages can predict with the same forest.  Each
+mixin's ``_score_async`` scores a grown forest on the device (accuracy
+through the kNN classifier's ``_score_codes``, or R²), for the search.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from dislib_tpu_torch.base import from_fitted_arrays
+from dislib_tpu_torch.classification.knn import _score_codes
 from dislib_tpu_torch.data.array import Array, _padded_dim, _place_region
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.trees.decision_tree import _BaseTreeEnsemble
@@ -99,6 +100,18 @@ class _ClassifierMixin:
         truth = np.asarray(y.collect()).ravel()
         return float(np.mean(pred == truth))
 
+    def _score_async(self, state, x, y=None):
+        if state is None or y is None:
+            return super()._score_async(state, x, y)
+        enc = _cls_enc(self._leaf_values(state, x),
+                       bool(getattr(self, "hard_vote", False)))
+        classes_dev = torch.as_tensor(np.asarray(self.classes_),
+                                      dtype=y._data.dtype, device=y.device)
+        codes = torch.arange(len(self.classes_), dtype=torch.int32,
+                             device=y.device)
+        return _score_codes(enc.to(torch.int32), y._data, classes_dev, codes,
+                            x.shape[0])
+
 
 class _RegressorMixin:
     _criterion = "mse"
@@ -130,6 +143,19 @@ class _RegressorMixin:
         ss_res = float(np.sum((truth - pred) ** 2))
         ss_tot = float(np.sum((truth - truth.mean()) ** 2))
         return 1.0 - ss_res / max(ss_tot, 1e-12)
+
+    def _score_async(self, state, x, y=None):
+        """R² of a grown forest, a device scalar."""
+        if state is None or y is None:
+            return super()._score_async(state, x, y)
+        pred = _reg_mean(self._leaf_values(state, x))          # (mq_pad,)
+        yv = y._data[: pred.shape[0], 0]
+        w = (torch.arange(pred.shape[0], device=pred.device)
+             < x.shape[0]).to(yv.dtype)
+        resid = torch.sum(((yv - pred) * w) ** 2)
+        ymean = torch.sum(yv * w) / x.shape[0]
+        total = torch.sum(((yv - ymean) * w) ** 2)
+        return 1.0 - resid / torch.clamp_min(total, 1e-12)
 
 
 class RandomForestClassifier(_ClassifierMixin, _BaseTreeEnsemble):

@@ -24,7 +24,11 @@ Under BFLOAT16 on the card, ``pdot``/``peinsum`` are native bf16 products
 with a float32 result: within ``ERROR_BOUNDS`` of float64, and within
 1e-4 of the CPU's f32 contraction of the same rounded operands (the card
 sums in another order).  The new estimators on the card match the CPU at
-1e-4.
+1e-4.  kNN: identical fit rows give bit-identical kernel distances, and
+the lower fit index comes first; the single-rank ring (its cross term on
+``panel_gemm``) within 1e-5 of the chunked path's distances, with equal
+indices wherever that path has no tie within 1e-5; a kNN search's scores
+within 1e-6 of the CPU's, read only after the next fold is dispatched.
 """
 
 import numpy as np
@@ -734,3 +738,163 @@ def test_new_estimators_on_the_card_match_the_cpu(dev):
          "intercept_")
     gpu, cpu = both(lambda X, Y: dst.Lasso(lmbd=50.0).fit(X, Y), "coef_")
     assert gpu.n_iter_ == cpu.n_iter_
+
+
+@pytest.mark.parametrize("shape", [((10_000, 10), 4096), ((66_667, 20), 4096)],
+                         ids=["knn", "knn-search"])
+def test_distances_sq_at_the_knn_shapes(dev, shape):
+    # a kNN chunk: bench_knn's width (d = 10 takes the slices) and the
+    # search's (d = 20, the stream)
+    (m, d), k = shape
+    g = torch.Generator(device=dev).manual_seed(15)
+    a = torch.rand((m, d), generator=g, device=dev)
+    b = torch.rand((k, d), generator=g, device=dev)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (K.dist_plan(m, d, a.data_ptr(), nsm).rows == 0) == (d % 4 != 0)
+    got = K.distances_sq(a, b)
+    want = K.distances_sq_plain(a, b, "highest")
+    scale = float((a.double() ** 2).sum(1).max()
+                  + (b.double() ** 2).sum(1).max())
+    assert float((got.double() - want.double()).abs().max()) / scale <= 1e-5
+    assert K.LAUNCHES["distances_sq"] == 1
+
+
+def test_panel_gemm_at_the_ring_cross_term(dev):
+    # the ring's q @ f^T at the kNN width: K = 10, one K stage
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = torch.rand((3000, 10), generator=g, device=dev)
+    ft = torch.rand((10, 5000), generator=g, device=dev)
+    got = K.panel_gemm(q, ft, px.FLOAT32)
+    assert _gemm_err(got, K.panel_gemm_plain(q, ft, px.FLOAT32), q, ft) <= \
+        px.ERROR_BOUNDS[("matmul", "float32")]
+    assert K.LAUNCHES["panel_gemm"] == 1
+
+
+@pytest.mark.parametrize("chunk", [4096, 500], ids=["direct", "chunked"])
+def test_kneighbors_tie_rule_on_the_card(dev, chunk, monkeypatch):
+    # identical fit rows give bit-identical kernel distances: the lower
+    # fit index must come first, across chunk boundaries too
+    from dislib_tpu_torch.neighbors import NearestNeighbors
+    from dislib_tpu_torch.neighbors import base as nb
+    monkeypatch.setattr(nb, "_CHUNK", chunk)
+    rng = np.random.RandomState(17)
+    f = rng.rand(3000, 10).astype(np.float32)
+    groups = [[10, 11, 499, 500, 2999], [7, 1000, 1001, 2500]]
+    for grp in groups:
+        f[grp] = f[grp[0]]
+    q = f[[10, 7]] + 0.01
+    nn = NearestNeighbors(n_neighbors=6).fit(dst.array(f, device=dev))
+    _, idx = nn.kneighbors(dst.array(q, device=dev))
+    got = idx.collect()
+    assert K.LAUNCHES["distances_sq"] == (1 if chunk == 4096 else 6)
+    for row, grp in enumerate(groups):
+        np.testing.assert_array_equal(got[row, :len(grp)], grp)
+    same = np.repeat(f[:1], 3000, axis=0)
+    _, idx = NearestNeighbors(n_neighbors=40).fit(
+        dst.array(same, device=dev)).kneighbors(dst.array(q, device=dev))
+    np.testing.assert_array_equal(idx.collect(),
+                                  np.tile(np.arange(40), (2, 1)))
+
+
+def test_ring_on_the_card_matches_the_chunked_path(dev, monkeypatch):
+    # the single-rank ring under overlap="kernel": the cross term on
+    # panel_gemm; against the chunked path on the card
+    from dislib_tpu_torch.neighbors import NearestNeighbors
+    from dislib_tpu_torch.neighbors import base as nb
+    from dislib_tpu_torch.ops.ring import ring_kneighbors
+    monkeypatch.setattr(nb, "_CHUNK", 1000)
+    rng = np.random.RandomState(18)
+    f = rng.rand(5000, 10).astype(np.float32)
+    q = rng.rand(700, 10).astype(np.float32)
+    fd, qd = torch.from_numpy(f).to(dev), torch.from_numpy(q).to(dev)
+    d2, idx = ring_kneighbors(qd, fd, dst.get_mesh(), 11, 5000,
+                              overlap="kernel")
+    assert K.LAUNCHES == {"panel_gemm": 1, "distances_sq": 0,
+                          "node_histogram": 0}
+    dc, ic = NearestNeighbors(n_neighbors=11).fit(
+        dst.array(f, device=dev)).kneighbors(dst.array(q, device=dev))
+    assert K.LAUNCHES["distances_sq"] == 5
+    dc, ic = dc.collect(), ic.collect()
+    np.testing.assert_allclose(torch.sqrt(d2).cpu().numpy(), dc, rtol=1e-5,
+                               atol=1e-5)
+    # indices equal where the chunked path has no tie within 1e-5
+    gap = np.diff(dc, axis=1) > 1e-5
+    clear = np.concatenate([gap[:, :1], gap[:, 1:] & gap[:, :-1]], axis=1)
+    got = idx.cpu().numpy()[:, :-1]
+    assert (got[clear] == ic[:, :-1][clear]).all()
+
+
+def test_search_on_the_card_reads_only_scores_after_the_next_fold(
+        dev, monkeypatch):
+    # the kNN search on the card: each fold's fits and scores are enqueued
+    # before the previous fold's scores are read; the only host reads are
+    # the scores (utils/profiling.HOST_READS), and they equal the CPU's
+    from dislib_tpu_torch.classification import KNeighborsClassifier
+    from dislib_tpu_torch.model_selection import GridSearchCV
+    from dislib_tpu_torch.model_selection import search
+    from dislib_tpu_torch.utils import profiling
+    rng = np.random.RandomState(19)
+    lab = rng.randint(0, 3, 3000)
+    x = (rng.rand(3, 8)[lab] + 0.2 * rng.standard_normal((3000, 8))).astype(
+        np.float32)
+    y = lab.astype(np.float32)[:, None]
+    grid = {"n_neighbors": [1, 5], "weights": ["uniform", "distance"]}
+    cpu = GridSearchCV(KNeighborsClassifier(), grid, cv=3, refit=False).fit(
+        dst.array(x, device="cpu"), dst.array(y, device="cpu"))
+    events = []
+    real_read, real_fit = search.host_read, KNeighborsClassifier._fit_async
+
+    def spy_read(v, site):
+        assert v.is_cuda
+        events.append("read")
+        return real_read(v, site)
+
+    def spy_fit(self, xt, yt=None):
+        events.append("fit")
+        return real_fit(self, xt, yt)
+
+    monkeypatch.setattr(search, "host_read", spy_read)
+    monkeypatch.setattr(KNeighborsClassifier, "_fit_async", spy_fit)
+    profiling.reset_host_reads()
+    gpu = GridSearchCV(KNeighborsClassifier(), grid, cv=3, refit=False).fit(
+        dst.array(x, device=dev), dst.array(y, device=dev))
+    assert profiling.HOST_READS == {"search": 12}
+    assert events == (["fit"] * 4 + ["fit"] * 4 + ["read"] * 4
+                      + ["fit"] * 4 + ["read"] * 4 + ["read"] * 4)
+    for j in range(3):
+        np.testing.assert_allclose(gpu.cv_results_[f"split{j}_test_score"],
+                                   cpu.cv_results_[f"split{j}_test_score"],
+                                   atol=1e-6)
+
+
+def test_knn_trial_on_the_card_never_synchronises(dev):
+    # a kNN trial's fit (the class codes on the card) and its score queue
+    # behind the work before them: torch raises on any synchronising call
+    # in "error" mode; classes_ are read at _fit_finalize only
+    from dislib_tpu_torch.classification import KNeighborsClassifier
+    from dislib_tpu_torch.utils import profiling
+    rng = np.random.RandomState(20)
+    lab = rng.randint(0, 4, 2000)
+    x = (rng.rand(4, 6)[lab] + 0.1 * rng.standard_normal((2000, 6))).astype(
+        np.float32)
+    y = (lab * 2.5).astype(np.float32)[:, None]
+    xt, yt = dst.array(x[:1500], device=dev), dst.array(y[:1500], device=dev)
+    xv, yv = dst.array(x[1500:], device=dev), dst.array(y[1500:], device=dev)
+    est = KNeighborsClassifier(n_neighbors=7, weights="distance")
+    torch.cuda.synchronize()
+    profiling.reset_host_reads()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = est._fit_async(xt, yt)
+        got = est._score_async(state, xv, yv)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert profiling.HOST_READS == {}
+    est._fit_finalize(state)
+    assert profiling.HOST_READS == {"results": 1}
+    np.testing.assert_array_equal(est.classes_, np.unique(y))
+    want = KNeighborsClassifier(n_neighbors=7, weights="distance").fit(
+        dst.array(x[:1500], device="cpu"), dst.array(y[:1500], device="cpu")
+    ).score(dst.array(x[1500:], device="cpu"),
+            dst.array(y[1500:], device="cpu"))
+    assert abs(float(got) - want) <= 1e-6
