@@ -36,7 +36,15 @@ with its cross term on ``panel_gemm`` (against the chunked path),
 ``GridSearchCV`` over KMeans and over ``KNeighborsClassifier`` at
 bench_gridsearch's 200,000 x 20 (each split score against a sequential
 fit and score) and ``shuffle``/``train_test_split`` of the KMeans data
-(bit-equal to NumPy's permutation) — and checks every result.  Each
+(bit-equal to NumPy's permutation) — then the ingest (the KMeans data
+through ``load_npy_file``, refitted bit-equal; 100,000 of its rows as text
+through ``load_txt_file`` and the native parser; a 10,000-frame mdcrd
+trajectory; a dense svmlight file; a planted NaN row quarantined), every
+model fitted above saved in json, cbor and npz and loaded back onto the
+card (predictions bit-equal), and ``KMeans(fast_distance=True)`` on the
+KMeans data (the bf16-operand ``distances_sq`` against a float64 oracle on
+the rounded operands, timed in turns with the float32 path) — and checks
+every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -54,9 +62,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 # published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
 # data sheet, dense): FP32 outside the tensor cores, bf16 and TF32 tensor
@@ -145,9 +156,21 @@ RING_MF = 65_536
 # shuffle and train_test_split of the KMeans data
 GS_M, GS_N = 200_000, 20
 SPLIT_M, SPLIT_N = 1_000_000, 100
+# ingest: the KMeans data as .npy (all of it) and as text (TXT_M rows,
+# full width: the rows are cut for the run's time limit), NumPy's parse of
+# TXT_YARDSTICK of those rows as a yardstick; a peptide-sized trajectory of
+# MD_FRAMES frames of MD_ATOMS atoms; the row NAN_ROW of 1,000 poisoned;
+# the saved models predict on SAVE_Q fresh rows
+TXT_M, TXT_YARDSTICK = 100_000, 10_000
+MD_FRAMES, MD_ATOMS = 10_000, 300
+NAN_ROW = 17
+SAVE_Q = 10_000
 
 
 _T0 = time.perf_counter()
+# the models the phases fit, by class name, with their input width, for
+# the saving phase
+MODELS = {}
 
 
 def emit(obj) -> None:
@@ -487,6 +510,7 @@ def gm_phase(dev, cuda_ms):
     K.reset_launches()
     t0 = time.perf_counter()
     gk = dst.GaussianMixture(n_components=GM_K, random_state=0).fit(X)
+    MODELS["GaussianMixture"] = (gk, GM_N)
     torch.cuda.synchronize()
     kmeans_init_s = time.perf_counter() - t0
     launches_init = dict(K.LAUNCHES)
@@ -611,6 +635,7 @@ def minibatch_phase(X, x_host, init, dev, cuda_ms):
     t0 = time.perf_counter()
     mbk = est().fit(X)
     fit_s = time.perf_counter() - t0
+    MODELS["MiniBatchKMeans"] = (mbk, KM_N)
     launches = dict(K.LAUNCHES)
     reads = dict(prof.HOST_READS)
     check(mbk.n_batches_ == n_batches and launches["distances_sq"]
@@ -685,6 +710,7 @@ def scalers_and_regression_phases(dev):
         sc = cls().fit(X)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+        MODELS[cls.__name__] = (sc, SC_N)
         t0 = time.perf_counter()
         t = sc.transform(X)
         torch.cuda.synchronize()
@@ -730,6 +756,7 @@ def scalers_and_regression_phases(dev):
     t0 = time.perf_counter()
     lr = dst.LinearRegression().fit(X, Y)
     lr_s = time.perf_counter() - t0
+    MODELS["LinearRegression"] = (lr, LR_N)
     xa = np.concatenate([x64, np.ones((LR_M, 1))], 1)
     sol = np.linalg.lstsq(xa, y.astype(np.float64), rcond=None)[0]
     lr_err = float(max(np.abs(lr.coef_ - sol[:-1]).max(),
@@ -753,6 +780,7 @@ def scalers_and_regression_phases(dev):
     t0 = time.perf_counter()
     la = lasso()
     la_s = time.perf_counter() - t0
+    MODELS["Lasso"] = (la, LR_N)
     reads = dict(prof.HOST_READS)
     z, n_iter, conv = numpy_admm(x64, yl.astype(np.float64), LASSO_RHO,
                                  LASSO_LMBD / LASSO_RHO, 1e-4, 1e-2,
@@ -961,6 +989,7 @@ def linalg_phases(dev):
     for method in ("eig", "svd"):
         drive(f"PCA[{method}]", lambda pol: dst.PCA(
             method=method, precision=pol).fit(X), pca_gate(method))
+    MODELS["PCA"] = (dst.PCA(method="eig").fit(X), X.shape[1])
     del X, x64
 
     # -- svd: the block tier (bench_svd's data) and the scalar tier ----------
@@ -1059,6 +1088,7 @@ def knn_phases(dev, cuda_ms):
     q_host = rng.rand(KNN_MQ, KNN_N).astype(np.float32)
     F, Q = dst.array(fit_host), dst.array(q_host)
     nn = dst.NearestNeighbors(n_neighbors=KNN_K).fit(F)
+    MODELS["NearestNeighbors"] = (nn, KNN_N)
     nn.kneighbors(Q)                                       # warm
     torch.cuda.synchronize()
     K.reset_launches()
@@ -1231,6 +1261,8 @@ def knn_phases(dev, cuda_ms):
             if rep == 0:
                 reads, launches_gs = dict(prof.HOST_READS), dict(K.LAUNCHES)
         n_trials = len(gs.cv_results_["params"]) * 3
+        if name == "knn":
+            MODELS["KNeighborsClassifier"] = (gs.best_estimator_, GS_N)
         check(reads == {"search": n_trials, **refit_reads},
               f"search {name}: host reads {reads}, expected the "
               f"{n_trials} scores and the refit's {refit_reads}")
@@ -1299,6 +1331,309 @@ def knn_phases(dev, cuda_ms):
           "train_rows": n_train, "test_rows": n_test,
           "bit_equal_to_numpy_permutation": True})
     return entries
+
+
+def io_phase(dev, tmp, init):
+    """The ingest: bench.py's KMeans data written as .npy, loaded with
+    ``load_npy_file`` and fitted with the main KMeans phase's model
+    (centers bit-equal to the in-memory fit's); 100,000 of its rows as
+    comma-separated text (full width, rows cut for the run's time limit)
+    through ``load_txt_file`` and the native parser (within rtol 2e-7 of
+    NumPy's parse, equal to the float32 values written); a synthetic
+    peptide-sized .mdcrd (10,000 frames x 300 atoms); a small svmlight file
+    (dense); a planted NaN row, which the quarantine isolates.  Writing the
+    files is set-up, not timed.  Returns the loaded KMeans ds-array."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch import native
+    rng = np.random.RandomState(0)
+    x_host = rng.rand(KM_M, KM_N).astype(np.float32)
+    res = {}
+
+    def timed(what, nbytes, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[what] = {"wall_s": wall, "file_mb": nbytes / 1e6,
+                     "mb_per_s": nbytes / 1e6 / wall}
+        return out
+
+    npy = os.path.join(tmp, "kmeans.npy")
+    np.save(npy, x_host)
+    X = timed("load_npy_file", os.path.getsize(npy),
+              lambda: dst.load_npy_file(npy))
+    check(X.device == dev and X.shape == (KM_M, KM_N)
+          and X.quarantine_ is None and torch.equal(
+              X._data, torch.from_numpy(x_host).to(dev)),
+          "load_npy_file: the loaded array differs from the data written")
+    km = dst.KMeans(n_clusters=KM_K, init=init, max_iter=500,
+                    tol=0.0).fit(X)
+    main = MODELS["KMeans"][0]
+    check(np.array_equal(km.centers_, main.centers_)
+          and km.n_iter_ == main.n_iter_,
+          "KMeans on the loaded .npy differs from the in-memory fit")
+    # text: full width, TXT_M rows, 9 significant digits (a float32 round
+    # trip)
+    txt = os.path.join(tmp, "kmeans.csv")
+    np.savetxt(txt, x_host[:TXT_M], fmt="%.9g", delimiter=",")
+    # the parser's g++ build is set-up too
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    before = native.PARSES["parse_text"]
+    T = timed("load_txt_file", os.path.getsize(txt),
+              lambda: dst.load_txt_file(txt))
+    check(native.build_error() is None and native.get_lib() is not None,
+          f"the native parser did not build: {native.build_error()}")
+    check(native.PARSES["parse_text"] == before + 1,
+          "load_txt_file did not go through the native parser")
+    got = T.collect()
+    check(np.array_equal(got, x_host[:TXT_M]),
+          "load_txt_file: not the float32 values written")
+    with open(txt) as f:
+        first = [next(f) for _ in range(TXT_YARDSTICK)]
+    nbytes = sum(len(ln) for ln in first)
+    t0 = time.perf_counter()
+    ref = np.loadtxt(first, delimiter=",", dtype=np.float32, ndmin=2)
+    np_s = time.perf_counter() - t0
+    res["numpy_loadtxt_yardstick"] = {
+        "rows": TXT_YARDSTICK, "wall_s": np_s, "file_mb": nbytes / 1e6,
+        "mb_per_s": nbytes / 1e6 / np_s}
+    np.testing.assert_allclose(got[:TXT_YARDSTICK], ref, rtol=2e-7)
+    del T, got, ref, first
+    # mdcrd: 10 values of 8 characters a line, 90 lines a frame
+    frames = np.random.RandomState(3).uniform(
+        -99, 99, (MD_FRAMES, MD_ATOMS * 3))
+    md = os.path.join(tmp, "peptide.mdcrd")
+    with open(md, "w") as f:
+        f.write("synthetic peptide trajectory\n")
+        np.savetxt(f, frames.reshape(-1, 10), fmt="%8.3f", delimiter="")
+    before = native.PARSES["parse_mdcrd"]
+    M = timed("load_mdcrd_file", os.path.getsize(md),
+              lambda: dst.load_mdcrd_file(md, n_atoms=MD_ATOMS))
+    check(native.PARSES["parse_mdcrd"] == before + 1 and M.shape == (
+        MD_FRAMES, MD_ATOMS * 3) and np.allclose(M.collect(), frames,
+                                                 atol=5.1e-4),
+          "load_mdcrd_file: wrong trajectory or not the native parser")
+    del M, frames
+    # svmlight, dense: 1000 rows, 20 features, a third of them set
+    srng = np.random.RandomState(4)
+    dense = np.where(srng.rand(1000, 20) < 1 / 3,
+                     srng.standard_normal((1000, 20)), 0).astype(np.float32)
+    labels = srng.randint(0, 3, 1000)
+    svm = os.path.join(tmp, "small.svm")
+    with open(svm, "w") as f:
+        for lab, row in zip(labels, dense):
+            nz = np.nonzero(row)[0]
+            f.write(f"{lab} " + " ".join(f"{j + 1}:{row[j]:.9g}" for j in nz)
+                    + "\n")
+    before = native.PARSES["parse_svmlight"]
+    sx, sy = timed("load_svmlight_file", os.path.getsize(svm),
+                   lambda: dst.load_svmlight_file(svm, n_features=20,
+                                                  store_sparse=False))
+    check(native.PARSES["parse_svmlight"] == before + 1
+          and np.array_equal(sx.collect(), dense)
+          and np.array_equal(sy.collect().ravel(), labels.astype(np.float32)),
+          "load_svmlight_file: wrong rows or not the native parser")
+    # the quarantine: one NaN row planted in 1,000 rows of text
+    dirty = x_host[:1000].copy()
+    dirty[NAN_ROW, 3] = np.nan
+    dpath = os.path.join(tmp, "dirty.csv")
+    np.savetxt(dpath, dirty, fmt="%.9g", delimiter=",")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        D = dst.load_txt_file(dpath)
+    rep = D.quarantine_
+    check(rep is not None and rep.rows.tolist() == [NAN_ROW]
+          and D.shape == (999, KM_N) and np.array_equal(
+              D.collect(), dirty[rep.keep_mask]) and len(caught) == 1
+          and bool(torch.isfinite(D._data).all()),
+          "the quarantine did not isolate the planted NaN row")
+    emit({"phase": "io", "loaders": res, "native_parser_ran": True,
+          "native_build_error": native.build_error(),
+          "native_build_s": build_s,
+          "native_parses": dict(native.PARSES),
+          "text_rows": TXT_M, "text_reduced": f"{TXT_M} of {KM_M} rows, "
+          "full width (the run's time limit)",
+          "text_equals_written_float32": True,
+          "text_vs_numpy_rtol": 2e-7,
+          "mdcrd_frames_atoms": [MD_FRAMES, MD_ATOMS],
+          "svmlight_shape": list(dense.shape),
+          "quarantined_rows": rep.rows.tolist(),
+          "kmeans_on_loaded_npy_bit_equal": True})
+    return X
+
+
+def saving_phase(dev, tmp):
+    """Every model fitted by the earlier phases saved in json, cbor and
+    npz, loaded onto the card: predict / transform / kneighbors bit-equal
+    to the original's on 10,000 fresh rows of its width."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.utils import profiling as prof
+
+    def outputs(name, est, q):
+        if name == "NearestNeighbors":
+            return list(est.kneighbors(q))
+        if name in ("PCA", "StandardScaler", "MinMaxScaler"):
+            return [est.transform(q)]
+        out = [est.predict(q)]
+        if name == "RandomForestClassifier":
+            out.append(est.predict_proba(q))
+        return out
+
+    rows, res = {}, {}
+    for name, (est, n) in sorted(MODELS.items()):
+        q = rows.setdefault(n, dst.array(np.random.RandomState(n).rand(
+            SAVE_Q, n).astype(np.float32)))
+        want = outputs(name, est, q)
+        res[name] = {}
+        for fmt in ("json", "cbor", "npz"):
+            path = os.path.join(tmp, f"{name}.{fmt}")
+            prof.reset_host_reads()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst.save_model(est, path, save_format=fmt)
+            save_s = time.perf_counter() - t0
+            reads = dict(prof.HOST_READS)
+            t0 = time.perf_counter()
+            back = dst.load_model(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            got = outputs(name, back, q)
+            check(type(back) is type(est) and all(
+                g.device == dev and torch.equal(g._data, w._data)
+                for g, w in zip(got, want)),
+                  f"saving: {name} loaded from {fmt} does not predict "
+                  "bit-equal on the card")
+            res[name][fmt] = {"file_mb": os.path.getsize(path) / 1e6,
+                              "save_s": save_s, "load_s": load_s,
+                              "save_host_reads": reads}
+            os.remove(path)
+            del back, got
+        del want
+    largest = max(res, key=lambda k: res[k]["json"]["file_mb"])
+    emit({"phase": "saving", "models": sorted(res), "bit_equal_on_card": True,
+          "largest_state": largest, "largest": res[largest], "all": res})
+    MODELS.clear()
+    torch.cuda.empty_cache()
+
+
+def kmeans_fast_phase(dev, X, init, f32, cuda_ms):
+    """KMeans(fast_distance=True) on the KMeans data, k = 10, tol = 0, 10
+    and 500 iterations, timed in turns with the float32 path.  Gates: the
+    first iteration's distances within 1e-5·(‖x‖² + ‖c‖²) of float64
+    NumPy on the bf16-rounded operands with float32 norms; the kernel's
+    labels equal that oracle's on every row whose two smallest oracle
+    distances are more than twice that tolerance apart; labels equal to the
+    float32 path's on at least 99 % of rows (rows within the bf16 rounding
+    of a tie flip, about 0.5 % of this uniform data; the share is
+    printed).  Returns the kernel
+    entry of the bf16-operand distances_sq.  ``f32`` is the main KMeans
+    phase's fitted model."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+
+    def fit(fast, iters):
+        return dst.KMeans(n_clusters=KM_K, init=init, max_iter=iters,
+                          tol=0.0, fast_distance=fast).fit(X)
+
+    fit(True, 2)                                          # warm
+    torch.cuda.synchronize()
+    K.reset_launches()
+    fast = fit(True, 500)
+    launches = dict(K.LAUNCHES)
+    check(launches["distances_sq"] == 500 and fast.n_iter_ == 500,
+          f"kmeans_fast: {launches['distances_sq']} distances_sq launches "
+          "in 500 iterations")
+    walls = {"float32": [], "fast": []}
+    for kind in ("float32", "fast", "fast", "float32"):
+        for iters in (10, 500):
+            t0 = time.perf_counter()
+            fit(kind == "fast", iters)
+            walls[kind].append((iters, time.perf_counter() - t0))
+    rate = {k: {f"iter_per_s_{i}": [i / t for it, t in v if it == i]
+                for i in (10, 500)} for k, v in walls.items()}
+    # the first iteration's distances against float64 on the rounded
+    # operands
+    xd = X._data
+    cd = torch.from_numpy(init).to(dev)
+    x16, x_sq = K.bf16_rows(xd), torch.sum(xd * xd, dim=1)
+    got = K.distances_sq_bf16(x16, x_sq, cd)
+    xr = x16[:, :KM_N].double().cpu().numpy()
+    cr = cd.to(torch.bfloat16).double().cpu().numpy()
+    xs = x_sq.double().cpu().numpy()
+    cs = (init.astype(np.float32) ** 2).sum(1, dtype=np.float32).astype(
+        np.float64)
+    want = np.maximum(xs[:, None] - 2.0 * xr @ cr.T + cs[None], 0.0)
+    err = np.abs(got.double().cpu().numpy() - want) / (xs[:, None]
+                                                       + cs[None])
+    worst = float(err.max())
+    check(worst <= 1e-5, f"kmeans_fast: first-iteration distances off the "
+          f"float64 oracle by {worst} of ‖x‖² + ‖c‖²")
+    lab = got.argmin(1).cpu().numpy()
+    two = np.partition(want, 1, axis=1)[:, :2]
+    clear = two[:, 1] - two[:, 0] > 2e-5 * (xs + cs.max())
+    check(np.array_equal(lab[clear], want.argmin(1)[clear]),
+          "kmeans_fast: the kernel's labels differ from the float64 oracle's "
+          "on rows clear of a tie")
+    d32 = K.distances_sq(xd, cd)
+    agree_first = float((got.argmin(1) == d32.argmin(1)).double().mean())
+    # the fitted models (both predict in float32) after 500 iterations:
+    # the two trajectories part on unstructured data, so reported only
+    agree_final = float((fast.predict(X)._data == f32.predict(X)._data)
+                        .double().mean())
+    check(agree_first >= 0.99, f"kmeans_fast: first E-step labels agree "
+          f"with the float32 path's on only {agree_first} of rows")
+    plain = K.distances_sq_bf16_plain(x16, x_sq, cd)
+    max_abs = float((got - plain).abs().max())
+    scale = float((xd.double() ** 2).sum(1).max() + (cd.double() ** 2)
+                  .sum(1).max())
+    check(float((got.double() - plain.double()).abs().max()) / scale <= 1e-5,
+          "kmeans_fast: the bf16 kernel disagrees with its plain version")
+    del want, err, xr, plain, d32
+    c16 = torch.nn.functional.pad(cd.to(torch.bfloat16),
+                                  (0, x16.shape[1] - KM_N))
+    m, k, d = KM_M, KM_K, KM_N
+    bound_ms, bound_by = bound(2.0 * m * k * d + 3.0 * m * k,
+                               2.0 * m * d + 4.0 * (m + k * d + m * k),
+                               PEAK_FP32_FLOPS)
+    entry = {
+        "name": "distances_sq", "at": "kmeans_fast (bf16 operands)",
+        "route": "cuda", "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+        "entry": "dslib_distances_sq_bf16",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "shape": [m, k, d], "stored_row_values": int(x16.shape[1]),
+        "launches": launches["distances_sq"], "max_abs_err": max_abs,
+        "ms": cuda_ms(lambda: K.distances_sq_bf16(x16, x_sq, cd), 20),
+        "plain_ms": cuda_ms(lambda: K.distances_sq_bf16_plain(x16, x_sq,
+                                                              cd), 5),
+        "float32_kernel_ms": cuda_ms(lambda: K.distances_sq(xd, cd), 20),
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes this "
+                        "function; cross_term_mm_ms is the cross term "
+                        "alone, torch.mm(bf16 x, bf16 c^T, "
+                        "out_dtype=float32)",
+        "cross_term_mm_ms": cuda_ms(lambda: torch.mm(
+            x16, c16.T, out_dtype=torch.float32), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": "2·m·d bytes of bf16 x (unpadded), 4·m of norms, "
+                       "4·m·k of distances out"}
+    emit({"phase": "kmeans_fast", "shape": [KM_M, KM_N], "k": KM_K,
+          "tol": 0.0, "fast_vs_float32_in_turns": rate, "walls_s": walls,
+          "first_iter_err_vs_f64_rounded": worst,
+          "oracle_clear_rows": int(clear.sum()),
+          "labels_agree_first_estep": agree_first,
+          "labels_agree_fitted": agree_final,
+          "inertia_fast": fast.inertia_, "inertia_float32": f32.inertia_,
+          "launches": launches, "kernel": entry})
+    return entry
 
 
 def main() -> int:
@@ -1422,6 +1757,13 @@ def main() -> int:
                                K.distances_sq_plain(a, b, "highest"), a, b)
                 check(err <= dist_tol, f"distances_sq d={d} k={k} offset="
                       f"{offset}: error {err} vs plain > {dist_tol}")
+            # the bf16 operands: the same exact products summed in another
+            # order than the plain version's
+            a16, a_sq = K.bf16_rows(a), (a * a).sum(1)
+            err = dist_err(K.distances_sq_bf16(a16, a_sq, b),
+                           K.distances_sq_bf16_plain(a16, a_sq, b), a, b)
+            check(err <= dist_tol, f"distances_sq_bf16 d={d} k={k}: error "
+                  f"{err} vs plain > {dist_tol}")
     a = torch.ones((1000, 100), device=dev)
     a[513, 2] = float("nan")
     got = K.distances_sq(a, torch.zeros((10, 100), device=dev))
@@ -1493,6 +1835,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "ragged", "ok": True, "panel_gemm_shapes": GEMM_RAGGED,
           "distances_sq_d": DIST_D, "distances_sq_k": DIST_K,
+          "distances_sq_bf16_d": DIST_D, "distances_sq_bf16_k": DIST_K,
           "distances_sq_unaligned": True,
           "node_histogram_layouts": HIST_LAYOUTS,
           "node_histogram_bit_equal_integer": len(HIST_RAGGED),
@@ -1839,6 +2182,7 @@ def main() -> int:
     t0 = time.perf_counter()
     km = dst.KMeans(n_clusters=KM_K, init=init, max_iter=500, tol=0.0).fit(x)
     t500 = time.perf_counter() - t0
+    MODELS["KMeans"] = (km, KM_N)
     reads500 = dict(prof.HOST_READS)
     labels = km.predict(x)
     score = km.score(x)
@@ -2001,6 +2345,7 @@ def main() -> int:
     rf = fit_rf()
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
+    MODELS["RandomForestClassifier"] = (rf, RF_N)
     launches_rf = dict(K.LAUNCHES)
     check(rf._depth == 12, f"default depth on 1M rows is {rf._depth}")
     check(launches_rf["node_histogram"] == rf._depth,
@@ -2148,7 +2493,23 @@ def main() -> int:
     kernels.update(knn_phases(dev, cuda_ms))
     emit({"phase": "knn_summary", "seconds": time.perf_counter() - t0})
 
-    # -- (10) the kernels line, then the result --------------------------------------
+    # -- (10) ingest, model saving and KMeans fast_distance ----------------------
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        X = io_phase(dev, tmp, init)
+        km_f32 = MODELS["KMeans"][0]
+        saving_phase(dev, tmp)
+        kernels["distances_sq/bf16"] = kmeans_fast_phase(dev, X, init,
+                                                         km_f32, cuda_ms)
+        emit({"phase": "io_saving_fast_summary",
+              "seconds": time.perf_counter() - t0})
+        del X, km_f32
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- (11) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

@@ -16,10 +16,16 @@ from dislib_tpu_torch.data.array import (
     Array, array, random_array, zeros, full, ones, identity, eye,
     apply_along_axis, concat_rows, concat_cols, rechunk, ensure_canonical,
 )
+from dislib_tpu_torch.data.io import (
+    load_txt_file, load_svmlight_file, load_npy_file, load_mdcrd_file,
+    save_txt, QuarantineLedger, QuarantineReport, last_quarantine_report,
+    quarantine_ledger, quarantine_batch,
+)
 from dislib_tpu_torch.math import matmul, kron, svd, qr, polar
 from dislib_tpu_torch.decomposition import tsqr, random_svd, lanczos_svd, PCA
 from dislib_tpu_torch.base import from_fitted_arrays
 from dislib_tpu_torch.utils.base import shuffle, train_test_split
+from dislib_tpu_torch.utils.saving import save_model, load_model
 from dislib_tpu_torch import cluster, classification, decomposition, \
     math, model_selection, neighbors, trees, preprocessing, regression, \
     optimization  # noqa: E402,F401
@@ -43,9 +49,13 @@ from dislib_tpu_torch.model_selection import (
 __all__ = ["init", "get_mesh", "Array", "array", "random_array", "zeros",
            "full", "ones", "identity", "eye", "apply_along_axis",
            "concat_rows", "concat_cols", "rechunk", "ensure_canonical",
+           "load_txt_file", "load_svmlight_file", "load_npy_file",
+           "load_mdcrd_file", "save_txt", "QuarantineReport",
+           "QuarantineLedger", "last_quarantine_report",
+           "quarantine_ledger", "quarantine_batch",
            "matmul", "kron", "svd", "qr", "polar",
            "tsqr", "random_svd", "lanczos_svd", "PCA", "from_fitted_arrays",
-           "shuffle", "train_test_split",
+           "shuffle", "train_test_split", "save_model", "load_model",
            "KMeans", "MiniBatchKMeans", "GaussianMixture",
            "KNeighborsClassifier",
            "RandomForestClassifier", "RandomForestRegressor",

@@ -4,7 +4,9 @@ Counterpart of ``dislib_tpu/base.py``, with its async-trial protocol
 (``_fit_async``, ``_fit_finalize``, ``_score_async``: ``model_selection``
 dispatches every trial of a fold before it reads a score) and its
 predict-parameter cache: a plain cache of device copies per device
-(``_predict_leaves``), and ``_classes_leaf``.
+(``_predict_leaves``), and ``_classes_leaf``.  ``_fitted_attrs`` names
+what ``utils/saving.save_model`` writes, and :func:`from_fitted_arrays`
+is how ``load_model`` (and the parity tests) build a fitted estimator.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ _ASYNC_FALLBACK_NOTICED: set = set()
 class BaseEstimator:
     """Minimal sklearn-compatible base: constructor args are
     hyperparameters."""
+
+    #: extra (leading-underscore) fitted state a subclass needs persisted by
+    #: ``save_model`` beyond the trailing-underscore convention
+    _private_fitted_attrs: tuple = ()
 
     @classmethod
     def _param_names(cls):
@@ -42,6 +48,14 @@ class BaseEstimator:
                                  f"{type(self).__name__}")
             setattr(self, k, v)
         return self
+
+    def _fitted_attrs(self) -> dict:
+        out = {k: v for k, v in vars(self).items()
+               if k.endswith("_") and not k.startswith("_")}
+        for k in self._private_fitted_attrs:
+            if hasattr(self, k):
+                out[k] = getattr(self, k)
+        return out
 
     # -- async trial protocol (GridSearchCV submits all fits of a fold
     # before waiting on any; estimators opt in by overriding these) ----------
@@ -133,14 +147,39 @@ def from_fitted_arrays(cls, arrays: dict, device=None, **params):
     ``intercept_``; Lasso's ``coef_``; StandardScaler's ``mean_`` and
     ``var_``; MinMaxScaler's ``data_min_`` and ``data_max_``;
     NearestNeighbors' ``_fit_data``; KNeighborsClassifier's ``_fit_x``,
-    ``_codes`` and ``classes_``.  ``params``
-    go to the constructor.  Device-resident attributes land on ``device``
-    (default: the default mesh's, ``cuda``)."""
+    ``_codes`` and ``classes_``; KMeans' ``centers_``; PCA's ``mean_``,
+    ``components_`` and ``explained_variance_``; ADMM's ``z_``; a search's
+    ``best_estimator_`` (an estimator of this package) and results.  A
+    ds-array attribute may come as a NumPy array or as an ``Array`` (whose
+    ``block_size`` it keeps).  ``params`` go to the constructor.
+    Device-resident attributes land on ``device`` (default: the default
+    mesh's, ``cuda``).  The trailing-underscore entries ``_carry_in`` does
+    not set (``n_iter_``, ``history_``, ...) are kept as given, so a model
+    loaded and saved again writes what was loaded."""
     from dislib_tpu_torch.parallel import mesh as _mesh
-    dev = _mesh.get_mesh().device if device is None else torch.device(device)
+    dev = (_mesh.get_mesh() if device is None
+           else _mesh.make_mesh((1, 1), device)).device
     est = cls(**params)
     est._carry_in(arrays, dev)
+    for k, v in arrays.items():
+        if k.endswith("_") and not k.startswith("_") and not hasattr(est, k):
+            setattr(est, k, v)
     return est
+
+
+def carried_array(v, device):
+    """A carried-in ds-array attribute on ``device``: an ``Array`` already
+    there is kept as it is (a loaded model predicts with no extra copy),
+    one elsewhere is copied over with its ``block_size``; host data (NumPy,
+    copied; 1-D as one row) becomes a float32 ds-array."""
+    from dislib_tpu_torch.data.array import Array, array
+    if isinstance(v, Array):
+        if v.device == device:
+            return v
+        return array(v._data[: v.shape[0], : v.shape[1]],
+                     block_size=v.block_size, dtype=v.dtype, device=device)
+    v = np.array(v, np.float32)
+    return array(v.reshape(1, -1) if v.ndim == 1 else v, device=device)
 
 
 def clone(estimator):

@@ -27,8 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dislib_tpu_torch.base import BaseEstimator
-from dislib_tpu_torch.data.array import Array, array, require_dense
+from dislib_tpu_torch.base import BaseEstimator, carried_array
+from dislib_tpu_torch.data.array import Array, require_dense
 from dislib_tpu_torch.neighbors import base as _nb
 from dislib_tpu_torch.ops.base import precise
 from dislib_tpu_torch.utils.profiling import count_read
@@ -41,6 +41,8 @@ class KNeighborsClassifier(BaseEstimator):
     ----------
     classes_ : ndarray of unique labels.
     """
+
+    _private_fitted_attrs = ("_fit_x", "_codes")
 
     def __init__(self, n_neighbors=5, weights="uniform"):
         self.n_neighbors = n_neighbors
@@ -117,8 +119,7 @@ class KNeighborsClassifier(BaseEstimator):
 
     def _carry_in(self, arrays: dict, device):
         # copies: the arrays may be read-only views of another package's
-        self._fit_x = array(np.array(arrays["_fit_x"], np.float32),
-                            device=device)
+        self._fit_x = carried_array(arrays["_fit_x"], device)
         self._codes = torch.as_tensor(np.array(arrays["_codes"], np.int32),
                                       device=device)
         self.classes_ = np.asarray(arrays["classes_"])

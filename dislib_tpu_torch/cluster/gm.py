@@ -20,9 +20,9 @@ Where the port departs from the reference's code:
   its ``ChunkedFitLoop``.  ``checkpoint=``/``health=`` raise
   ``NotImplementedError`` (ROADMAP.md A.12), sparse input too (A.10).
 - The ``kmeans`` init runs the port's KMeans device loop, whose E-step is
-  the hand CUDA kernel ``distances_sq`` on a card; KMeans'
-  ``fast_distance`` (asked for with ``DSLIB_KMEANS_FAST_DISTANCE=1``) raises
-  as ``KMeans`` does (A.6).
+  the hand CUDA kernel ``distances_sq`` on a card, in KMeans' fast mode
+  (the bf16-operand variant) when ``DSLIB_KMEANS_FAST_DISTANCE=1`` asks
+  for it, as the reference's does.
 - ``init_params="random"`` draws with :func:`_random_resp`, one named
   function (a ``torch.Generator``; the reference draws with
   ``jax.random.uniform``, which torch does not reproduce).
@@ -111,7 +111,7 @@ class GaussianMixture(BaseEstimator):
                         random_state=self.random_state)
             km._check_supported(x)
             centers = _kmeans_fit(x._data, x.shape, km._init_centers(x),
-                                  10, 1e-4)[0]
+                                  10, 1e-4, fast=km._fast())[0]
             labels = _kmeans_predict(x._data, x.shape, centers)[:, 0]
             return torch.nn.functional.one_hot(labels.long(), k).to(
                 torch.float32)
@@ -210,7 +210,8 @@ class GaussianMixture(BaseEstimator):
                                     self.covariances_)
 
     def _carry_in(self, arrays: dict, device):
-        self.covariance_type = str(arrays["covariance_type"])
+        self.covariance_type = str(arrays.get("covariance_type",
+                                            self.covariance_type))
         for name in ("weights_", "means_", "covariances_"):
             setattr(self, name, np.array(arrays[name], np.float32))
 

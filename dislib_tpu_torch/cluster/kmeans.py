@@ -15,14 +15,20 @@ Per step: the E-step is the hand CUDA kernel ``distances_sq``
 (``ops/base.distances_sq(..., use_kernel=True)``), then argmin; the M-step
 is ``onehotᵀ @ x`` as a plain f32-faithful product (it sits outside any
 kernel of the reference too).  ``predict`` and ``score`` run the same
-kernel.  Padded rows (none on the one-device mesh) carry weight 0.
+kernel.  ``fast_distance`` (or ``DSLIB_KMEANS_FAST_DISTANCE=1``) is the
+reference's fast mode: the fit stores x once as bfloat16
+(``ops/kernels.bf16_rows``) and hoists ‖x‖² once from the float32 x; the
+E-step is the kernel's bf16-operand variant
+(``ops/kernels.distances_sq_bf16``: the centers rounded to bf16 for the
+cross term, their norms float32), while the M-step reads the float32 x, so
+the centers stay exact sums; ``predict`` and ``score`` stay float32.
+Padded rows (none on the one-device mesh) carry weight 0.
 ``fit`` is ``_fit_finalize(_fit_async(x))``: the async-trial hooks of the
 search split it at its one transfer, and ``_score_async`` scores the
 device centers as a device scalar.
 
 Not ported yet: ``checkpoint=``/``health=`` (the ``ChunkedFitLoop``,
-ROADMAP.md A.12), sparse input (A.10) and ``fast_distance=True`` (a
-bf16-operand cross term with f32 norms, A.6) — each raises
+ROADMAP.md A.12) and sparse input (A.10) — each raises
 ``NotImplementedError``.
 """
 
@@ -35,6 +41,7 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops.base import distances_sq as _distances_sq, precise
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.loop import run_chunked
@@ -54,6 +61,9 @@ class KMeans(BaseEstimator):
     random_state : int or None
     verbose : bool — accepted for parity; the fit reads only its loop
         condition until it ends, so there is no per-iteration log.
+    fast_distance : bool or None — the E-step on bf16 operands with
+        float32 sums and norms (an assignment-only speed knob: a point
+        near a tie may flip); None reads ``DSLIB_KMEANS_FAST_DISTANCE``.
 
     Attributes
     ----------
@@ -75,13 +85,12 @@ class KMeans(BaseEstimator):
         self.verbose = verbose
         self.fast_distance = fast_distance
 
+    def _fast(self) -> bool:
+        if self.fast_distance is not None:
+            return bool(self.fast_distance)
+        return os.environ.get("DSLIB_KMEANS_FAST_DISTANCE", "0") == "1"
+
     def _check_supported(self, x):
-        fast = self.fast_distance if self.fast_distance is not None \
-            else os.environ.get("DSLIB_KMEANS_FAST_DISTANCE", "0") == "1"
-        if fast:
-            raise NotImplementedError(
-                "KMeans fast_distance: the bf16-operand distance kernel is "
-                "not ported yet (ROADMAP.md A.6)")
         if not isinstance(x, Array):
             raise NotImplementedError(
                 f"KMeans on {type(x).__name__}: the port takes dense "
@@ -126,7 +135,8 @@ class KMeans(BaseEstimator):
     def _fit_async(self, x, y=None):
         self._check_supported(x)
         return _kmeans_fit(x._data, x.shape, self._init_centers(x),
-                           int(self.max_iter), float(self.tol))
+                           int(self.max_iter), float(self.tol),
+                           fast=self._fast())
 
     def _fit_finalize(self, state):
         if state is None:
@@ -158,6 +168,9 @@ class KMeans(BaseEstimator):
         self._check_fitted()
         self._check_supported(x)
         return float(_kmeans_score(x._data, x.shape, self._centers_on(x)))
+
+    def _carry_in(self, arrays: dict, device):
+        self.centers_ = np.array(arrays["centers_"], np.float32)
 
     def _centers_on(self, x: Array) -> torch.Tensor:
         return torch.as_tensor(self.centers_, device=x.device)
@@ -198,13 +211,17 @@ def _crop(xp: torch.Tensor, shape):
 
 
 @precise
-def _kmeans_fit(xp, shape, centers0, max_iter, tol):
+def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False):
     """Lloyd steps on the padded backing ``xp`` of logical ``shape`` from
     ``centers0`` until ``shift < tol`` or ``max_iter`` (the reference's
-    ``cond``), in chunks of masked steps (:func:`run_chunked`).  Returns
-    ``(centers, n_iter, inertia, shift, hist, hvec)`` as device tensors —
-    the reference's 6-tuple."""
+    ``cond``), in chunks of masked steps (:func:`run_chunked`).  ``fast``:
+    the E-step on the bf16 copy of x stored here once, with ‖x‖² hoisted
+    from the float32 x.  Returns ``(centers, n_iter, inertia, shift, hist,
+    hvec)`` as device tensors — the reference's 6-tuple."""
     xv, w = _crop(xp, shape)
+    if fast:
+        x16 = _k.bf16_rows(xv)
+        x_sq = torch.sum(xv * xv, dim=1)
     k = centers0.shape[0]
     dev, dt = xv.device, xv.dtype
     centers = centers0.to(device=dev, dtype=dt).contiguous()
@@ -217,7 +234,8 @@ def _kmeans_fit(xp, shape, centers0, max_iter, tol):
     def step(t):
         nonlocal centers, shift, n_iter, inertia
         active = shift >= tol
-        d = _distances_sq(xv, centers, use_kernel=True)
+        d = _k.distances_sq_bf16(x16, x_sq, centers) if fast else \
+            _distances_sq(xv, centers, use_kernel=True)
         min_d, labels = torch.min(d, dim=1)   # first index on ties
         onehot = (labels[:, None] == cluster_ids).to(dt) * w[:, None]
         sums = onehot.T @ xv                  # (k, n)

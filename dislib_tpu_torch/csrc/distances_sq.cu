@@ -40,9 +40,30 @@
 // owns 256 rows of a, one row per thread, and streams a and a chunk of 16
 // rows of b through shared memory in 32-wide slices of d with 4-byte loads.
 //
-// Both clamp at zero but let a NaN through (fmaxf would swallow it, hiding
-// a non-finite input from the fit's health check); ragged edges are masked.
+// The bf16 operands (dist_bf16; KMeans fast_distance, the reference's
+// precision="default": dislib_tpu/cluster/kmeans.py, _kmeans_fit with
+// fast=True).  a is stored once per fit as bfloat16 (m, dp), its rows
+// padded with zero columns to dp, a multiple of 8 values (16 bytes: d = 100
+// gives dp = 104), so that a tile of rows is one contiguous, 16-byte
+// aligned run; |a|^2 comes precomputed in float32 from the unrounded a.  b
+// is the (k, d) float32 centers: the kernel rounds it to bf16 for the cross
+// term and takes |b|^2 in float32 from the unrounded values.  A bf16 x bf16
+// product is exact in float32, so the cross term differs from the plain
+// version's float32 contraction of the rounded operands only in the order
+// of its float32 sums.  Bytes bound it: at (1M, 100) x (10, 100), 200 MB of
+// a, 4 MB of norms and 40 MB of distances, half the float32 kernel's reads.
+// It is the stream above with bf16 rows: persistent blocks of R <= 128
+// threads (a row each) walk their tiles through a two-stage ring filled by
+// cp.async.bulk, with b (rounded) and its norms loaded once when k <= 16;
+// a thread reads its row 8 values per 16-byte load and widens them exactly
+// to float32.  A quarter-warp reading 16 bytes of 8 rows at a row stride of
+// dp / 2 words is free of bank conflicts when dp / 8 is odd (dp = 104: 13).
+//
+// All paths clamp at zero but let a NaN through (fmaxf would swallow it,
+// hiding a non-finite input from the fit's health check); ragged edges are
+// masked.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -310,7 +331,181 @@ dist_sliced(const float* __restrict__ A, const float* __restrict__ B,
     }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 operands
+// ---------------------------------------------------------------------------
+
+constexpr int BF_MAX_ROWS = 128;     // rows of a tile at most, one a thread
+
+// the chunk of b at rows [c0, c0 + KC) rounded to bf16 (round to nearest
+// even) into bt (d-major, zero past k and past d, DP rows), and the norms of
+// the unrounded rows into bsq, one warp a row
+__device__ void load_b_chunk_bf16(const float* __restrict__ B, float* bt,
+                                  float* bsq, int c0, int K, int D, int DP) {
+    const int nt = blockDim.x;
+    for (int e = threadIdx.x; e < KC * DP; e += nt) {
+        const int r = e / DP, c = e - r * DP;
+        float v = 0.f;
+        if (c0 + r < K && c < D)
+            v = __bfloat162float(
+                __float2bfloat16(B[(long long)(c0 + r) * D + c]));
+        bt[c * KC + r] = v;
+    }
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    for (int q = warp; q < KC; q += nt / 32) {
+        float s = 0.f;
+        if (c0 + q < K)
+            for (int t = lane; t < D; t += 32) {
+                const float v = B[(long long)(c0 + q) * D + t];
+                s = fmaf(v, v, s);
+            }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) bsq[q] = s;
+    }
+}
+
+// one row's NJ cross terms: the bf16 row (8 values per 16-byte load,
+// widened exactly to float32) against the chunk of b in shared memory
+template <int NJ>
+__device__ __forceinline__ void bf16_row(const __nv_bfloat16* arow,
+                                         const float* bt, int nq,
+                                         float (&acc)[KC]) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
+    const uint4* a8 = reinterpret_cast<const uint4*>(arow);
+#pragma unroll 2
+    for (int q = 0; q < nq; ++q) {
+        const uint4 v = a8[q];
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        float av[8];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {            // element 2p is the low half
+            av[2 * p] = __uint_as_float(w[p] << 16);
+            av[2 * p + 1] = __uint_as_float(w[p] & 0xffff0000u);
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            const float a = av[c];
+            const float4* bv =
+                reinterpret_cast<const float4*>(bt + (8 * q + c) * KC);
+#pragma unroll
+            for (int g = 0; g < NJ / 4; ++g) {
+                const float4 b = bv[g];
+                acc[4 * g + 0] = fmaf(a, b.x, acc[4 * g + 0]);
+                acc[4 * g + 1] = fmaf(a, b.y, acc[4 * g + 1]);
+                acc[4 * g + 2] = fmaf(a, b.z, acc[4 * g + 2]);
+                acc[4 * g + 3] = fmaf(a, b.w, acc[4 * g + 3]);
+            }
+        }
+    }
+}
+
+__global__ void __launch_bounds__(BF_MAX_ROWS)
+dist_bf16(const __nv_bfloat16* __restrict__ A, const float* __restrict__ Asq,
+          const float* __restrict__ B, float* __restrict__ out, int M, int K,
+          int D, int DP) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int R = blockDim.x;                       // rows of a tile
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+    __nv_bfloat16* stage =
+        reinterpret_cast<__nv_bfloat16*>(smem + BULK_HEAD);    // [S][R][DP]
+    float* bt = reinterpret_cast<float*>(stage + BULK_STAGES * R * DP);
+    float* bsq = bt + DP * KC;                                  // [KC]
+    float* ost = bsq + KC;                                      // [R][OST]
+
+    const int tid = threadIdx.x;
+    const int n_tiles = (M + R - 1) / R;
+    const int nq = (D + 7) / 8;          // 16-byte groups holding the d values
+    if (tid == 0) {
+        for (int s = 0; s < BULK_STAGES; ++s) mbar_init(&full[s], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    auto issue = [&](int s, int tile) {
+        const int rows = min(R, M - tile * R);
+        bulk_load(stage + (size_t)s * R * DP, A + (long long)tile * R * DP,
+                  (uint32_t)rows * DP * 2, &full[s]);
+    };
+    if (tid == 0)
+        for (int s = 0; s < BULK_STAGES; ++s) {
+            const int tile = blockIdx.x + s * gridDim.x;
+            if (tile < n_tiles) issue(s, tile);
+        }
+    if (K <= KC) {
+        load_b_chunk_bf16(B, bt, bsq, 0, K, D, DP);
+        __syncthreads();
+    }
+
+    float acc[KC];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+        const int s = it % BULK_STAGES;
+        const int rows = min(R, M - tile * R);
+        const float asq = tid < rows ? Asq[(long long)tile * R + tid] : 0.f;
+        mbar_wait(&full[s], (it / BULK_STAGES) & 1);
+        const __nv_bfloat16* arow = stage + ((size_t)s * R + tid) * DP;
+        for (int c0 = 0; c0 < K; c0 += KC) {
+            if (K > KC) {
+                load_b_chunk_bf16(B, bt, bsq, c0, K, D, DP);
+                __syncthreads();
+            }
+            const int nj = min(KC, K - c0);
+            if (tid < rows) {
+                switch ((nj + 3) / 4) {
+                    case 1: bf16_row<4>(arow, bt, nq, acc); break;
+                    case 2: bf16_row<8>(arow, bt, nq, acc); break;
+                    case 3: bf16_row<12>(arow, bt, nq, acc); break;
+                    default: bf16_row<16>(arow, bt, nq, acc);
+                }
+#pragma unroll
+                for (int j = 0; j < KC; ++j) {
+                    if (j >= nj) break;
+                    const float v = asq - 2.f * acc[j] + bsq[j];
+                    ost[tid * OST + j] = v < 0.f ? 0.f : v;
+                }
+            }
+            __syncthreads();
+            float* o = out + (long long)tile * R * K + c0;
+            for (int e = tid; e < rows * nj; e += R) {
+                const int r = e / nj, j = e - r * nj;
+                o[(long long)r * K + j] = ost[r * OST + j];
+            }
+            __syncthreads();   // ost, bt and (last chunk) the stage are free
+        }
+        if (tid == 0 && tile + BULK_STAGES * gridDim.x < n_tiles)
+            issue(s, tile + BULK_STAGES * gridDim.x);
+    }
+}
+
 }  // namespace
+
+// C entry point of the bf16 operands, bound with ctypes.  a (m, dp)
+// bfloat16, row-major, contiguous and 16-byte aligned, dp a multiple of 8
+// and >= d, its columns past d zero (finite); a_sq (m,) float32, |a|^2 of
+// the unrounded rows; b (k, d) float32; out (m, k) float32, allocated by the
+// caller.  The plan comes from the caller (ops/kernels.py, dist_bf16_plan):
+// `rows` threads and rows of a tile (a multiple of 32, at most 128), `grid`
+// persistent blocks, `smem` bytes of dynamic shared memory.  Returns the
+// launch's cudaError_t (0 = launched).
+extern "C" int dslib_distances_sq_bf16(const void* a, const void* a_sq,
+                                       const void* b, void* out, int m, int k,
+                                       int d, int dp, int rows, int grid,
+                                       int smem, void* stream) {
+    if (m <= 0 || k <= 0) return 0;
+    if (dp % 8 != 0 || d > dp || d <= 0 || rows <= 0 || rows % 32 != 0
+        || rows > BF_MAX_ROWS || grid <= 0
+        || reinterpret_cast<uintptr_t>(a) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        dist_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    dist_bf16<<<grid, rows, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(a), static_cast<const float*>(a_sq),
+        static_cast<const float*>(b), static_cast<float*>(out), m, k, d, dp);
+    return (int)cudaGetLastError();
+}
 
 // C entry point, bound with ctypes.  a (m, d) and b (k, d) float32,
 // row-major and contiguous; out (m, k) float32, allocated by the caller.

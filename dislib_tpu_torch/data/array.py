@@ -10,7 +10,9 @@ On this slice's ``(1, 1)`` mesh the quantum is 1, so nothing is padded, but
 the invariant is kept so the multi-GPU slice changes no caller.
 ``block_size`` survives as a hint (``_reg_shape``) for API parity.
 
-Every op runs eagerly — what the reference does under ``DSLIB_EAGER=1``.
+Every op runs eagerly — what the reference does under ``DSLIB_EAGER=1``:
+``is_lazy`` is always False, ``force()`` returns the array, and
+``block_until_ready()`` waits for its device work.
 Not ported yet: the lazy fusion graph (``_LazyExpr``, ``fused_kernel``),
 multi-rank ``rechunk`` schedules (ROADMAP.md A.11) and sparse backings
 (A.10).
@@ -169,7 +171,26 @@ class Array:
                 f"{self._reg_shape}, dtype={self.dtype}, "
                 f"device={self.device})")
 
-    # -- sync point ------------------------------------------------------------
+    # -- sync points -----------------------------------------------------------
+
+    @property
+    def is_lazy(self) -> bool:
+        """False: the port runs every op eagerly, so no array is a
+        deferred op chain."""
+        return False
+
+    def force(self) -> "Array":
+        """Return self: there is no deferred chain to materialise (the
+        reference's ``force`` on a concrete array is a no-op too)."""
+        return self
+
+    def block_until_ready(self) -> "Array":
+        """Wait until the device work queued before this call (on the
+        current stream, which produced this array) is done, and return
+        self: a sync, not a read."""
+        if self._data.device.type == "cuda":
+            torch.cuda.current_stream(self._data.device).synchronize()
+        return self
 
     def collect(self) -> np.ndarray:
         """Materialise the logical region on the host as a NumPy array."""

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from dislib_tpu_torch.base import BaseEstimator
+from dislib_tpu_torch.base import BaseEstimator, carried_array
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.math.base import matmul
 from dislib_tpu_torch.ops import precision as px
@@ -66,6 +66,10 @@ class PCA(BaseEstimator):
 
     def inverse_transform(self, y: Array) -> Array:
         return matmul(y, self.components_) + self.mean_
+
+    def _carry_in(self, arrays: dict, device):
+        for name in ("mean_", "components_", "explained_variance_"):
+            setattr(self, name, carried_array(arrays[name], device))
 
 
 @px.precise

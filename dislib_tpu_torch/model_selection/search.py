@@ -172,6 +172,17 @@ class GridSearchCV(BaseEstimator):
             self.best_estimator_.fit(x, y) if y is not None else self.best_estimator_.fit(x)
         return self
 
+    def _carry_in(self, arrays: dict, device):
+        """The refit ``best_estimator_`` comes as an estimator of this
+        package (``load_model`` restores it onto ``device`` first); the
+        results are host values, kept as given."""
+        best = arrays.get("best_estimator_")
+        if best is not None and not isinstance(best, BaseEstimator):
+            raise TypeError(f"best_estimator_ must be an estimator of this "
+                            f"package, got {type(best).__name__}")
+        if best is not None:
+            self.best_estimator_ = best
+
     def predict(self, x):
         self._check_refit()
         return self.best_estimator_.predict(x)

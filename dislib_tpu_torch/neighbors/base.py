@@ -28,11 +28,10 @@ from __future__ import annotations
 
 import warnings
 
-import numpy as np
 import torch
 
-from dislib_tpu_torch.base import BaseEstimator
-from dislib_tpu_torch.data.array import Array, array, require_dense
+from dislib_tpu_torch.base import BaseEstimator, carried_array
+from dislib_tpu_torch.data.array import Array, require_dense
 from dislib_tpu_torch.ops.base import distances_sq, merge_smallest, \
     precise, split_keys
 
@@ -47,6 +46,8 @@ class NearestNeighbors(BaseEstimator):
     ``ring``: the reference's ring switch; on the port's one-row mesh no
     setting takes the ring schedule (``ring=True`` warns).
     """
+
+    _private_fitted_attrs = ("_fit_data",)
 
     def __init__(self, n_neighbors=5, ring=None):
         self.n_neighbors = n_neighbors
@@ -81,8 +82,7 @@ class NearestNeighbors(BaseEstimator):
         return i_arr
 
     def _carry_in(self, arrays: dict, device):
-        self._fit_data = array(np.array(arrays["_fit_data"], np.float32),
-                               device=device)
+        self._fit_data = carried_array(arrays["_fit_data"], device)
 
 
 def _finish(d2, idx, mq):

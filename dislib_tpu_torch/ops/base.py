@@ -1,7 +1,9 @@
 """Shared device kernels used across estimators.
 
 Counterpart of ``dislib_tpu/ops/base.py``: the one distance formulation
-every caller shares, so numerical fixes land in one place.
+every caller shares, so numerical fixes land in one place.  Two dense
+ds-arrays give a ds-array of their distances (the reference's eager
+``_array_distances``, as under ``DSLIB_EAGER=1``), through the kernel.
 """
 
 from __future__ import annotations
@@ -14,23 +16,51 @@ from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops.precision import precise  # noqa: F401
 
 
-def distances_sq(a: torch.Tensor, b: torch.Tensor, precision=None,
-                 use_kernel: bool = False) -> torch.Tensor:
+def distances_sq(a, b, precision=None, use_kernel: bool = False):
     """Pairwise squared euclidean distances (m, k) between rows of ``a``
     (m, d) and rows of ``b`` (k, d): one GEMM + norms
     (‖a‖² − 2a·bᵀ + ‖b‖²), clamped at zero against cancellation.
 
-    ``use_kernel=True`` routes to the hand kernel
+    ``precision``: None, ``"highest"`` or ``"float32"`` (the
+    float32-faithful contraction), or ``"default"`` (the reference's one
+    bf16 pass: bf16 operands, float32 sums and norms).
+    ``use_kernel=True`` routes tensors to the hand kernel
     (:func:`ops.kernels.distances_sq`), which on CPU tensors runs the same
-    plain formulation.  ds-array operands (the reference's fusion-graph
-    node) are not ported yet: ROADMAP.md A.4."""
+    plain formulation.  Two dense ds-arrays give a ds-array (m, k),
+    always through the kernel; a ds-array beside anything else raises
+    ``TypeError``."""
+    from dislib_tpu_torch.data.array import Array
+    if isinstance(a, Array) or isinstance(b, Array):
+        if not (type(a) is Array and type(b) is Array):
+            raise TypeError(
+                "distances_sq over ds-arrays needs BOTH operands as dense "
+                f"Arrays, got {type(a).__name__} and {type(b).__name__}")
+        return _array_distances(a, b, precision)
     if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
-        raise NotImplementedError(
-            "distances_sq takes torch tensors; the ds-array form (a node "
-            "of the reference's lazy fusion graph) is ROADMAP.md A.4")
+        raise TypeError(
+            "distances_sq takes two torch tensors or two dense ds-arrays, "
+            f"got {type(a).__name__} and {type(b).__name__}")
     if use_kernel:
         return _k.distances_sq(a, b, precision=precision)
     return _k.distances_sq_plain(a, b, precision=precision)
+
+
+@precise
+def _array_distances(a, b, precision=None):
+    """ds-array pairwise squared distances (the reference's
+    ``data/array._array_distances`` under ``DSLIB_EAGER=1``): the kernel on
+    the logical regions, wrapped as an (m, k) ds-array on ``a``'s mesh."""
+    from dislib_tpu_torch.data.array import Array
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"distances_sq: feature dims differ "
+                         f"({a.shape[1]} vs {b.shape[1]})")
+    if a.device != b.device:
+        raise ValueError(f"distances_sq: operands live on different "
+                         f"devices: {a.device} vs {b.device}")
+    (m, n), k = a.shape, b.shape[0]
+    d = _k.distances_sq(a._data[:m, :n].contiguous(),
+                        b._data[:k, :n].contiguous(), precision=precision)
+    return Array._from_logical(d, a._mesh)
 
 
 def cholesky_nan(a: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ Counterpart of ``dislib_tpu/ops/pallas_kernels.py``:
   (``csrc/panel_gemm.cu``; launch plan :func:`gemm_plan`);
 - :func:`distances_sq` — ‖a‖² − 2a·bᵀ + ‖b‖² clamped at zero
   (``csrc/distances_sq.cu``; plan :func:`dist_plan`), the KMeans E-step,
-  predict and score;
+  predict and score; and its bf16-operand variant
+  :func:`distances_sq_bf16` (plan :func:`dist_bf16_plan`), the E-step of
+  KMeans ``fast_distance`` and ``precision="default"``;
 - :func:`node_histogram` — the forest's per-level weighted (node, feature,
   bin) histogram, for every tree in one call (``csrc/node_histogram.cu``;
   plan :func:`hist_plan`).
@@ -19,8 +21,9 @@ There is no fallback from a CUDA tensor to the plain version.
 
 :data:`LAUNCHES` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels: one per call that reaches the
-CUDA code, whatever number of CUDA kernels the call runs (node_histogram
-runs four).
+CUDA code of a source, whatever number of CUDA kernels the call runs
+(node_histogram runs four); ``"distances_sq"`` counts both of its entry
+points.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ LAUNCHES = {"panel_gemm": 0, "distances_sq": 0, "node_histogram": 0}
 
 _INT_MAX = 2**31 - 1
 # precisions the distance kernel implements: None inherits the scope, and
-# on that kernel every scope is f32 FMA, the float32-faithful contraction
+# on that kernel every scope is f32 FMA, the float32-faithful contraction;
+# "default" is the reference's one bf16 pass (the bf16-operand variant)
 _F32_PRECISIONS = (None, "highest", "float32")
+_BF16_PRECISIONS = ("default", "bfloat16")
 
 
 def reset_launches() -> None:
@@ -226,21 +231,57 @@ def gemm_compiled_plan(dtype: torch.dtype) -> tuple:
 
 def check_precision(precision) -> None:
     """The distance kernels implement the float32-faithful contraction
-    only; the bf16-operand variant (KMeans ``fast_distance``) is
-    ROADMAP.md A.6."""
-    if precision not in _F32_PRECISIONS:
+    (None, ``"highest"``, ``"float32"``) and one bf16 pass
+    (``"default"`` or its alias ``"bfloat16"``, the bf16-operand
+    variant), as JAX names them; ``"high"`` (three bf16 passes) is not
+    implemented."""
+    if precision not in _F32_PRECISIONS + _BF16_PRECISIONS:
         raise NotImplementedError(
             f"distances_sq precision={precision!r}: the port implements "
-            f"{_F32_PRECISIONS} (float32-faithful); the bf16-operand "
-            "variant is ROADMAP.md A.6")
+            f"{_F32_PRECISIONS} (float32-faithful) and {_BF16_PRECISIONS} "
+            "(bf16 operands, float32 sums)")
+
+
+def bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (m, d) as the bf16-operand variant stores it: (m, dp)
+    bfloat16, rounded to nearest even, each row padded with zero columns
+    to dp, d rounded up to a multiple of 8 values (16 bytes)."""
+    m, d = x.shape
+    out = torch.empty((m, _round_up(d, 8)), dtype=torch.bfloat16,
+                      device=x.device)
+    out[:, d:].zero_()
+    out[:, :d].copy_(x)
+    return out
+
+
+def distances_sq_bf16_plain(a16: torch.Tensor, a_sq: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """The bf16-operand distances in plain PyTorch: the float32
+    contraction of the bf16 rows ``a16`` (m, dp; the first d columns are
+    a's) with ``b`` (k, d) rounded to bf16, and the float32 norms ``a_sq``
+    (m,) and ``‖b‖²`` of the unrounded operands: ``max(a_sq − 2a·bᵀ +
+    ‖b‖², 0)``, float32 (m, k)."""
+    d = b.shape[1]
+    b = b.to(torch.float32)
+    with px.precise():
+        cross = torch.matmul(a16[:, :d].to(torch.float32),
+                             b.to(torch.bfloat16).to(torch.float32).T)
+    b_sq = torch.sum(b * b, dim=1)
+    return torch.clamp_min(a_sq.to(torch.float32)[:, None] - 2.0 * cross
+                           + b_sq[None, :], 0.0)
 
 
 def distances_sq_plain(a: torch.Tensor, b: torch.Tensor,
                        precision=None) -> torch.Tensor:
     """Pairwise squared euclidean distances (m, k) in plain PyTorch: one
     GEMM and two row norms, ``max(‖a‖² − 2a·bᵀ + ‖b‖², 0)``, in the
-    operands' promoted float dtype."""
+    operands' promoted float dtype; ``precision="default"``: the
+    bf16-operand variant (:func:`distances_sq_bf16_plain`), float32."""
     check_precision(precision)
+    if precision in _BF16_PRECISIONS:
+        a = a.to(torch.float32)
+        return distances_sq_bf16_plain(a.to(torch.bfloat16),
+                                       torch.sum(a * a, dim=1), b)
     dt = torch.promote_types(a.dtype, b.dtype)
     a, b = a.to(dt), b.to(dt)
     a_sq = torch.sum(a * a, dim=1, keepdim=True)
@@ -291,13 +332,17 @@ def distances_sq(a: torch.Tensor, b: torch.Tensor,
     """Pairwise squared euclidean distances of the rows of ``a`` (m, d)
     and ``b`` (k, d), clamped at zero (reference:
     ``pallas_kernels.distances_sq``).  ``precision`` ∈ {None,
-    ``"highest"``, ``"float32"``}: the kernel's cross term is always f32
-    FMA.  CUDA operands must be float32; the launch plan is
-    :func:`dist_plan`."""
+    ``"highest"``, ``"float32"``}: the kernel's cross term is f32 FMA;
+    ``"default"``: one bf16 pass, through :func:`distances_sq_bf16` on a
+    bf16 copy of ``a`` made here (a caller that reuses ``a`` stores the
+    copy once, as KMeans does).  CUDA operands must be float32; the launch
+    plan is :func:`dist_plan`."""
     if _on_cpu(a, b):
         return distances_sq_plain(a, b, precision)
     check_precision(precision)
     _check_cuda("distances_sq", a, b)
+    if precision in _BF16_PRECISIONS and a.dtype == torch.float32:
+        return distances_sq_bf16(bf16_rows(a), torch.sum(a * a, dim=1), b)
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"distances_sq: the CUDA kernel takes float32 "
                         f"operands, got {a.dtype} and {b.dtype}")
@@ -316,6 +361,85 @@ def distances_sq(a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, d, *plan,
             torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on_error("distances_sq", rc)
+    LAUNCHES["distances_sq"] += 1
+    return out
+
+
+class DistBf16Plan(NamedTuple):
+    """How one ``distances_sq_bf16`` launch runs (``dist_bf16`` in
+    ``csrc/distances_sq.cu``)."""
+    rows: int         # threads of a block and rows of its tile
+    grid: int         # persistent blocks
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+# rows of a bf16 tile at most (``BF_MAX_ROWS`` in the source)
+_BF16_MAX_ROWS = 128
+
+
+def dist_bf16_plan(m: int, dp: int, n_sms: int) -> DistBf16Plan:
+    """A block streams tiles of ``rows`` bf16 rows of ``dp`` values (at
+    most 128, a multiple of 32, as many as fit) through a two-stage ring,
+    beside the chunk of b (dp x 16 float32), its norms and the staged
+    (rows, 17) output; as many persistent blocks as fit on the SMs (at most
+    8 an SM), no more than there are tiles."""
+    fixed = _DIST_HEAD + 4 * (dp * _DIST_KC + _DIST_KC)
+    per_row = 2 * _DIST_STAGES * dp + 4 * _DIST_OST
+    rows = min(_BF16_MAX_ROWS, (DIST_SMEM_LIMIT - fixed) // per_row // 32
+               * 32)
+    if rows < 32:
+        raise ValueError(f"distances_sq_bf16: rows of {dp} values are too "
+                         "wide for a 32-row tile in shared memory")
+    smem = fixed + per_row * rows
+    per_sm = max(1, min(8, DIST_SMEM_LIMIT // (smem + 1024)))
+    return DistBf16Plan(rows, max(1, min(_cdiv(m, rows), n_sms * per_sm)),
+                        smem)
+
+
+def distances_sq_bf16(a16: torch.Tensor, a_sq: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distances (m, k) float32, clamped at zero, from
+    bf16 operands (KMeans ``fast_distance``, the reference's
+    ``precision="default"``): ``a16`` (m, dp) bfloat16 as
+    :func:`bf16_rows` stores it (dp a multiple of 8, columns past d zero),
+    ``a_sq`` (m,) float32 the norms of the unrounded rows, ``b`` (k, d)
+    float32, rounded to bf16 for the cross term, its norms taken unrounded.
+    The cross term sums the exact bf16 products in float32.  CPU tensors
+    take :func:`distances_sq_bf16_plain`; CUDA tensors the kernel
+    (``dslib_distances_sq_bf16``), which also needs ``a16`` 16-byte
+    aligned."""
+    if _on_cpu(a16, a_sq, b):
+        return distances_sq_bf16_plain(a16, a_sq, b)
+    _check_cuda("distances_sq_bf16", a16, b)
+    if a_sq.device != a16.device or not a_sq.is_contiguous():
+        raise ValueError("distances_sq_bf16: a_sq must be contiguous and on "
+                         f"{a16.device}, got {a_sq.device}")
+    if a16.dtype != torch.bfloat16 or a_sq.dtype != torch.float32 \
+            or b.dtype != torch.float32:
+        raise TypeError(f"distances_sq_bf16: the CUDA kernel takes bfloat16 "
+                        f"a, float32 a_sq and float32 b, got {a16.dtype}, "
+                        f"{a_sq.dtype} and {b.dtype}")
+    (m, dp), (k, d) = a16.shape, b.shape
+    if a_sq.shape != (m,) or d > dp or dp % 8 or d == 0:
+        raise ValueError(
+            f"distances_sq_bf16: shapes a16 {tuple(a16.shape)}, a_sq "
+            f"{tuple(a_sq.shape)}, b {tuple(b.shape)}: a16 must be (m, dp), "
+            "dp a multiple of 8 and at least b's d > 0 (bf16_rows), a_sq "
+            "(m,)")
+    if a16.data_ptr() % 16:
+        raise ValueError("distances_sq_bf16: a16 must be 16-byte aligned "
+                         "(a fresh bf16_rows copy is)")
+    out = torch.empty((m, k), dtype=torch.float32, device=a16.device)
+    if m == 0 or k == 0:
+        return out
+    plan = dist_bf16_plan(m, dp, torch.cuda.get_device_properties(
+        a16.device).multi_processor_count)
+    lib = _build.library("distances_sq")
+    with torch.cuda.device(a16.device):
+        rc = lib.dslib_distances_sq_bf16(
+            a16.data_ptr(), a_sq.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+            k, d, dp, *plan, torch.cuda.current_stream(a16.device).cuda_stream)
+    _raise_on_error("distances_sq_bf16", rc)
     LAUNCHES["distances_sq"] += 1
     return out
 

@@ -106,6 +106,9 @@ class ADMM(BaseEstimator):
                          float(self.reltol), int(self.max_iter), prox,
                          _agents())
 
+    def _carry_in(self, arrays: dict, device):
+        self.z_ = np.array(arrays["z_"], np.float32).ravel()
+
     def _fit_finalize(self, state):
         if state is None:
             return

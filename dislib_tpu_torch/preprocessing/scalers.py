@@ -12,12 +12,10 @@ The reference's sparse branches (a ``SparseArray`` under
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from dislib_tpu_torch.base import BaseEstimator
+from dislib_tpu_torch.base import BaseEstimator, carried_array
 from dislib_tpu_torch.data.array import Array, _repad, _zero_pad
-from dislib_tpu_torch.data.array import array as _ds_array
 
 
 def _check_dense(x, who):
@@ -80,8 +78,8 @@ class StandardScaler(BaseEstimator):
         return out
 
     def _carry_in(self, arrays: dict, device):
-        self.mean_ = _row(arrays["mean_"], device)
-        self.var_ = _row(arrays["var_"], device)
+        self.mean_ = carried_array(arrays["mean_"], device)
+        self.var_ = carried_array(arrays["var_"], device)
 
     def _check_fitted(self):
         if not hasattr(self, "mean_"):
@@ -129,17 +127,12 @@ class MinMaxScaler(BaseEstimator):
             + self.data_min_
 
     def _carry_in(self, arrays: dict, device):
-        self.data_min_ = _row(arrays["data_min_"], device)
-        self.data_max_ = _row(arrays["data_max_"], device)
+        self.data_min_ = carried_array(arrays["data_min_"], device)
+        self.data_max_ = carried_array(arrays["data_max_"], device)
 
     def _check_fitted(self):
         if not hasattr(self, "data_min_"):
             raise RuntimeError("MinMaxScaler is not fitted")
-
-
-def _row(v, device) -> Array:
-    """A fitted statistic given as NumPy, as a (1, n) ds-array."""
-    return _ds_array(np.array(v, np.float32).reshape(1, -1), device=device)
 
 
 def _safe_sqrt(v: Array) -> Array:

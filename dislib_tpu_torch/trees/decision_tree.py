@@ -304,6 +304,8 @@ class _BaseTreeEnsemble(BaseEstimator):
     encoding and the predictions."""
 
     _criterion = "gini"
+    _private_fitted_attrs = ("_edges", "_feats", "_tbins", "_depth",
+                             "_leaves")
 
     def _effective_depth(self, m):
         d = self.max_depth

@@ -343,3 +343,52 @@ def test_util_matches_reference():
         np.testing.assert_array_equal(port.collect(), ref.collect())
     assert port_util.compute_bottom_right_shape(px_) == \
         ref_util.compute_bottom_right_shape(rx) == (1, 1)
+
+
+# -- the distance and sync API (the rest of A.4) ---------------------------------
+
+@pytest.mark.parametrize("precision", [None, "highest", "default"])
+def test_array_distances_sq_matches_reference(precision):
+    from dislib_tpu.ops.base import distances_sq as ref_dist
+    from dislib_tpu_torch.ops.base import distances_sq as port_dist
+    (ra, pa), (rb, pb) = _both(_mk((53, 9))), _both(_mk((6, 9), seed=1))
+    ref = ref_dist(ra, rb, precision=precision)
+    got = port_dist(pa, pb, precision=precision)
+    assert isinstance(got, PortArray) and got.shape == ref.shape == (53, 6)
+    assert got.dtype == torch.float32 and _pad_is_zero(got)
+    want = np.asarray(ref.collect())
+    scale = float((_mk((53, 9)) ** 2).sum(1).max()
+                  + (_mk((6, 9), seed=1) ** 2).sum(1).max())
+    # float32-faithful: the reference's 1e-5 formulation tolerance; "default"
+    # is one bf16 pass in the port, where the reference's CPU backend runs
+    # float32: within the bf16 rounding of the cross term (2^-8 of the
+    # magnitudes that cancel)
+    tol = 2.0 ** -8 if precision == "default" else 1e-5
+    assert np.abs(got.collect() - want).max() <= tol * scale
+    assert (got.collect() >= 0).all()
+
+
+def test_array_distances_sq_raises_as_the_reference():
+    from dislib_tpu.ops.base import distances_sq as ref_dist
+    from dislib_tpu_torch.ops.base import distances_sq as port_dist
+    (ra, pa), (rb, pb) = _both(_mk((5, 3))), _both(_mk((4, 2)))
+    for dist, a, b in ((ref_dist, ra, rb), (port_dist, pa, pb)):
+        with pytest.raises(ValueError, match=r"feature dims differ \(3 vs 2\)"):
+            dist(a, b)
+    import scipy.sparse as sp
+    for dist, a in ((ref_dist, ra), (port_dist, pa)):
+        for other in (_mk((4, 3)), sp.csr_matrix(_mk((4, 3)))):
+            with pytest.raises(TypeError, match="BOTH operands"):
+                dist(a, other)
+    with pytest.raises(TypeError, match="BOTH operands"):
+        port_dist(torch.from_numpy(_mk((4, 3))), pa)
+
+
+def test_force_is_lazy_block_until_ready_as_an_eager_array():
+    ra, pa = _both(_mk((7, 3)))
+    rs, ps = ra + 1.0, pa + 1.0
+    rs.force()
+    assert ps.is_lazy is False and rs.is_lazy is False
+    assert ps.force() is ps and ps.block_until_ready() is ps
+    assert rs.block_until_ready() is rs
+    np.testing.assert_array_equal(ps.collect(), np.asarray(rs.collect()))

@@ -29,6 +29,9 @@ the lower fit index comes first; the single-rank ring (its cross term on
 ``panel_gemm``) within 1e-5 of the chunked path's distances, with equal
 indices wherever that path has no tie within 1e-5; a kNN search's scores
 within 1e-6 of the CPU's, read only after the next fold is dispatched.
+The bf16-operand ``distances_sq`` within 1e-5 of its plain version (the
+same exact bf16 products summed in another order); a model saved on the
+card and loaded back onto it predicts bit-equal.
 """
 
 import numpy as np
@@ -898,3 +901,95 @@ def test_knn_trial_on_the_card_never_synchronises(dev):
     ).score(dst.array(x[1500:], device="cpu"),
             dst.array(y[1500:], device="cpu"))
     assert abs(float(got) - want) <= 1e-6
+
+
+# -- the bf16-operand distances_sq (KMeans fast_distance) --------------------------
+
+@pytest.mark.parametrize("d", [1, 7, 8, 33, 100, 300])
+@pytest.mark.parametrize("k", [1, 10, 17])
+def test_distances_sq_bf16_matches_plain(dev, d, k):
+    """Within 1e-5 of the plain version relative to max‖a‖² + max‖b‖²:
+    both sum the same exact bf16 products in float32, in another order."""
+    g = torch.Generator(device=dev).manual_seed(d * 100 + k)
+    m = 1000 + 3 * d
+    a = torch.randn((m, d), generator=g, device=dev)
+    b = torch.randn((k, d), generator=g, device=dev)
+    a16, a_sq = K.bf16_rows(a), (a * a).sum(1)
+    got = K.distances_sq_bf16(a16, a_sq, b)
+    torch.cuda.synchronize()
+    want = K.distances_sq_bf16_plain(a16, a_sq, b)
+    scale = float((a.double() ** 2).sum(1).max()
+                  + (b.double() ** 2).sum(1).max())
+    assert got.shape == (m, k) and (got >= 0).all()
+    assert float((got.double() - want.double()).abs().max()) / scale <= 1e-5
+    assert K.LAUNCHES["distances_sq"] == 1
+    via = K.distances_sq(a, b, precision="default")
+    assert float((via.double() - want.double()).abs().max()) / scale <= 1e-5
+    assert K.LAUNCHES["distances_sq"] == 2
+
+
+def test_distances_sq_bf16_rejects_what_it_does_not_take(dev):
+    a = torch.randn((64, 12), device=dev)
+    a16, a_sq, b = K.bf16_rows(a), (a * a).sum(1), torch.randn((3, 12),
+                                                               device=dev)
+    with pytest.raises(TypeError):
+        K.distances_sq_bf16(a16.float(), a_sq, b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.distances_sq_bf16(a16[:, :12].contiguous(), a_sq, b)
+    with pytest.raises(ValueError, match="aligned"):     # 8 bytes in
+        K.distances_sq_bf16(a16.view(-1)[4: 4 + 63 * 16].view(63, 16),
+                            a_sq[:63], b)
+    nan_a = a.clone()
+    nan_a[5, 2] = float("nan")
+    got = K.distances_sq_bf16(K.bf16_rows(nan_a), (nan_a * nan_a).sum(1), b)
+    assert torch.isnan(got[5]).all() and not torch.isnan(got[:5]).any()
+    assert K.LAUNCHES["distances_sq"] == 1
+
+
+def test_kmeans_fast_distance_on_the_card_matches_the_cpu(dev):
+    """Labels equal on well-separated blobs; centers at 1e-4 (the M-step
+    sums the same float32 rows in another order)."""
+    rng = np.random.RandomState(4)
+    centers = rng.uniform(-10, 10, (4, 6))
+    x = (centers[rng.randint(0, 4, 4000)]
+         + rng.standard_normal((4000, 6))).astype(np.float32)
+    init = x[[0, 1000, 2000, 3000]].copy()
+    kw = dict(n_clusters=4, init=init, max_iter=10, tol=0.0,
+              fast_distance=True)
+    card = dst.KMeans(**kw).fit(dst.array(x, device=dev))
+    assert K.LAUNCHES["distances_sq"] == card.n_iter_ == 10
+    cpu = dst.KMeans(**kw).fit(dst.array(x, device="cpu"))
+    assert card.n_iter_ == cpu.n_iter_
+    np.testing.assert_allclose(card.centers_, cpu.centers_, rtol=1e-4,
+                               atol=1e-4)
+
+
+# -- a model saved on the card and loaded back onto it ----------------------------
+
+@pytest.mark.parametrize("fmt", ["json", "cbor", "npz"])
+def test_model_round_trip_on_the_card(dev, tmp_path, fmt):
+    """A forest, a kNN classifier and PCA fitted on the card, saved, loaded
+    onto the card: predictions bit-equal, state on the card."""
+    from dislib_tpu_torch import load_model, save_model
+    from dislib_tpu_torch.classification import KNeighborsClassifier
+    rng = np.random.RandomState(9)
+    x = rng.standard_normal((3000, 8)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] > 0).astype(np.float32)[:, None]
+    X, Y = dst.array(x, device=dev), dst.array(y, device=dev)
+    models = [RandomForestClassifier(n_estimators=3, max_depth=5,
+                                     random_state=0).fit(X, Y),
+              KNeighborsClassifier(n_neighbors=5).fit(X, Y),
+              dst.PCA(n_components=3).fit(X),
+              dst.KMeans(n_clusters=3, random_state=0).fit(X)]
+    for est in models:
+        path = str(tmp_path / f"{type(est).__name__}.{fmt}")
+        save_model(est, path, save_format=fmt)
+        back = load_model(path, device=dev)
+        if isinstance(est, dst.PCA):
+            assert back.components_.device == dev
+            got, want = back.transform(X), est.transform(X)
+        else:
+            got, want = back.predict(X), est.predict(X)
+        assert got.device == dev
+        assert torch.equal(got._data, want._data)
+    assert models[0]._leaves.device.type == "cuda"

@@ -175,9 +175,11 @@ def test_gm_refusals_name_the_roadmap_items(monkeypatch):
         PortGM(n_components=K).fit(p, checkpoint=object())
     with pytest.raises(NotImplementedError, match="A.10"):
         PortGM(n_components=K).fit(_blobs())
+    # KMeans' fast mode is ported: GM's kmeans init runs it, and the fit
+    # ends fitted and finite
     monkeypatch.setenv("DSLIB_KMEANS_FAST_DISTANCE", "1")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        PortGM(n_components=K).fit(p)
+    fast = PortGM(n_components=K, random_state=0).fit(p)
+    assert np.isfinite(fast.means_).all() and fast.means_.shape[0] == K
     monkeypatch.delenv("DSLIB_KMEANS_FAST_DISTANCE")
     with pytest.raises(ValueError, match="covariance_type"):
         PortGM(covariance_type="bogus").fit(p)

@@ -116,9 +116,11 @@ def test_distances_sq_matches_pallas(shapes):
 
 
 def test_distances_sq_rejects_unported_precision():
+    # "default"/"bfloat16" (one bf16 pass) is ported; three bf16 passes
+    # ("high") are not
     t = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        port_k.distances_sq(t, t, precision="bfloat16")
+    with pytest.raises(NotImplementedError, match="'high'"):
+        port_k.distances_sq(t, t, precision="high")
 
 
 # -- the CUDA route's argument checks, reached without a card -----------------

@@ -16,6 +16,7 @@ import torch
 import dislib_tpu as ds
 from dislib_tpu.cluster import KMeans as RefKMeans
 from dislib_tpu.cluster import kmeans as ref_km
+from dislib_tpu.ops import base as ref_ops
 
 import dislib_tpu_torch as dst
 from dislib_tpu_torch.cluster import KMeans as PortKMeans
@@ -142,13 +143,14 @@ def test_kmeans_random_init_draws_the_reference_rows():
 
 
 def test_kmeans_unported_options_name_the_roadmap_item(monkeypatch):
+    # fast_distance (A.6) is ported: the argument and the environment
+    # variable both select it (held against the reference below)
     x = dst.array(_uniform())
-    with pytest.raises(NotImplementedError, match="A.6"):
-        PortKMeans(n_clusters=3, fast_distance=True).fit(x)
     monkeypatch.setenv("DSLIB_KMEANS_FAST_DISTANCE", "1")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        PortKMeans(n_clusters=3).fit(x)
+    assert PortKMeans(n_clusters=3)._fast()
+    assert not PortKMeans(n_clusters=3, fast_distance=False)._fast()
     monkeypatch.delenv("DSLIB_KMEANS_FAST_DISTANCE")
+    assert PortKMeans(n_clusters=3, fast_distance=True)._fast()
     with pytest.raises(NotImplementedError, match="A.12"):
         PortKMeans(n_clusters=3).fit(x, checkpoint=object())
     with pytest.raises(NotImplementedError, match="A.10"):
@@ -220,3 +222,99 @@ def test_run_chunked_counts_its_steps_and_reads(monkeypatch):
     # a NaN shift stops KMeans as the reference's cond does
     shift = torch.tensor(float("nan"))
     assert not bool(shift >= 1e-4)
+
+
+# -- fast_distance (the E-step on bf16 operands) --------------------------------
+#
+# Tolerances: labels exactly (well-separated blobs: no row is near a tie
+# that the bf16 rounding of x and the centers, ~2^-8 relative, could flip);
+# centers and inertia at 1e-5, as the float32 fits above: with equal labels
+# the M-step sums the same float32 rows in both packages, and the inertia
+# sums float32 distances whose cross terms are exact bf16 products added
+# in different orders.
+
+def _ref_fast_distances(x, c):
+    """The reference's fast E-step (``cluster/kmeans.py``'s ``step`` with
+    ``fast=True``): the bf16 copy of x against the bf16-rounded centers,
+    products summed in float32, norms float32 from the unrounded operands."""
+    xj, cj = jnp.asarray(x), jnp.asarray(c)
+    cross = jnp.matmul(xj.astype(jnp.bfloat16), cj.astype(jnp.bfloat16).T,
+                       precision="default", preferred_element_type=jnp.float32)
+    d = jnp.sum(xj * xj, axis=1, keepdims=True) - 2.0 * cross \
+        + jnp.sum(cj * cj, axis=1)[None, :]
+    return np.asarray(jnp.maximum(d, 0.0))
+
+
+def test_plain_bf16_variant_matches_the_reference():
+    rng = np.random.RandomState(5)
+    x = (rng.standard_normal((300, 13)) * 3).astype(np.float32)
+    c = rng.standard_normal((7, 13)).astype(np.float32)
+    want = _ref_fast_distances(x, c)
+    scale = (x.astype(np.float64) ** 2).sum(1).max() + \
+        (c.astype(np.float64) ** 2).sum(1).max()
+    tx, tc = torch.from_numpy(x), torch.from_numpy(c)
+    a16 = port_k.bf16_rows(tx)
+    assert a16.shape == (300, 16) and a16.dtype == torch.bfloat16
+    assert not a16[:, 13:].any()
+    from dislib_tpu_torch.ops import base as port_base
+    outs = [port_k.distances_sq_bf16(a16, (tx * tx).sum(1), tc),
+            port_k.distances_sq(tx, tc, precision="default"),
+            port_k.distances_sq(tx, tc, precision="bfloat16"),
+            port_base.distances_sq(tx, tc, precision="default",
+                                   use_kernel=True)]
+    for out in outs:
+        assert out.dtype == torch.float32 and (out >= 0).all()
+        assert np.abs(out.numpy() - want).max() / scale <= 1e-6
+    # against a float64 computation on the rounded operands
+    x16 = tx.to(torch.bfloat16).double().numpy()
+    c16 = tc.to(torch.bfloat16).double().numpy()
+    exact = np.maximum((x.astype(np.float64) ** 2).sum(1)[:, None]
+                       - 2.0 * x16 @ c16.T
+                       + (c.astype(np.float64) ** 2).sum(1)[None], 0.0)
+    assert np.abs(outs[0].numpy() - exact).max() / scale <= 1e-6
+    # the reference's distances_sq(..., precision="default") is float32 on
+    # the CPU (JAX's default precision there is full float32): the bf16
+    # variant is within the bf16 rounding of the cross term of it
+    ref_default = np.asarray(ref_ops.distances_sq(
+        jnp.asarray(x), jnp.asarray(c), precision="default"))
+    bound = 2 * 2.0 ** -8 * np.sqrt((x.astype(np.float64) ** 2).sum(1))[
+        :, None] * np.sqrt((c.astype(np.float64) ** 2).sum(1))[None] * 2
+    assert (np.abs(outs[0].numpy() - ref_default) <= bound + 1e-5).all()
+    assert port_k.LAUNCHES["distances_sq"] == 0
+
+
+@pytest.mark.parametrize("max_iter,tol", [(1, 0.0), (20, 1e-4)])
+def test_kmeans_fast_fit_matches_reference(max_iter, tol):
+    x = _blobs()
+    c0 = _init_rows(_blobs(seed=0), 4, seed=3)
+    a = ds.array(x)
+    ref = [np.asarray(v) for v in ref_km._kmeans_fit(
+        a._data, a.shape, jnp.asarray(c0), max_iter, tol, fast=True)]
+    got = [v.numpy() for v in port_km._kmeans_fit(
+        torch.from_numpy(x), x.shape, torch.from_numpy(c0), max_iter, tol,
+        fast=True)]
+    centers, n_iter, inertia = got[:3]
+    assert int(n_iter) == int(ref[1])
+    np.testing.assert_allclose(centers, ref[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(inertia, ref[2], rtol=1e-5)
+
+
+def test_kmeans_fast_distance_estimator_matches_reference(monkeypatch):
+    x = _blobs(seed=2)
+    init = _init_rows(x, 4, seed=1)
+    a, p = ds.array(x), dst.array(x)
+    ref = RefKMeans(n_clusters=4, init=init, max_iter=10,
+                    fast_distance=True).fit(a)
+    port = PortKMeans(n_clusters=4, init=init, max_iter=10,
+                      fast_distance=True).fit(p)
+    assert port.n_iter_ == ref.n_iter_
+    np.testing.assert_allclose(port.centers_, ref.centers_, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(port.inertia_, ref.inertia_, rtol=1e-5)
+    # predict stays float32 in both: labels equal the float32 fit's
+    np.testing.assert_array_equal(port.predict(p).collect(),
+                                  np.asarray(ref.predict(a).collect()))
+    # the environment variable selects the same mode
+    monkeypatch.setenv("DSLIB_KMEANS_FAST_DISTANCE", "1")
+    env = PortKMeans(n_clusters=4, init=init, max_iter=10).fit(p)
+    np.testing.assert_array_equal(env.centers_, port.centers_)

@@ -36,6 +36,8 @@ come from either checkout:
   (16384 x 1024) and ``lanczos_svd`` (8192 x 512, k 6), under each policy:
   the median wall time of 5 calls, and the wall and device busy time of
   one profiled call;
+- ``svd_block`` (4096 x 512), ``svd_scalar`` (4096 x 100) and ``qr_full``
+  (4096 x 512), float32: the median wall time of 3 calls;
 - ``forest``: the wall times of four fits of a 16-tree
   ``RandomForestClassifier`` on 1,000,000 x 100 rows (``bench.py``'s
   ``bench_forest`` draw), the first carrying the process's first-call
@@ -114,6 +116,18 @@ def ab(dev) -> None:
                                     "profiled_wall_ms": wall_us / 1e3,
                                     "device_busy_ms": busy_us / 1e3}
     del R, P, L
+    # the launch-bound calls: the block and scalar SVD tiers (bench_svd's
+    # uniform draw) and qr full, float32, the median of 3
+    xs = np.random.RandomState(0).rand(4096, 512).astype(np.float32)
+    xq = np.random.RandomState(0).standard_normal((4096, 512)).astype(
+        np.float32)
+    S, S1, Q = dst.array(xs), dst.array(xs[:, :100].copy()), dst.array(xq)
+    for name, fn in (("svd_block", lambda: dst.svd(S)),
+                     ("svd_scalar", lambda: dst.svd(S1)),
+                     ("qr_full", lambda: dst.qr(Q, mode="full"))):
+        fn()
+        out[f"{name}_float32"] = {"median_s": cs.med_s(fn, 3)}
+    del S, S1, Q
     rng = np.random.RandomState(5)              # bench.py's _blobs
     centers = rng.rand(8, 100).astype(np.float32)
     lab = rng.randint(0, 8, 1_000_000)
