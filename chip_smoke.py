@@ -43,8 +43,16 @@ trajectory; a dense svmlight file; a planted NaN row quarantined), every
 model fitted above saved in json, cbor and npz and loaded back onto the
 card (predictions bit-equal), and ``KMeans(fast_distance=True)`` on the
 KMeans data (the bf16-operand ``distances_sq`` against a float64 oracle on
-the rounded operands, timed in turns with the float32 path) — and checks
-every result.  Each
+the rounded operands, timed in turns with the float32 path) — then
+``DBSCAN`` and ``Daura`` at bench.py's sizes (DBSCAN's core partition
+against bench's NumPy same-algorithm proxy at 20,000 x 10 on the tiled
+tier and 16,000 x 10 on the dense tier, the ring tier equal to the tiled
+one, timed at 200,000 x 10; Daura against the NumPy greedy proxy at
+20,000 x 15, timed at 50,000 x 15), a 100,000 x 10,000 svmlight file
+loaded as a ``SparseArray``, SpMM at 16,384 x 8,192 (1 %) x (8,192, 64)
+against float64 and the densify route (two calls bit-identical) and
+sparse KMeans on the loaded array (its first step against float64 NumPy,
+two fits bit-identical) — and checks every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -165,6 +173,20 @@ TXT_M, TXT_YARDSTICK = 100_000, 10_000
 MD_FRAMES, MD_ATOMS = 10_000, 300
 NAN_ROW = 17
 SAVE_Q = 10_000
+# density clustering at bench.py's sizes (bench.py:3106-3108): DBSCAN on
+# _blobs(k=16), eps 0.35, min_samples 5, gated at 20,000 rows (the tiled
+# tier) and 16,000 (the dense tier), timed at 200,000; Daura on
+# _blobs(k=12, std=0.05), cutoff 0.3 (5 atoms a frame), gated at 20,000,
+# timed at 50,000
+DB_GATE_M, DB_DENSE_M, DB_M, DB_N, DB_EPS, DB_MIN = \
+    20_000, 16_000, 200_000, 10, 0.35, 5
+DA_GATE_M, DA_M, DA_N, DA_CUT = 20_000, 50_000, 15, 0.3
+# the sparse ds-array: a svmlight file at bench_als_sparse's shape
+# (bench.py:3119, 100 entries a row), SpMM at bench_sparse's
+# (bench.py:3126), KMeans k = 10 on the loaded array
+SV_M, SV_N, SV_NNZ = 100_000, 10_000, 100
+SPMM_M, SPMM_K, SPMM_N, SPMM_DENSITY = 16_384, 8_192, 64, 0.01
+SKM_K, SKM_ITERS = 10, 20
 
 
 _T0 = time.perf_counter()
@@ -1636,6 +1658,410 @@ def kmeans_fast_phase(dev, X, init, f32, cuda_ms):
     return entry
 
 
+def numpy_dbscan(x, eps, min_samples, chunk=4096):
+    """bench.py's ``_numpy_dbscan`` (its wall clock left out): the chunked
+    ε-graph, connected components of the core-core graph, border points
+    joined to their first core neighbour, labels renumbered compactly."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    m = x.shape[0]
+    eps2 = eps * eps
+    xsq = (x * x).sum(1)
+    pr, pc = [], []
+    for s in range(0, m, chunk):
+        d = xsq[s:s + chunk, None] - 2.0 * (x[s:s + chunk] @ x.T) + xsq[None]
+        r, c = np.nonzero(d <= eps2)
+        pr.append(r + s)
+        pc.append(c)
+    pr = np.concatenate(pr)
+    pc = np.concatenate(pc)
+    counts = np.bincount(pr, minlength=m)
+    core = counts >= min_samples
+    to_core = core[pc]
+    rows = pr[to_core & core[pr]]
+    cols = pc[to_core & core[pr]]
+    border_to = np.full(m, -1, np.int64)
+    bsel = to_core & ~core[pr]
+    border_to[pr[bsel][::-1]] = pc[bsel][::-1]
+    g = sp.csr_matrix((np.ones(len(rows), np.int8), (rows, cols)),
+                      shape=(m, m))
+    _, comp = connected_components(g, directed=False)
+    labels = np.full(m, -1, np.int64)
+    labels[core] = comp[core]
+    join = (~core) & (border_to >= 0)
+    labels[join] = comp[border_to[join]]
+    _, inv = np.unique(labels[labels >= 0], return_inverse=True)
+    labels[labels >= 0] = inv
+    return labels
+
+
+def same_partition_on_core(lab_a, lab_b, core_mask):
+    """bench.py's ``_same_partition_on_core``: the two labelings induce
+    the same partition of the core points."""
+    a, b = lab_a[core_mask], lab_b[core_mask]
+    if (a < 0).any() or (b < 0).any():
+        return False
+    pairs = set(zip(a.tolist(), b.tolist()))
+    return len(pairs) == len(set(p[0] for p in pairs)) == \
+        len(set(p[1] for p in pairs))
+
+
+def numpy_daura(x, cutoff, chunk=2048):
+    """bench.py's ``_numpy_daura``: the greedy GROMOS loop on a dense
+    RMSD adjacency."""
+    import numpy as np
+    m = x.shape[0]
+    eps2 = cutoff * cutoff * (x.shape[1] // 3)
+    xsq = (x * x).sum(1)
+    adj = np.zeros((m, m), bool)
+    for s in range(0, m, chunk):
+        d = xsq[s:s + chunk, None] - 2.0 * (x[s:s + chunk] @ x.T) + xsq[None]
+        adj[s:s + chunk] = d <= eps2
+    active = np.ones(m, bool)
+    labels = np.full(m, -1, np.int64)
+    cid = 0
+    while active.any():
+        counts = (adj & active[None, :]).sum(1)
+        counts[~active] = -1
+        medoid = int(np.argmax(counts))
+        members = active & adj[medoid]
+        members[medoid] = True
+        labels[members] = cid
+        active &= ~members
+        cid += 1
+    return labels
+
+
+def eps_entries(K, tag, xc, x_raw, cuda_ms, launches):
+    """The kernels-line entry of ``distances_sq`` at an ε-pass block, a
+    column chunk of all rows (``xc``, columns padded to a multiple of 4)
+    against a row tile: the stream's time, with the slices' time on the
+    unpadded rows (``x_raw``) beside it."""
+    import torch
+    from dislib_tpu_torch.ops import tiled
+    tile = min(tiled.TILE, xc.shape[0])
+    e = dist_entry(K, tag, xc, xc[:tile], cuda_ms, 10)
+    a10, b10 = x_raw, x_raw[:tile].contiguous()
+    n_sms = torch.cuda.get_device_properties(a10.device).multi_processor_count
+    e["unpadded_plan"] = K.dist_plan(a10.shape[0], a10.shape[1],
+                                     a10.data_ptr(), n_sms)._asdict()
+    e["unpadded_ms"] = cuda_ms(lambda: K.distances_sq(a10, b10), 10)
+    e["launches"] = launches
+    return e
+
+
+def dbscan_phase(dev, cuda_ms):
+    """DBSCAN at bench.py's sizes: the tiled tier at 20,000 x 10 and the
+    dense tier at 16,000 x 10 against the NumPy proxy, the ring tier
+    equal to the tiled one, then timed at 200,000 x 10."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.cluster import DBSCAN
+    from dislib_tpu_torch.cluster import dbscan as db_mod
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import tiled
+    from dislib_tpu_torch.utils import profiling as prof
+    eps, ms = DB_EPS, DB_MIN
+
+    def fit(X):
+        # the counts are set to 0 just before the fit and read just after
+        K.reset_launches()
+        prof.reset_host_reads()
+        t0 = time.perf_counter()
+        est = DBSCAN(eps=eps, min_samples=ms).fit(X)
+        torch.cuda.synchronize()
+        return est, time.perf_counter() - t0, K.LAUNCHES["distances_sq"], \
+            prof.HOST_READS.get("dbscan", 0)
+
+    def gate(x_host, est, what):
+        lab = numpy_dbscan(x_host, eps, ms)
+        core = np.zeros(len(x_host), bool)
+        core[est.core_sample_indices_] = True
+        check(same_partition_on_core(est.labels_, lab, core),
+              f"dbscan {what}: the core partition differs from NumPy's")
+        nd, npx = int((est.labels_ < 0).sum()), int((lab < 0).sum())
+        check(abs(nd - npx) <= max(5, 0.01 * len(x_host)),
+              f"dbscan {what}: noise {nd} vs NumPy's {npx}")
+        return {"clusters": est.n_clusters_, "core": int(core.sum()),
+                "noise": nd, "noise_numpy": npx}
+
+    out = {}
+    # the tiled tier (20,000 > _DENSE_MAX) and the ring tier, forced
+    xg, _ = blobs(DB_GATE_M, DB_N, 16, seed=3)
+    Xg = dst.array(xg)
+    tl, t_tl, l_tl, r_tl = fit(Xg)
+    per_pass = -(-DB_GATE_M // tiled.TILE)
+    check(l_tl == per_pass * (r_tl + 2),
+          f"dbscan tiled: {l_tl} distances_sq launches for {r_tl} rounds")
+    out["tiled_gate"] = {"shape": [DB_GATE_M, DB_N], "fit_s": t_tl,
+                         "rounds": r_tl, "launches": l_tl,
+                         **gate(xg, tl, "tiled")}
+    db_mod._RING = True
+    try:
+        rg, t_rg, l_rg, r_rg = fit(Xg)
+    finally:
+        db_mod._RING = None
+    check(np.array_equal(rg.labels_, tl.labels_)
+          and np.array_equal(rg.core_sample_indices_,
+                             tl.core_sample_indices_),
+          "dbscan: the ring tier differs from the tiled tier")
+    out["ring_vs_tiled"] = {"equal": True, "fit_s": t_rg, "rounds": r_rg,
+                            "launches": l_rg}
+    # the dense tier
+    xd, _ = blobs(DB_DENSE_M, DB_N, 16, seed=3)
+    Xd = dst.array(xd)
+    dn, t_dn, l_dn, r_dn = fit(Xd)
+    check(l_dn == 1, f"dbscan dense: {l_dn} distances_sq launches")
+    out["dense_gate"] = {"shape": [DB_DENSE_M, DB_N], "fit_s": t_dn,
+                         "host_reads": r_dn, "launches": l_dn,
+                         **gate(xd, dn, "dense")}
+    xc16 = tiled.pad_cols(Xd._data)
+    dense_entry = dist_entry(K, "dbscan dense", xc16, xc16, cuda_ms, 5)
+    dense_entry["launches"] = l_dn
+    del Xd, Xg, xc16
+    torch.cuda.empty_cache()
+    # timed at bench.py's 200,000 x 10 (the tiled tier)
+    x, _ = blobs(DB_M, DB_N, 16, seed=4)
+    X = dst.array(x)
+    DBSCAN(eps=eps, min_samples=ms).fit(X)                   # warm
+    est, t1, launches, rounds = fit(X)
+    check(launches == -(-DB_M // tiled.TILE) * (rounds + 2),
+          f"dbscan 200k: {launches} launches for {rounds} rounds")
+    check(1 < est.n_clusters_ <= 64 and est.labels_.shape == (DB_M,),
+          f"dbscan 200k: {est.n_clusters_} clusters")
+    walls = [t1] + [fit(X)[1] for _ in range(2)]
+    wall_us, busy, spans = profile_device(
+        lambda: DBSCAN(eps=eps, min_samples=ms).fit(X))
+    out["timed"] = {"shape": [DB_M, DB_N], "wall_s_median_of_3":
+                    float(np.median(walls)), "walls_s": walls,
+                    "rounds": rounds,
+                    "host_reads": {"dbscan": rounds, "results": 1},
+                    "distances_sq_launches": launches,
+                    "launches_per_pass": -(-DB_M // tiled.TILE),
+                    "clusters": est.n_clusters_,
+                    "noise": int((est.labels_ < 0).sum()),
+                    "core": int(len(est.core_sample_indices_)),
+                    "profiled": {"wall_ms": wall_us / 1e3,
+                                 "device_busy_ms": busy / 1e3,
+                                 "device_idle_share": 1.0 - busy / wall_us,
+                                 "kernels_ms": top_kernels(spans)}}
+    emit({"phase": "dbscan", "eps": eps, "min_samples": ms, **out})
+    xc = tiled.pad_cols(X._data)
+    entries = {"distances_sq/dbscan_eps_block": eps_entries(
+        K, "dbscan eps-block", xc, X._data, cuda_ms, launches),
+        "distances_sq/dbscan_dense": dense_entry}
+    return entries
+
+
+def daura_phase(dev, cuda_ms):
+    """Daura at bench.py's sizes: the tiled tier at 20,000 x 15 against
+    the NumPy greedy proxy, then timed at 50,000 x 15."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.cluster import Daura
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import tiled
+    from dislib_tpu_torch.utils import profiling as prof
+
+    def fit(X):
+        K.reset_launches()
+        prof.reset_host_reads()
+        t0 = time.perf_counter()
+        est = Daura(cutoff=DA_CUT).fit(X)
+        torch.cuda.synchronize()
+        return est, time.perf_counter() - t0, K.LAUNCHES["distances_sq"], \
+            prof.HOST_READS.get("daura", 0)
+
+    xg, _ = blobs(DA_GATE_M, DA_N, 12, seed=6, std=0.05)
+    gate_est, t_g, l_g, r_g = fit(dst.array(xg))
+    n_cl = len(gate_est.clusters_)
+    check(gate_est.labels_.min() >= 0, "daura: an unlabelled frame")
+    check(same_partition_on_core(gate_est.labels_, numpy_daura(xg, DA_CUT),
+                                 np.ones(DA_GATE_M, bool)),
+          "daura: the partition differs from the NumPy greedy proxy")
+    check(r_g == n_cl and l_g == n_cl * (-(-DA_GATE_M // tiled.TILE) + 1),
+          f"daura gate: {l_g} launches, {r_g} reads for {n_cl} clusters")
+    x, _ = blobs(DA_M, DA_N, 12, seed=7, std=0.05)
+    X = dst.array(x)
+    Daura(cutoff=DA_CUT).fit(X)                              # warm
+    est, t1, launches, reads = fit(X)
+    n_clusters = len(est.clusters_)
+    check(1 < n_clusters < DA_M // 10,
+          f"daura 50k: {n_clusters} clusters")
+    check(all(est.labels_[c[0]] == i for i, c in enumerate(est.clusters_)),
+          "daura 50k: a medoid outside its cluster")
+    walls = [t1] + [fit(X)[1] for _ in range(2)]
+    emit({"phase": "daura", "cutoff": DA_CUT,
+          "gate": {"shape": [DA_GATE_M, DA_N], "clusters": n_cl,
+                   "fit_s": t_g, "host_reads": r_g, "launches": l_g,
+                   "same_partition_as_numpy": True},
+          "timed": {"shape": [DA_M, DA_N], "wall_s_median_of_3":
+                    float(np.median(walls)), "walls_s": walls,
+                    "clusters": n_clusters, "host_reads": reads,
+                    "distances_sq_launches": launches}})
+    xc = tiled.pad_cols(X._data)
+    block = eps_entries(K, "daura eps-block", xc, X._data, cuda_ms,
+                        launches - n_clusters)
+    col = dist_entry(K, "daura medoid column", xc, xc[:1].contiguous(),
+                     cuda_ms, 20)
+    col["launches"] = n_clusters
+    return {"distances_sq/daura_eps_block": block,
+            "distances_sq/daura_medoid": col}
+
+
+def write_svmlight(path, m, n, per_row, seed):
+    """A seeded svmlight file of ``m`` rows with ``per_row`` distinct
+    columns each (one drawn in each band of n / per_row columns) and
+    values that are multiples of 1/8, exact in float32 and in text.
+    Returns the CSR the file holds and its labels."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    band = n // per_row
+    cols = np.arange(per_row) * band + rng.randint(0, band, (m, per_row))
+    vals = rng.randint(1, 1000, (m, per_row)) / 8.0
+    labels = rng.randint(0, 2, m)
+    table = np.empty((m, 1 + 2 * per_row))
+    table[:, 0] = labels
+    table[:, 1::2] = cols + 1                       # svmlight is 1-based
+    table[:, 2::2] = vals
+    np.savetxt(path, table, fmt="%d" + " %d:%.6g" * per_row)
+    csr = sp.csr_matrix((vals.ravel().astype(np.float32),
+                         (np.repeat(np.arange(m), per_row), cols.ravel())),
+                        shape=(m, n))
+    return csr, labels.astype(np.float32)
+
+
+def sparse_phase(dev, tmp):
+    """The sparse ds-array: svmlight ingest at bench_als_sparse's shape,
+    SpMM at bench_sparse's, sparse KMeans on the loaded array."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.cluster import KMeans
+    from dislib_tpu_torch.cluster import kmeans as km_mod
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.ops.spmm import spmm
+
+    # -- ingest --------------------------------------------------------------
+    path = os.path.join(tmp, "sparse.svm")
+    t0 = time.perf_counter()
+    want, y_want = write_svmlight(path, SV_M, SV_N, SV_NNZ, seed=8)
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    x, y = dst.load_svmlight_file(path, n_features=SV_N)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(isinstance(x, dst.SparseArray) and x.shape == (SV_M, SV_N)
+          and x.nnz == want.nnz and x.device == dev,
+          f"svmlight: {type(x).__name__} {x.shape} nnz {x.nnz}")
+    coo = want.tocoo()
+    check(np.array_equal(x._rows.cpu().numpy(), coo.row)
+          and np.array_equal(x._cols.cpu().numpy(), coo.col)
+          and np.array_equal(x._vals.cpu().numpy(), coo.data)
+          and np.array_equal(y.collect().ravel(), y_want),
+          "svmlight: the loaded entries differ from the file's")
+    emit({"phase": "sparse_ingest", "shape": [SV_M, SV_N], "nnz": x.nnz,
+          "file_mb": mb, "write_s": write_s, "load_s": load_s,
+          "mb_per_s": mb / load_s, "store_sparse": True})
+
+    # -- spmm ------------------------------------------------------------------
+    mat = sp.random(SPMM_M, SPMM_K, density=SPMM_DENSITY, random_state=0,
+                    dtype=np.float32).tocsr()
+    b = np.random.RandomState(0).rand(SPMM_K, SPMM_N).astype(np.float32)
+    xs, B = dst.SparseArray.from_scipy(mat), dst.array(b)
+    want64 = mat.astype(np.float64) @ b.astype(np.float64)
+    scale = np.linalg.norm(mat.data) * np.linalg.norm(b) / np.sqrt(SPMM_K)
+    errs, spmm_ms = {}, {}
+    for pol in ("float32", "bfloat16"):
+        c1 = spmm(xs, B, precision=pol)._data
+        c2 = spmm(xs, B, precision=pol)._data
+        check(torch.equal(c1, c2), f"spmm {pol}: two calls differ")
+        errs[pol] = float(np.abs(c1.cpu().numpy() - want64).max() / scale)
+        check(errs[pol] <= px.ERROR_BOUNDS[("matmul", pol)],
+              f"spmm {pol}: normalized error {errs[pol]} > ERROR_BOUNDS")
+        spmm_ms[pol] = med_s(lambda: spmm(xs, B, precision=pol), 7) * 1e3
+    dens = dst.matmul(xs, B, algorithm="densify")._data
+    c1 = spmm(xs, B)._data
+    dens_err = float((dens - c1).abs().max().item() / scale)
+    check(dens_err <= px.ERROR_BOUNDS[("matmul", "float32")],
+          f"spmm vs the densify route: {dens_err}")
+    auto = dst.matmul(xs, B)._data
+    check(torch.equal(auto, c1), "matmul auto did not take spmm at 1 %")
+    densify_ms = med_s(lambda: dst.matmul(xs, B, algorithm="densify"),
+                       7) * 1e3
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # CSR tensors are "beta"
+        ts = torch.sparse_csr_tensor(
+            torch.from_numpy(mat.indptr).to(dev), torch.from_numpy(
+                mat.indices).to(dev), torch.from_numpy(mat.data).to(dev),
+            size=mat.shape)
+    with px.precise(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref_lib = torch.sparse.mm(ts, B._data)
+        lib_ms = med_s(lambda: torch.sparse.mm(ts, B._data), 7) * 1e3
+    lib_err = float((ref_lib - c1).abs().max().item() / scale)
+    emit({"phase": "spmm", "shape": [SPMM_M, SPMM_K, SPMM_N],
+          "density": SPMM_DENSITY, "nnz": int(mat.nnz),
+          "normalized_err_vs_f64": errs, "vs_densify": dens_err,
+          "two_calls_bit_identical": True, "spmm_ms": spmm_ms,
+          "densify_ms": densify_ms, "torch_sparse_mm_ms": lib_ms,
+          "torch_sparse_mm_vs_spmm": lib_err,
+          "bound_ms": 1e3 * (4.0 * (2 * mat.nnz + SPMM_M + 1
+                                    + SPMM_K * SPMM_N + SPMM_M * SPMM_N)
+                             / PEAK_BYTES)})
+    del xs, B, dens, c1, auto, ts, ref_lib
+    torch.cuda.empty_cache()
+
+    # -- sparse KMeans on the loaded array --------------------------------------
+    c0 = KMeans(n_clusters=SKM_K, random_state=0)._init_centers(x)
+    d = km_mod._sparse_distances(x, c0)
+    lab = torch.argmin(d, dim=1).cpu().numpy()
+    del d
+    x64 = want.astype(np.float64)
+    c064 = c0.cpu().numpy().astype(np.float64)
+    d64 = (np.asarray(x64.multiply(x64).sum(1)) - 2.0 * (x64 @ c064.T)
+           + (c064 ** 2).sum(1)[None, :])
+    part = np.sort(d64, axis=1)
+    clear = part[:, 1] - part[:, 0] > 1e-4 * np.abs(part[:, 0]).max()
+    check(np.array_equal(lab[clear], d64.argmin(1)[clear]),
+          "sparse kmeans: first E-step labels differ from float64 NumPy")
+    one = KMeans(n_clusters=SKM_K, init=c0.cpu().numpy(), max_iter=1,
+                 tol=0.0).fit(x)
+    onehot = sp.csr_matrix((np.ones(SV_M), (lab, np.arange(SV_M))),
+                           shape=(SKM_K, SV_M))
+    counts = np.asarray(onehot.sum(1)).ravel()
+    sums = np.asarray((onehot @ x64).todense())
+    step64 = np.where(counts[:, None] > 0,
+                      sums / np.maximum(counts, 1)[:, None], c064)
+    check(np.allclose(one.centers_, step64, rtol=1e-4,
+                      atol=1e-5 * np.abs(step64).max()),
+          "sparse kmeans: the first Lloyd step differs from float64 NumPy")
+
+    def fit():
+        t0 = time.perf_counter()
+        km = KMeans(n_clusters=SKM_K, init=c0.cpu().numpy(),
+                    max_iter=SKM_ITERS, tol=0.0).fit(x)
+        torch.cuda.synchronize()
+        return km, time.perf_counter() - t0
+
+    fit()                                                       # warm
+    (k1, t1), (k2, t2) = fit(), fit()
+    check(np.array_equal(k1.centers_, k2.centers_)
+          and k1.inertia_ == k2.inertia_ and k1.n_iter_ == k2.n_iter_
+          == SKM_ITERS, "sparse kmeans: two fits differ")
+    emit({"phase": "sparse_kmeans", "shape": [SV_M, SV_N], "nnz": x.nnz,
+          "k": SKM_K, "iters": SKM_ITERS, "first_step_rows_clear":
+          int(clear.sum()), "fit_s": [t1, t2],
+          "iter_per_s": SKM_ITERS / min(t1, t2),
+          "two_fits_bit_identical": True, "inertia": k1.inertia_})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2509,7 +2935,22 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # -- (11) the kernels line, then the result --------------------------------------
+    # -- (11) density clustering and the sparse ds-array --------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.update(dbscan_phase(dev, cuda_ms))
+    torch.cuda.empty_cache()
+    kernels.update(daura_phase(dev, cuda_ms))
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        sparse_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "density_sparse_summary",
+          "seconds": time.perf_counter() - t0})
+
+    # -- (12) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

@@ -16,6 +16,7 @@ from dislib_tpu_torch.data.array import (
     Array, array, random_array, zeros, full, ones, identity, eye,
     apply_along_axis, concat_rows, concat_cols, rechunk, ensure_canonical,
 )
+from dislib_tpu_torch.data.sparse import SparseArray
 from dislib_tpu_torch.data.io import (
     load_txt_file, load_svmlight_file, load_npy_file, load_mdcrd_file,
     save_txt, QuarantineLedger, QuarantineReport, last_quarantine_report,
@@ -32,7 +33,9 @@ from dislib_tpu_torch import cluster, classification, decomposition, \
 
 # estimator classes re-exported at top level, as the reference does
 # (their canonical homes stay the submodules above)
-from dislib_tpu_torch.cluster import KMeans, MiniBatchKMeans, GaussianMixture
+from dislib_tpu_torch.cluster import (
+    KMeans, MiniBatchKMeans, GaussianMixture, DBSCAN, Daura,
+)
 from dislib_tpu_torch.trees import (
     RandomForestClassifier, RandomForestRegressor,
     DecisionTreeClassifier, DecisionTreeRegressor,
@@ -49,14 +52,14 @@ from dislib_tpu_torch.model_selection import (
 __all__ = ["init", "get_mesh", "Array", "array", "random_array", "zeros",
            "full", "ones", "identity", "eye", "apply_along_axis",
            "concat_rows", "concat_cols", "rechunk", "ensure_canonical",
-           "load_txt_file", "load_svmlight_file", "load_npy_file",
+           "SparseArray", "load_txt_file", "load_svmlight_file", "load_npy_file",
            "load_mdcrd_file", "save_txt", "QuarantineReport",
            "QuarantineLedger", "last_quarantine_report",
            "quarantine_ledger", "quarantine_batch",
            "matmul", "kron", "svd", "qr", "polar",
            "tsqr", "random_svd", "lanczos_svd", "PCA", "from_fitted_arrays",
            "shuffle", "train_test_split", "save_model", "load_model",
-           "KMeans", "MiniBatchKMeans", "GaussianMixture",
+           "KMeans", "MiniBatchKMeans", "GaussianMixture", "DBSCAN", "Daura",
            "KNeighborsClassifier",
            "RandomForestClassifier", "RandomForestRegressor",
            "DecisionTreeClassifier", "DecisionTreeRegressor",

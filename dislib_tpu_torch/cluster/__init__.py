@@ -3,5 +3,8 @@
 from dislib_tpu_torch.cluster.kmeans import KMeans
 from dislib_tpu_torch.cluster.minibatch import MiniBatchKMeans
 from dislib_tpu_torch.cluster.gm import GaussianMixture
+from dislib_tpu_torch.cluster.dbscan import DBSCAN
+from dislib_tpu_torch.cluster.daura import Daura
 
-__all__ = ["KMeans", "MiniBatchKMeans", "GaussianMixture"]
+__all__ = ["KMeans", "MiniBatchKMeans", "GaussianMixture", "DBSCAN",
+           "Daura"]

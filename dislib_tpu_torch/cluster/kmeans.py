@@ -27,9 +27,19 @@ Padded rows (none on the one-device mesh) carry weight 0.
 search split it at its one transfer, and ``_score_async`` scores the
 device centers as a device scalar.
 
+A :class:`~data.sparse.SparseArray` takes the reference's native sparse
+path (``_kmeans_fit_sparse``): the E-step's cross term is an SpMM with
+``centersᵀ`` (``ops/spmm.spmm_rows``: each row's products summed in entry
+order) beside the fixed-order row norms, and the M-step's per-cluster
+sums are a fixed-order column reduce over a column-sorted copy of the
+entries made once per fit — no atomics, so two fits with one seed are
+bit-identical on the card.  The loop is ``run_chunked``, as the dense
+fit's; ``predict`` and ``score`` take a SparseArray too.  The random
+init gathers its k rows from the array's host CSR mirror, as the
+reference gathers them from its host triplets.
+
 Not ported yet: ``checkpoint=``/``health=`` (the ``ChunkedFitLoop``,
-ROADMAP.md A.12) and sparse input (A.10) — each raises
-``NotImplementedError``.
+ROADMAP.md A.12), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,8 +51,10 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.sparse import SparseArray
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops.base import distances_sq as _distances_sq, precise
+from dislib_tpu_torch.ops.spmm import seg_sum, spmm_rows
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.profiling import count_read
@@ -91,10 +103,10 @@ class KMeans(BaseEstimator):
         return os.environ.get("DSLIB_KMEANS_FAST_DISTANCE", "0") == "1"
 
     def _check_supported(self, x):
-        if not isinstance(x, Array):
-            raise NotImplementedError(
-                f"KMeans on {type(x).__name__}: the port takes dense "
-                "ds-arrays; sparse input is ROADMAP.md A.10")
+        if not isinstance(x, (Array, SparseArray)):
+            raise TypeError(
+                f"KMeans on {type(x).__name__}: pass a ds-array (dense, or "
+                "a SparseArray for sparse data)")
 
     # -- fitting -------------------------------------------------------------
 
@@ -111,7 +123,12 @@ class KMeans(BaseEstimator):
         rng = np.random.RandomState(self.random_state)
         # sample k distinct rows — the same draw as the reference
         idx = rng.choice(x.shape[0], size=min(k, x.shape[0]), replace=False)
-        rows = x[np.sort(idx), :]._data[: len(idx), : n]
+        if isinstance(x, SparseArray):
+            # the k chosen rows, duplicates summed, from the host CSR
+            rows = torch.from_numpy(x._csr()[np.sort(idx)].toarray().astype(
+                np.float32)).to(x.device)
+        else:
+            rows = x[np.sort(idx), :]._data[: len(idx), : n]
         if len(idx) < k:  # fewer samples than clusters: top up with jitter
             pick = torch.as_tensor(rng.randint(0, len(idx), k - len(idx)),
                                    device=rows.device)
@@ -134,6 +151,9 @@ class KMeans(BaseEstimator):
     # where the reference's lax.while_loop reads nothing
     def _fit_async(self, x, y=None):
         self._check_supported(x)
+        if isinstance(x, SparseArray):
+            return _kmeans_fit_sparse(x, self._init_centers(x),
+                                      int(self.max_iter), float(self.tol))
         return _kmeans_fit(x._data, x.shape, self._init_centers(x),
                            int(self.max_iter), float(self.tol),
                            fast=self._fast())
@@ -151,6 +171,8 @@ class KMeans(BaseEstimator):
         if state is None:
             return super()._score_async(state, x, y)
         self._check_supported(x)
+        if isinstance(x, SparseArray):
+            return -torch.sum(_sparse_distances(x, state[0]).amin(1))
         return _kmeans_score(x._data, x.shape, state[0])
 
     def fit_predict(self, x: Array, y=None) -> Array:
@@ -160,6 +182,10 @@ class KMeans(BaseEstimator):
         """Cluster index per row, an (m, 1) int32 ds-array."""
         self._check_fitted()
         self._check_supported(x)
+        if isinstance(x, SparseArray):
+            d = _sparse_distances(x, self._centers_on(x))
+            return Array._from_logical(
+                torch.argmin(d, dim=1).to(torch.int32)[:, None], x._mesh)
         labels = _kmeans_predict(x._data, x.shape, self._centers_on(x))
         return Array._from_padded(labels, (x.shape[0], 1), x._mesh)
 
@@ -167,6 +193,9 @@ class KMeans(BaseEstimator):
         """Negative inertia on x (sklearn convention)."""
         self._check_fitted()
         self._check_supported(x)
+        if isinstance(x, SparseArray):
+            return -float(torch.sum(_sparse_distances(
+                x, self._centers_on(x)).amin(1)))
         return float(_kmeans_score(x._data, x.shape, self._centers_on(x)))
 
     def _carry_in(self, arrays: dict, device):
@@ -273,3 +302,64 @@ def _kmeans_score(xp, shape, centers):
     xv, w = _crop(xp, shape)
     d = _distances_sq(xv, centers.to(xv.dtype).contiguous(), use_kernel=True)
     return -torch.sum(torch.min(d, dim=1).values * w)
+
+
+# ---------------------------------------------------------------------------
+# the sparse path
+# ---------------------------------------------------------------------------
+
+def _sparse_distances(x: SparseArray, centers, rowsq=None):
+    """Squared distances (m, k) of the rows of ``x`` to ``centers``: the
+    cross term one SpMM with ``centersᵀ``, clamped at zero."""
+    centers = centers.to(torch.float32)
+    if rowsq is None:
+        rowsq = x.row_norms_sq()
+    c_sq = torch.sum(centers * centers, dim=1)
+    cross = spmm_rows(x._row_len, x._cols, x._vals, centers.T.contiguous())
+    return torch.clamp_min(rowsq[:, None] - 2.0 * cross + c_sq[None, :], 0.0)
+
+
+def _kmeans_fit_sparse(x: SparseArray, centers0, max_iter, tol):
+    """Lloyd steps on the sparse ``x`` (the reference's
+    ``_kmeans_fit_sparse_sharded`` on one shard), masked and chunked as
+    :func:`_kmeans_fit`.  The per-cluster sums ``xᵀ onehot`` are one
+    fixed-order column reduce: the entries sorted by column once, each
+    column's products summed in order.  Returns the reference's 6-tuple."""
+    dev, dt = x.device, torch.float32
+    k = centers0.shape[0]
+    rowsq = x.row_norms_sq()
+    c_rows, _, c_vals, col_len = x._by_col()
+    c_rows = c_rows.to(torch.int64)
+    centers = centers0.to(device=dev, dtype=dt).contiguous()
+    cluster_ids = torch.arange(k, device=dev)
+    shift = torch.full((), float("inf"), dtype=dt, device=dev)
+    n_iter = torch.zeros((), dtype=torch.int32, device=dev)
+    inertia = torch.zeros((), dtype=dt, device=dev)
+    hist = torch.zeros((max_iter,), dtype=dt, device=dev)
+
+    def step(t):
+        nonlocal centers, shift, n_iter, inertia
+        active = shift >= tol
+        d = _sparse_distances(x, centers, rowsq)
+        min_d, labels = torch.min(d, dim=1)   # first index on ties
+        onehot = (labels[:, None] == cluster_ids).to(dt)
+        counts = onehot.sum(dim=0)
+        # sums[c] = Σ over the entries of column c of val · onehot[row]
+        part = (labels[c_rows][:, None] == cluster_ids).to(dt) \
+            * c_vals[:, None]
+        sums = seg_sum(part, col_len).T                   # (k, n)
+        new_centers = torch.where(
+            counts[:, None] > 0,
+            sums / torch.clamp_min(counts, 1.0)[:, None], centers)
+        step_shift = torch.sum((new_centers - centers) ** 2)
+        step_inertia = torch.sum(min_d)
+        centers = torch.where(active, new_centers, centers).contiguous()
+        shift = torch.where(active, step_shift, shift)
+        inertia = torch.where(active, step_inertia, inertia)
+        hist[t] = torch.where(active, step_inertia, hist[t])
+        n_iter = n_iter + active.to(torch.int32)
+
+    run_chunked(step, None if tol <= 0 else lambda: shift >= tol, max_iter,
+                "kmeans")
+    hvec = _health.health_vec(carries=(centers,), hist=hist, n_done=n_iter)
+    return centers, n_iter, inertia, shift, hist, hvec

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from dislib_tpu_torch.cluster.kmeans import KMeans, _crop, _to_host
+from dislib_tpu_torch.data.sparse import SparseArray
 from dislib_tpu_torch.data.array import Array, array as _ds_array
 from dislib_tpu_torch.ops.base import distances_sq as _distances_sq, precise
 
@@ -72,7 +73,12 @@ class MiniBatchKMeans(KMeans):
                 "MiniBatchKMeans.partial_fit checkpoint=/health=: the "
                 "ChunkedFitLoop is not ported yet (ROADMAP.md A.12)")
         if not isinstance(x, Array):
-            x = _ds_array(x, dtype=np.float32)   # sparse raises (A.10)
+            import scipy.sparse as sp
+            if sp.issparse(x) or isinstance(x, SparseArray):
+                raise NotImplementedError(
+                    f"MiniBatchKMeans on {type(x).__name__}: the port takes "
+                    "dense batches; sparse input is ROADMAP.md A.10")
+            x = _ds_array(x, dtype=np.float32)
         if self._stream is None:
             # the stream's carries stay on the device between batches
             self._stream = {

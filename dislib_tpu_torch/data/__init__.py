@@ -9,6 +9,7 @@ from dislib_tpu_torch.data.io import (
     save_txt, QuarantineLedger, QuarantineReport, last_quarantine_report,
     quarantine_ledger, quarantine_batch,
 )
+from dislib_tpu_torch.data.sparse import SparseArray
 
 __all__ = ["Array", "array", "random_array", "zeros", "full", "ones",
            "identity", "eye", "apply_along_axis", "concat_rows",
@@ -16,4 +17,4 @@ __all__ = ["Array", "array", "random_array", "zeros", "full", "ones",
            "load_txt_file", "load_svmlight_file", "load_npy_file",
            "load_mdcrd_file", "save_txt", "QuarantineReport",
            "QuarantineLedger", "last_quarantine_report",
-           "quarantine_ledger", "quarantine_batch"]
+           "quarantine_ledger", "quarantine_batch", "SparseArray"]

@@ -13,9 +13,13 @@ the invariant is kept so the multi-GPU slice changes no caller.
 Every op runs eagerly — what the reference does under ``DSLIB_EAGER=1``:
 ``is_lazy`` is always False, ``force()`` returns the array, and
 ``block_until_ready()`` waits for its device work.
-Not ported yet: the lazy fusion graph (``_LazyExpr``, ``fused_kernel``),
-multi-rank ``rechunk`` schedules (ROADMAP.md A.11) and sparse backings
-(A.10).
+A scipy sparse matrix given to :func:`array` is densified, as in the
+reference, and the array keeps the reference's ``_sparse`` flag:
+``collect`` gives a scipy CSR, and the flag follows the ops that keep
+zeros zero (as the reference's does).  The sparse ds-array is
+``data/sparse.SparseArray``.  Not ported
+yet: the lazy fusion graph (``_LazyExpr``, ``fused_kernel``) and
+multi-rank ``rechunk`` schedules (ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -103,8 +107,10 @@ class Array:
     the logical ``shape``); ``mesh`` is the mesh it lives on.
     """
 
-    def __init__(self, data: torch.Tensor, shape, mesh, reg_shape=None):
+    def __init__(self, data: torch.Tensor, shape, mesh, reg_shape=None,
+                 sparse=False):
         self._data = data
+        self._sparse = bool(sparse)
         self._mesh = mesh
         self._shape = (int(shape[0]), int(shape[1]))
         if reg_shape is None:
@@ -135,9 +141,10 @@ class Array:
 
     @classmethod
     def _from_logical_padded(cls, padded_data: torch.Tensor, shape, mesh,
-                             reg_shape=None) -> "Array":
+                             reg_shape=None, sparse=False) -> "Array":
         """Wrap data already padded and zeroed for ``shape``."""
-        return cls(padded_data.to(mesh.device), shape, mesh, reg_shape)
+        return cls(padded_data.to(mesh.device), shape, mesh, reg_shape,
+                   sparse)
 
     # -- metadata ------------------------------------------------------------
 
@@ -197,7 +204,11 @@ class Array:
         out = self._data[: self._shape[0], : self._shape[1]]
         if out.dtype == torch.bfloat16:       # numpy has no bfloat16
             out = out.to(torch.float32)
-        return out.cpu().numpy()
+        out = out.cpu().numpy()
+        if self._sparse:
+            import scipy.sparse as sp
+            return sp.csr_matrix(out)
+        return out
 
     def __float__(self) -> float:
         """Host scalar of a (1, 1) array."""
@@ -214,16 +225,17 @@ class Array:
 
     def astype(self, dtype) -> "Array":
         return Array(self._data.to(_torch_dtype(dtype)), self._shape,
-                     self._mesh, self._reg_shape)
+                     self._mesh, self._reg_shape, self._sparse)
 
     def copy(self) -> "Array":
         return Array(self._data.clone(), self._shape, self._mesh,
-                     self._reg_shape)
+                     self._reg_shape, self._sparse)
 
     def transpose(self) -> "Array":
         shape = (self._shape[1], self._shape[0])
         reg = (self._reg_shape[1], self._reg_shape[0])
-        return Array(self._data.T.contiguous(), shape, self._mesh, reg)
+        return Array(self._data.T.contiguous(), shape, self._mesh, reg,
+                     self._sparse)
 
     @property
     def T(self) -> "Array":
@@ -243,8 +255,10 @@ class Array:
             data[torch.as_tensor(r_idx, device=data.device), :]
         data = data[:, c_idx] if isinstance(c_idx, slice) else \
             data[:, torch.as_tensor(c_idx, device=data.device)]
-        return Array._from_padded(data.contiguous(), (r_len, c_len),
-                                  self._mesh)
+        out = Array._from_padded(data.contiguous(), (r_len, c_len),
+                                 self._mesh)
+        out._sparse = self._sparse
+        return out
 
     # -- elementwise -------------------------------------------------------------
 
@@ -270,10 +284,16 @@ class Array:
             out_shape = _broadcast_shape(self._shape, other._shape)
             data = _ew_array_body(self._data, other._data, self._shape,
                                   other._shape, op)
-            return Array(data, out_shape, self._mesh, self._reg_shape)
+            return Array(data, out_shape, self._mesh, self._reg_shape,
+                         self._sparse and other._sparse)
         scalar = float(other) if not isinstance(other, bool) else other
         data = _ew_scalar_body(self._data, scalar, self._shape, op)
-        return Array(data, self._shape, self._mesh, self._reg_shape)
+        # the ops that map zero to zero keep the sparse flag (exp does not)
+        preserves = op != "exp_" and (
+            op in ("mul", "div", "pow", "abs_", "sqrt_")
+            or float(other) == 0.0)
+        return Array(data, self._shape, self._mesh, self._reg_shape,
+                     self._sparse and preserves)
 
     def __add__(self, o):  return self._ew(o, "add")
     def __radd__(self, o): return self._ew(o, "add")
@@ -339,7 +359,8 @@ class Array:
                 logical = self._data[:m, start:stop]
                 shape = (m, stop - start)
             yield Array._from_logical_padded(
-                _repad(logical, shape, self._mesh), shape, self._mesh)
+                _repad(logical, shape, self._mesh), shape, self._mesh,
+                sparse=self._sparse)
 
 
 def _broadcastable(a, b):
@@ -480,11 +501,12 @@ def array(x, block_size=None, dtype=None, device=None) -> Array:
     float64 input; an explicit ``dtype=`` is honoured (float64 included).
     ``device=None`` places the array on the default mesh's device —
     ``cuda``, which raises without a card; ``device="cpu"`` asks for the
-    CPU.  Scipy sparse input is not ported yet (ROADMAP.md A.10)."""
+    CPU.  A scipy sparse matrix is densified, as the reference does
+    (``SparseArray.from_scipy`` keeps it sparse)."""
     import scipy.sparse as sp
-    if sp.issparse(x):
-        raise NotImplementedError(
-            "sparse ds-arrays are not ported yet (ROADMAP.md A.10)")
+    sparse = sp.issparse(x)
+    if sparse:
+        x = x.toarray()
     mesh = _mesh_for(device)
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
@@ -504,7 +526,9 @@ def array(x, block_size=None, dtype=None, device=None) -> Array:
     if block_size is None:
         block_size = _default_block_size(tuple(x.shape), mesh)
     block_size = _check_block_size(tuple(x.shape), block_size)
-    return Array._from_logical(x, mesh, reg_shape=block_size)
+    out = Array._from_logical(x, mesh, reg_shape=block_size)
+    out._sparse = sparse
+    return out
 
 
 def _warn_f64_narrowing():
@@ -611,14 +635,16 @@ def rechunk(x: Array, new_blocks=None, mesh=None, *, schedule="auto",
     re-zeroes whatever its pad held; ``"deviceput"`` is the same move
     across devices.  The multi-rank ``"panels"`` and ``"dcn"`` schedules
     (and so ``panels`` and ``overlap``, their knobs) are ROADMAP.md A.11;
-    ``nse`` belongs to sparse arrays, A.10."""
+    ``nse`` re-pads a sparse array's stored entries, which the port's
+    one-rank sparse layout does not need (the on-device sparse reshard is
+    A.11)."""
     from dislib_tpu_torch.ops.rechunk import requantize_body
     if not isinstance(x, Array):
         raise TypeError(f"rechunk needs a ds-array, got {type(x).__name__}")
     if nse is not None:
         raise NotImplementedError(
-            "nse= applies to sparse ds-arrays, not ported yet (ROADMAP.md "
-            "A.10)")
+            "nse= re-pads a sparse ds-array's entries on device: the "
+            "sparse rechunk is not ported yet (ROADMAP.md A.10, A.11)")
     if schedule in ("panels", "dcn"):
         raise NotImplementedError(
             f"schedule={schedule!r} is a multi-rank exchange (ROADMAP.md "

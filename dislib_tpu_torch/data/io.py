@@ -438,21 +438,21 @@ def load_svmlight_file(path, block_size=None, n_features=None,
 
     Parsed by the native single-pass CSR parser where available, else in
     pure Python; duplicate feature indices sum (CSR semantics, as
-    sklearn's loader) on both paths.  The port builds dense ``x`` only:
-    pass ``store_sparse=False``.  ``store_sparse=True``, the reference's
-    default, needs the sparse ds-array and raises ``NotImplementedError``
-    (ROADMAP.md A.10)."""
-    if store_sparse:
-        raise NotImplementedError(
-            "load_svmlight_file(store_sparse=True), the reference's "
-            "default: the sparse ds-array is ROADMAP.md A.10; pass "
-            "store_sparse=False for a dense x")
+    sklearn's loader) on both paths.  ``store_sparse=True``, the
+    reference's default, gives ``x`` as a ``data/sparse.SparseArray``
+    built from the (quarantined) CSR; ``store_sparse=False`` a dense
+    ds-array.  A job of several processes raises (ROADMAP.md A.11)."""
     _single_process("load_svmlight_file")
     csr, labels = _svmlight_csr(path, n_features)
     csr, labels, report = _quarantine_csr(csr, labels, path, quarantine)
     _require_in_range(csr, path)
-    x = _ds_array(csr.toarray().astype(np.float32), block_size=block_size,
-                  device=device)
+    if store_sparse:
+        from dislib_tpu_torch.data.sparse import SparseArray
+        x = SparseArray.from_scipy(csr, block_size=block_size,
+                                   device=device)
+    else:
+        x = _ds_array(csr.toarray().astype(np.float32),
+                      block_size=block_size, device=device)
     x.quarantine_ = report
     y = _ds_array(labels.reshape(-1, 1),
                   block_size=(block_size[0], 1) if block_size else None,

@@ -1,7 +1,7 @@
 """Blocked math: the distributed GEMM, ``kron`` and ``svd``.
 
-Counterpart of ``dislib_tpu/math/base.py`` (dense only).  ``matmul`` is one
-entry with two schedules:
+Counterpart of ``dislib_tpu/math/base.py``.  ``matmul`` is one entry with
+two dense schedules:
 
 - ``"xla"``: one product of the whole padded operands through
   ``ops/precision.pdot`` — a plain product, which the reference also
@@ -14,7 +14,14 @@ entry with two schedules:
 ``kron`` builds its output from the index lattice; ``svd`` is the
 reference's one-sided Jacobi in both tiers (scalar Givens pairs below two
 column blocks, column-block pairs above), its sweeps driven from the host
-with ONE scalar read per sweep.  A sparse lhs is ROADMAP.md A.10.
+with ONE scalar read per sweep.
+
+A sparse lhs (``data/sparse.SparseArray``) takes the reference's second
+router, ``algorithm="auto"|"spmm"|"densify"``: ``spmm`` is
+``ops/spmm.spmm``; ``densify`` materialises the dense operand on the
+device (budget-guarded) and takes the dense route; ``auto`` picks spmm at
+or below ``DSLIB_SPMM_MAX_DENSITY`` (default 0.1) or whenever densifying
+would pass ``DSLIB_SPARSE_DENSIFY_BUDGET``, densify otherwise.
 """
 
 from __future__ import annotations
@@ -72,11 +79,16 @@ def matmul(a: Array, b: Array, transpose_a: bool = False,
     ``precision``: the mixed-precision policy (None → the
     ``DSLIB_MATMUL_PRECISION`` default) — ``"bfloat16"`` contracts
     bf16-compute / f32-accumulate within ``ERROR_BOUNDS``; the default is
-    float32-faithful."""
+    float32-faithful.  A sparse lhs takes the spmm/densify router (see the
+    module docstring)."""
+    from dislib_tpu_torch.data.sparse import SparseArray
+    if isinstance(a, SparseArray) or isinstance(b, SparseArray):
+        return _matmul_sparse(a, b, transpose_a, transpose_b, algorithm,
+                              precision)
     if type(a) is not Array or type(b) is not Array:
-        raise NotImplementedError(
-            f"matmul of {type(a).__name__} @ {type(b).__name__}: the port "
-            "takes dense ds-arrays; sparse operands are ROADMAP.md A.10")
+        raise TypeError(
+            f"matmul of {type(a).__name__} @ {type(b).__name__}: the "
+            "operands must be ds-arrays")
     if a.device != b.device:
         raise ValueError(f"matmul operands live on different devices: "
                          f"{a.device} vs {b.device}")
@@ -98,6 +110,51 @@ def matmul(a: Array, b: Array, transpose_a: bool = False,
     out = px.pdot(ad.T if transpose_a else ad, bd.T if transpose_b else bd,
                   policy)
     return Array(_crop_or_keep(out, out_shape), out_shape, a._mesh, reg)
+
+
+def _spmm_max_density() -> float:
+    """The density at which auto stops preferring SpMM over one dense
+    GEMM (``DSLIB_SPMM_MAX_DENSITY``, default 0.1)."""
+    return float(os.environ.get("DSLIB_SPMM_MAX_DENSITY", "0.1"))
+
+
+def _pick_sparse_algorithm(a, algorithm):
+    """The sparse matmul routing rule: an explicit ``algorithm=`` wins;
+    auto takes spmm at or below the density threshold, densify above it
+    unless the dense operand would pass the byte budget."""
+    from dislib_tpu_torch.data.sparse import densify_budget_bytes
+    if algorithm not in ("auto", "spmm", "densify"):
+        raise ValueError(
+            f"unknown sparse matmul algorithm {algorithm!r}: expected "
+            "'auto', 'spmm' or 'densify'")
+    if algorithm != "auto":
+        return algorithm
+    m, n = a.shape
+    if a.nnz / max(m * n, 1) <= _spmm_max_density():
+        return "spmm"
+    pm, pn = _padded_shape(a.shape, _mesh.pad_quantum(a._mesh))
+    return "spmm" if 4 * pm * pn > densify_budget_bytes() else "densify"
+
+
+def _matmul_sparse(a, b, transpose_a, transpose_b, algorithm, precision):
+    """SparseArray @ dense ds-array through the spmm/densify router.
+    Transposed and sparse-rhs forms raise, as in the reference."""
+    from dislib_tpu_torch.data.sparse import SparseArray
+    from dislib_tpu_torch.ops.spmm import spmm
+    if isinstance(b, SparseArray) or not isinstance(a, SparseArray) \
+            or transpose_a or transpose_b:
+        raise TypeError(
+            "the sparse matmul fast path covers sparse @ dense with no "
+            "transposes — transpose via SparseArray.T (sparse, O(nnz)) "
+            "or densify explicitly with .to_dense() for other forms")
+    if not isinstance(b, Array):
+        raise TypeError(f"matmul rhs must be a dense ds-array, "
+                        f"got {type(b).__name__}")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul shape mismatch: {a.shape} @ {b.shape}")
+    if _pick_sparse_algorithm(a, algorithm) == "spmm":
+        return spmm(a, b, precision=precision)
+    return matmul(a.to_dense(), b, precision=precision)
 
 
 def _matmul_summa(a, b, transpose_a, transpose_b, policy, out_shape, reg):

@@ -1,7 +1,7 @@
-"""Ring-parallel kNN over the mesh 'rows' axis.
+"""Ring-parallel kNN and ε-pass over the mesh 'rows' axis.
 
-Counterpart of ``ring_auto`` and ``ring_kneighbors`` in
-``dislib_tpu/ops/ring.py``.  The reference keeps each query shard resident
+Counterpart of ``ring_auto``, ``ring_kneighbors`` and
+``ring_neigh_count_min`` in ``dislib_tpu/ops/ring.py``.  The reference keeps each query shard resident
 and rotates the fitted shards around the 'rows' axis with ``ppermute``,
 folding each visiting shard into a running top-k, through
 ``ops/overlap.panel_pipeline``.  The port runs the same schedule on one
@@ -23,10 +23,14 @@ distance² below 0 (cancellation, |d²| within rounding of 0) ranks as 0,
 as on the direct and chunked paths, where the reference's ring ranks the
 negative values; the distances returned are ``max(d², 0)`` on both.
 
-Not ported: ``comm_only=True`` (a bench device: the rotation-only program
-that times the ring's communication alone, which one rank does not have)
-and ``ring_neigh_count_min``, the ε-neighbourhood pass, which waits for
-DBSCAN/Daura with ``ops/tiled.py`` (ROADMAP.md A.10).
+``ring_neigh_count_min`` is the ε-neighbourhood pass of DBSCAN's and
+Daura's ring tier: the same ``panel_pipeline`` with the identity fetch,
+whose one step folds the home shard into the running (count, min) by
+``ops/tiled.neigh_count_min`` in row tiles of :data:`RING_TILE`.
+
+Not ported: ``comm_only=True`` of both kernels (a bench device: the
+rotation-only program that times the ring's communication alone, which
+one rank does not have).
 """
 
 from __future__ import annotations
@@ -36,8 +40,23 @@ import torch
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import precision as px
+from dislib_tpu_torch.ops import tiled as _tiled
 from dislib_tpu_torch.ops.base import merge_smallest, precise, split_keys
 from dislib_tpu_torch.parallel import mesh as _mesh
+
+
+# inner streaming tile edge within one ring step (module-level so tests
+# can shrink it)
+RING_TILE = 2048
+
+
+def _one_rank(what, mesh):
+    nrows = mesh.shape[_mesh.ROWS]
+    if nrows != 1:
+        raise NotImplementedError(
+            f"{what} over {nrows} row shards: the port runs one rank; the "
+            "ppermute hop over NCCL is ROADMAP.md A.2")
+    return nrows
 
 
 def ring_auto(flag, mesh, large):
@@ -58,18 +77,11 @@ def ring_kneighbors(qp, fp, mesh, k, m_fit, overlap="db"):
     rows at or past ``m_fit`` are +inf and never neighbours.  Padded query
     rows carry garbage; callers crop.  ``overlap`` is a canonical schedule
     of ``ops/overlap.SCHEDULES``."""
-    nrows = mesh.shape[_mesh.ROWS]
-    if nrows != 1:
-        raise NotImplementedError(
-            f"ring_kneighbors over {nrows} row shards: the port runs one "
-            "rank; the ppermute hop over NCCL is ROADMAP.md A.2")
+    nrows = _one_rank("ring_kneighbors", mesh)
     q = qp.contiguous()
     q_sq = torch.sum(q * q, dim=1)
     # a panel: f^T, its row norms and the fit index of its first row
     pan0 = (fp.T.contiguous(), torch.sum(fp * fp, dim=1), 0)
-
-    def fetch(t, prev):
-        return prev                  # one rank: the panel is already home
 
     def consume(t, best, pan):
         ft_cur, fsq_cur, off = pan
@@ -82,6 +94,39 @@ def ring_kneighbors(qp, fp, mesh, k, m_fit, overlap="db"):
         d2[:, max(m_fit - off, 0):] = float("inf")
         return merge_smallest(best, d2.clamp_min_(0.0), k, off)
 
-    best = _ov.panel_pipeline(nrows, pan0, fetch, consume, None,
+    best = _ov.panel_pipeline(nrows, pan0, _identity_fetch, consume, None,
                               _ov.overlapped(overlap))
     return split_keys(best)
+
+
+def _identity_fetch(t, prev):
+    return prev                      # one rank: the panel is already home
+
+
+def ring_neigh_count_min(xp, eps2, vals, colmask, sentinel, mesh,
+                         overlap="db", counts=True, mins=True):
+    """Per-row (ε-neighbour count int32 (mp,), min over neighbour vals
+    (mp,) of ``vals.dtype``) of ``xp`` (mp, np) against itself —
+    ``ops/tiled.neigh_count_min`` under the ring's schedule.  adj(i, j) =
+    (d²(i, j) ≤ eps2 ∨ i = j) ∧ colmask_j, the single-device contract;
+    zero pad columns change no distance.  ``overlap`` is a canonical
+    schedule of ``ops/overlap.SCHEDULES``; on one rank every schedule
+    consumes the one panel the same way.  ``counts=False`` or
+    ``mins=False`` skips a reduction the caller does not read (None in its
+    place), as in ``ops/tiled.neigh_count_min``."""
+    nrows = _one_rank("ring_neigh_count_min", mesh)
+    pan0 = (xp.contiguous(), vals, colmask)
+
+    def consume(t, acc, pan):
+        x, v, cm = pan
+        cnt, mn = _tiled.neigh_count_min(x, eps2, v, cm, sentinel,
+                                         max(1, min(RING_TILE, x.shape[0])),
+                                         counts=counts, mins=mins)
+        return (acc[0] + cnt if counts else None,
+                torch.minimum(acc[1], mn) if mins else None)
+
+    acc0 = (torch.zeros(xp.shape[0], dtype=torch.int32, device=xp.device),
+            torch.full((xp.shape[0],), sentinel, dtype=vals.dtype,
+                       device=xp.device))
+    return _ov.panel_pipeline(nrows, pan0, _identity_fetch, consume, acc0,
+                              _ov.overlapped(overlap))

@@ -31,7 +31,14 @@ indices wherever that path has no tie within 1e-5; a kNN search's scores
 within 1e-6 of the CPU's, read only after the next fold is dispatched.
 The bf16-operand ``distances_sq`` within 1e-5 of its plain version (the
 same exact bf16 products summed in another order); a model saved on the
-card and loaded back onto it predicts bit-equal.
+card and loaded back onto it predicts bit-equal.  The ε-pass: the kernel
+at its block shapes (a column chunk of every row against a row tile,
+columns padded to a multiple of 4 or not) within 1e-5 of its plain
+version; DBSCAN and Daura fitted on the card equal to the CPU's on data
+whose pairwise d² keeps a 1e-3 margin from the threshold, every tier's
+distance blocks launched on the kernel.  Sparse: two SpMM calls and two
+sparse KMeans fits bit-identical (fixed-order sums, no atomics), and
+within 1e-5 of the CPU.
 """
 
 import numpy as np
@@ -993,3 +1000,120 @@ def test_model_round_trip_on_the_card(dev, tmp_path, fmt):
         assert got.device == dev
         assert torch.equal(got._data, want._data)
     assert models[0]._leaves.device.type == "cuda"
+
+
+# -- the ε-pass, DBSCAN and Daura --------------------------------------------------
+
+@pytest.mark.parametrize("m,d,k,pad", [(20_000, 10, 2048, False),
+                                       (20_000, 10, 2048, True),
+                                       (5_000, 15, 1, True),
+                                       (3_001, 15, 3_001, True)],
+                         ids=["eps-slices", "eps-stream", "medoid", "dense"])
+def test_distances_sq_at_the_eps_pass_shapes(dev, m, d, k, pad):
+    from dislib_tpu_torch.ops import tiled
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.rand((m, d), generator=g, device=dev)
+    if pad:
+        x = tiled.pad_cols(x)
+        assert x.shape[1] % 4 == 0 and not x[:, d:].any()
+    a, b = x, x[:k]
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (K.dist_plan(m, x.shape[1], a.data_ptr(), nsm).rows > 0) == pad
+    got = K.distances_sq(a, b)
+    want = K.distances_sq_plain(a, b, "highest")
+    scale = float(2 * (a.double() ** 2).sum(1).max())
+    assert float((got.double() - want.double()).abs().max()) / scale <= 1e-5
+    assert K.LAUNCHES["distances_sq"] == 1
+
+
+def _margin_blobs(m, n, k, seed, std, thr):
+    """Blobs whose pairwise float64 d² keeps 1e-3 from ``thr``."""
+    rng = np.random.RandomState(seed)
+    c = rng.rand(k, n)
+    x = (c[rng.randint(0, k, m)] + std * rng.standard_normal((m, n)))
+    x64 = x.astype(np.float32).astype(np.float64)
+    sq = (x64 ** 2).sum(1)
+    d2 = sq[:, None] - 2 * x64 @ x64.T + sq[None]
+    near = np.abs(d2 - thr) < 1e-3
+    np.fill_diagonal(near, False)
+    return x[~near.any(1)].astype(np.float32)
+
+
+@pytest.mark.parametrize("tier", ["dense", "tiled", "ring"])
+def test_dbscan_and_daura_on_the_card_match_the_cpu(dev, tier, monkeypatch):
+    from dislib_tpu_torch.cluster import daura as da_mod
+    from dislib_tpu_torch.cluster import dbscan as db_mod
+    from dislib_tpu_torch.ops import ring, tiled
+    for mod in (db_mod, da_mod):
+        if tier == "tiled":
+            monkeypatch.setattr(mod, "_DENSE_MAX", 0)
+        if tier == "ring":
+            monkeypatch.setattr(mod, "_RING", True)
+    monkeypatch.setattr(tiled, "TILE", 256)
+    monkeypatch.setattr(ring, "RING_TILE", 256)
+    x = _margin_blobs(1500, 10, 6, 3, 0.08, 0.3 ** 2)
+    card = dst.DBSCAN(eps=0.3, min_samples=5).fit(dst.array(x, device=dev))
+    assert K.LAUNCHES["distances_sq"] >= 1
+    cpu = dst.DBSCAN(eps=0.3, min_samples=5).fit(dst.array(x, device="cpu"))
+    np.testing.assert_array_equal(card.labels_, cpu.labels_)
+    np.testing.assert_array_equal(card.core_sample_indices_,
+                                  cpu.core_sample_indices_)
+    f = _margin_blobs(1200, 15, 5, 6, 0.05, 0.3 ** 2 * 5)
+    K.reset_launches()
+    card = dst.Daura(cutoff=0.3).fit(dst.array(f, device=dev))
+    # the dense tier's one (m, m) matrix, or a pass and a medoid column
+    # per cluster
+    per_cluster = -(-len(f) // 256) + 1
+    assert K.LAUNCHES["distances_sq"] == (1 if tier == "dense" else
+                                          len(card.clusters_) * per_cluster)
+    cpu = dst.Daura(cutoff=0.3).fit(dst.array(f, device="cpu"))
+    np.testing.assert_array_equal(card.labels_, cpu.labels_)
+    assert [c[0] for c in card.clusters_] == [c[0] for c in cpu.clusters_]
+
+
+# -- the sparse ds-array -----------------------------------------------------------
+
+def _sparse(m, n, density, seed):
+    import scipy.sparse as sp
+    return sp.random(m, n, density=density, random_state=seed,
+                     dtype=np.float32, format="csr")
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_spmm_on_the_card_is_bit_identical_and_matches_the_cpu(dev, policy):
+    from dislib_tpu_torch.ops.spmm import spmm
+    mat = _sparse(3000, 2000, 0.01, 17)
+    b = np.random.RandomState(18).rand(2000, 33).astype(np.float32)
+    xs = dst.SparseArray.from_scipy(mat, device=dev)
+    B = dst.array(b, device=dev)
+    one = spmm(xs, B, precision=policy)._data
+    two = spmm(xs, B, precision=policy)._data
+    assert torch.equal(one, two)
+    cpu = spmm(dst.SparseArray.from_scipy(mat, device="cpu"),
+               dst.array(b, device="cpu"), precision=policy)._data
+    np.testing.assert_allclose(one.cpu().numpy(), cpu.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    dense = dst.matmul(xs, B, algorithm="densify", precision=policy)
+    np.testing.assert_allclose(dense.collect(), one.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_sparse_kmeans_on_the_card_is_bit_identical(dev):
+    mat = _sparse(5000, 400, 0.05, 19)
+    xs = dst.SparseArray.from_scipy(mat, device=dev)
+    kw = dict(n_clusters=6, random_state=2, max_iter=15, tol=0.0)
+    a, b = dst.KMeans(**kw).fit(xs), dst.KMeans(**kw).fit(xs)
+    np.testing.assert_array_equal(a.centers_, b.centers_)
+    assert a.inertia_ == b.inertia_ and a.n_iter_ == b.n_iter_ == 15
+    np.testing.assert_array_equal(a.predict(xs).collect(),
+                                  b.predict(xs).collect())
+    assert K.LAUNCHES["distances_sq"] == 0
+    cpu = dst.KMeans(**{**kw, "max_iter": 1}).fit(
+        dst.SparseArray.from_scipy(mat, device="cpu"))
+    one = dst.KMeans(**{**kw, "max_iter": 1}).fit(xs)
+    np.testing.assert_allclose(one.centers_, cpu.centers_, rtol=1e-5,
+                               atol=1e-5)
+    col_sums = xs.sum(0)
+    assert col_sums.device.type == "cuda"
+    np.testing.assert_allclose(col_sums.collect(), np.asarray(mat.sum(0)),
+                               rtol=1e-5, atol=1e-5)

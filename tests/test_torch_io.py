@@ -306,11 +306,20 @@ def test_load_svmlight_dense_matches_the_reference(tmp_path, parser):
                                        store_sparse=False, quarantine=False)
 
 
-def test_load_svmlight_sparse_names_the_roadmap_item(tmp_path):
+def test_load_svmlight_sparse_names_the_roadmap_item(tmp_path, parser):
+    # store_sparse=True, the default, is ported: x is a SparseArray with
+    # the reference's triplets and quarantine report
     path = tmp_path / "s.svm"
-    path.write_text("1 1:1\n")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        dst.load_svmlight_file(str(path))
+    path.write_text("1 1:1 3:2.5\n-1 2:1e-3 2:1\n0 4:nan\n2 5:7\n")
+    for kw in ({}, {"n_features": 6}, {"block_size": (2, 3)}):
+        ref, port = _both("load_svmlight_file", str(path), **kw)
+        assert isinstance(port[0], dst.SparseArray)
+        assert port[0].shape == ref[0].shape
+        assert port[0].block_size == ref[0].block_size
+        np.testing.assert_array_equal(port[0].collect().toarray(),
+                                      ref[0].collect().toarray())
+        _same_array(port[1], ref[1], kw.get("block_size") and (2, 1))
+        _same_report(port[0].quarantine_, ref[0].quarantine_)
     assert "store_sparse=True" in dst.load_svmlight_file.__doc__
 
 

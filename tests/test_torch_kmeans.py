@@ -153,7 +153,13 @@ def test_kmeans_unported_options_name_the_roadmap_item(monkeypatch):
     assert PortKMeans(n_clusters=3, fast_distance=True)._fast()
     with pytest.raises(NotImplementedError, match="A.12"):
         PortKMeans(n_clusters=3).fit(x, checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # sparse input is ported (held against the reference in
+    # tests/test_torch_sparse.py); host data is not a ds-array
+    import scipy.sparse as sp
+    km = PortKMeans(n_clusters=3, random_state=0, max_iter=2).fit(
+        dst.SparseArray.from_scipy(sp.csr_matrix(_uniform())))
+    assert km.centers_.shape == (3, 5)
+    with pytest.raises(TypeError, match="SparseArray"):
         PortKMeans(n_clusters=3).fit(_uniform())
 
 
