@@ -52,7 +52,17 @@ one, timed at 200,000 x 10; Daura against the NumPy greedy proxy at
 loaded as a ``SparseArray``, SpMM at 16,384 x 8,192 (1 %) x (8,192, 64)
 against float64 and the densify route (two calls bit-identical) and
 sparse KMeans on the loaded array (its first step against float64 NumPy,
-two fits bit-identical) — and checks every result.  Each
+two fits bit-identical) — then the sparse kNN on the loaded array (1,000
+of its rows as sparse and as dense queries, k = 10, against a float64
+scipy oracle; the kNN classifier's score), ``CascadeSVM`` at
+bench_csvm's 20,000 x 20 under both dual solvers (predictions against a
+float64 NumPy cascade, two fits bit-identical; the batched
+``distances_sq`` entry at level 0's shape), CascadeSVM on 8,192 x 10,000
+svmlight-style sparse rows through the ELL staging and the host-CSR
+fallback (each equal to the dense fit), and a scaler, ``shuffle``,
+``LinearRegression`` and a forest on a ``SparseArray`` against the same
+calls on the densified array (and ``MemoryError`` past the densify
+budget) — and checks every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -76,6 +86,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 # published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
 # data sheet, dense): FP32 outside the tensor cores, bf16 and TF32 tensor
@@ -187,6 +198,21 @@ DA_GATE_M, DA_M, DA_N, DA_CUT = 20_000, 50_000, 15, 0.3
 SV_M, SV_N, SV_NNZ = 100_000, 10_000, 100
 SPMM_M, SPMM_K, SPMM_N, SPMM_DENSITY = 16_384, 8_192, 64, 0.01
 SKM_K, SKM_ITERS = 10, 20
+# CascadeSVM at bench_csvm's problem (bench.py:1990): 20,000 x 20 blobs at
+# +-2 in every feature, part 1024, 3 iterations, rbf with gamma 1/20, C 1
+CSVM_M, CSVM_N, CSVM_PART, CSVM_ITERS = 20_000, 20, 1024, 3
+# CascadeSVM on rows drawn as the svmlight file's (10,000 columns, 100 a
+# row), labels the sign of a planted linear score, one iteration.  Rows
+# this sparse share about one column a pair, so every row is a support
+# vector and the top node holds them all (its kernel block, and the host
+# CSR fallback's scipy product, grow as rows squared): CSVM_SP_M rows,
+# cut from 20,000 for the phase's time
+CSVM_SP_M, CSVM_SP_ITERS = 8_192, 1
+# the sparse kNN on the svmlight array: SKNN_Q of its rows as queries, k
+SKNN_Q, SKNN_K = 1_000, 10
+# sparse input to the other estimators: svmlight-style rows, SI_NNZ of
+# SI_N columns each
+SI_M, SI_N, SI_NNZ = 100_000, 200, 10
 
 
 _T0 = time.perf_counter()
@@ -1912,27 +1938,39 @@ def daura_phase(dev, cuda_ms):
             "distances_sq/daura_medoid": col}
 
 
-def write_svmlight(path, m, n, per_row, seed):
-    """A seeded svmlight file of ``m`` rows with ``per_row`` distinct
-    columns each (one drawn in each band of n / per_row columns) and
-    values that are multiples of 1/8, exact in float32 and in text.
-    Returns the CSR the file holds and its labels."""
+def svmlight_draw(m, n, per_row, seed):
+    """``m`` seeded rows with ``per_row`` distinct columns each (one drawn
+    in each band of n / per_row columns) and values that are multiples of
+    1/8, exact in float32 and in text: (cols, vals, labels) as NumPy
+    (m, per_row) and (m,) arrays."""
     import numpy as np
-    import scipy.sparse as sp
     rng = np.random.RandomState(seed)
     band = n // per_row
     cols = np.arange(per_row) * band + rng.randint(0, band, (m, per_row))
     vals = rng.randint(1, 1000, (m, per_row)) / 8.0
-    labels = rng.randint(0, 2, m)
+    return cols, vals, rng.randint(0, 2, m)
+
+
+def draw_csr(cols, vals, n):
+    import numpy as np
+    import scipy.sparse as sp
+    m, per_row = cols.shape
+    return sp.csr_matrix((vals.ravel().astype(np.float32),
+                          (np.repeat(np.arange(m), per_row), cols.ravel())),
+                         shape=(m, n))
+
+
+def write_svmlight(path, m, n, per_row, seed):
+    """A seeded svmlight file of :func:`svmlight_draw`'s rows.  Returns
+    the CSR the file holds and its labels."""
+    import numpy as np
+    cols, vals, labels = svmlight_draw(m, n, per_row, seed)
     table = np.empty((m, 1 + 2 * per_row))
     table[:, 0] = labels
     table[:, 1::2] = cols + 1                       # svmlight is 1-based
     table[:, 2::2] = vals
     np.savetxt(path, table, fmt="%d" + " %d:%.6g" * per_row)
-    csr = sp.csr_matrix((vals.ravel().astype(np.float32),
-                         (np.repeat(np.arange(m), per_row), cols.ravel())),
-                        shape=(m, n))
-    return csr, labels.astype(np.float32)
+    return draw_csr(cols, vals, n), labels.astype(np.float32)
 
 
 def sparse_phase(dev, tmp):
@@ -2060,6 +2098,451 @@ def sparse_phase(dev, tmp):
           int(clear.sum()), "fit_s": [t1, t2],
           "iter_per_s": SKM_ITERS / min(t1, t2),
           "two_fits_bit_identical": True, "inertia": k1.inertia_})
+    return x, want, y
+
+
+def phase_wall(name, t0):
+    """A phase's wall time, on a line of its own."""
+    emit({"phase": "phase_wall", "name": name,
+          "seconds": time.perf_counter() - t0})
+
+
+def numpy_csvm(x, y_pm, part, c, gamma, max_iter, arity=2):
+    """The float64 NumPy cascade, modelled on bench.py's
+    ``_numpy_csvm_fit``: the K+1 boxed dual by projected gradient ascent
+    (Gershgorin step, at most 500 steps, stop at delta <= 1e-6), the
+    support vectors merged up an arity tree and fed back each
+    iteration.  Returns (support vector indices, their alphas)."""
+    import numpy as np
+    m = x.shape[0]
+
+    def solve(idx):
+        xs = x[idx]
+        sq = (xs * xs).sum(1)
+        d = np.maximum(sq[:, None] - 2.0 * (xs @ xs.T) + sq[None, :], 0.0)
+        q = (np.exp(-gamma * d) + 1.0) * np.outer(y_pm[idx], y_pm[idx])
+        eta = 1.0 / max(np.abs(q).sum(1).max(), 1e-12)
+        a = np.zeros(len(idx))
+        for _ in range(500):
+            new = np.clip(a + eta * (1.0 - q @ a), 0.0, c)
+            delta = np.abs(new - a).max()
+            a = new
+            if delta <= 1e-6:
+                break
+        return a
+
+    sv = alpha = None
+    for _ in range(max_iter):
+        nodes = [np.arange(s, min(s + part, m)) for s in range(0, m, part)]
+        if sv is not None and len(sv):
+            nodes = [np.unique(np.r_[nd, sv]) for nd in nodes]
+        while True:
+            res = [solve(nd) for nd in nodes]
+            if len(nodes) == 1:
+                break
+            merged = []
+            for i in range(0, len(nodes), arity):
+                grp = []
+                for j in range(i, min(i + arity, len(nodes))):
+                    grp.extend(nodes[j][res[j] > 1e-8].tolist())
+                merged.append(np.unique(grp) if grp else nodes[i][:1])
+            nodes = merged
+        keep = res[0] > 1e-8
+        sv, alpha = nodes[0][keep], res[0][keep]
+    return sv, alpha
+
+
+def csvm_phase(dev, cuda_ms):
+    """CascadeSVM at bench_csvm's problem under both dual solvers, against
+    a float64 NumPy cascade, two fits bit-identical; the batched
+    ``distances_sq`` entry at level 0's shape and the 2-D entry at the
+    decision block's.  Returns their kernels-line entries."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.classification import CascadeSVM
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.utils import profiling as prof
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(0)
+    m, n, half = CSVM_M, CSVM_N, CSVM_M // 2
+    x = np.vstack([rng.randn(half, n) + 2.0,
+                   rng.randn(m - half, n) - 2.0]).astype(np.float32)
+    y = np.r_[np.ones(half), -np.ones(m - half)].astype(np.float32)
+    perm = rng.permutation(m)
+    x, y = x[perm], y[perm]
+    gamma = 1.0 / n
+    X = dst.array(x, block_size=(CSVM_PART, n))
+    Y = dst.array(y[:, None], block_size=(CSVM_PART, 1))
+
+    def oracle():
+        t0 = time.perf_counter()
+        x64 = x.astype(np.float64)
+        sv64, a64 = numpy_csvm(x64, y.astype(np.float64), CSVM_PART, 1.0,
+                               gamma, CSVM_ITERS)
+        sq = (x64 * x64).sum(1)
+        k64 = np.exp(-gamma * np.maximum(
+            sq[:, None] - 2.0 * x64 @ x64[sv64].T + sq[sv64][None],
+            0.0)) + 1.0
+        return (np.where(k64 @ (a64 * y[sv64]) > 0, 1.0, -1.0), len(sv64),
+                time.perf_counter() - t0)
+
+    # the NumPy cascade runs on the host while the card fits (its BLAS
+    # calls release the GIL); its result is read before any gate
+    pool = ThreadPoolExecutor(max_workers=1)
+    pending = pool.submit(oracle)
+
+    def fit():
+        est = CascadeSVM(kernel="rbf", c=1.0, gamma=gamma,
+                         max_iter=CSVM_ITERS, check_convergence=False)
+        est.fit(X, Y)
+        torch.cuda.synchronize()
+        return est
+
+    solvers, main, preds = {}, {}, {}
+    old = os.environ.get("DSLIB_CSVM_SOLVER")
+    try:
+        # the card is warm from the earlier phases: no warm-up fit
+        for solver in ("pg", "fista"):
+            os.environ["DSLIB_CSVM_SOLVER"] = solver
+            K.reset_launches()
+            prof.reset_host_reads()
+            t0 = time.perf_counter()
+            est = fit()
+            fit_s = time.perf_counter() - t0
+            # the fit launches only the batched entry, the decision only
+            # the 2-D one
+            launches = {"fit": dict(K.LAUNCHES)}
+            K.reset_launches()
+            preds[solver] = est.predict(X).collect().ravel()
+            launches["predict"] = dict(K.LAUNCHES)
+            reads = dict(prof.HOST_READS)
+            check(launches["fit"]["distances_sq"] >= 1
+                  and launches["predict"]["distances_sq"] == 1,
+                  f"csvm {solver}: launches {launches}")
+            solvers[solver] = {
+                "fit_s": fit_s, "n_sv": est.support_vectors_count_,
+                "launches": launches, "host_reads": reads}
+            if solver == "pg":
+                main = {"est": est, "launches": launches}
+        os.environ["DSLIB_CSVM_SOLVER"] = "pg"
+        a, b = main["est"], fit()
+        check(np.array_equal(a._sv_idx, b._sv_idx)
+              and np.array_equal(a._sv_alpha, b._sv_alpha)
+              and np.array_equal(a._sv_x, b._sv_x),
+              "csvm: two fits differ")
+    finally:
+        if old is None:
+            os.environ.pop("DSLIB_CSVM_SOLVER", None)
+        else:
+            os.environ["DSLIB_CSVM_SOLVER"] = old
+        pred64, n_sv64, numpy_s = pending.result()
+        pool.shutdown()
+    for solver, pred in preds.items():
+        acc = float(np.mean(pred == y))
+        agree = float(np.mean(pred == pred64))
+        check(acc > 0.95, f"csvm {solver}: train accuracy {acc}")
+        check(agree >= 0.999, f"csvm {solver}: predictions agree with "
+              f"the float64 NumPy cascade on {agree} of rows")
+        solvers[solver].update(train_accuracy=acc,
+                               agree_with_numpy_f64=agree)
+    emit({"phase": "csvm", "shape": [m, n], "part": CSVM_PART,
+          "max_iter": CSVM_ITERS, "gamma": gamma, "c": 1.0,
+          "numpy_f64_s": numpy_s, "numpy_n_sv": int(n_sv64),
+          "two_fits_bit_identical": True, **solvers})
+
+    # the batched entry at level 0's shape: the nodes' gathered rows (the
+    # last node padded with row 0, as the fit pads it)
+    nodes = -(-m // CSVM_PART)
+    idx = np.arange(nodes * CSVM_PART)
+    idx[idx >= m] = 0
+    ga = X._data[torch.as_tensor(idx, device=dev)].view(
+        nodes, CSVM_PART, n).contiguous()
+    out = K.distances_sq_batched(ga, ga)
+    plain = K.distances_sq_batched_plain(ga, ga)
+    scale = float(2.0 * (ga.double() ** 2).sum(2).max())
+    err = float((out.double() - plain.double()).abs().max()) / scale
+    check(err <= 1e-5, f"distances_sq_batched at level 0: error {err}")
+    check(bool((out >= 0).all()), "distances_sq_batched: negative distance")
+    max_abs = float((out - plain).abs().max())
+    del out, plain
+
+    def cdist():
+        with px.precise():
+            return torch.cdist(ga, ga,
+                               compute_mode="use_mm_for_euclid_dist").square()
+
+    mm, cap = nodes * CSVM_PART, CSVM_PART
+    bound_ms, bound_by = bound(
+        2.0 * mm * cap * n + 4.0 * mm * n + 3.0 * mm * cap,
+        4.0 * (2 * mm * n + mm * cap), PEAK_FP32_FLOPS)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gram = {"name": "distances_sq", "at": "csvm_gram (batched entry, level "
+            "0)", "route": "cuda",
+            "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+            "entry": "dslib_distances_sq_f32_batched",
+            "plan": K.dist_batched_plan(nodes, cap, n, ga.data_ptr(),
+                                        n_sms)._asdict(),
+            "shape": [nodes, cap, cap, n], "max_abs_err": max_abs,
+            "normalized_err_vs_plain": err,
+            "ms": cuda_ms(lambda: K.distances_sq_batched(ga, ga), 20),
+            "plain_ms": cuda_ms(lambda: K.distances_sq_batched_plain(ga, ga),
+                                20),
+            "library_ms": cuda_ms(cdist, 20),
+            "library_call": "torch.cdist(a, a, compute_mode="
+                            "'use_mm_for_euclid_dist').square(), batched, "
+                            "TF32 off",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": main["launches"]["fit"]["distances_sq"]}
+    emit({"phase": "kernel", **gram})
+    est = main["est"]
+    sv = torch.as_tensor(est._sv_x, device=dev)
+    dec = dist_entry(K, f"csvm_decision ({m} queries x "
+                        f"{est.support_vectors_count_} SVs)",
+                     X._data, sv, cuda_ms, 20)
+    dec["launches"] = main["launches"]["predict"]["distances_sq"]
+    emit({"phase": "kernel", **dec})
+    del ga, sv, X, Y
+    torch.cuda.empty_cache()
+    phase_wall("csvm", t_phase)
+    return {"distances_sq/csvm_gram": gram, "distances_sq/csvm_decision": dec}
+
+
+def csvm_sparse_phase(dev):
+    """CascadeSVM on a SparseArray through the ELL staging and through the
+    host-CSR fallback, each equal to the fit on its ``to_dense()``."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.classification import CascadeSVM
+    from dislib_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    cols, vals, _ = svmlight_draw(CSVM_SP_M, SV_N, SV_NNZ, seed=12)
+    csr = draw_csr(cols, vals, SV_N)
+    score = csr @ np.random.RandomState(13).randn(SV_N)
+    y = (score > np.median(score)).astype(np.float32)[:, None]
+    xs = dst.SparseArray.from_scipy(csr, block_size=(CSVM_PART, SV_N))
+    xd = xs.to_dense()
+    Y = dst.array(y)
+    fits, walls, launches = {}, {}, {}
+    old = os.environ.get("DSLIB_SPARSE_ELL_BUDGET")
+    try:
+        for name, x in (("dense", xd), ("ell", xs), ("csr", xs)):
+            if name == "csr":
+                os.environ["DSLIB_SPARSE_ELL_BUDGET"] = "1"
+                check(xs.ell() is None, "csvm_sparse: ell() under a 1-byte "
+                      "budget")
+            else:
+                check(name == "dense" or xs.ell() is not None,
+                      "csvm_sparse: ell() refused at the default budget")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            fits[name] = CascadeSVM(max_iter=CSVM_SP_ITERS,
+                                    check_convergence=False).fit(x, Y)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            launches[name] = dict(K.LAUNCHES)
+    finally:
+        if old is None:
+            os.environ.pop("DSLIB_SPARSE_ELL_BUDGET", None)
+        else:
+            os.environ["DSLIB_SPARSE_ELL_BUDGET"] = old
+    d, e, c = fits["dense"], fits["ell"], fits["csr"]
+    check(launches["ell"]["distances_sq"] >= 1
+          and launches["csr"]["distances_sq"] == 0,
+          f"csvm_sparse: launches {launches}")
+    check(np.array_equal(e._sv_idx, d._sv_idx)
+          and np.array_equal(e._sv_alpha, d._sv_alpha),
+          "csvm_sparse: the ELL fit differs from the dense fit")
+    alpha_err = float(np.abs(c._sv_alpha - d._sv_alpha).max()) \
+        if np.array_equal(c._sv_idx, d._sv_idx) else float("inf")
+    check(alpha_err <= 1e-4, "csvm_sparse: the host-CSR fit's support "
+          f"vectors or alphas differ from the dense fit's ({alpha_err})")
+    emit({"phase": "csvm_sparse", "shape": [CSVM_SP_M, SV_N],
+          "nnz": int(csr.nnz), "max_iter": CSVM_SP_ITERS,
+          "n_sv": d.support_vectors_count_, "fit_s": walls,
+          "ell_equal_to_dense": True, "csr_alpha_max_abs_err": alpha_err,
+          "launches": launches})
+    del xs, xd, fits
+    torch.cuda.empty_cache()
+    phase_wall("csvm_sparse", t_phase)
+
+
+def sparse_knn_phase(dev, x, want, y):
+    """The sparse kNN on the loaded svmlight array: SKNN_Q of its rows as
+    sparse and as dense queries against a float64 scipy oracle, and the
+    kNN classifier's score."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    rows = np.sort(np.random.RandomState(9).choice(x.shape[0], SKNN_Q,
+                                                   replace=False))
+    qs = x[rows, :]
+    qd = qs.to_dense()
+    # the oracle: float64 scipy distances, the k + 1 smallest of each row
+    t0 = time.perf_counter()
+    w64 = want.astype(np.float64)
+    x_sq = np.asarray(w64.multiply(w64).sum(1)).ravel()
+    q64 = w64[rows]
+    d2_or = np.empty((SKNN_Q, SKNN_K + 1))
+    i_or = np.empty((SKNN_Q, SKNN_K + 1), np.int64)
+    for s in range(0, SKNN_Q, 250):
+        qc = q64[s:s + 250]
+        d2 = (x_sq[rows[s:s + 250]][:, None] + x_sq[None, :]
+              - 2.0 * (qc @ w64.T).toarray())
+        part = np.argpartition(d2, SKNN_K + 1, axis=1)[:, :SKNN_K + 1]
+        pd = np.take_along_axis(d2, part, 1)
+        order = np.argsort(pd, axis=1, kind="stable")
+        d2_or[s:s + 250] = np.take_along_axis(pd, order, 1)
+        i_or[s:s + 250] = np.take_along_axis(part, order, 1)
+    oracle_s = time.perf_counter() - t0
+    scale = float(x_sq.max())
+    # a neighbour is held where its distance is clear of the next one's
+    clear = np.diff(d2_or, axis=1) > 1e-5 * scale
+    clear = np.minimum(clear[:, :-1], clear[:, 1:])
+    clear = np.concatenate([np.diff(d2_or[:, :2], axis=1)
+                            > 1e-5 * scale, clear], axis=1)
+    nn = dst.NearestNeighbors(n_neighbors=SKNN_K).fit(x)
+    res = {}
+    for name, q in (("sparse_queries", qs), ("dense_queries", qd)):
+        nn.kneighbors(q)                                          # warm
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        d_arr, i_arr = nn.kneighbors(q)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        idx, dist = i_arr.collect(), d_arr.collect().astype(np.float64)
+        check(np.array_equal(idx[clear], i_or[:, :SKNN_K][clear]),
+              f"sparse knn {name}: indices differ from the float64 oracle "
+              f"on {int((idx[clear] != i_or[:, :SKNN_K][clear]).sum())} "
+              "clear neighbours")
+        # squared distances within 1e-5 of 2 max |x|^2 (the magnitudes
+        # that cancel in |q|^2 - 2 q.x + |x|^2: a query's own row comes
+        # out near, not at, 0), and distances off 0 within rtol 1e-4
+        d2_err = float(np.abs(dist ** 2 - d2_or[:, :SKNN_K]).max()
+                       / (2.0 * scale))
+        d_or = np.sqrt(np.maximum(d2_or[:, :SKNN_K], 0.0))
+        far = d_or > 0
+        rel = float((np.abs(dist - d_or)[far] / d_or[far]).max())
+        check(d2_err <= 1e-5 and rel <= 1e-4,
+              f"sparse knn {name}: squared distances off the oracle by "
+              f"{d2_err} (normalized), distances by rtol {rel}")
+        res[name] = {"seconds": t, "queries_per_s": SKNN_Q / t,
+                     "launches": dict(K.LAUNCHES),
+                     "d2_normalized_err_vs_f64": d2_err,
+                     "d_rel_err_vs_f64": rel,
+                     "clear_neighbours": int(clear.sum())}
+    knn = dst.KNeighborsClassifier(n_neighbors=SKNN_K).fit(x, y)
+    t0 = time.perf_counter()
+    acc = knn.score(qs, y[rows, :])
+    score_s = time.perf_counter() - t0
+    # the classifier's votes against a NumPy vote over the neighbours the
+    # stream returned (uniform weights, the lowest class on a tie)
+    labels = y.collect().ravel()
+    votes = labels[i_arr.collect()]
+    want_pred = np.where((votes == 1).sum(1) > (votes == 0).sum(1), 1.0,
+                         0.0)
+    got_pred = knn.predict(qs).collect().ravel()
+    check(np.array_equal(got_pred, want_pred), "sparse knn classifier: "
+          "predictions differ from a vote over the neighbours")
+    check(abs(acc - float(np.mean(want_pred == labels[rows]))) < 1e-12,
+          f"sparse knn classifier: score {acc}")
+    emit({"phase": "sparse_knn", "fit_shape": list(x.shape),
+          "fit_nnz": x.nnz, "queries": SKNN_Q, "k": SKNN_K,
+          "oracle_f64_s": oracle_s, "knn_classifier_score": acc,
+          "knn_classifier_score_s": score_s, **res})
+    phase_wall("sparse_knn", t_phase)
+
+
+def sparse_inputs_phase(dev):
+    """Sparse input to StandardScaler(with_mean=False), shuffle,
+    LinearRegression and a forest, each against the same call on the
+    densified array; MemoryError past the densify budget."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    cols, vals, labels = svmlight_draw(SI_M, SI_N, SI_NNZ, seed=14)
+    csr = draw_csr(cols, vals, SI_N)
+    xs = dst.SparseArray.from_scipy(csr)
+    xd = xs.to_dense()
+    out = {}
+    # the scaler: one-pass moments on the nonzeros against the dense
+    # two-pass fit, within 1e-5 of E[x^2]
+    t0 = time.perf_counter()
+    s_sp = dst.StandardScaler(with_mean=False).fit(xs)
+    s_de = dst.StandardScaler(with_mean=False).fit(xd)
+    ex2 = xs.square().mean(axis=0).collect()
+    err = float((np.abs(s_sp.var_.collect() - s_de.var_.collect())
+                 / np.maximum(ex2, 1e-30)).max())
+    check(err <= 1e-5 and np.allclose(s_sp.mean_.collect(),
+                                      s_de.mean_.collect(), rtol=1e-5),
+          f"sparse scaler: moments off the dense fit by {err}")
+    t_sp = s_sp.transform(xs)
+    check(isinstance(t_sp, dst.SparseArray) and t_sp.nnz == xs.nnz,
+          "sparse scaler: transform did not stay sparse")
+    t_err = float((t_sp.to_dense()._data - s_de.transform(xd)._data).abs()
+                  .max() / xd._data.abs().max())
+    check(t_err <= 1e-4, f"sparse scaler: transform off by {t_err}")
+    out["scaler"] = {"seconds": time.perf_counter() - t0, "var_rel_err":
+                     err, "transform_rel_err": t_err}
+    # shuffle: the same rows as the dense shuffle, bit for bit
+    t0 = time.perf_counter()
+    sh_sp = dst.shuffle(xs, random_state=5)
+    sh_de = dst.shuffle(xd, random_state=5)
+    check(isinstance(sh_sp, dst.SparseArray)
+          and torch.equal(sh_sp.to_dense()._data, sh_de._data),
+          "sparse shuffle differs from the dense shuffle")
+    out["shuffle"] = {"seconds": time.perf_counter() - t0}
+    # the densify route: bit for bit the fit on the dense array
+    beta = np.random.RandomState(15).randn(SI_N, 1)
+    Yr = dst.array((csr @ beta).astype(np.float32))
+    Yc = dst.array(labels.astype(np.float32)[:, None])
+    t0 = time.perf_counter()
+    lr_sp, lr_de = dst.LinearRegression().fit(xs, Yr), \
+        dst.LinearRegression().fit(xd, Yr)
+    check(np.array_equal(lr_sp.coef_, lr_de.coef_)
+          and np.array_equal(lr_sp.intercept_, lr_de.intercept_),
+          "sparse LinearRegression differs from the dense fit")
+    out["linear_regression"] = {"seconds": time.perf_counter() - t0}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rf_sp = dst.RandomForestClassifier(n_estimators=4, max_depth=8,
+                                       random_state=0).fit(xs, Yc)
+    launches = dict(K.LAUNCHES)
+    rf_de = dst.RandomForestClassifier(n_estimators=4, max_depth=8,
+                                       random_state=0).fit(xd, Yc)
+    check(same_forest(rf_sp, rf_de), "sparse forest differs from the dense "
+          "fit")
+    check(launches["node_histogram"] == rf_sp._depth,
+          f"sparse forest: node_histogram launches {launches}")
+    out["forest"] = {"seconds": time.perf_counter() - t0,
+                     "depth": rf_sp._depth, "launches": launches}
+    old = os.environ.get("DSLIB_SPARSE_DENSIFY_BUDGET")
+    os.environ["DSLIB_SPARSE_DENSIFY_BUDGET"] = str(2 * SI_M * SI_N)
+    try:
+        dst.LinearRegression().fit(dst.SparseArray.from_scipy(csr), Yr)
+        raised = False
+    except MemoryError:
+        raised = True
+    finally:
+        if old is None:
+            os.environ.pop("DSLIB_SPARSE_DENSIFY_BUDGET", None)
+        else:
+            os.environ["DSLIB_SPARSE_DENSIFY_BUDGET"] = old
+    check(raised, "sparse LinearRegression past the densify budget did not "
+          "raise MemoryError")
+    emit({"phase": "sparse_inputs", "shape": [SI_M, SI_N],
+          "nnz": int(csr.nnz), "memory_error_past_budget": True, **out})
+    del xs, xd
+    torch.cuda.empty_cache()
+    phase_wall("sparse_inputs", t_phase)
 
 
 def main() -> int:
@@ -2944,13 +3427,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        sparse_phase(dev, tmp)
+        x_sv, csr_sv, y_sv = sparse_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "density_sparse_summary",
           "seconds": time.perf_counter() - t0})
 
-    # -- (12) the kernels line, then the result --------------------------------------
+    # -- (12) CascadeSVM, the sparse kNN and sparse input ------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sparse_knn_phase(dev, x_sv, csr_sv, y_sv)
+    del x_sv, csr_sv, y_sv
+    torch.cuda.empty_cache()
+    kernels.update(csvm_phase(dev, cuda_ms))
+    csvm_sparse_phase(dev)
+    sparse_inputs_phase(dev)
+    emit({"phase": "csvm_sparse_knn_inputs_summary",
+          "seconds": time.perf_counter() - t0})
+
+    # -- (13) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

@@ -43,7 +43,7 @@ from dislib_tpu_torch.trees import (
 from dislib_tpu_torch.regression import LinearRegression, Lasso
 from dislib_tpu_torch.optimization import ADMM
 from dislib_tpu_torch.preprocessing import StandardScaler, MinMaxScaler
-from dislib_tpu_torch.classification import KNeighborsClassifier
+from dislib_tpu_torch.classification import CascadeSVM, KNeighborsClassifier
 from dislib_tpu_torch.neighbors import NearestNeighbors
 from dislib_tpu_torch.model_selection import (
     KFold, GridSearchCV, RandomizedSearchCV,

@@ -43,6 +43,7 @@ SIGNATURES = {
     "distances_sq": {
         "dslib_distances_sq_f32": ([_P] * 3 + [_I] * 6 + [_P], _I),
         "dslib_distances_sq_bf16": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        "dslib_distances_sq_f32_batched": ([_P] * 3 + [_I] * 7 + [_P], _I),
     },
     "node_histogram": {
         "dslib_node_histogram_f32": ([_P] * 7 + [_I] * 17 + [_P], _I),

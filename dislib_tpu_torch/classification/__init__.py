@@ -1,6 +1,6 @@
-"""Classifiers (counterpart of ``dislib_tpu/classification``; CascadeSVM
-is ROADMAP.md A.10)."""
+"""Classifiers (counterpart of ``dislib_tpu/classification``)."""
 
+from dislib_tpu_torch.classification.csvm import CascadeSVM
 from dislib_tpu_torch.classification.knn import KNeighborsClassifier
 
-__all__ = ["KNeighborsClassifier"]
+__all__ = ["CascadeSVM", "KNeighborsClassifier"]

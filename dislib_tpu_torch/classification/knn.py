@@ -19,7 +19,9 @@ class, the reference's one-hot sum read at that neighbour's code.
 reads only after it has dispatched the next fold; ``predict`` maps the
 winning codes back to labels on the host.
 
-Sparse input raises ``NotImplementedError`` (ROADMAP.md A.10).
+A sparse fit set or sparse queries (a ``SparseArray``) go through the
+sparse neighbour stream ``neighbors/base._kneighbors_sparse`` and the same
+vote, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from dislib_tpu_torch.base import BaseEstimator, carried_array
-from dislib_tpu_torch.data.array import Array, require_dense
+from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.sparse import SparseArray, check_input
 from dislib_tpu_torch.neighbors import base as _nb
 from dislib_tpu_torch.ops.base import precise
 from dislib_tpu_torch.utils.profiling import count_read
@@ -60,11 +63,15 @@ class KNeighborsClassifier(BaseEstimator):
         if self.n_neighbors > self._fit_x.shape[0]:
             raise ValueError(f"n_neighbors {self.n_neighbors} > fitted "
                              f"samples {self._fit_x.shape[0]}")
-        require_dense(x, "KNeighborsClassifier")
+        check_input(x, "KNeighborsClassifier")
 
     def _predict_codes(self, x: Array) -> torch.Tensor:
         """Winning class code of each query row, (mq_pad,) int32."""
         f = self._fit_x
+        if isinstance(f, SparseArray) or isinstance(x, SparseArray):
+            dist_k, idx = _nb._kneighbors_sparse(x, f, self.n_neighbors)
+            return _vote(dist_k, idx, self._codes,
+                         self.weights == "distance")
         return _knn_predict(x._data, f._data, x.shape, f.shape, self._codes,
                             self.n_neighbors, self.weights == "distance",
                             _nb._CHUNK)
@@ -91,7 +98,7 @@ class KNeighborsClassifier(BaseEstimator):
         ``_fit_finalize`` reads ``classes_`` from."""
         if y is None:
             raise ValueError("KNeighborsClassifier requires y")
-        require_dense(x, "KNeighborsClassifier")
+        check_input(x, "KNeighborsClassifier")
         if x.shape[0] != y.shape[0]:
             raise ValueError("x and y row counts differ")
         self._fit_x = x
@@ -112,6 +119,9 @@ class KNeighborsClassifier(BaseEstimator):
         # labels compared in y's dtype, as the reference compares classes_
         labels, codes = self._sorted
         f = self._fit_x
+        if isinstance(f, SparseArray) or isinstance(x, SparseArray):
+            return _score_codes(self._predict_codes(x), y._data,
+                                labels.to(y._data.dtype), codes, x.shape[0])
         return _knn_score(x._data, f._data, y._data, x.shape, f.shape,
                           self._codes, labels.to(y._data.dtype), codes,
                           self.n_neighbors, self.weights == "distance",

@@ -42,7 +42,8 @@ from dislib_tpu_torch.cluster.dbscan import (
     check_finite, f32, labels_array, refuse_fit_options,
 )
 from dislib_tpu_torch.cluster.kmeans import _to_host
-from dislib_tpu_torch.data.array import Array, require_dense
+from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import tiled as _tiled
@@ -78,7 +79,7 @@ class Daura(BaseEstimator):
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
         refuse_fit_options("Daura", checkpoint, health)
-        require_dense(x, "Daura")
+        x = dense_input(x, "Daura")
         if x.shape[1] % 3 != 0:
             raise ValueError("Daura expects rows of 3*n_atoms coordinates")
         n_atoms = x.shape[1] // 3

@@ -45,7 +45,8 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.kmeans import _to_host
-from dislib_tpu_torch.data.array import Array, require_dense
+from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import tiled as _tiled
@@ -122,7 +123,7 @@ class DBSCAN(BaseEstimator):
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
         refuse_fit_options("DBSCAN", checkpoint, health)
-        require_dense(x, "DBSCAN")
+        x = dense_input(x, "DBSCAN")
         m, n = x.shape
         mesh = x._mesh
         eps, ms = float(self.eps), int(self.min_samples)

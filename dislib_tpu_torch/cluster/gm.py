@@ -18,7 +18,9 @@ Where the port departs from the reference's code:
 
 - ``fit`` runs :func:`_gm_fit` directly; the reference always goes through
   its ``ChunkedFitLoop``.  ``checkpoint=``/``health=`` raise
-  ``NotImplementedError`` (ROADMAP.md A.12), sparse input too (A.10).
+  ``NotImplementedError`` (ROADMAP.md A.12).  A ``SparseArray`` is
+  densified through its budget-guarded lazy backing, as the reference's
+  ``x._data`` is (``data/sparse.dense_input``).
 - The ``kmeans`` init runs the port's KMeans device loop, whose E-step is
   the hand CUDA kernel ``distances_sq`` on a card, in KMeans' fast mode
   (the bf16-operand variant) when ``DSLIB_KMEANS_FAST_DISTANCE=1`` asks
@@ -48,6 +50,7 @@ import torch
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.kmeans import _crop, _to_host
 from dislib_tpu_torch.data.array import Array, ensure_canonical
+from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops.base import cholesky_nan, precise
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.loop import run_chunked
@@ -126,10 +129,6 @@ class GaussianMixture(BaseEstimator):
             raise ValueError(f"bad covariance_type {self.covariance_type!r}")
         if self.max_iter < 1:
             raise ValueError("max_iter must be >= 1")
-        if not isinstance(x, Array):
-            raise NotImplementedError(
-                f"GaussianMixture on {type(x).__name__}: the port takes "
-                "dense ds-arrays; sparse input is ROADMAP.md A.10")
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
         """Fit by EM on ``x``'s device; one read per chunk of EM steps and
@@ -147,6 +146,7 @@ class GaussianMixture(BaseEstimator):
     # where the reference's lax.while_loop reads nothing
     def _fit_async(self, x, y=None):
         self._check_params(x)
+        x = dense_input(x, "GaussianMixture")
         return _gm_fit(x._data, x.shape, self._init_resp(x),
                        self.covariance_type, float(self.reg_covar),
                        float(self.tol), int(self.max_iter),

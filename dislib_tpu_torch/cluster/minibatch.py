@@ -14,7 +14,11 @@ The reference runs each batch through its ``ChunkedFitLoop.run_one``
 (rollback, watchdog, snapshots, preemption); the port calls the step
 directly, and ``history_`` is the stream's batch inertias.
 ``checkpoint=``/``health=`` raise ``NotImplementedError`` (ROADMAP.md
-A.12), sparse input too (A.10).
+A.12).  A batch must be dense: the reference turns a batch that is not a
+ds-array into one with ``np.asarray``, which a sparse matrix (scipy, or a
+``SparseArray``, whose ``fit`` slices are sparse too) fails with
+``ValueError``; the port raises that type, naming the cause.  ``predict``
+and ``score`` are KMeans', sparse queries included.
 """
 
 from __future__ import annotations
@@ -59,12 +63,6 @@ class MiniBatchKMeans(KMeans):
         self.verbose = verbose
         self._stream = None
 
-    def _check_supported(self, x):
-        if not isinstance(x, Array):
-            raise NotImplementedError(
-                f"MiniBatchKMeans on {type(x).__name__}: the port takes "
-                "dense ds-arrays; sparse input is ROADMAP.md A.10")
-
     def partial_fit(self, x, y=None, checkpoint=None, health=None):
         """Consume one batch (a ds-array, or host data that becomes one on
         the default mesh)."""
@@ -75,9 +73,10 @@ class MiniBatchKMeans(KMeans):
         if not isinstance(x, Array):
             import scipy.sparse as sp
             if sp.issparse(x) or isinstance(x, SparseArray):
-                raise NotImplementedError(
-                    f"MiniBatchKMeans on {type(x).__name__}: the port takes "
-                    "dense batches; sparse input is ROADMAP.md A.10")
+                raise ValueError(
+                    f"MiniBatchKMeans on {type(x).__name__}: batches must be "
+                    "dense (a ds-array or host rows); densify a sparse "
+                    "batch first (to_dense())")
             x = _ds_array(x, dtype=np.float32)
         if self._stream is None:
             # the stream's carries stay on the device between batches

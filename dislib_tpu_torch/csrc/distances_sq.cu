@@ -59,6 +59,19 @@
 // to float32.  A quarter-warp reading 16 bytes of 8 rows at a row stride of
 // dp / 2 words is free of bank conflicts when dp / 8 is odd (dp = 104: 13).
 //
+// The batched entry (CascadeSVM's per-node sub-Grams: dislib_tpu/
+// classification/csvm.py, _solve_level, which computes each node's
+// (cap, cap) distances inside a vmap over the nodes of a cascade level).
+// nb equal-shape problems a (nb, m, d) and b (nb, k, d) give out
+// (nb, m, k): the float32 stream or slices above, with a second grid
+// dimension over the problems; block (x, y) offsets a, b and out by problem
+// y and runs the 2-D kernel's loop over problem y's tiles (gridDim.y = 1
+// for the 2-D entries).  A node of a cascade level is 1,024 rows of 20
+// features: alone it is a launch of ~80 KB in and 4 MB out, so the
+// launch's fixed cost would rule it; the ~20 nodes of a level go in one
+// launch.  Bytes bound it: at level 0, 20 x (1024, 20)^2 reads 3.3 MB and
+// writes 84 MB.
+//
 // All paths clamp at zero but let a NaN through (fmaxf would swallow it,
 // hiding a non-finite input from the fit's health check); ragged edges are
 // masked.
@@ -171,6 +184,10 @@ __global__ void __launch_bounds__(BULK_THREADS)
 dist_bulk(const float* __restrict__ A, const float* __restrict__ B,
           float* __restrict__ out, int M, int K, int D, int R) {
     extern __shared__ __align__(128) unsigned char smem[];
+    // the batched entry's problem (0 for the 2-D entry)
+    A += (long long)blockIdx.y * M * D;
+    B += (long long)blockIdx.y * K * D;
+    out += (long long)blockIdx.y * M * K;
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
     float* stage = reinterpret_cast<float*>(smem + BULK_HEAD);
     float* bt = stage + BULK_STAGES * R * D;          // [D][KC]
@@ -257,6 +274,10 @@ dist_sliced(const float* __restrict__ A, const float* __restrict__ B,
     __shared__ __align__(16) float Bt[TD][KC];   // chunk of b, d-major
     __shared__ float bsq[KC];
 
+    // the batched entry's problem (0 for the 2-D entry)
+    A += (long long)blockIdx.y * M * D;
+    B += (long long)blockIdx.y * K * D;
+    out += (long long)blockIdx.y * M * K;
     const int tid = threadIdx.x;
     const int lane = tid % 32;
     const int warp = tid / 32;
@@ -533,6 +554,40 @@ extern "C" int dslib_distances_sq_f32(const void* a, const void* b, void* out,
     } else {
         dist_sliced<<<(m + TM - 1) / TM, SL_THREADS, 0, st>>>(A, B, O, m, k,
                                                               d);
+    }
+    return (int)cudaGetLastError();
+}
+
+// C entry point of the batched problems, bound with ctypes.  a (nb, m, d),
+// b (nb, k, d) and out (nb, m, k) float32, row-major and contiguous, out
+// allocated by the caller; 1 <= nb <= 65535.  The plan is the 2-D entry's
+// for one problem (ops/kernels.py, dist_batched_plan): rows > 0 takes the
+// stream with `grid` blocks a problem (a 16-byte aligned, d % 4 == 0, so
+// every problem's a is aligned too), rows == 0 the slices.  Returns the
+// launch's cudaError_t (0 = launched).
+extern "C" int dslib_distances_sq_f32_batched(const void* a, const void* b,
+                                              void* out, int nb, int m,
+                                              int k, int d, int rows,
+                                              int grid, int smem,
+                                              void* stream) {
+    if (nb <= 0 || m <= 0 || k <= 0) return 0;
+    if (nb > 65535) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* A = static_cast<const float*>(a);
+    const float* B = static_cast<const float*>(b);
+    float* O = static_cast<float*>(out);
+    if (rows > 0) {
+        if (d % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0
+            || rows > BULK_THREADS || grid <= 0)
+            return (int)cudaErrorInvalidValue;
+        cudaError_t e = cudaFuncSetAttribute(
+            dist_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        dist_bulk<<<dim3(grid, nb), BULK_THREADS, smem, st>>>(A, B, O, m, k,
+                                                             d, rows);
+    } else {
+        dist_sliced<<<dim3((m + TM - 1) / TM, nb), SL_THREADS, 0, st>>>(
+            A, B, O, m, k, d);
     }
     return (int)cudaGetLastError();
 }

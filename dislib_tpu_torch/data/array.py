@@ -635,16 +635,15 @@ def rechunk(x: Array, new_blocks=None, mesh=None, *, schedule="auto",
     re-zeroes whatever its pad held; ``"deviceput"`` is the same move
     across devices.  The multi-rank ``"panels"`` and ``"dcn"`` schedules
     (and so ``panels`` and ``overlap``, their knobs) are ROADMAP.md A.11;
-    ``nse`` re-pads a sparse array's stored entries, which the port's
-    one-rank sparse layout does not need (the on-device sparse reshard is
-    A.11)."""
+    ``nse`` re-pads a sparse array's stored entries and, as in the
+    reference, is not read for a dense one.  A ``SparseArray`` goes to its
+    ``resharded``, the on-device sparse reshard, which is A.11."""
     from dislib_tpu_torch.ops.rechunk import requantize_body
+    from dislib_tpu_torch.data.sparse import SparseArray
+    if isinstance(x, SparseArray):
+        return x.resharded(mesh, schedule=schedule, nse=nse, overlap=overlap)
     if not isinstance(x, Array):
         raise TypeError(f"rechunk needs a ds-array, got {type(x).__name__}")
-    if nse is not None:
-        raise NotImplementedError(
-            "nse= re-pads a sparse ds-array's entries on device: the "
-            "sparse rechunk is not ported yet (ROADMAP.md A.10, A.11)")
     if schedule in ("panels", "dcn"):
         raise NotImplementedError(
             f"schedule={schedule!r} is a multi-rank exchange (ROADMAP.md "
@@ -652,7 +651,7 @@ def rechunk(x: Array, new_blocks=None, mesh=None, *, schedule="auto",
     if schedule not in ("auto", "xla", "deviceput"):
         raise ValueError(f"unknown rechunk schedule {schedule!r}: expected "
                          "'auto', 'xla', 'panels', 'dcn' or 'deviceput'")
-    del panels, overlap
+    del panels, overlap, nse
     reg = _check_block_size(x._shape, new_blocks) if new_blocks is not None \
         else x._reg_shape
     target = mesh if mesh is not None else _mesh.get_mesh()
@@ -673,16 +672,6 @@ def ensure_canonical(x: Array) -> Array:
     if tuple(x._data.shape) == pshape and x.device == mesh.device:
         return x
     return rechunk(x)
-
-
-def require_dense(x, what: str) -> None:
-    """Raise ``NotImplementedError`` for anything but a dense ds-array
-    (a scipy matrix, the reference's ``SparseArray``): sparse input is
-    ROADMAP.md A.10."""
-    if not isinstance(x, Array):
-        raise NotImplementedError(
-            f"{what} on {type(x).__name__}: the port takes dense ds-arrays;"
-            " sparse input is ROADMAP.md A.10")
 
 
 def apply_along_axis(func, axis, x: Array, *args, **kwargs) -> Array:

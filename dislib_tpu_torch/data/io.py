@@ -21,8 +21,7 @@ only.  Opt out per call (``quarantine=False``) or globally
 Not ported yet: the multi-process sharded ingest (each process parsing
 only the row slab its shards cover; ROADMAP.md A.11), which raises
 ``NotImplementedError`` when ``torch.distributed`` runs more than one
-process, and sparse svmlight storage (``store_sparse=True``, which needs
-the sparse ds-array; A.10).
+process.
 """
 
 from __future__ import annotations

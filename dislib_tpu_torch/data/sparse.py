@@ -16,11 +16,15 @@ mesh (``build``, ``rowsq``, ``host_triplets``): one shard, its entries
 row-sorted and tail-padded to an :func:`nse_quantum` multiple with (value
 0, row 0, column 0).
 
-Not ported: the layouts that wait for their consumers —
-``panel_view`` (the multi-panel SpMM layout, with ALS), ``ell`` (CSVM) and
-``row_steps`` (the sparse kNN), ROADMAP.md A.10 — and the on-device
-reshard (``resharded``, ``ops/rechunk.reshard_sparse``), A.11.  Each
-raises ``NotImplementedError``.
+The estimator staging layouts are built on the device from the
+row-sorted triplets: ``row_steps`` (the sparse kNN's skew-bounded row
+steps) and ``ell`` (CascadeSVM's padded row-gather layout), on the
+:class:`SparseArray` and on its :class:`ShardedSparse` buffers alike.
+Each is one scatter of distinct destinations (no sums), so two builds are
+bit-identical.  Not ported: ``panel_view`` (the multi-panel SpMM layout,
+with ALS, ROADMAP.md A.10) and the on-device reshard (``resharded``,
+``ops/rechunk.reshard_sparse``), A.11.  Each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.utils.profiling import count_read
 
 __all__ = ["SparseArray", "ShardedSparse", "nse_quantum",
-           "densify_budget_bytes"]
+           "densify_budget_bytes", "ell_budget_bytes", "dense_input",
+           "check_input"]
 
 
 def nse_quantum() -> int:
@@ -53,6 +58,32 @@ def densify_budget_bytes() -> int:
     (``DSLIB_SPARSE_DENSIFY_BUDGET``, default 4 GiB): read by the lazy
     dense backing and by ``math.matmul``'s spmm/densify router."""
     return int(os.environ.get("DSLIB_SPARSE_DENSIFY_BUDGET", 4 << 30))
+
+
+def ell_budget_bytes() -> int:
+    """The byte budget of the padded ELL buffers (values and columns)
+    above which :meth:`SparseArray.ell` returns None
+    (``DSLIB_SPARSE_ELL_BUDGET``, default 2 GiB)."""
+    return int(os.environ.get("DSLIB_SPARSE_ELL_BUDGET", 2 << 30))
+
+
+def check_input(x, who: str) -> bool:
+    """Whether ``x`` is a :class:`SparseArray`; a dense ds-array gives
+    False, anything else raises ``TypeError`` naming ``who``."""
+    if isinstance(x, SparseArray):
+        return True
+    if isinstance(x, Array):
+        return False
+    raise TypeError(f"{who} takes a ds-array or a SparseArray, got "
+                    f"{type(x).__name__}")
+
+
+def dense_input(x, who: str) -> Array:
+    """``x`` as the dense ds-array an estimator with no sparse-native path
+    works on: a :class:`SparseArray` through its budget-guarded lazy dense
+    backing (:meth:`SparseArray.as_dense`, ``MemoryError`` past
+    :func:`densify_budget_bytes`), a dense ds-array as it is."""
+    return x.as_dense() if check_input(x, who) else x
 
 
 def _round_nse(nse_min, explicit=None):
@@ -73,6 +104,83 @@ def _unported(what, item):
         f"consumers (ROADMAP.md {item})")
 
 
+# ---------------------------------------------------------------------------
+# the estimator staging layouts, built on the device from row-sorted entries
+# ---------------------------------------------------------------------------
+
+def row_step_plan(row_nnz, chunk):
+    """Host ``(steps, budget)`` greedy row-step packing from the row
+    entry counts ``row_nnz`` (m,) alone, the reference's plan: steps take
+    at most ``chunk`` rows and at most ``budget`` entries, ``budget`` being
+    4x the average chunk's entries and never below the densest row (nor
+    64).  Each step is ``(row_off, rows_in, nnz_lo, nnz_hi)`` over the
+    row-sorted entry stream; steps tile the stream contiguously."""
+    m = int(row_nnz.shape[0])
+    chunk = int(chunk)
+    row_start = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int64)
+    avg_chunk_nnz = max(1, int(np.ceil(int(row_start[-1]) * chunk
+                                       / max(m, 1))))
+    budget = max(64, 4 * avg_chunk_nnz, int(row_nnz.max(initial=1)))
+    steps = []
+    r = 0
+    while r < m:
+        # the furthest row end within the entry budget (at least one row),
+        # then the row cap
+        hi = int(np.searchsorted(row_start, row_start[r] + budget,
+                                 side="right")) - 1
+        r_end = min(m, r + chunk, max(r + 1, hi))
+        steps.append((r, r_end - r, int(row_start[r]),
+                      int(row_start[r_end])))
+        r = r_end
+    if not steps:
+        steps = [(0, 0, 0, 0)]
+    return steps, budget
+
+
+def _row_step_buffers(rows, cols, vals, plan, budget):
+    """The kNN streaming buffers ``(data (s, budget), local_rows, cols,
+    row_off (s,), rows_in (s,))`` of the row-sorted entries: entry g of
+    step i lands in slot ``g - nnz_lo[i]`` of row i; pads are (value 0,
+    row 0, column 0).  One scatter of distinct slots per buffer."""
+    dev = vals.device
+    s = len(plan)
+    row_off = torch.tensor([st[0] for st in plan], dtype=torch.int32,
+                           device=dev)
+    rows_in = torch.tensor([st[1] for st in plan], dtype=torch.int32,
+                           device=dev)
+    nlo = torch.tensor([st[2] for st in plan], dtype=torch.int64,
+                       device=dev)
+    g = torch.arange(vals.shape[0], device=dev)
+    step = (torch.searchsorted(nlo, g, right=True) - 1).clamp_(0, s - 1)
+    dest = step * budget + (g - nlo[step])
+
+    def scatter(src, dtype):
+        out = torch.zeros(s * budget, dtype=dtype, device=dev)
+        out[dest] = src.to(dtype)
+        return out.view(s, budget)
+
+    return (scatter(vals, vals.dtype),
+            scatter(rows - row_off[step], torch.int32),
+            scatter(cols, torch.int32), row_off, rows_in)
+
+
+def _ell_buffers(rows, cols, vals, lengths, m_rows, r):
+    """Padded ELL ``(vals (m_rows, r), cols (m_rows, r))`` of the
+    row-sorted entries with ``lengths`` (m,) entries a row: entry g of row
+    i lands in slot g − (the row's first entry); pads are (value 0,
+    column 0).  One scatter of distinct slots per buffer."""
+    dev = vals.device
+    rows64 = rows.to(torch.int64)
+    first = torch.cumsum(lengths, 0) - lengths
+    slot = torch.arange(vals.shape[0], device=dev) - first[rows64]
+    dest = rows64 * r + slot
+    ev = torch.zeros(m_rows * r, dtype=vals.dtype, device=dev)
+    ec = torch.zeros(m_rows * r, dtype=torch.int32, device=dev)
+    ev[dest] = vals
+    ec[dest] = cols.to(torch.int32)
+    return ev.view(m_rows, r), ec.view(m_rows, r)
+
+
 class ShardedSparse:
     """The reference's row-panel-sharded sparse layout, on one shard.
 
@@ -85,7 +193,7 @@ class ShardedSparse:
 
     __slots__ = ("data", "lrows", "cols", "counts_dev", "counts",
                  "row_nnz", "shape", "mesh", "m_local", "nse", "_rowsq",
-                 "cols_host")
+                 "cols_host", "_ell", "_rsteps")
 
     def __init__(self, data, lrows, cols, counts, row_nnz, shape, mesh,
                  cols_host=None):
@@ -101,6 +209,8 @@ class ShardedSparse:
             // int(data.shape[0])
         self.nse = int(data.shape[1])
         self._rowsq = None
+        self._ell = None
+        self._rsteps = {}
         self.cols_host = None if cols_host is None \
             else np.asarray(cols_host, np.int32)
 
@@ -172,14 +282,44 @@ class ShardedSparse:
                 self.cols[0, :k].cpu().numpy().astype(np.int64),
                 self.data[0, :k].cpu().numpy())
 
+    def _live(self):
+        """(rows, cols, vals) device views of the live entries."""
+        k = self.counts[0]
+        return self.lrows[0, :k], self.cols[0, :k], self.data[0, :k]
+
     def panel_view(self, steps, h):
-        _unported("ShardedSparse.panel_view", "A.10")
+        _unported("ShardedSparse.panel_view (the multi-panel SpMM layout; "
+                  "its consumer is ALS)", "A.10")
 
     def ell_buffers(self):
-        _unported("ShardedSparse.ell_buffers", "A.10")
+        """Padded ELL ``(vals (p·m_local, r), cols (p·m_local, r))`` with
+        r the largest row's entry count, built on the device from the
+        live entries; rows past the logical m are all zero.  Cached."""
+        if self._ell is None:
+            r = max(1, int(self.row_nnz.max(initial=1)))
+            lengths = torch.zeros(self.p * self.m_local, dtype=torch.int64,
+                                  device=self.data.device)
+            lengths[:self.shape[0]] = torch.from_numpy(self.row_nnz).to(
+                self.data.device)
+            self._ell = _ell_buffers(*self._live(), lengths,
+                                     self.p * self.m_local, r)
+        return self._ell
+
+    def row_step_plan(self, chunk):
+        """Host ``(steps, budget)`` of :func:`row_step_plan` from the host
+        ``row_nnz``: no device read decides the step shapes."""
+        return row_step_plan(self.row_nnz, chunk)
 
     def row_step_buffers(self, chunk):
-        _unported("ShardedSparse.row_step_buffers", "A.10")
+        """The kNN streaming buffers ``(data (s, budget), local_rows, cols,
+        row_off (s,), rows_in (s,))`` gathered on the device, the
+        reference's plan and entry order.  Cached per chunk."""
+        key = int(chunk)
+        if key not in self._rsteps:
+            plan, budget = self.row_step_plan(key)
+            self._rsteps[key] = _row_step_buffers(*self._live(), plan,
+                                                  budget)
+        return self._rsteps[key]
 
 
 class SparseArray:
@@ -201,6 +341,10 @@ class SparseArray:
         self._dense_cache = None
         self._csr_cache = None
         self._sharded_rep = None
+        self._row_nnz_host = None
+        self._distinct_rep = None
+        self._ell_cache = None
+        self._rsteps = {}
 
     @classmethod
     def _from_triplets(cls, rows, cols, vals, shape, mesh, reg_shape=None,
@@ -319,13 +463,80 @@ class SparseArray:
         _unported("SparseArray.resharded (the on-device sparse reshard)",
                   "A.11")
 
+    def sharded_rows(self, mesh=None):
+        """(data, local_rows, cols, rowsq) of the :class:`ShardedSparse`
+        buffers (leading axis the shard; pads (value 0, row 0, column
+        0))."""
+        rep = self.sharded(mesh)
+        return rep.data, rep.lrows, rep.cols, rep.rowsq()
+
+    # -- the estimator staging layouts ----------------------------------------
+
+    def _row_nnz(self) -> np.ndarray:
+        """Host (m,) entries per row (one read, counted under
+        ``"sparse"``), kept."""
+        if self._row_nnz_host is None:
+            count_read("sparse")
+            self._row_nnz_host = self._row_len.cpu().numpy()
+        return self._row_nnz_host
+
+    def _distinct(self) -> "SparseArray":
+        """This array with duplicate (row, column) entries summed in entry
+        order: itself when it has none (checked once, one read).  The
+        staging layouts of the kNN and CascadeSVM densify rows by a scatter
+        of distinct positions, which needs distinct entries."""
+        if self._distinct_rep is None:
+            rows, cols, vals = self._coalesced()
+            count_read("sparse")
+            self._distinct_rep = self if rows.shape[0] == self.nnz else \
+                SparseArray(rows, cols, vals, self._shape, self._mesh,
+                            self._reg_shape)
+        return self._distinct_rep
+
     def ell(self, budget=None):
-        _unported("SparseArray.ell", "A.10")
+        """Padded ELL buffers ``(vals (m, r), cols (m, r))`` with r the
+        largest row's entry count, built on the device: ``vals[i]`` and
+        ``cols[i]`` densify row i by one scatter, so an estimator that
+        gathers arbitrary row subsets (CascadeSVM's node staging) does it
+        on the device.  Pads are (value 0, column 0).  Returns None when
+        the buffers' bytes exceed ``budget`` (default
+        :func:`ell_budget_bytes`): the caller then stages from a host CSR.
+        The budget is checked on every call, against the kept buffers
+        too."""
+        budget = ell_budget_bytes() if budget is None else int(budget)
+        m = self._shape[0]
+        r = max(1, int(self._row_nnz().max(initial=1)))
+        if m * r * 8 > budget:
+            return None
+        if self._ell_cache is None:
+            self._ell_cache = _ell_buffers(
+                self._rows, self._cols, self._vals, self._row_len, m, r)
+        return self._ell_cache
+
+    def row_step_plan(self, chunk):
+        """Host ``(steps, budget)`` of :func:`row_step_plan`."""
+        return row_step_plan(self._row_nnz(), chunk)
 
     def row_steps(self, chunk):
-        _unported("SparseArray.row_steps", "A.10")
+        """Equal-shape per-step entry buffers for streaming bounded dense
+        windows of the matrix (the sparse kNN): ``(data (s, budget),
+        local_rows, cols, row_off (s,), rows_in (s,))`` with the steps of
+        :meth:`row_step_plan` and pads (value 0, row 0, column 0).  Built on
+        the device; kept per chunk."""
+        key = int(chunk)
+        if key not in self._rsteps:
+            plan, budget = self.row_step_plan(key)
+            self._rsteps[key] = _row_step_buffers(
+                self._rows, self._cols, self._vals, plan, budget)
+        return self._rsteps[key]
 
     # -- the dense escape hatch ----------------------------------------------
+
+    def as_dense(self) -> Array:
+        """The dense ds-array over :attr:`_data` (the budget-guarded lazy
+        backing): the input of an estimator with no sparse-native
+        path."""
+        return Array(self._data, self._shape, self._mesh, self._reg_shape)
 
     @property
     def _data(self) -> torch.Tensor:
@@ -340,9 +551,10 @@ class SparseArray:
                     f"densifying this {self._shape} SparseArray needs "
                     f"~{need / 2**30:.1f} GiB (> budget "
                     f"{budget / 2**30:.1f} GiB). This estimator has no "
-                    "sparse-native path; use a sparse-aware one (KMeans) "
-                    "or raise DSLIB_SPARSE_DENSIFY_BUDGET to densify "
-                    "anyway.")
+                    "sparse-native path; use a sparse-aware one (KMeans, "
+                    "NearestNeighbors, KNeighborsClassifier, CascadeSVM, "
+                    "scalers) or raise DSLIB_SPARSE_DENSIFY_BUDGET to "
+                    "densify anyway.")
             self._dense_cache = self.to_dense()._data
         return self._dense_cache
 
@@ -436,7 +648,8 @@ class SparseArray:
 
     def scale_cols(self, v) -> "SparseArray":
         """Column-wise scaling x[:, j] · v[j], sparsity-preserving."""
-        v = torch.as_tensor(np.asarray(v), device=self.device).reshape(-1)
+        v = (v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))).to(self.device).reshape(-1)
         if v.shape[0] != self._shape[1]:
             raise ValueError(f"scale vector length {v.shape[0]} != "
                              f"{self._shape[1]} columns")

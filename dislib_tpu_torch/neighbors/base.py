@@ -1,6 +1,6 @@
 """Nearest neighbours.
 
-Counterpart of ``dislib_tpu/neighbors/base.py`` (dense).  The all-pairs
+Counterpart of ``dislib_tpu/neighbors/base.py``.  The all-pairs
 block product is the distance ‖q‖² − 2q·xᵀ + ‖x‖² and the k-best merge a
 top-k.  A fit set of at most 2·``_CHUNK`` rows takes the direct path (one
 (mq, mf) distance block); a larger one streams in fitted-row chunks of
@@ -20,8 +20,19 @@ has one row until ROADMAP.md A.2, so every setting takes the path above;
 ``ring=True`` says so in a warning.  The ring stays reachable by a direct
 call.
 
-Not ported yet: sparse fit sets and queries (ROADMAP.md A.10), which
-raise ``NotImplementedError``.
+Sparse fit sets and queries (the reference's ``_kneighbors_sparse`` and
+``_stream_topk``) never densify a whole matrix: the fit set streams as
+dense (``chunk``, n) windows, ``chunk`` = ``min(_CHUNK, mf)``.  A sparse
+fit set's windows come from its ``row_steps`` (steps bounded by rows and
+by entries), each densified by one scatter of distinct positions, with
+its row norms as a fixed-order segment sum; a dense fit set is sliced
+into the same row windows.  The cross term is one GEMM with TF32 off for
+dense queries (outside any kernel, as in the reference) and
+``ops/spmm.spmm_rows`` against the window's transpose for sparse
+queries.  The running merge is ``ops/base.merge_smallest``, ties to the
+lower index.  The reference's ``shard_map`` variants exist only for a
+mesh of more than one row (ROADMAP.md A.2); on one rank a sharded-backed
+query takes the same stream.
 """
 
 from __future__ import annotations
@@ -31,9 +42,11 @@ import warnings
 import torch
 
 from dislib_tpu_torch.base import BaseEstimator, carried_array
-from dislib_tpu_torch.data.array import Array, require_dense
+from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.sparse import SparseArray, check_input
 from dislib_tpu_torch.ops.base import distances_sq, merge_smallest, \
     precise, split_keys
+from dislib_tpu_torch.ops.spmm import seg_sum, spmm_rows
 
 # fitted-row chunk of the streaming path; fit sets up to 2×_CHUNK rows
 # take the direct path (module-level so tests can shrink it)
@@ -54,7 +67,7 @@ class NearestNeighbors(BaseEstimator):
         self.ring = ring
 
     def fit(self, x: Array, y=None):
-        require_dense(x, "NearestNeighbors")
+        check_input(x, "NearestNeighbors")
         self._fit_data = x
         return self
 
@@ -67,14 +80,17 @@ class NearestNeighbors(BaseEstimator):
         f = self._fit_data
         if not 1 <= k <= f.shape[0]:
             raise ValueError(f"n_neighbors {k} not in [1, {f.shape[0]}]")
-        require_dense(x, "NearestNeighbors.kneighbors")
+        check_input(x, "NearestNeighbors.kneighbors")
         if self.ring:
             warnings.warn("NearestNeighbors(ring=True): the ring schedule "
                           "needs a mesh of more than one row (ROADMAP.md "
                           "A.2); the chunked path runs", UserWarning,
                           stacklevel=2)
-        d, idx = _kneighbors(x._data, f._data, x.shape, f.shape, k,
-                             chunk=_CHUNK)
+        if isinstance(f, SparseArray) or isinstance(x, SparseArray):
+            d, idx = _kneighbors_sparse(x, f, k)
+        else:
+            d, idx = _kneighbors(x._data, f._data, x.shape, f.shape, k,
+                                 chunk=_CHUNK)
         shape = (x.shape[0], k)
         i_arr = Array._from_padded(idx, shape, x._mesh)
         if return_distance:
@@ -112,4 +128,65 @@ def _kneighbors(qp, fp, q_shape, f_shape, k, chunk=None):
     for off in range(0, mf, step):
         best = merge_smallest(best, distances_sq(qv, fv[off: off + step],
                                                  use_kernel=True), k, off)
+    return _finish(*split_keys(best), mq)
+
+
+def _fit_windows(f, chunk):
+    """The fit set as dense (``chunk``, n) row windows in index order:
+    yields ``(row_off, rows_in, window (rows_in, n), row norms
+    (rows_in,))``.  A ``SparseArray`` streams its ``row_steps`` (duplicate
+    entries summed first), each step's entries scattered onto a zero
+    window, its padding slots onto a sink column that is cut off; a dense
+    ds-array is sliced."""
+    n = f.shape[1]
+    if isinstance(f, SparseArray):
+        f = f._distinct()
+        plan, _ = f.row_step_plan(chunk)
+        data, lrows, cols = f.row_steps(chunk)[:3]
+        row_nnz = torch.from_numpy(f._row_nnz()).to(f.device)
+        for i, (ro, rc, nlo, nhi) in enumerate(plan):
+            live = nhi - nlo
+            c = cols[i].to(torch.int64)
+            c[live:] = n                            # padding → the sink
+            win = torch.zeros((rc, n + 1), dtype=data.dtype,
+                              device=data.device)
+            win[lrows[i].to(torch.int64), c] = data[i]
+            v = data[i, :live]
+            yield ro, rc, win[:, :n], seg_sum(v * v, row_nnz[ro:ro + rc])
+        return
+    fv = f._data[: f.shape[0], :n]
+    for ro in range(0, f.shape[0], chunk):
+        win = fv[ro: ro + chunk]
+        yield ro, win.shape[0], win, torch.sum(win * win, dim=1)
+
+
+@precise
+def _kneighbors_sparse(x, f, k):
+    """(distances (mq, k) float32, indices (mq, k) int32) of the ``k``
+    nearest rows of ``f`` for each row of ``x``, one or both a
+    ``SparseArray``: a running top-k over the fit set's windows
+    (:func:`_fit_windows`), whose cross term against the queries is one
+    GEMM (dense queries) or one SpMM (sparse queries)."""
+    mq = x.shape[0]
+    chunk = min(_CHUNK, max(1, f.shape[0]))
+    if isinstance(x, SparseArray):
+        q = x._distinct()
+        q_sq = q.row_norms_sq()
+
+        def cross(win):
+            return spmm_rows(q._row_len, q._cols, q._vals,
+                             win.T.contiguous())
+    else:
+        qv = x._data[:mq, : x.shape[1]]
+        q_sq = torch.sum(qv * qv, dim=1)
+
+        def cross(win):
+            return qv @ win.T
+    best = None
+    for ro, rc, win, f_sq in _fit_windows(f, chunk):
+        if rc == 0:
+            continue
+        d2 = torch.clamp_min(q_sq[:, None] - 2.0 * cross(win)
+                             + f_sq[None, :], 0.0)
+        best = merge_smallest(best, d2, k, ro)
     return _finish(*split_keys(best), mq)

@@ -6,9 +6,11 @@ Counterpart of ``dislib_tpu/ops/pallas_kernels.py``:
   (``csrc/panel_gemm.cu``; launch plan :func:`gemm_plan`);
 - :func:`distances_sq` — ‖a‖² − 2a·bᵀ + ‖b‖² clamped at zero
   (``csrc/distances_sq.cu``; plan :func:`dist_plan`), the KMeans E-step,
-  predict and score; and its bf16-operand variant
+  predict and score; its bf16-operand variant
   :func:`distances_sq_bf16` (plan :func:`dist_bf16_plan`), the E-step of
-  KMeans ``fast_distance`` and ``precision="default"``;
+  KMeans ``fast_distance`` and ``precision="default"``; and its batched
+  entry :func:`distances_sq_batched` (plan :func:`dist_batched_plan`),
+  CascadeSVM's per-node sub-Grams of a cascade level in one launch;
 - :func:`node_histogram` — the forest's per-level weighted (node, feature,
   bin) histogram, for every tree in one call (``csrc/node_histogram.cu``;
   plan :func:`hist_plan`).
@@ -22,8 +24,8 @@ There is no fallback from a CUDA tensor to the plain version.
 :data:`LAUNCHES` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels: one per call that reaches the
 CUDA code of a source, whatever number of CUDA kernels the call runs
-(node_histogram runs four); ``"distances_sq"`` counts both of its entry
-points.
+(node_histogram runs four); ``"distances_sq"`` counts all three of its
+entry points (float32, bf16 operands, batched).
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(name, *ts):
+def _check_cuda(name, *ts, ndim=2):
     dev = ts[0].device
     for t in ts:
         if t.device.type != "cuda" or t.device != dev:
@@ -65,8 +67,8 @@ def _check_cuda(name, *ts):
                 f"{name}: operands must all be CPU tensors (plain version) "
                 f"or all on one CUDA device (kernel); got "
                 f"{[str(x.device) for x in ts]}")
-        if t.dim() != 2:
-            raise ValueError(f"{name}: operands must be 2-D, got shape "
+        if t.dim() != ndim:
+            raise ValueError(f"{name}: operands must be {ndim}-D, got shape "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes row-major "
@@ -361,6 +363,69 @@ def distances_sq(a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, d, *plan,
             torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on_error("distances_sq", rc)
+    LAUNCHES["distances_sq"] += 1
+    return out
+
+
+def distances_sq_batched_plain(a: torch.Tensor,
+                               b: torch.Tensor) -> torch.Tensor:
+    """The batched version's plain formulation: (nb, m, k) squared
+    distances of ``a`` (nb, m, d) and ``b`` (nb, k, d), one float32
+    ``bmm`` with TF32 off, clamped at zero."""
+    a_sq = torch.sum(a * a, dim=2, keepdim=True)
+    b_sq = torch.sum(b * b, dim=2)
+    with px.precise():
+        cross = torch.bmm(a, b.transpose(1, 2))
+    return torch.clamp_min(a_sq - 2.0 * cross + b_sq[:, None, :], 0.0)
+
+
+def dist_batched_plan(nb: int, m: int, d: int, a_ptr: int,
+                      n_sms: int) -> DistPlan:
+    """One problem's :func:`dist_plan`, its persistent blocks cut so that
+    the ``nb`` problems together fill the SMs once (each block walks its
+    problem's tiles, so any count of at least one is right)."""
+    plan = dist_plan(m, d, a_ptr, n_sms)
+    if not plan.rows:
+        return plan
+    per_sm = max(1, min(8, DIST_SMEM_LIMIT // (plan.smem_bytes + 1024)))
+    return plan._replace(grid=max(1, min(plan.grid,
+                                         _cdiv(n_sms * per_sm, nb))))
+
+
+def distances_sq_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distances (nb, m, k) float32, clamped at zero, of
+    ``nb`` equal-shape problems: the rows of ``a`` (nb, m, d) against the
+    rows of ``b`` (nb, k, d), all in one launch of the float32 kernel with
+    a grid dimension over the problems (no reference kernel of its own:
+    the reference computes each cascade node's ``distances_sq`` inside a
+    ``vmap``).  CPU tensors take :func:`distances_sq_batched_plain`; CUDA
+    tensors must be float32 and contiguous, ``nb`` at most 65,535."""
+    if _on_cpu(a, b):
+        return distances_sq_batched_plain(a, b)
+    _check_cuda("distances_sq_batched", a, b, ndim=3)
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"distances_sq_batched: the CUDA kernel takes "
+                        f"float32 operands, got {a.dtype} and {b.dtype}")
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
+            or a.shape[2] != b.shape[2]:
+        raise ValueError(f"distances_sq_batched: shapes {tuple(a.shape)} "
+                         f"and {tuple(b.shape)} are not (nb, m, d) and "
+                         "(nb, k, d)")
+    (nb, m, d), k = a.shape, b.shape[1]
+    if nb > 65535:
+        raise ValueError(f"distances_sq_batched: {nb} problems > 65535")
+    out = torch.empty((nb, m, k), dtype=torch.float32, device=a.device)
+    if nb == 0 or m == 0 or k == 0:
+        return out
+    plan = dist_batched_plan(nb, m, d, a.data_ptr(),
+                             torch.cuda.get_device_properties(
+                                 a.device).multi_processor_count)
+    lib = _build.library("distances_sq")
+    with torch.cuda.device(a.device):
+        rc = lib.dslib_distances_sq_f32_batched(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), nb, m, k, d, *plan,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on_error("distances_sq_batched", rc)
     LAUNCHES["distances_sq"] += 1
     return out
 

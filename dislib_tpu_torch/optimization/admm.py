@@ -29,6 +29,7 @@ import torch
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.kmeans import _to_host
 from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops.base import cholesky_nan, precise
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime.loop import run_chunked
@@ -90,10 +91,9 @@ class ADMM(BaseEstimator):
     # steps (runtime/loop.run_chunked, counted in HOST_READS), where the
     # reference's lax.while_loop reads nothing
     def _fit_async(self, x: Array, y: Array):
-        if not isinstance(x, Array) or not isinstance(y, Array):
-            raise NotImplementedError(
-                "ADMM takes dense ds-arrays; sparse input is ROADMAP.md "
-                "A.10")
+        # a SparseArray densifies through its budget-guarded lazy
+        # backing, as the reference's x._data does
+        x, y = dense_input(x, "ADMM"), dense_input(y, "ADMM")
         if y.shape[1] != 1:
             raise ValueError(
                 f"ADMM supports a single target column; y is {y.shape}")

@@ -5,9 +5,12 @@ the ds-array's reductions, transform a broadcasted elementwise op on the
 device.  ``mean_``, ``var_``, ``data_min_`` and ``data_max_`` are (1, n)
 ds-arrays, as in the reference.
 
-The reference's sparse branches (a ``SparseArray`` under
-``with_mean=False``) are not ported: sparse input raises
-``NotImplementedError`` (ROADMAP.md A.10).
+Sparse input, as in the reference: ``StandardScaler(with_mean=False)``
+fits a ``SparseArray`` by the one-pass moments ``mean``, ``square().mean``
+and ``var = E[x²] − μ²`` (fixed-order column sums of the nonzeros) and
+transforms it by ``scale_cols``, staying sparse; centering a
+``SparseArray`` raises ``ValueError``, and ``MinMaxScaler`` (whose shift
+densifies) raises ``TypeError`` on one.
 """
 
 from __future__ import annotations
@@ -16,13 +19,7 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator, carried_array
 from dislib_tpu_torch.data.array import Array, _repad, _zero_pad
-
-
-def _check_dense(x, who):
-    if not isinstance(x, Array):
-        raise NotImplementedError(
-            f"{who} on {type(x).__name__}: the port takes dense ds-arrays; "
-            "sparse input is ROADMAP.md A.10")
+from dislib_tpu_torch.data.sparse import check_input as _check_input
 
 
 class StandardScaler(BaseEstimator):
@@ -36,7 +33,16 @@ class StandardScaler(BaseEstimator):
         self.with_std = with_std
 
     def fit(self, x: Array, y=None):
-        _check_dense(x, "StandardScaler")
+        if _check_input(x, "StandardScaler"):
+            if self.with_mean:
+                raise ValueError(
+                    "cannot center a SparseArray (densifies); use "
+                    "with_mean=False or x.to_dense()")
+            # one-pass moments: centering would densify
+            self.mean_ = x.mean(axis=0)
+            ex2 = x.square().mean(axis=0)
+            self.var_ = ex2 - self.mean_ * self.mean_
+            return self
         m = x.shape[0]
         mean = x.mean(axis=0)
         # two-pass variance: mean((x-μ)²), biased (ddof=0) like the
@@ -59,7 +65,12 @@ class StandardScaler(BaseEstimator):
 
     def transform(self, x: Array) -> Array:
         self._check_fitted()
-        _check_dense(x, "StandardScaler")
+        if _check_input(x, "StandardScaler"):
+            if self.with_mean:
+                raise ValueError("cannot center a SparseArray")
+            if not self.with_std:
+                return x
+            return x.scale_cols(1.0 / _sqrt_vec(self.var_))
         out = x
         if self.with_mean:
             out = out - self.mean_
@@ -69,7 +80,12 @@ class StandardScaler(BaseEstimator):
 
     def inverse_transform(self, x: Array) -> Array:
         self._check_fitted()
-        _check_dense(x, "StandardScaler")
+        if _check_input(x, "StandardScaler"):
+            if self.with_mean:
+                raise ValueError("cannot center a SparseArray")
+            if not self.with_std:
+                return x
+            return x.scale_cols(_sqrt_vec(self.var_))
         out = x
         if self.with_std:
             out = out * self._scale_array()
@@ -94,7 +110,9 @@ class MinMaxScaler(BaseEstimator):
         self.feature_range = feature_range
 
     def fit(self, x: Array, y=None):
-        _check_dense(x, "MinMaxScaler")
+        if _check_input(x, "MinMaxScaler"):
+            raise TypeError("MinMaxScaler is dense-only (its affine shift "
+                            "densifies); use x.to_dense()")
         self.data_min_ = x.min(axis=0)
         self.data_max_ = x.max(axis=0)
         return self
@@ -114,14 +132,14 @@ class MinMaxScaler(BaseEstimator):
 
     def transform(self, x: Array) -> Array:
         self._check_fitted()
-        _check_dense(x, "MinMaxScaler")
+        _check_input(x, "MinMaxScaler")
         lo, hi = self.feature_range
         scaled = (x - self.data_min_) / self._range_array()
         return scaled * (hi - lo) + float(lo)
 
     def inverse_transform(self, x: Array) -> Array:
         self._check_fitted()
-        _check_dense(x, "MinMaxScaler")
+        _check_input(x, "MinMaxScaler")
         lo, hi = self.feature_range
         return (x - float(lo)) / (hi - lo) * self._range_array() \
             + self.data_min_
@@ -135,11 +153,15 @@ class MinMaxScaler(BaseEstimator):
             raise RuntimeError("MinMaxScaler is not fitted")
 
 
+def _sqrt_vec(v: Array) -> torch.Tensor:
+    """(n,) sqrt(max(v, 0)) with zeros → 1 (a no-op scale)."""
+    d = torch.sqrt(torch.clamp_min(v._data[0, : v._shape[1]], 0.0))
+    return torch.where(d == 0.0, torch.ones_like(d), d)
+
+
 def _safe_sqrt(v: Array) -> Array:
-    """sqrt(max(v, 0)) with zeros → 1 (a no-op scale), as a padded (1, n)
-    ds-array."""
-    d = torch.sqrt(torch.clamp_min(v._data[:1, : v._shape[1]], 0.0))
-    d = torch.where(d == 0.0, torch.ones_like(d), d)
+    """:func:`_sqrt_vec` as a padded (1, n) ds-array."""
+    d = _sqrt_vec(v).reshape(1, -1)
     return Array(_repad(d, v._shape, v._mesh), v._shape, v._mesh,
                  v._reg_shape)
 

@@ -3,8 +3,9 @@
 Counterpart of ``dislib_tpu/regression/linear.py``: XᵀX and Xᵀy are GEMMs
 on the device (a masked ones-column carries the intercept) and the
 (n+1)×(n+1) system is solved there, with a 1e-7 ridge for rank-deficient
-inputs.  Multi-output y is supported; sparse input raises
-``NotImplementedError`` (ROADMAP.md A.10).  Everything runs under
+inputs.  Multi-output y is supported.  A ``SparseArray`` is densified
+through its budget-guarded lazy backing, as in the reference
+(``data/sparse.dense_input``).  Everything runs under
 :func:`~dislib_tpu_torch.ops.precision.precise` (TF32 off).  ``predict``
 is the reference's fusion-graph node body, called eagerly.  ``fit`` is
 ``_fit_finalize(_fit_async(x, y))``, the search's async-trial hooks;
@@ -19,6 +20,7 @@ import torch
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.kmeans import _to_host
 from dislib_tpu_torch.data.array import Array, ensure_canonical
+from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops.base import precise
 
 
@@ -44,10 +46,8 @@ class LinearRegression(BaseEstimator):
     def _fit_async(self, x, y=None):
         if y is None:
             raise ValueError("LinearRegression requires y")
-        if not isinstance(x, Array) or not isinstance(y, Array):
-            raise NotImplementedError(
-                "LinearRegression takes dense ds-arrays; sparse input is "
-                "ROADMAP.md A.10")
+        x = dense_input(x, "LinearRegression")
+        y = dense_input(y, "LinearRegression")
         if x.shape[0] != y.shape[0]:
             raise ValueError("x and y row counts differ")
         return _linreg_fit(x._data, y._data, x.shape, y.shape,

@@ -38,6 +38,7 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.runtime import health as _health
 
@@ -420,6 +421,9 @@ class _BaseTreeEnsemble(BaseEstimator):
     def _fit_async(self, x, y=None):
         if y is None:
             raise ValueError(f"{type(self).__name__} requires y")
+        # a SparseArray densifies through its budget-guarded lazy
+        # backing, as the reference's x._data does
+        x = dense_input(x, type(self).__name__)
         stats = self._encode_stats(x, y)
         n_trees, bootstrap = self._fit_spec()
         return self._grow_forest(x, stats, n_trees, bootstrap)

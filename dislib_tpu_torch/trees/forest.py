@@ -21,6 +21,7 @@ import torch
 from dislib_tpu_torch.base import from_fitted_arrays
 from dislib_tpu_torch.classification.knn import _score_codes
 from dislib_tpu_torch.data.array import Array, _padded_dim, _place_region
+from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.trees.decision_tree import _BaseTreeEnsemble
 
@@ -73,6 +74,7 @@ class _ClassifierMixin:
 
     def predict_proba(self, x: Array) -> Array:
         self._check_fitted()
+        x = dense_input(x, type(self).__name__)
         k = len(self.classes_)
         counts = self._votes(x)
         probs = counts / torch.clamp_min(counts.sum(dim=2, keepdim=True),

@@ -219,8 +219,14 @@ def test_rechunk_and_ensure_canonical():
                        ("dcn", NotImplementedError), ("bogus", ValueError)):
         with pytest.raises(err):
             dst.rechunk(a, schedule=sched)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        dst.rechunk(a, nse=4)
+    # nse= is a sparse knob: a dense array's rechunk does not read it, as
+    # in the reference; a SparseArray's rechunk is its reshard (A.11)
+    got = dst.rechunk(a, (3, 2), nse=4)
+    want = ds.rechunk(ds.array(x, block_size=(5, 7)), (3, 2), nse=4)
+    np.testing.assert_array_equal(got.collect(), want.collect())
+    assert got.block_size == want.block_size == (3, 2)
+    with pytest.raises(NotImplementedError, match="A.11"):
+        dst.rechunk(dst.SparseArray.from_dense(x), nse=4)
 
 
 # -- constructors, copies, iteration ---------------------------------------------

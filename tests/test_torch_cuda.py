@@ -38,7 +38,12 @@ version; DBSCAN and Daura fitted on the card equal to the CPU's on data
 whose pairwise d² keeps a 1e-3 margin from the threshold, every tier's
 distance blocks launched on the kernel.  Sparse: two SpMM calls and two
 sparse KMeans fits bit-identical (fixed-order sums, no atomics), and
-within 1e-5 of the CPU.
+within 1e-5 of the CPU.  The batched ``distances_sq`` entry within 1e-5
+of its plain version (normalized as above) and bit-equal, node by node,
+to the 2-D entry (the same tiles), one launch for all nodes; CascadeSVM
+on the card with the CPU's support vectors and α within 1e-4, two fits
+and the ELL and dense fits bit-identical; the sparse kNN within 1e-5 of
+the CPU.
 """
 
 import numpy as np
@@ -1117,3 +1122,75 @@ def test_sparse_kmeans_on_the_card_is_bit_identical(dev):
     assert col_sums.device.type == "cuda"
     np.testing.assert_allclose(col_sums.collect(), np.asarray(mat.sum(0)),
                                rtol=1e-5, atol=1e-5)
+
+
+# -- the batched distances_sq entry, CascadeSVM and the sparse kNN -----------------
+
+@pytest.mark.parametrize("shape", [(20, 1024, 20), (3, 512, 20),
+                                   (7, 257, 20), (2, 300, 33), (1, 64, 4)],
+                         ids=str)
+def test_distances_sq_batched_matches_plain(dev, shape):
+    # level 0's nodes, a merged level's, a ragged last level (cap not a
+    # multiple of a tile), an odd width (the slices), a single node
+    nb, cap, d = shape
+    g = torch.Generator(device=dev).manual_seed(cap + d)
+    a = torch.randn(shape, generator=g, device=dev)
+    b = torch.randn((nb, cap // 2 + 1, d), generator=g, device=dev)
+    for lhs, rhs in ((a, a), (a, b)):
+        K.reset_launches()
+        got = K.distances_sq_batched(lhs, rhs)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["distances_sq"] == 1        # one launch, nb nodes
+        want = K.distances_sq_batched_plain(lhs, rhs)
+        scale = float((lhs * lhs).sum(2).max() + (rhs * rhs).sum(2).max())
+        assert float((got - want).abs().max()) / scale <= 1e-5
+        for i in (0, nb - 1):             # no node reads past its own rows
+            one = K.distances_sq(lhs[i].contiguous(), rhs[i].contiguous())
+            assert torch.equal(got[i], one)
+
+
+def test_csvm_on_the_card_matches_the_cpu(dev):
+    import scipy.sparse as sp
+    from dislib_tpu_torch.classification import CascadeSVM
+    rng = np.random.RandomState(21)
+    x = np.vstack([rng.randn(600, 6), rng.randn(600, 6) + 2.5]).astype(
+        np.float32)
+    y = np.r_[np.zeros(600), np.ones(600)].astype(np.float32)[:, None]
+    kw = dict(max_iter=2, check_convergence=False)
+    card = CascadeSVM(**kw).fit(dst.array(x, block_size=(256, 6), device=dev),
+                                dst.array(y, device=dev))
+    assert K.LAUNCHES["distances_sq"] >= 2        # batched, one a level
+    again = CascadeSVM(**kw).fit(dst.array(x, block_size=(256, 6),
+                                           device=dev),
+                                 dst.array(y, device=dev))
+    np.testing.assert_array_equal(card._sv_alpha, again._sv_alpha)
+    cpu = CascadeSVM(**kw).fit(dst.array(x, block_size=(256, 6),
+                                         device="cpu"),
+                               dst.array(y, device="cpu"))
+    np.testing.assert_array_equal(card._sv_idx, cpu._sv_idx)
+    np.testing.assert_allclose(card._sv_alpha, cpu._sv_alpha, atol=1e-4)
+    xs = sp.csr_matrix(np.where(x > 1.0, x, 0.0))
+    ell = CascadeSVM(**kw).fit(dst.SparseArray.from_scipy(xs, device=dev),
+                               dst.array(y, device=dev))
+    dense = CascadeSVM(**kw).fit(dst.array(xs.toarray(), device=dev),
+                                 dst.array(y, device=dev))
+    np.testing.assert_array_equal(ell._sv_alpha, dense._sv_alpha)
+    q = dst.SparseArray.from_scipy(xs[:100], device=dev)
+    np.testing.assert_allclose(
+        ell.decision_function(q).collect(),
+        ell.decision_function(dst.array(xs[:100].toarray(),
+                                        device=dev)).collect(),
+        atol=1e-4)
+
+
+def test_sparse_kneighbors_on_the_card_matches_the_cpu(dev):
+    mat, q = _sparse(3000, 500, 0.02, 22), _sparse(200, 500, 0.02, 23)
+    out = {}
+    for where in (dev, "cpu"):
+        nn = dst.NearestNeighbors(n_neighbors=5).fit(
+            dst.SparseArray.from_scipy(mat, device=where))
+        out[str(where)] = [a.collect() for a in nn.kneighbors(
+            dst.SparseArray.from_scipy(q, device=where))]
+    np.testing.assert_allclose(out[str(dev)][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    assert K.LAUNCHES["distances_sq"] == 0

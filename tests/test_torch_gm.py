@@ -173,7 +173,15 @@ def test_gm_refusals_name_the_roadmap_items(monkeypatch):
     p = dst.array(_blobs())
     with pytest.raises(NotImplementedError, match="A.12"):
         PortGM(n_components=K).fit(p, checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # a SparseArray densifies through its lazy backing, as in the
+    # reference: the fit equals the fit on the dense array, bit for bit
+    sparse = PortGM(n_components=K, random_state=0).fit(
+        dst.SparseArray.from_dense(_blobs()))
+    dense = PortGM(n_components=K, random_state=0).fit(p)
+    for name in ("weights_", "means_", "covariances_", "history_"):
+        np.testing.assert_array_equal(getattr(sparse, name),
+                                      getattr(dense, name))
+    with pytest.raises(TypeError):
         PortGM(n_components=K).fit(_blobs())
     # KMeans' fast mode is ported: GM's kmeans init runs it, and the fit
     # ends fitted and finite

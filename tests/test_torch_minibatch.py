@@ -94,5 +94,20 @@ def test_refusals_name_the_roadmap_items():
     with pytest.raises(NotImplementedError, match="A.12"):
         PortMBK(n_clusters=2).partial_fit(dst.array(_blobs()),
                                           checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A.10"):
-        PortMBK(n_clusters=2).partial_fit(sp.random(10, 3, format="csr"))
+    # a sparse batch raises ValueError in both packages (the reference's
+    # np.asarray of it fails); predict takes sparse queries, as KMeans'
+    xs = sp.random(16, 3, density=0.5, format="csr", random_state=0,
+                   dtype=np.float32)
+    for est, arr in ((PortMBK(n_clusters=2, batch_size=8), dst.SparseArray),
+                     (RefMBK(n_clusters=2, batch_size=8), None)):
+        with pytest.raises(ValueError):
+            est.partial_fit(xs)
+        if arr is not None:
+            with pytest.raises(ValueError):
+                est.fit(arr.from_scipy(xs))
+    port = PortMBK(n_clusters=2, random_state=0).fit(dst.array(_blobs()))
+    q = _blobs(seed=1)[:50]
+    q[q < 0] = 0.0
+    np.testing.assert_array_equal(
+        port.predict(dst.SparseArray.from_dense(q)).collect(),
+        port.predict(dst.array(q)).collect())

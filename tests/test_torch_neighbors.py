@@ -307,18 +307,33 @@ def test_from_fitted_arrays_knn_classifier():
 
 
 def test_sparse_input_raises_naming_a10():
+    # sparse fit sets and queries are ported: the sparse stream equals the
+    # reference's (and the port's dense path) on every combination
+    from dislib_tpu.data.sparse import SparseArray as RefSparse
     f, q = _fq()
-    fs = sp.csr_matrix(f)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        PortNN().fit(fs)
-    nn = PortNN().fit(dst.array(f))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        nn.kneighbors(sp.csr_matrix(q))
+    f[f < 0.4], q[q < 0.4] = 0.0, 0.0
+    fs, qs = sp.csr_matrix(f), sp.csr_matrix(q)
+    dense = PortNN(n_neighbors=4).fit(dst.array(f)).kneighbors(dst.array(q))
+    for fp, fr in ((dst.SparseArray.from_scipy(fs), RefSparse.from_scipy(fs)),
+                   (dst.array(f), ds.array(f))):
+        for qp, qr in ((dst.SparseArray.from_scipy(qs),
+                        RefSparse.from_scipy(qs)), (dst.array(q), None)):
+            got = PortNN(n_neighbors=4).fit(fp).kneighbors(qp)
+            np.testing.assert_array_equal(got[1].collect(),
+                                          dense[1].collect())
+            np.testing.assert_allclose(got[0].collect(), dense[0].collect(),
+                                       rtol=1e-5, atol=1e-5)
+            if qr is not None:
+                want = RefNN(n_neighbors=4).fit(fr).kneighbors(qr)
+                np.testing.assert_array_equal(got[1].collect(),
+                                              want[1].collect())
     x, y = _labelled()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        PortKNN().fit(sp.csr_matrix(x), dst.array(y))
-    knn = PortKNN().fit(dst.array(x), dst.array(y))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        knn.predict(sp.csr_matrix(x))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        dst.shuffle(sp.csr_matrix(x))
+    x[x < 0.3] = 0.0
+    xs = dst.SparseArray.from_scipy(sp.csr_matrix(x))
+    knn = PortKNN(n_neighbors=3).fit(xs, dst.array(y))
+    ref = RefKNN(n_neighbors=3).fit(RefSparse.from_scipy(sp.csr_matrix(x)),
+                                    ds.array(y))
+    np.testing.assert_array_equal(knn.predict(xs).collect(),
+                                  ref.predict(ds.array(x)).collect())
+    with pytest.raises(TypeError):
+        PortNN().fit(sp.csr_matrix(f))

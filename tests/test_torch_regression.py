@@ -121,15 +121,29 @@ def test_scalers_carried_from_reference_transform_like_it():
 
 
 def test_sparse_input_names_a10():
+    # sparse input, as in the reference: StandardScaler(with_mean=False)
+    # fits one-pass moments (within 1e-5 of the reference's), MinMaxScaler
+    # refuses, LinearRegression and Lasso densify (bit-equal to the fit on
+    # the dense array)
     import scipy.sparse as sp
-    xs = sp.random(10, 3, format="csr")
-    for est in (PortStd(with_mean=False), PortMinMax()):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            est.fit(xs)
-    y = dst.array(np.ones((10, 1), np.float32))
-    for est in (PortLinear(), PortLasso()):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            est.fit(xs, y)
+    from dislib_tpu.data.sparse import SparseArray as RefSparse
+    x, y = _data(m=96)
+    x[np.abs(x) < 0.8] = 0.0
+    xs = sp.csr_matrix(x)
+    ps, rs = dst.SparseArray.from_scipy(xs), RefSparse.from_scipy(xs)
+    port, ref = PortStd(with_mean=False).fit(ps), \
+        RefStd(with_mean=False).fit(rs)
+    for name in ("mean_", "var_"):
+        np.testing.assert_allclose(getattr(port, name).collect(),
+                                   getattr(ref, name).collect(), rtol=1e-5,
+                                   atol=1e-6)
+    for est, arr in ((PortMinMax(), ps), (RefMinMax(), rs)):
+        with pytest.raises(TypeError):
+            est.fit(arr)
+    y_p = dst.array(y)
+    for cls in (PortLinear, PortLasso):
+        sparse, dense = cls().fit(ps, y_p), cls().fit(dst.array(x), y_p)
+        np.testing.assert_array_equal(sparse.coef_, dense.coef_)
 
 
 # -- LinearRegression ----------------------------------------------------------

@@ -177,13 +177,18 @@ def test_sharded_layout_and_knobs(monkeypatch):
 
 
 def test_unported_layouts_name_the_roadmap_items():
-    port = PortSparse.from_scipy(_mat())
+    # the on-device reshard stays A.11 and panel_view waits for ALS; ell
+    # and row_steps are ported: bit-equal to the reference's
+    ref, port = _both(_mat())
     with pytest.raises(NotImplementedError, match="A.11"):
         port.resharded()
-    for call in (lambda: port.ell(), lambda: port.row_steps(8),
-                 lambda: port.sharded().panel_view(4, 8)):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            call()
+    with pytest.raises(NotImplementedError, match="ALS"):
+        port.sharded().panel_view(4, 8)
+    for got, want in zip(port.ell(), ref.ell()):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for got, want in zip(port.row_steps(8), ref.row_steps(8)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert port.ell(budget=8) is None and ref.ell(budget=8) is None
 
 
 def test_array_of_a_scipy_matrix_is_dense_as_the_reference():
