@@ -62,7 +62,18 @@ svmlight-style sparse rows through the ELL staging and the host-CSR
 fallback (each equal to the dense fit), and a scaler, ``shuffle``,
 ``LinearRegression`` and a forest on a ``SparseArray`` against the same
 calls on the densified array (and ``MemoryError`` past the densify
-budget) — and checks every result.  Each
+budget) — then ``ALS`` at bench_als_sparse's 100,000 x 10,000 with 100
+ratings a user on a ``SparseArray`` (a user and an item half-step against
+a float64 solve on a subset, the dense fit on the densified ratings equal
+to the sparse fit, two sparse fits bit-identical, the RMSE decreasing,
+``fold_in`` of 8 and of 4,096 users against float64) and the
+``IVFIndex`` at bench_ann's 1,000,000 x 64, 4,096 queries, 1,024 lists,
+nprobe 32 (its quantizer's E-step on ``distances_sq``, the lists against
+a NumPy bucketing of the quantizer's labels, recall@10 ≥ 0.95 against
+float64 under ``db`` and under ``kernel``, whose centroid product is
+``panel_gemm``, the exact ``kneighbors`` timed beside it, ``nprobe =
+n_lists`` against the exact kNN on a 20,000-row cut) — and checks every
+result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -107,6 +118,8 @@ GEMM_N = 16384
 RF_M, RF_N, RF_T = 1_000_000, 100, 16
 # the tree fitted on the card and on the CPU: bench.py's full forest shape
 DT_M, DT_N = 100_000, 20
+# the plain node_histogram timed on the host at a CPU fit's level size
+HIST_CPU_M = 20_000
 # node_histogram shapes held against the plain version: (T, m, n,
 # n_nodes, n_bins, S)
 HIST_RAGGED = [(3, 1000, 7, 4, 32, 2),        # ragged m, several chunks
@@ -213,6 +226,22 @@ SKNN_Q, SKNN_K = 1_000, 10
 # sparse input to the other estimators: svmlight-style rows, SI_NNZ of
 # SI_N columns each
 SI_M, SI_N, SI_NNZ = 100_000, 200, 10
+# ALS at bench_als_sparse's size (bench.py:2524, run at :3119): 100,000
+# users x 10,000 items, 100 draws of an item a user (duplicates summed),
+# n_f 16, lambda 0.065, 3 sweeps; the half-steps held on ALS_HOLD_U users
+# and ALS_HOLD_I items; fold-in batches of ALS_FOLD users, top 10
+ALS_M, ALS_N, ALS_NNZ, ALS_F, ALS_LAM, ALS_ITERS = \
+    100_000, 10_000, 100, 16, 0.065, 3
+ALS_HOLD_U, ALS_HOLD_I = 2_000, 500
+ALS_FOLD, ALS_TOP = (8, 4_096), 10
+# the IVF index at bench_ann's size (bench.py:2434, run at :3113): a
+# 1,000,000 x 64 catalog of 1,024 blobs (centres x4), 4,096 queries,
+# k 10, 1,024 lists, nprobe 32, 5 KMeans iterations; recall@10 against
+# float64 on IVF_GATE_Q queries; nprobe = n_lists against the exact kNN on
+# an IVF_CUT_M-row cut of IVF_CUT_LISTS lists
+IVF_M, IVF_D, IVF_Q, IVF_K, IVF_LISTS, IVF_PROBE, IVF_ITERS = \
+    1_000_000, 64, 4_096, 10, 1_024, 32, 5
+IVF_GATE_Q, IVF_CUT_M, IVF_CUT_LISTS = 512, 20_000, 64
 
 
 _T0 = time.perf_counter()
@@ -236,6 +265,27 @@ def bound(flops, nbytes, peak_flops):
     """(bound_ms, bound_by): the larger of the operations over the peak
     rate for their type and the bytes over the memory rate."""
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+DIST_BOUND_BASIS = ("the cross term's 2mkd at the tensor cores' rate (three "
+                    "TF32 passes at 495 TFLOP/s for f32 operands, one bf16 "
+                    "pass at 989 for bf16), the norms and the combine on "
+                    "the CUDA cores at 67; each input read once, the output "
+                    "written once, at 3.35 TB/s")
+
+
+def dist_bound(m, k, d, nbytes, bf16=False, batch=1):
+    """(bound_ms, bound_by) of ``batch`` (m, d)×(k, d) squared-distance
+    blocks moving ``nbytes``: the cross term as the card's fastest
+    product that keeps the operands' precision (3xTF32 for f32, one bf16
+    pass for bf16), the rest at the float32 rate."""
+    cross = batch * 2.0 * m * k * d
+    rest = batch * (2.0 * (m + k) * d + 3.0 * m * k)
+    t_ops = (cross / PEAK_BF16_FLOPS if bf16 else 3 * cross / PEAK_TF32_FLOPS)
+    t_ops += rest / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -637,9 +687,7 @@ def dist_entry(K, tag, a, b, cuda_ms, reps):
         with px.precise():
             return torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist")
 
-    bound_ms, bound_by = bound(
-        2.0 * m * k * d + 2.0 * (m + k) * d + 3.0 * m * k,
-        4.0 * (m * d + k * d + m * k), PEAK_FP32_FLOPS)
+    bound_ms, bound_by = dist_bound(m, k, d, 4.0 * (m * d + k * d + m * k))
     n_sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     return {"name": "distances_sq", "at": tag, "route": "cuda",
             "source": "dislib_tpu_torch/csrc/distances_sq.cu",
@@ -654,7 +702,8 @@ def dist_entry(K, tag, a, b, cuda_ms, reps):
             "library_call": "torch.cdist(a, b, compute_mode="
                             "'use_mm_for_euclid_dist'), TF32 off (includes "
                             "a square root)",
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_basis": DIST_BOUND_BASIS}
 
 
 def minibatch_phase(X, x_host, init, dev, cuda_ms):
@@ -1649,9 +1698,9 @@ def kmeans_fast_phase(dev, X, init, f32, cuda_ms):
     c16 = torch.nn.functional.pad(cd.to(torch.bfloat16),
                                   (0, x16.shape[1] - KM_N))
     m, k, d = KM_M, KM_K, KM_N
-    bound_ms, bound_by = bound(2.0 * m * k * d + 3.0 * m * k,
-                               2.0 * m * d + 4.0 * (m + k * d + m * k),
-                               PEAK_FP32_FLOPS)
+    bound_ms, bound_by = dist_bound(m, k, d,
+                                    2.0 * m * d + 4.0 * (m + k * d + m * k),
+                                    bf16=True)
     entry = {
         "name": "distances_sq", "at": "kmeans_fast (bf16 operands)",
         "route": "cuda", "source": "dislib_tpu_torch/csrc/distances_sq.cu",
@@ -1671,8 +1720,8 @@ def kmeans_fast_phase(dev, X, init, f32, cuda_ms):
         "cross_term_mm_ms": cuda_ms(lambda: torch.mm(
             x16, c16.T, out_dtype=torch.float32), 20),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_basis": "2·m·d bytes of bf16 x (unpadded), 4·m of norms, "
-                       "4·m·k of distances out"}
+        "bound_basis": DIST_BOUND_BASIS + "; 2·m·d bytes of bf16 x "
+                       "(unpadded), 4·m of norms, 4·m·k of distances out"}
     emit({"phase": "kmeans_fast", "shape": [KM_M, KM_N], "k": KM_K,
           "tol": 0.0, "fast_vs_float32_in_turns": rate, "walls_s": walls,
           "first_iter_err_vs_f64_rounded": worst,
@@ -2274,9 +2323,9 @@ def csvm_phase(dev, cuda_ms):
                                compute_mode="use_mm_for_euclid_dist").square()
 
     mm, cap = nodes * CSVM_PART, CSVM_PART
-    bound_ms, bound_by = bound(
-        2.0 * mm * cap * n + 4.0 * mm * n + 3.0 * mm * cap,
-        4.0 * (2 * mm * n + mm * cap), PEAK_FP32_FLOPS)
+    bound_ms, bound_by = dist_bound(cap, cap, n,
+                                    4.0 * (2 * mm * n + mm * cap),
+                                    batch=nodes)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gram = {"name": "distances_sq", "at": "csvm_gram (batched entry, level "
             "0)", "route": "cuda",
@@ -2295,6 +2344,7 @@ def csvm_phase(dev, cuda_ms):
                             "'use_mm_for_euclid_dist').square(), batched, "
                             "TF32 off",
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_basis": DIST_BOUND_BASIS,
             "launches": main["launches"]["fit"]["distances_sq"]}
     emit({"phase": "kernel", **gram})
     est = main["est"]
@@ -2543,6 +2593,387 @@ def sparse_inputs_phase(dev):
     del xs, xd
     torch.cuda.empty_cache()
     phase_wall("sparse_inputs", t_phase)
+
+
+def numpy_normal_solve(entries, other, lam):
+    """Float64 solutions of the regularised normal equations of each row:
+    ``entries`` a list of (cols, vals) per row, ``other`` the other
+    factor; an entry of value 0 is unobserved."""
+    import numpy as np
+    f = other.shape[1]
+    out = np.zeros((len(entries), f))
+    for i, (c, v) in enumerate(entries):
+        keep = v != 0
+        g = other[c[keep]]
+        a = g.T @ g + lam * max(int(keep.sum()), 1) * np.eye(f)
+        out[i] = np.linalg.solve(a, g.T @ v[keep])
+    return out
+
+
+def rel_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    import numpy as np
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(1.0, float(np.abs(want).max())))
+
+
+def als_floors(m, n, nnz, f):
+    """The least time of one user half-step by each route's design: the
+    sparse route writes the (nnz, f²) outer products once and reads them
+    once in the segment sum; the dense route is the (m, n)×(n, f²) GEMM
+    and r @ v at the float32 CUDA-core rate (TF32 off), reading the
+    ratings and the mask once."""
+    sparse = 8.0 * nnz * f * f / PEAK_BYTES
+    dense = max((2.0 * m * n * f * f + 2.0 * m * n * f) / PEAK_FP32_FLOPS,
+                8.0 * m * n / PEAK_BYTES)
+    return {"sparse": 1e3 * sparse, "dense": 1e3 * dense}
+
+
+def ivf_floor(mq, nprobe, cap, d):
+    """The least time of one search's probe scan by its design: the gather
+    reads ``nprobe·cap`` catalog rows a query and writes them into the
+    panel, and the product reads the panel: three passes over
+    mq·nprobe·cap·d float32."""
+    return 1e3 * 3 * 4.0 * mq * nprobe * cap * d / PEAK_BYTES
+
+
+def als_phase(dev, cuda_ms):
+    """ALS at bench_als_sparse's size on a SparseArray: one user and one
+    item half-step against a float64 NumPy solve of the same normal
+    equations on a subset, the dense fit on the densified ratings against
+    the sparse fit, two sparse fits bit-identical, the RMSE history
+    decreasing, the fit's host reads; then fold-in batches against a
+    float64 NumPy fold-in.  ALS launches none of the port's kernels."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.recommendation import ALS
+    from dislib_tpu_torch.recommendation import als as als_mod
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.utils import profiling as prof
+    t_phase = time.perf_counter()
+    m, n, f, lam = ALS_M, ALS_N, ALS_F, ALS_LAM
+    # bench_als_sparse's draw: 100 random items a user, a planted rank-16
+    # score plus noise; the CSR sums the repeated (user, item) draws
+    rng = np.random.RandomState(2)
+    rows = np.repeat(np.arange(m), ALS_NNZ)
+    cols = rng.randint(0, n, rows.shape[0])
+    u_true = rng.standard_normal((m, f)).astype(np.float32)
+    v_true = rng.standard_normal((n, f)).astype(np.float32)
+    vals = (u_true[rows] * v_true[cols]).sum(1) + \
+        0.1 * rng.standard_normal(rows.shape[0]).astype(np.float32)
+    csr = sp.csr_matrix((vals, (rows, cols)), shape=(m, n),
+                        dtype=np.float32)
+    del rows, cols, vals, u_true, v_true
+    x = dst.SparseArray.from_scipy(csr)
+    t_data = time.perf_counter() - t_phase
+
+    def fit(data):
+        est = ALS(n_f=f, lambda_=lam, tol=0.0, max_iter=ALS_ITERS,
+                  random_state=0)
+        t0 = time.perf_counter()
+        est.fit(data)                 # ends in the results read
+        return est, time.perf_counter() - t0
+
+    K.reset_launches()
+    first, first_s = fit(x)
+    prof.reset_host_reads()
+    sparse, sparse_s = fit(x)
+    reads = dict(prof.HOST_READS)
+    check(reads == {"sparse": 1, "results": 1}, f"als: a sparse fit at "
+          f"tol 0 read {reads}, expected its column counts and results")
+    check(np.array_equal(first.users_, sparse.users_)
+          and np.array_equal(first.items_, sparse.items_)
+          and np.array_equal(first.history_, sparse.history_),
+          "als: two sparse fits with one seed differ")
+    hist = sparse.history_
+    check(hist.shape == (ALS_ITERS,) and bool(np.all(np.diff(hist) < 0))
+          and bool(np.isfinite(hist).all()),
+          f"als: the RMSE history does not decrease: {hist}")
+
+    # the half-steps against float64 on a subset: each row's solve needs
+    # only its own entries and the other factor
+    users, items = als_mod._half_steps(x, f, lam)
+    v_dev = torch.from_numpy(sparse.items_).to(dev)
+    u_dev = torch.from_numpy(sparse.users_).to(dev)
+    hold_u = np.sort(np.random.RandomState(5).choice(m, ALS_HOLD_U,
+                                                     replace=False))
+    hold_i = np.sort(np.random.RandomState(6).choice(n, ALS_HOLD_I,
+                                                     replace=False))
+    got_u = users.solve(v_dev)[torch.as_tensor(hold_u, device=dev)]
+    got_i = items.solve(u_dev)[torch.as_tensor(hold_i, device=dev)]
+    v64, u64 = sparse.items_.astype(np.float64), \
+        sparse.users_.astype(np.float64)
+    want_u = numpy_normal_solve(
+        [(csr.indices[csr.indptr[i]:csr.indptr[i + 1]],
+          csr.data[csr.indptr[i]:csr.indptr[i + 1]].astype(np.float64))
+         for i in hold_u], v64, lam)
+    csc = csr[:, hold_i].tocsc()
+    want_i = numpy_normal_solve(
+        [(csc.indices[csc.indptr[j]:csc.indptr[j + 1]],
+          csc.data[csc.indptr[j]:csc.indptr[j + 1]].astype(np.float64))
+         for j in range(len(hold_i))], u64, lam)
+    err_u = rel_err(got_u.cpu().numpy(), want_u)
+    err_i = rel_err(got_i.cpu().numpy(), want_i)
+    check(err_u <= 1e-4 and err_i <= 1e-4, f"als: half-steps off the "
+          f"float64 solve by {err_u} (users), {err_i} (items) > 1e-4")
+    half_ms = {"users": cuda_ms(lambda: users.solve(v_dev), 3),
+               "items": cuda_ms(lambda: items.solve(u_dev), 3)}
+
+    # the dense fit on the densified ratings (on the card, 4 GB)
+    xd = x.to_dense()
+    fit(xd)                                          # warm
+    dense, dense_s = fit(xd)
+    err_dense = max(rel_err(dense.users_, sparse.users_),
+                    rel_err(dense.items_, sparse.items_))
+    check(err_dense <= 1e-4, f"als: the dense fit differs from the sparse "
+          f"fit by {err_dense} > 1e-4")
+    rp = xd._data
+    mask = (rp != 0).to(rp.dtype)
+    dense_half_ms = {
+        "users": cuda_ms(lambda: als_mod._solve_factors(
+            rp, mask, v_dev, lam, f), 3),
+        "items": cuda_ms(lambda: als_mod._solve_factors(
+            rp.T, mask.T, u_dev, lam, f), 3)}
+    del xd, rp, mask
+    torch.cuda.empty_cache()
+    check(sum(K.LAUNCHES.values()) == 0, f"als launched {K.LAUNCHES}")
+
+    # fold-in of new users (rows of the ratings) against float64 NumPy
+    folds = {}
+    for k in ALS_FOLD:
+        batch = csr[:k]
+        want_f = numpy_normal_solve(
+            [(batch.indices[batch.indptr[i]:batch.indptr[i + 1]],
+              batch.data[batch.indptr[i]:batch.indptr[i + 1]].astype(
+                  np.float64)) for i in range(k)], v64, lam)
+        want_p = want_f @ v64.T                            # (k, n)
+        top = k > ALS_FOLD[0]
+        out = sparse.fold_in(batch, top_n=ALS_TOP if top else None)
+        if top:
+            ids, scores = out
+            order = np.argsort(-want_p, axis=1)[:, : ALS_TOP + 1]
+            want_s = np.take_along_axis(want_p, order, axis=1)
+            err = rel_err(scores, want_s[:, :ALS_TOP])
+            # ids equal wherever the float64 scores around them are apart
+            gap = 1e-3 * max(1.0, float(np.abs(want_s).max()))
+            d = -np.diff(want_s, axis=1)                   # (k, top)
+            apart = (d[:, :ALS_TOP] > gap) & np.concatenate(
+                [np.ones((k, 1), bool), d[:, : ALS_TOP - 1] > gap], axis=1)
+            bad = int(((ids != order[:, :ALS_TOP]) & apart).sum())
+            check(bad == 0, f"als fold-in top {ALS_TOP}: {bad} ids differ "
+                  "from float64 where the scores are apart")
+        else:
+            err = rel_err(out, want_p)
+        check(err <= 1e-4, f"als fold-in of {k} users: off float64 by "
+              f"{err} > 1e-4")
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sparse.fold_in(batch, top_n=ALS_TOP if top else None)
+            walls.append(time.perf_counter() - t0)
+        folds[str(k)] = {"top_n": ALS_TOP if top else None,
+                         "err_vs_f64": err,
+                         "wall_ms_median": 1e3 * float(np.median(walls))}
+    emit({"phase": "als", "shape": [m, n], "nnz": int(csr.nnz),
+          "n_f": f, "lambda": lam, "sweeps": ALS_ITERS,
+          "data_s": t_data, "sparse_fit_s": sparse_s,
+          "sparse_first_fit_s": first_s, "dense_fit_s": dense_s,
+          "rmse_history": hist.tolist(), "host_reads_per_fit": reads,
+          "two_sparse_fits_bit_identical": True,
+          "half_step_err_vs_f64": {"users": err_u, "items": err_i},
+          "half_step_ms": {"sparse": half_ms, "dense": dense_half_ms},
+          "chunks_per_half_step": {"users": len(users.chunks),
+                                   "items": len(items.chunks)},
+          "dense_vs_sparse_err": err_dense, "fold_in": folds,
+          "half_step_floor_ms": als_floors(m, n, int(csr.nnz), f)})
+    del x, csr, users, items, v_dev, u_dev
+    torch.cuda.empty_cache()
+    phase_wall("als", t_phase)
+
+
+def ivf_phase(dev, cuda_ms):
+    """The IVF index at bench_ann's size: the fit (its quantizer's E-step
+    on ``distances_sq``), the lists against a NumPy bucketing of the
+    quantizer's labels, recall@10 against float64 under ``db`` and under
+    ``kernel`` (the centroid product on ``panel_gemm``), queries/s beside
+    the exact ``kneighbors``; ``nprobe = n_lists`` against the exact kNN on
+    a cut.  Returns the two kernels' line entries."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.retrieval import IVFIndex
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(3)
+    centers = rng.standard_normal((IVF_LISTS, IVF_D)).astype(np.float32) \
+        * 4.0
+    x = (centers[rng.randint(0, IVF_LISTS, IVF_M)]
+         + rng.standard_normal((IVF_M, IVF_D))).astype(np.float32)
+    q = (centers[rng.randint(0, IVF_LISTS, IVF_Q)]
+         + rng.standard_normal((IVF_Q, IVF_D))).astype(np.float32)
+    X, Q = dst.array(x), dst.array(q)
+    xd, qd = X._data, Q._data
+
+    # the float64 oracle on the card: the k-th distance² of the gate
+    # queries, for bench's tie-tolerant recall
+    x64 = xd.double()
+    x64_sq = (x64 * x64).sum(1)
+    kth = []
+    for s in range(0, IVF_GATE_Q, 128):
+        q64 = qd[s: min(s + 128, IVF_GATE_Q)].double()
+        d2 = (q64 * q64).sum(1)[:, None] - 2.0 * q64 @ x64.T + x64_sq[None]
+        kth.append(torch.kthvalue(d2, IVF_K, dim=1).values)
+        del d2
+    kth = torch.cat(kth)
+    del x64_sq
+
+    def recall(idx):
+        found = idx[:IVF_GATE_Q].to(torch.int64)
+        live = found >= 0
+        fv = x64[found.clamp_min(0)]
+        qg = qd[:IVF_GATE_Q].double()
+        d_found = ((qg[:, None, :] - fv) ** 2).sum(-1)
+        return float(((d_found <= kth[:, None] + 1e-4) & live).double()
+                     .mean())
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ix = IVFIndex(n_lists=IVF_LISTS, nprobe=IVF_PROBE,
+                  kmeans_max_iter=IVF_ITERS, random_state=0).fit(X)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(K.LAUNCHES)
+    check(fit_launches["distances_sq"] >= IVF_ITERS, f"ivf fit: "
+          f"distances_sq launched {fit_launches}")
+
+    # the lists hold exactly the NumPy bucketing of the quantizer's labels
+    labels = ix.quantizer_.predict(X).collect().ravel()
+    ids = ix._ids.cpu().numpy()
+    offs, cnts = ix._offs.cpu().numpy(), ix._cnts.cpu().numpy()
+    check(np.array_equal(cnts, np.bincount(labels, minlength=IVF_LISTS)),
+          "ivf: list lengths differ from the labels' counts")
+    live = np.concatenate([np.arange(o, o + c) for o, c in zip(offs, cnts)])
+    check(np.array_equal(ids[live], np.argsort(labels, kind="stable")),
+          "ivf: list membership differs from a NumPy bucketing of the "
+          "quantizer's labels")
+    check(int((ids >= 0).sum()) == IVF_M, "ivf: pad slots hold ids")
+
+    routes = {}
+    for route in ("db", "kernel"):
+        _, idx = ix.search(Q, k=IVF_K, overlap=route)       # warm
+        K.reset_launches()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            dist, idx = ix.search(Q, k=IVF_K, overlap=route)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {k_: v // 5 for k_, v in K.LAUNCHES.items()}
+        want = {"panel_gemm": 1 if route == "kernel" else 0,
+                "distances_sq": 0, "node_histogram": 0}
+        check(launches == want, f"ivf search {route}: launches {launches}")
+        r = recall(idx._data)
+        check(r >= 0.95, f"ivf {route}: recall@{IVF_K} {r} < 0.95")
+        check(bool(torch.isfinite(dist._data).all()), f"ivf {route}: "
+              "non-finite distances")
+        t = float(np.median(walls))
+        routes[route] = {"recall": r, "wall_s": t,
+                         "queries_per_s": IVF_Q / t,
+                         "launches_per_search": launches}
+    check(abs(routes["kernel"]["recall"] - routes["db"]["recall"]) <= 0.002,
+          f"ivf: the kernel route's recall {routes['kernel']['recall']} is "
+          f"off db's {routes['db']['recall']} by more than 0.002")
+
+    # the exact kneighbors on the same catalog
+    nn = dst.NearestNeighbors(n_neighbors=IVF_K).fit(X)
+    nn.kneighbors(Q)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nn.kneighbors(Q)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    exact_s = float(np.median(walls))
+
+    # nprobe = n_lists on a cut: the exact kNN's ids wherever its distances
+    # leave no near tie (the two compute d² in float32 in another order)
+    xc = dst.array(x[:IVF_CUT_M])
+    cut = IVFIndex(n_lists=IVF_CUT_LISTS, kmeans_max_iter=IVF_ITERS,
+                   random_state=0).fit(xc)
+    qc = dst.array(q[:IVF_GATE_Q])
+    _, ci = cut.search(qc, k=IVF_K, nprobe=IVF_CUT_LISTS)
+    ed, ei = dst.NearestNeighbors(n_neighbors=IVF_K + 1).fit(xc) \
+        .kneighbors(qc)
+    ci, ei, ed2 = ci.collect(), ei.collect(), ed.collect() ** 2
+    scale = float((q[:IVF_GATE_Q] ** 2).sum(1).max()
+                  + (x[:IVF_CUT_M] ** 2).sum(1).max())
+    gap = np.diff(ed2, axis=1) > 1e-5 * scale             # (q, k)
+    apart = gap[:, :IVF_K] & np.concatenate(
+        [np.ones((IVF_GATE_Q, 1), bool), gap[:, : IVF_K - 1]], axis=1)
+    bad = int(((ci != ei[:, :IVF_K]) & apart).sum())
+    check(bad == 0, f"ivf nprobe = n_lists: {bad} ids differ from the "
+          "exact kNN where its distances are apart")
+
+    # the kernels at their new shapes, against their plain versions
+    gemm_tol = px.ERROR_BOUNDS[("matmul", "float32")]
+    ct = ix._cents_t
+    out = K.panel_gemm(qd, ct, px.FLOAT32)
+    plain = K.panel_gemm_plain(qd, ct, px.FLOAT32)
+    scale = (torch.linalg.norm(qd.double()) * torch.linalg.norm(ct.double())
+             / float(qd.shape[1]) ** 0.5)
+    err = float((out.double() - plain.double()).abs().max() / scale)
+    check(err <= gemm_tol, f"panel_gemm at the IVF centroid shape: "
+          f"normalized error {err} > {gemm_tol}")
+    max_abs = float((out - plain).abs().max())
+
+    def lib():
+        with px.precise():
+            return torch.mm(qd, ct)
+
+    mq, kk, nl = IVF_Q, IVF_D, IVF_LISTS
+    gemm = {"name": "panel_gemm", "at": "ivf", "policy": "float32",
+            "route": "cuda", "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+            "shape": [mq, kk, nl], "max_abs_err": max_abs,
+            "normalized_err_vs_plain": err,
+            "ms": cuda_ms(lambda: K.panel_gemm(qd, ct, px.FLOAT32), 50),
+            "plain_ms": cuda_ms(lambda: K.panel_gemm_plain(
+                qd, ct, px.FLOAT32), 50),
+            "library_ms": cuda_ms(lib, 50),
+            "library_call": "torch.mm (f32, TF32 off)",
+            "launches": routes["kernel"]["launches_per_search"]["panel_gemm"],
+            "bound_basis": "3xTF32: three 2mkn TF32 tensor-core products "
+                           "at 495 TFLOP/s; each operand read once, C "
+                           "written once"}
+    gemm["bound_ms"], gemm["bound_by"] = bound(
+        3 * 2.0 * mq * kk * nl, 4.0 * (mq * kk + kk * nl + mq * nl),
+        PEAK_TF32_FLOPS)
+    emit({"phase": "kernel", **gemm})
+    cents = torch.from_numpy(ix.quantizer_.centers_).to(dev)
+    dist = dist_entry(K, "ivf_kmeans", xd, cents, cuda_ms, 10)
+    dist["launches"] = fit_launches["distances_sq"]
+    emit({"phase": "kernel", **dist})
+    emit({"phase": "ivf", "catalog": [IVF_M, IVF_D], "queries": IVF_Q,
+          "k": IVF_K, "n_lists": IVF_LISTS, "nprobe": IVF_PROBE,
+          "kmeans_max_iter": IVF_ITERS, "fit_s": fit_s,
+          "fit_launches": fit_launches, "routes": routes,
+          "exact_kneighbors_s": exact_s,
+          "exact_queries_per_s": IVF_Q / exact_s,
+          "pad_waste": ix.pad_waste,
+          "cap": ix._cap, "mean_list": IVF_M / IVF_LISTS,
+          "scan_floor_ms": ivf_floor(IVF_Q, IVF_PROBE, ix._cap, IVF_D),
+          "scan_floor_ms_at_mean_list": ivf_floor(
+              IVF_Q, IVF_PROBE, IVF_M / IVF_LISTS, IVF_D),
+          "cut": {"rows": IVF_CUT_M, "n_lists": IVF_CUT_LISTS,
+                  "ids_equal_where_apart": True}})
+    del X, Q, xd, qd, x64, ix, nn, cut, out, plain, cents
+    torch.cuda.empty_cache()
+    phase_wall("ivf", t_phase)
+    return {"panel_gemm/ivf": gemm, "distances_sq/ivf_kmeans": dist}
 
 
 def main() -> int:
@@ -2848,16 +3279,46 @@ def main() -> int:
     st = torch.nn.functional.one_hot(
         torch.randint(0, S, (m,), generator=g, device=dev), S).float()
     out = K.node_histogram(node, bx, w, st, nn, nb, integer=True)
-    plain = K.node_histogram_plain(node, bx, w, st, nn, nb)
+    plain = K.node_histogram_plain(node, bx, w, st, nn, nb, integer=True)
     check(torch.equal(out, plain), "node_histogram at the deepest level: "
           "not bit-equal to plain")
+    check(torch.equal(plain, K.node_histogram_plain(node, bx, w, st, nn, nb)),
+          "node_histogram_plain at the deepest level: the fixed-order sums "
+          "differ from the integer scatter")
     max_abs = float((out - plain).abs().max())
     del out, plain
     ms = cuda_ms(lambda: K.node_histogram(node, bx, w, st, nn, nb, integer=True), 5)
 
-    plain_ms = cuda_ms(
-        lambda: K.node_histogram_plain(node, bx, w, st, nn, nb), 2)
-    # the library call is the plain version's own: index_put_(accumulate=
+    plain_ms = cuda_ms(lambda: K.node_histogram_plain(
+        node, bx, w, st, nn, nb, integer=True), 2)
+    # the plain version's other sum order, the fixed-order sort path that
+    # float contributions take: the reason the integer declaration keeps
+    # the scatter is its time over a fit's levels
+    plain_fixed_ms = cuda_ms(lambda: K.node_histogram_plain(
+        node, bx, w, st, nn, nb), 2)
+
+    def host_ms(fn, reps=3):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    # both sum orders on the host, where the plain version is the path a
+    # fit takes (``device="cpu"``): a level of 64 nodes of a 16-tree
+    # forest on 20,000 x 20 rows
+    hc = [t[:, :HIST_CPU_M].cpu() for t in (node % 64, w)]
+    hbx, hst = bx[:HIST_CPU_M, :20].cpu(), st[:HIST_CPU_M].cpu()
+    plain_cpu = {
+        "shape": [T, HIST_CPU_M, 20, 64, nb, S],
+        "threads": torch.get_num_threads(),
+        "scatter_ms": host_ms(lambda: K.node_histogram_plain(
+            hc[0], hbx, hc[1], hst, 64, nb, integer=True)),
+        "fixed_order_ms": host_ms(lambda: K.node_histogram_plain(
+            hc[0], hbx, hc[1], hst, 64, nb))}
+    del hc, hbx, hst
+    # the plain version takes the kernel's integer declaration (its
+    # index_put_ path); the library call is that same index_put_(accumulate=
     # True), one per tree (one over the whole forest would need T·m·n int64
     # indices, 12.8 GB, and their sort buffers), here on prebuilt indices
     bins = bx.long()
@@ -2902,7 +3363,8 @@ def main() -> int:
             check(torch.equal(
                 K.node_histogram(node_t, bx_t, w, st, n_nodes, nb,
                                  integer=True),
-                K.node_histogram_plain(node_t, bx_t, w, st, n_nodes, nb)),
+                K.node_histogram_plain(node_t, bx_t, w, st, n_nodes, nb,
+                                       integer=True)),
                 f"node_histogram, {nf} features, {n_nodes} nodes, the other"
                 " copies: not bit-equal to plain")
             return {"plan_private": private, "plan_ms": plan_ms,
@@ -2913,6 +3375,7 @@ def main() -> int:
             K.hist_plan = plan_hist
 
     per_level, per_level_bound, plain_level, lib_level = {}, {}, {}, {}
+    plain_fixed_level = {}
     lnodes, private_level = [], {}
     for lvl in range(12):
         lnode = torch.randint(0, 2 ** lvl, (T, m), generator=g, device=dev,
@@ -2923,6 +3386,9 @@ def main() -> int:
                                      integer=True), 3)
         private_level[2 ** lvl] = other_copies(lnode, bx, 2 ** lvl)
         plain_level[2 ** lvl] = cuda_ms(
+            lambda: K.node_histogram_plain(lnode, bx, w, st, 2 ** lvl, nb,
+                                           integer=True), 1)
+        plain_fixed_level[2 ** lvl] = cuda_ms(
             lambda: K.node_histogram_plain(lnode, bx, w, st, 2 ** lvl, nb), 1)
         lib_level[2 ** lvl] = library_ms_at(lnode, 2 ** lvl, 1)
         per_level_bound[2 ** lvl] = hist_bound(2 ** lvl)[0]
@@ -2956,6 +3422,10 @@ def main() -> int:
         "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_n_nodes": per_level, "bound_ms_by_n_nodes": per_level_bound,
         "plain_ms_by_n_nodes": plain_level,
+        "plain_fixed_order_ms": plain_fixed_ms,
+        "plain_fixed_order_ms_by_n_nodes": plain_fixed_level,
+        "plain_fixed_order_ms_fit_levels": sum(plain_fixed_level.values()),
+        "plain_on_host": plain_cpu,
         "library_ms_by_n_nodes": lib_level,
         "ms_fit_levels": sum(per_level.values()),
         "bound_ms_fit_levels": sum(per_level_bound.values()),
@@ -3445,7 +3915,14 @@ def main() -> int:
     emit({"phase": "csvm_sparse_knn_inputs_summary",
           "seconds": time.perf_counter() - t0})
 
-    # -- (13) the kernels line, then the result --------------------------------------
+    # -- (13) ALS and the IVF index -------------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    als_phase(dev, cuda_ms)
+    kernels.update(ivf_phase(dev, cuda_ms))
+    emit({"phase": "als_ivf_summary", "seconds": time.perf_counter() - t0})
+
+    # -- (14) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

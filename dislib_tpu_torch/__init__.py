@@ -11,7 +11,7 @@ wrapper runs its plain PyTorch version.  This package imports neither
 ``jax`` nor any module of ``dislib_tpu``.
 """
 
-from dislib_tpu_torch.parallel.mesh import init, get_mesh
+from dislib_tpu_torch.parallel.mesh import init, get_mesh, set_mesh
 from dislib_tpu_torch.data.array import (
     Array, array, random_array, zeros, full, ones, identity, eye,
     apply_along_axis, concat_rows, concat_cols, rechunk, ensure_canonical,
@@ -23,13 +23,14 @@ from dislib_tpu_torch.data.io import (
     quarantine_ledger, quarantine_batch,
 )
 from dislib_tpu_torch.math import matmul, kron, svd, qr, polar
+from dislib_tpu_torch.ops.overlap import resolve as overlap_schedule
 from dislib_tpu_torch.decomposition import tsqr, random_svd, lanczos_svd, PCA
 from dislib_tpu_torch.base import from_fitted_arrays
 from dislib_tpu_torch.utils.base import shuffle, train_test_split
 from dislib_tpu_torch.utils.saving import save_model, load_model
 from dislib_tpu_torch import cluster, classification, decomposition, \
     math, model_selection, neighbors, trees, preprocessing, regression, \
-    optimization  # noqa: E402,F401
+    optimization, recommendation, retrieval  # noqa: E402,F401
 
 # estimator classes re-exported at top level, as the reference does
 # (their canonical homes stay the submodules above)
@@ -48,24 +49,27 @@ from dislib_tpu_torch.neighbors import NearestNeighbors
 from dislib_tpu_torch.model_selection import (
     KFold, GridSearchCV, RandomizedSearchCV,
 )
+from dislib_tpu_torch.recommendation import ALS
+from dislib_tpu_torch.retrieval import IVFIndex
 
-__all__ = ["init", "get_mesh", "Array", "array", "random_array", "zeros",
+__all__ = ["init", "get_mesh", "set_mesh", "Array", "array", "random_array", "zeros",
            "full", "ones", "identity", "eye", "apply_along_axis",
            "concat_rows", "concat_cols", "rechunk", "ensure_canonical",
            "SparseArray", "load_txt_file", "load_svmlight_file", "load_npy_file",
            "load_mdcrd_file", "save_txt", "QuarantineReport",
            "QuarantineLedger", "last_quarantine_report",
            "quarantine_ledger", "quarantine_batch",
-           "matmul", "kron", "svd", "qr", "polar",
+           "matmul", "kron", "svd", "qr", "polar", "overlap_schedule",
            "tsqr", "random_svd", "lanczos_svd", "PCA", "from_fitted_arrays",
            "shuffle", "train_test_split", "save_model", "load_model",
            "KMeans", "MiniBatchKMeans", "GaussianMixture", "DBSCAN", "Daura",
-           "KNeighborsClassifier",
+           "CascadeSVM", "KNeighborsClassifier",
            "RandomForestClassifier", "RandomForestRegressor",
            "DecisionTreeClassifier", "DecisionTreeRegressor",
-           "NearestNeighbors", "LinearRegression", "Lasso", "ADMM",
+           "NearestNeighbors", "LinearRegression", "Lasso", "ADMM", "ALS",
+           "IVFIndex",
            "StandardScaler", "MinMaxScaler",
            "KFold", "GridSearchCV", "RandomizedSearchCV",
            "cluster", "classification", "decomposition", "math",
            "model_selection", "neighbors", "trees", "preprocessing",
-           "regression", "optimization"]
+           "regression", "optimization", "recommendation", "retrieval"]

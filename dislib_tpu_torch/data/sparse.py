@@ -21,8 +21,9 @@ row-sorted triplets: ``row_steps`` (the sparse kNN's skew-bounded row
 steps) and ``ell`` (CascadeSVM's padded row-gather layout), on the
 :class:`SparseArray` and on its :class:`ShardedSparse` buffers alike.
 Each is one scatter of distinct destinations (no sums), so two builds are
-bit-identical.  Not ported: ``panel_view`` (the multi-panel SpMM layout,
-with ALS, ROADMAP.md A.10) and the on-device reshard (``resharded``,
+bit-identical.  Not ported: ``panel_view`` (the layout of the reference's
+multi-panel SpMM, which bounds the panel bytes in flight across mesh
+ranks: ROADMAP.md A.2) and the on-device reshard (``resharded``,
 ``ops/rechunk.reshard_sparse``), A.11.  Each raises
 ``NotImplementedError``.
 """
@@ -288,8 +289,9 @@ class ShardedSparse:
         return self.lrows[0, :k], self.cols[0, :k], self.data[0, :k]
 
     def panel_view(self, steps, h):
-        _unported("ShardedSparse.panel_view (the multi-panel SpMM layout; "
-                  "its consumer is ALS)", "A.10")
+        _unported("ShardedSparse.panel_view (the layout of the multi-panel "
+                  "SpMM, spmm_steps/spmm_panels, which bounds the panel "
+                  "bytes in flight across mesh ranks)", "A.2")
 
     def ell_buffers(self):
         """Padded ELL ``(vals (p·m_local, r), cols (p·m_local, r))`` with

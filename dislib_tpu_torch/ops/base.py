@@ -96,10 +96,23 @@ def cholesky_nan(a: torch.Tensor) -> torch.Tensor:
 
 def _keys(d2: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Keys int64 ``bits(d2)·2^32 + id`` of candidates ``d2`` float32 ≥ 0
-    with indices ``ids`` in [0, 2^31), elementwise (``+ 0.0`` turns a
+    with indices ``ids`` in [0, 2^32), elementwise (``+ 0.0`` turns a
     -0.0 into +0.0, whose bits order first)."""
     return torch.add(ids.to(torch.int64), (d2 + 0.0).view(torch.int32),
                      alpha=1 << 32)
+
+
+def merge_keyed(best: torch.Tensor, d2: torch.Tensor, ids: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Keys (rows, k) int64, ascending, of the k smallest of the carried
+    keys ``best`` (rows, ≥ k) and the candidates ``d2`` (rows, n) float32
+    ≥ 0 whose indices ``ids`` (rows, n) stand in any order (the IVF scan's
+    gathered list entries); an index of −1 (an empty slot) sorts after
+    every other at its distance.  Every candidate is keyed, so ties go to
+    the lower index wherever it stands."""
+    cand = torch.cat((best, _keys(d2, ids.to(torch.int64) & 0xFFFFFFFF)),
+                     dim=1)
+    return torch.topk(cand, k, dim=1, largest=False, sorted=True).values
 
 
 def chunk_smallest(d2: torch.Tensor, k: int, off: int = 0) -> torch.Tensor:

@@ -660,37 +660,63 @@ def hist_partial_slots(m, plan: HistPlan) -> int:
 
 def node_histogram_plain(node: torch.Tensor, bx: torch.Tensor,
                          w: torch.Tensor, stats: torch.Tensor,
-                         n_nodes: int, n_bins: int) -> torch.Tensor:
+                         n_nodes: int, n_bins: int,
+                         integer: bool = False) -> torch.Tensor:
     """The level histogram in plain PyTorch: the reference's scatter-add
     (``trees/decision_tree._node_histogram``) with the tree dimension
     written out.  ``node`` (T, m) int, ``bx`` (m, n) int in [0, n_bins),
     ``w`` (T, m), ``stats`` (m, S) → (T, n_nodes, n, n_bins, S), f32 or
-    f64 for f64 operands.  Each tree's ``w·stats`` is formed by one
-    multiply and added with one ``index_put_(accumulate=True)``: one call
-    over the whole forest would materialise T·m·n int64 indices (12.8 GB
-    at the main path's deepest level) and their sort buffers.  A row whose
-    node is not in ``[0, n_nodes)`` is dropped, as the kernel and the
-    reference's one-hot Pallas kernel drop it (``index_put_`` alone would
-    wrap a node of −1 onto the last node): its contribution becomes +0,
-    which leaves every sum's bits unchanged."""
+    f64 for f64 operands.  A row whose node is not in ``[0, n_nodes)`` is
+    dropped, as the kernel and the reference's one-hot Pallas kernel drop
+    it.  One tree at a time: one call over the whole forest would
+    materialise T·m·n int64 indices (12.8 GB at the main path's deepest
+    level) and their sort buffers.
+
+    The default sums each cell in a fixed order, the port's rule for a
+    float sum: each tree's (row, feature) items are keyed by their
+    (node, feature, bin) cell, stably sorted (so a cell keeps row order)
+    and summed by ``torch.segment_reduce`` over the sorted keys; the
+    dropped rows' items go to a sink cell past the last.  Two calls give
+    the same bits on any number of CPU threads.  ``integer=True`` is the
+    caller's declaration that every ``w·stats`` is an integer and every
+    sum stays below 2^24, so any order gives the same bits: each tree is
+    then one ``index_put_(accumulate=True)``, with a dropped row's
+    contribution made +0 (which leaves every sum's bits unchanged)."""
     T, m = node.shape
     n = bx.shape[1]
     S = stats.shape[1]
     dt = torch.promote_types(torch.float32,
                              torch.promote_types(w.dtype, stats.dtype))
+    cells = n_nodes * n * n_bins
     out = torch.zeros((T, n_nodes, n, n_bins, S), dtype=dt,
                       device=stats.device)
-    feat = torch.arange(n, device=bx.device)[None, :].expand(m, n)
+    if m == 0:
+        return out
     bins = bx.long()
+    if integer:
+        feat = torch.arange(n, device=bx.device)[None, :].expand(m, n)
+    else:
+        # the (feature, bin) part of each item's cell, shared by the trees
+        fb = (torch.arange(n, device=bx.device)[None, :] * n_bins
+              + bins).reshape(-1)
     for t in range(T):
         nt = node[t].long()
         kept = (nt >= 0) & (nt < n_nodes)
         contrib = torch.where(kept[:, None], (w[t, :, None] * stats).to(dt),
                               0.0)                            # (m, S)
-        out[t].index_put_((nt.clamp(0, n_nodes - 1)[:, None].expand(m, n),
-                           feat, bins),
-                          contrib[:, None, :].expand(m, n, S),
-                          accumulate=True)
+        if integer:
+            out[t].index_put_((nt.clamp(0, n_nodes - 1)[:, None]
+                               .expand(m, n), feat, bins),
+                              contrib[:, None, :].expand(m, n, S),
+                              accumulate=True)
+            continue
+        cell = torch.where(kept, nt * (n * n_bins), cells)    # sink: cells
+        key = cell.repeat_interleave(n) + fb                  # (m·n,)
+        key, order = torch.sort(key, stable=True)
+        lengths = torch.bincount(key, minlength=cells + n * n_bins)
+        sums = torch.segment_reduce(contrib[order // n], "sum",
+                                    lengths=lengths, axis=0)
+        out[t] = sums[:cells].reshape(n_nodes, n, n_bins, S)
     return out
 
 
@@ -715,9 +741,11 @@ def node_histogram(node: torch.Tensor, bx: torch.Tensor, w: torch.Tensor,
     default) the sums run in a fixed order (``hist_plan(...,
     fixed_order=True)``; ``csrc/node_histogram.cu``): the same inputs
     give the same bits on every call, within f32 rounding of the plain
-    version's row-order sums.  The plain version ignores ``integer``."""
+    version's row-order sums.  On CPU tensors the plain version runs, with
+the same declaration (:func:`node_histogram_plain`)."""
     if _on_cpu(node, bx, w, stats):
-        return node_histogram_plain(node, bx, w, stats, n_nodes, n_bins)
+        return node_histogram_plain(node, bx, w, stats, n_nodes, n_bins,
+                                    integer)
     _check_cuda("node_histogram", node, bx, w, stats)
     if node.dtype != torch.int32 or bx.dtype != torch.int32 \
             or w.dtype != torch.float32 or stats.dtype != torch.float32:

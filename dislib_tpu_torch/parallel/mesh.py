@@ -81,6 +81,21 @@ def init(mesh_shape: tuple[int, int] | None = None, device=None) -> Mesh:
     return _default_mesh
 
 
+def set_mesh(mesh: Mesh) -> None:
+    """Install ``mesh`` as the library-wide default (reference:
+    ``dislib_tpu/parallel/mesh.set_mesh``).  Only a ``(1, 1)`` mesh is
+    accepted: a larger grid is the multi-GPU mesh of ROADMAP.md A.2."""
+    global _default_mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"set_mesh takes a Mesh, got {type(mesh).__name__}")
+    if (mesh.rows, mesh.cols) != (1, 1):
+        raise NotImplementedError(
+            f"set_mesh of a {(mesh.rows, mesh.cols)} mesh: this slice of "
+            "the port runs on one device only — the multi-GPU mesh over "
+            "NCCL is ROADMAP.md A.2")
+    _default_mesh = mesh
+
+
 def get_mesh() -> Mesh:
     """Return the default mesh, creating the ``cuda`` default lazily."""
     if _default_mesh is None:

@@ -43,7 +43,12 @@ of its plain version (normalized as above) and bit-equal, node by node,
 to the 2-D entry (the same tiles), one launch for all nodes; CascadeSVM
 on the card with the CPU's support vectors and α within 1e-4, two fits
 and the ELL and dense fits bit-identical; the sparse kNN within 1e-5 of
-the CPU.
+the CPU.  ``panel_gemm`` at the IVF centroid shape and ``distances_sq`` at
+the IVF quantizer's shape against their plain versions (as above); ALS on
+the card within 1e-4 of the CPU, two sparse fits bit-identical (fixed-order
+segment sums) and the dense fit within 1e-4 of the sparse one; the IVF
+index on the card with the CPU's ids and d² within 1e-5 of the cancelling
+magnitudes, under ``db`` and under ``kernel``.
 """
 
 import numpy as np
@@ -1194,3 +1199,85 @@ def test_sparse_kneighbors_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(out[str(dev)][0], out["cpu"][0], rtol=1e-5,
                                atol=1e-5)
     assert K.LAUNCHES["distances_sq"] == 0
+
+
+def test_panel_gemm_at_the_ivf_centroid_shape(dev):
+    # the IVF search's centroid cross term under overlap="kernel": 4,096
+    # queries x 64 features against 1,024 centroids
+    g = torch.Generator(device=dev).manual_seed(24)
+    q = torch.randn((4096, 64), generator=g, device=dev)
+    ct = torch.randn((64, 1024), generator=g, device=dev)
+    got = K.panel_gemm(q, ct, px.FLOAT32)
+    assert K.LAUNCHES["panel_gemm"] == 1
+    assert _gemm_err(got, K.panel_gemm_plain(q, ct, px.FLOAT32), q, ct) \
+        <= px.ERROR_BOUNDS[("matmul", "float32")]
+
+
+def test_distances_sq_at_the_ivf_quantizer_shape(dev):
+    # the IVF quantizer's E-step: 1,000,000 catalog rows x 64 against
+    # 1,024 centres (a 4 GB output)
+    g = torch.Generator(device=dev).manual_seed(25)
+    a = torch.randn((1_000_000, 64), generator=g, device=dev) * 4.0
+    b = torch.randn((1024, 64), generator=g, device=dev) * 4.0
+    got = K.distances_sq(a, b)
+    assert K.LAUNCHES["distances_sq"] == 1
+    scale = float((a.double() ** 2).sum(1).max()
+                  + (b.double() ** 2).sum(1).max())
+    want = K.distances_sq_plain(a, b, "highest")
+    assert float((got.double() - want.double()).abs().max()) <= 1e-5 * scale
+    assert bool((got >= 0).all())
+
+
+def test_als_on_the_card_matches_the_cpu(dev, monkeypatch):
+    from dislib_tpu_torch.recommendation import ALS
+    from dislib_tpu_torch.recommendation import als as als_mod
+    # one V0 for both devices: a generator on the card draws another
+    # stream than one on the CPU
+    draw = als_mod._draw_items
+    monkeypatch.setattr(als_mod, "_draw_items",
+                        lambda seed, n, n_f, device: draw(
+                            seed, n, n_f, "cpu").to(device))
+    mat = _sparse(2000, 300, 0.05, 26)
+    fits = {}
+    for where in (dev, "cpu", dev):
+        est = ALS(n_f=8, tol=0.0, max_iter=3, random_state=0)
+        x = dst.SparseArray.from_scipy(mat, device=where)
+        fits.setdefault(str(where), []).append(est.fit(x))
+    card, again = fits[str(dev)]
+    cpu = fits["cpu"][0]
+    # the segment sums are fixed-order: two card fits bit-identical
+    np.testing.assert_array_equal(card.users_, again.users_)
+    np.testing.assert_array_equal(card.items_, again.items_)
+    np.testing.assert_allclose(card.users_, cpu.users_, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card.items_, cpu.items_, rtol=0, atol=1e-4)
+    dense = ALS(n_f=8, tol=0.0, max_iter=3, random_state=0).fit(
+        dst.array(mat.toarray(), device=dev))
+    np.testing.assert_allclose(dense.users_, card.users_, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card.fold_in(mat[:5]), cpu.fold_in(mat[:5]),
+                               rtol=0, atol=1e-4)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+def test_ivf_on_the_card_matches_the_cpu(dev):
+    from dislib_tpu_torch.retrieval import IVFIndex
+    rng = np.random.RandomState(27)
+    centers = rng.randn(16, 32).astype(np.float32) * 4
+    x = (centers[rng.randint(0, 16, 5000)]
+         + rng.randn(5000, 32)).astype(np.float32)
+    q = (centers[rng.randint(0, 16, 300)]
+         + rng.randn(300, 32)).astype(np.float32)
+    out = {}
+    for where in (dev, "cpu"):
+        ix = IVFIndex(n_lists=16, nprobe=4, kmeans_max_iter=5,
+                      random_state=0).fit(dst.array(x, device=where))
+        out[str(where)] = {r: [a.collect() for a in ix.search(
+            dst.array(q, device=where), k=10, overlap=r)]
+            for r in ("db", "kernel")}
+    card, cpu = out[str(dev)], out["cpu"]
+    assert K.LAUNCHES["distances_sq"] >= 5
+    assert K.LAUNCHES["panel_gemm"] == 1
+    scale = float((q ** 2).sum(1).max() + (x ** 2).sum(1).max())
+    for r in ("db", "kernel"):
+        np.testing.assert_array_equal(card[r][1], cpu[r][1])
+        np.testing.assert_allclose(card[r][0] ** 2, cpu[r][0] ** 2, rtol=0,
+                                   atol=1e-5 * scale)

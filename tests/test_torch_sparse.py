@@ -177,12 +177,14 @@ def test_sharded_layout_and_knobs(monkeypatch):
 
 
 def test_unported_layouts_name_the_roadmap_items():
-    # the on-device reshard stays A.11 and panel_view waits for ALS; ell
-    # and row_steps are ported: bit-equal to the reference's
+    # the on-device reshard stays A.11 and panel_view waits for the
+    # multi-rank mesh with the multi-panel SpMM (A.2); ell and row_steps
+    # are ported: bit-equal to the reference's
     ref, port = _both(_mat())
     with pytest.raises(NotImplementedError, match="A.11"):
         port.resharded()
-    with pytest.raises(NotImplementedError, match="ALS"):
+    with pytest.raises(NotImplementedError,
+                       match="multi-panel SpMM.*ROADMAP.md A.2"):
         port.sharded().panel_view(4, 8)
     for got, want in zip(port.ell(), ref.ell()):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))

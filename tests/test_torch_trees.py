@@ -417,6 +417,45 @@ def test_fixed_order_plan_at_the_regressors_shapes():
                          fixed_order=True)
 
 
+def test_plain_histogram_float_sums_are_fixed_order():
+    # C.7: the plain version's float path is a stable sort by cell and a
+    # segment_reduce, so on 4 CPU threads two calls give the same bits,
+    # bit-equal to a sequential row-order f32 sum per cell, within 1e-5 of
+    # float64 np.add.at; dropped rows (node -1 or past the last) add nothing
+    rng = np.random.RandomState(15)
+    T, m, n, n_nodes, n_bins, S = 2, 1000, 4, 4, 8, 3
+    node = rng.randint(-1, n_nodes + 1, (T, m)).astype(np.int32)
+    bx = rng.randint(0, n_bins, (m, n)).astype(np.int32)
+    w = rng.poisson(1.0, (T, m)).astype(np.float32)
+    stats = rng.standard_normal((m, S)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (node, bx, w, stats)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        first = port_k.node_histogram_plain(*args, n_nodes, n_bins)
+        second = port_k.node_histogram_plain(*args, n_nodes, n_bins)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(first, second)
+    seq = np.zeros((T, n_nodes, n, n_bins, S), np.float32)
+    exact = np.zeros(seq.shape)
+    for t in range(T):
+        kept = (node[t] >= 0) & (node[t] < n_nodes)
+        c = w[t][:, None] * stats
+        for i in np.flatnonzero(kept):
+            for f in range(n):
+                seq[t, node[t, i], f, bx[i, f]] += c[i]
+            np.add.at(exact[t], (node[t, i], np.arange(n), bx[i]),
+                      c[i].astype(np.float64))
+    np.testing.assert_array_equal(first.numpy(), seq)
+    np.testing.assert_allclose(first.numpy(), exact, rtol=0, atol=1e-5)
+    # the integer declaration keeps the scatter, bit-equal for integers
+    ints = [args[0], args[1], args[2], torch.round(args[3] * 2)]
+    assert torch.equal(
+        port_k.node_histogram_plain(*ints, n_nodes, n_bins, integer=True),
+        port_k.node_histogram_plain(*ints, n_nodes, n_bins))
+
+
 def test_leaf_stats_sum_in_row_order():
     # the stable sort + segmented sum adds each leaf's contributions from
     # zero in row order: bit-equal to a sequential row-order scatter, with
