@@ -242,6 +242,17 @@ ALS_FOLD, ALS_TOP = (8, 4_096), 10
 IVF_M, IVF_D, IVF_Q, IVF_K, IVF_LISTS, IVF_PROBE, IVF_ITERS = \
     1_000_000, 64, 4_096, 10, 1_024, 32, 5
 IVF_GATE_Q, IVF_CUT_M, IVF_CUT_LISTS = 512, 20_000, 64
+# the resilience phase (the checkpointed fit): KMeans at the main path's
+# size, 50 steps in chunks of 10 (chunks of 5 for the SIGTERM drill, so
+# the signal from the snapshot worker has 8 boundaries to land on); the
+# forest in snapshots every 4 levels; GaussianMixture 6 EM steps from the
+# random init, 2 a chunk; the MiniBatchKMeans stream snapshotted every 50
+# batches; CascadeSVM cut from 20,000 to 4,096 rows (3 iterations at
+# 20,000 take 12 s a fit, and the phase fits it 3 times); DBSCAN and
+# Daura at their gate sizes (20,000 rows)
+RES_KM_ITERS, RES_KM_EVERY, RES_KM_SIGTERM_EVERY = 50, 10, 5
+RES_RF_EVERY, RES_GM_ITERS, RES_MBK_EVERY = 4, 6, 50
+RES_CSVM_M, RES_DB_M, RES_DA_M = 4_096, 20_000, 20_000
 
 
 _T0 = time.perf_counter()
@@ -2638,6 +2649,23 @@ def ivf_floor(mq, nprobe, cap, d):
     return 1e3 * 3 * 4.0 * mq * nprobe * cap * d / PEAK_BYTES
 
 
+def als_ratings():
+    """bench_als_sparse's draw: 100 random items a user, a planted rank-16
+    score plus noise; the CSR sums the repeated (user, item) draws."""
+    import numpy as np
+    import scipy.sparse as sp
+    m, n, f = ALS_M, ALS_N, ALS_F
+    rng = np.random.RandomState(2)
+    rows = np.repeat(np.arange(m), ALS_NNZ)
+    cols = rng.randint(0, n, rows.shape[0])
+    u_true = rng.standard_normal((m, f)).astype(np.float32)
+    v_true = rng.standard_normal((n, f)).astype(np.float32)
+    vals = (u_true[rows] * v_true[cols]).sum(1) + \
+        0.1 * rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return sp.csr_matrix((vals, (rows, cols)), shape=(m, n),
+                         dtype=np.float32)
+
+
 def als_phase(dev, cuda_ms):
     """ALS at bench_als_sparse's size on a SparseArray: one user and one
     item half-step against a float64 NumPy solve of the same normal
@@ -2655,18 +2683,7 @@ def als_phase(dev, cuda_ms):
     from dislib_tpu_torch.utils import profiling as prof
     t_phase = time.perf_counter()
     m, n, f, lam = ALS_M, ALS_N, ALS_F, ALS_LAM
-    # bench_als_sparse's draw: 100 random items a user, a planted rank-16
-    # score plus noise; the CSR sums the repeated (user, item) draws
-    rng = np.random.RandomState(2)
-    rows = np.repeat(np.arange(m), ALS_NNZ)
-    cols = rng.randint(0, n, rows.shape[0])
-    u_true = rng.standard_normal((m, f)).astype(np.float32)
-    v_true = rng.standard_normal((n, f)).astype(np.float32)
-    vals = (u_true[rows] * v_true[cols]).sum(1) + \
-        0.1 * rng.standard_normal(rows.shape[0]).astype(np.float32)
-    csr = sp.csr_matrix((vals, (rows, cols)), shape=(m, n),
-                        dtype=np.float32)
-    del rows, cols, vals, u_true, v_true
+    csr = als_ratings()
     x = dst.SparseArray.from_scipy(csr)
     t_data = time.perf_counter() - t_phase
 
@@ -2974,6 +2991,352 @@ def ivf_phase(dev, cuda_ms):
     torch.cuda.empty_cache()
     phase_wall("ivf", t_phase)
     return {"panel_gemm/ivf": gemm, "distances_sq/ivf_kmeans": dist}
+
+
+def resilience_tools():
+    """The resilience phase's timed checkpoint and kill switch, built on
+    the port's classes (imported here: the module imports nothing of the
+    port at load)."""
+    import numpy as np
+    from dislib_tpu_torch.runtime import health, preemption
+    from dislib_tpu_torch.utils import checkpoint as ck
+
+    class TimedCheckpoint(ck.FitCheckpoint):
+        """A FitCheckpoint that times each save on the snapshot worker:
+        the wait for its device→host copies, a separate CRC-32 pass over
+        the arrays (the save's own checksum is inside ``write_ms``), and
+        the save (checksum, npz, fsync, rotation)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.log = []
+
+        def save(self, state):
+            t0 = time.perf_counter()
+            host = {k: np.asarray(v.result() if hasattr(v, "result") else v)
+                    for k, v in state.items()}
+            t1 = time.perf_counter()
+            ck._state_crc(host)
+            t2 = time.perf_counter()
+            super().save(host)
+            t3 = time.perf_counter()
+            self.log.append({"bytes": os.path.getsize(self.path),
+                             "d2h_ms": 1e3 * (t1 - t0),
+                             "checksum_ms": 1e3 * (t2 - t1),
+                             "write_ms": 1e3 * (t3 - t2)})
+
+    class PreemptAtChunk(health.HealthPolicy):
+        """Requests preemption in the main thread when chunk ``at_chunk``
+        is admitted: the fit snapshots that chunk and raises ``Preempted``
+        at its boundary (a signal from the snapshot worker would land at a
+        boundary that depends on the disk's speed)."""
+
+        def __init__(self, at_chunk, **kw):
+            super().__init__(**kw)
+            self.at_chunk = int(at_chunk)
+
+        def make_guard(self, name, checkpoint=None):
+            at = self.at_chunk
+
+            class Guard(health.ChunkGuard):
+                def admit(self, *carries):
+                    carries = super().admit(*carries)
+                    if self.chunk_index == at:
+                        preemption.request_preemption()
+                    return carries
+
+            return Guard(name, self, checkpoint)
+
+    return TimedCheckpoint, PreemptAtChunk
+
+
+def kill_and_resume(name, make, args, every, at_chunk, tmp, same,
+                    position):
+    """Fit ``make()`` uninterrupted, then checkpointed and preempted at
+    chunk ``at_chunk``, then resumed by a fresh estimator on a fresh
+    FitCheckpoint; the resumed fit must equal the uninterrupted one
+    (``same``).  ``position(snapshot)`` is the snapshot's resume point.
+    Returns the walls, the snapshots' sizes and times, the resumed fit's
+    launches and ``fit_info_``."""
+    import torch
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.runtime import Preempted, clear_preemption
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    Timed, PreemptAt = resilience_tools()
+    t0 = time.perf_counter()
+    plain = make().fit(*args)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    path = os.path.join(tmp, f"{name}.npz")
+    ck = Timed(path, every=every)
+    t0 = time.perf_counter()
+    try:
+        make().fit(*args, checkpoint=ck, health=PreemptAt(at_chunk))
+        raise AssertionError(f"resilience {name}: the fit was not preempted")
+    except Preempted:
+        pass
+    finally:
+        clear_preemption()
+    t_killed = time.perf_counter() - t0
+    at = position(FitCheckpoint(path).load())
+    K.reset_launches()
+    t0 = time.perf_counter()
+    resumed = make().fit(*args, checkpoint=FitCheckpoint(path, every=every))
+    torch.cuda.synchronize()
+    t_resumed = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check(same(plain, resumed), f"resilience {name}: the resumed fit "
+          "differs from the uninterrupted one")
+    return {"fit_s": t_plain, "killed_fit_s": t_killed,
+            "resumed_fit_s": t_resumed, "resumed_from": at,
+            "snapshots": ck.log, "resumed_launches": launches,
+            "resumed_fit_info": resumed.fit_info_, "bit_identical": True}
+
+
+def resilience_phase(dev, card):
+    """The checkpointed fit on the card (PR 12): KMeans at 1M × 100 —
+    checked and unchecked bit-identical, SIGTERM after the second save
+    and a bit-identical resume, a NaN chunk healed by one rollback, a
+    hung chunk tripping the watchdog once, a NaN row raising on the
+    unchecked fit — then a kill and a resume of the forest (1M × 100, 16
+    trees), ALS (bench_als_sparse's size), GaussianMixture (1M × 50,
+    k = 16), MiniBatchKMeans (245 batches of 4,096), CascadeSVM, DBSCAN
+    and Daura.  Returns the launches of distances_sq and node_histogram
+    in the checked and resumed KMeans and forest fits."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.runtime import (NumericalDivergence, Preempted,
+                                          PreemptionWatcher,
+                                          clear_preemption)
+    from dislib_tpu_torch.trees import RandomForestClassifier
+    from dislib_tpu_torch.utils import faults
+    from dislib_tpu_torch.utils import profiling as prof
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    t_phase = time.perf_counter()
+    Timed, _ = resilience_tools()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    res = {"card": card}
+    out = {}
+    try:
+        # -- KMeans, the main path: 1M x 100, k = 10, 50 steps ---------------
+        rng = np.random.RandomState(0)
+        x_host = rng.rand(KM_M, KM_N).astype(np.float32)
+        init = x_host[rng.choice(KM_M, KM_K, replace=False)].copy()
+        x = dst.array(x_host)
+        del x_host
+
+        def km():
+            return dst.KMeans(n_clusters=KM_K, init=init,
+                              max_iter=RES_KM_ITERS, tol=0.0)
+
+        def fit_km(**kw):
+            K.reset_launches()
+            prof.reset_host_reads()
+            t0 = time.perf_counter()
+            est = km().fit(x, **kw)
+            wall = time.perf_counter() - t0
+            return est, wall, dict(K.LAUNCHES), dict(prof.HOST_READS)
+
+        km().fit(x)                                   # warm
+        plain, t_plain, l_plain, r_plain = fit_km()
+        ck = Timed(os.path.join(tmp, "km.npz"), every=RES_KM_EVERY)
+        checked, t_checked, l_checked, r_checked = fit_km(checkpoint=ck)
+        check(r_plain == {"results": 1}, f"resilience kmeans: the unchecked "
+              f"fit read {r_plain}, expected its one results read")
+        check(np.array_equal(checked.centers_, plain.centers_)
+              and checked.n_iter_ == plain.n_iter_ == RES_KM_ITERS,
+              "resilience kmeans: the checked fit differs from the "
+              "unchecked one")
+        check(checked.fit_info_["chunks"] == RES_KM_ITERS // RES_KM_EVERY,
+              f"resilience kmeans: fit_info_ {checked.fit_info_}")
+        check(l_plain.get("distances_sq") == RES_KM_ITERS
+              and l_checked.get("distances_sq") == RES_KM_ITERS,
+              f"resilience kmeans: distances_sq launched {l_plain} / "
+              f"{l_checked} times in {RES_KM_ITERS} steps")
+        out["distances_sq"] = l_checked["distances_sq"]
+        res["kmeans"] = {
+            "shape": [KM_M, KM_N], "k": KM_K, "iterations": RES_KM_ITERS,
+            "every": RES_KM_EVERY, "unchecked_fit_s": t_plain,
+            "checked_fit_s": t_checked,
+            "checked_overhead": t_checked / t_plain - 1.0,
+            "host_reads_unchecked": r_plain, "host_reads_checked": r_checked,
+            "launches_checked": l_checked, "snapshots": ck.log,
+            "fit_info_checked": checked.fit_info_, "bit_identical": True}
+
+        # SIGTERM after the second save, the resume on a fresh checkpoint
+        path = os.path.join(tmp, "km_sigterm.npz")
+        t0 = time.perf_counter()
+        try:
+            with PreemptionWatcher():
+                km().fit(x, checkpoint=faults.SigtermAtNthSave(
+                    path, every=RES_KM_SIGTERM_EVERY, after=2))
+            raise AssertionError("resilience kmeans: SIGTERM after the "
+                                 "second save did not preempt the fit")
+        except Preempted as e:
+            check(e.checkpoint_path == path and os.path.exists(path),
+                  "resilience kmeans: Preempted without its snapshot")
+        finally:
+            clear_preemption()
+        t_killed = time.perf_counter() - t0
+        done = int(FitCheckpoint(path).load()["n_iter"])
+        resumed, t_res, l_res, _ = fit_km(checkpoint=FitCheckpoint(
+            path, every=RES_KM_SIGTERM_EVERY))
+        check(np.array_equal(resumed.centers_, plain.centers_),
+              "resilience kmeans: the resumed fit differs from the "
+              "uninterrupted one")
+        check(l_res.get("distances_sq") == RES_KM_ITERS - done,
+              f"resilience kmeans: the resume launched distances_sq "
+              f"{l_res} times for {RES_KM_ITERS - done} steps left")
+        out["distances_sq_resumed"] = l_res["distances_sq"]
+        res["kmeans_sigterm"] = {
+            "every": RES_KM_SIGTERM_EVERY, "after_save": 2,
+            "snapshot_n_iter": done, "killed_fit_s": t_killed,
+            "resumed_fit_s": t_res, "resumed_launches": l_res,
+            "bit_identical": True}
+
+        # a NaN chunk heals by one rollback
+        nan, t_nan, _, _ = fit_km(
+            checkpoint=FitCheckpoint(os.path.join(tmp, "km_nan.npz"),
+                                     every=RES_KM_EVERY),
+            health=faults.NaNAtChunk(at_chunk=3))
+        check(nan.fit_info_["rollbacks"] == 1
+              and np.array_equal(nan.centers_, plain.centers_),
+              f"resilience kmeans: NaNAtChunk did not heal to the same "
+              f"bits ({nan.fit_info_})")
+        # a hung chunk trips the watchdog once and heals
+        prof.reset_counters()
+        hang, t_hang, _, _ = fit_km(
+            checkpoint=FitCheckpoint(os.path.join(tmp, "km_hang.npz"),
+                                     every=RES_KM_EVERY),
+            health=faults.HangAtChunk(at_chunk=2, hang_s=0.5,
+                                      deadline_s=0.1))
+        trips = prof.resilience_counters().get("watchdog_trips", 0)
+        check(trips == 1 and np.array_equal(hang.centers_, plain.centers_),
+              f"resilience kmeans: HangAtChunk tripped {trips} times")
+        # C.14: a NaN row raises on the unchecked fit
+        keep = x._data[17, 3].clone()
+        x._data[17, 3] = float("nan")
+        try:
+            km().fit(x)
+            raise AssertionError("resilience kmeans: a NaN row did not "
+                                 "raise NumericalDivergence")
+        except NumericalDivergence as e:
+            check(e.guard == "nonfinite", f"resilience kmeans: guard "
+                  f"{e.guard!r}")
+        finally:
+            x._data[17, 3] = keep
+        res["kmeans_faults"] = {
+            "nan_at_chunk_fit_s": t_nan, "nan_fit_info": nan.fit_info_,
+            "hang_fit_s": t_hang, "watchdog_trips": trips,
+            "nan_row_raises": "nonfinite"}
+
+        # MiniBatchKMeans: the 245-batch stream, preempted at batch 100
+        def mbk():
+            return dst.MiniBatchKMeans(n_clusters=KM_K, init=init,
+                                       batch_size=MBK_BATCH)
+
+        res["minibatch"] = kill_and_resume(
+            "minibatch", mbk, (x,), RES_MBK_EVERY, 100, tmp,
+            lambda a, b: np.array_equal(a.centers_, b.centers_)
+            and np.array_equal(a.counts_, b.counts_),
+            lambda s: int(s["n_batches"]))
+        del x
+        torch.cuda.empty_cache()
+
+        # -- the forest: 1M x 100, 16 trees, 12 levels -----------------------
+        x_f, lab_f = blobs(RF_M, RF_N, 8, seed=5)
+        X, Y = dst.array(x_f), dst.array((lab_f % 2).astype(
+            np.float32)[:, None])
+        del x_f, lab_f
+
+        def rf():
+            return RandomForestClassifier(n_estimators=RF_T, random_state=0)
+
+        res["forest"] = kill_and_resume(
+            "forest", rf, (X, Y), RES_RF_EVERY, RES_RF_EVERY, tmp,
+            same_forest, lambda s: int(s["lvl"]))
+        lvl = res["forest"]["resumed_from"]
+        n_hist = res["forest"]["resumed_launches"].get("node_histogram")
+        check(n_hist == 12 - lvl, f"resilience forest: the resume from "
+              f"level {lvl} launched node_histogram {n_hist} times")
+        out["node_histogram_resumed"] = n_hist
+        K.reset_launches()
+        rf().fit(X, Y, checkpoint=FitCheckpoint(os.path.join(
+            tmp, "rf_checked.npz"), every=RES_RF_EVERY))
+        out["node_histogram"] = K.LAUNCHES["node_histogram"]
+        check(out["node_histogram"] == 12, f"resilience forest: a checked "
+              f"fit launched node_histogram {out['node_histogram']} times")
+        del X, Y
+        torch.cuda.empty_cache()
+
+        # -- ALS at bench_als_sparse's size, one sweep a chunk ----------------
+        xs = dst.SparseArray.from_scipy(als_ratings())
+
+        def als():
+            return dst.ALS(n_f=ALS_F, lambda_=ALS_LAM, tol=0.0,
+                           max_iter=ALS_ITERS, random_state=0)
+
+        res["als"] = kill_and_resume(
+            "als", als, (xs,), 1, 2, tmp,
+            lambda a, b: np.array_equal(a.users_, b.users_)
+            and np.array_equal(a.items_, b.items_),
+            lambda s: int(s["n_iter"]))
+        del xs
+        torch.cuda.empty_cache()
+
+        # -- GaussianMixture, BASELINE config 5, 6 EM steps -------------------
+        xg, _ = blobs(GM_M, GM_N, GM_K, seed=3)
+        Xg = dst.array(xg)
+        del xg
+
+        def gm():
+            return dst.GaussianMixture(n_components=GM_K, max_iter=
+                                       RES_GM_ITERS, tol=0.0,
+                                       init_params="random", random_state=0)
+
+        res["gm"] = kill_and_resume(
+            "gm", gm, (Xg,), 2, 2, tmp,
+            lambda a, b: np.array_equal(a.means_, b.means_)
+            and np.array_equal(a.covariances_, b.covariances_),
+            lambda s: int(s["n_iter"]))
+        del Xg
+        torch.cuda.empty_cache()
+
+        # -- CascadeSVM, DBSCAN and Daura, cut for the phase's time ----------
+        rng = np.random.RandomState(0)
+        half = RES_CSVM_M // 2
+        xc = np.vstack([rng.randn(half, CSVM_N) + 2.0,
+                        rng.randn(RES_CSVM_M - half, CSVM_N) - 2.0]).astype(
+            np.float32)
+        yc = np.r_[np.ones(half), -np.ones(RES_CSVM_M - half)].astype(
+            np.float32)[:, None]
+        Xc = dst.array(xc, block_size=(CSVM_PART, CSVM_N))
+        Yc = dst.array(yc, block_size=(CSVM_PART, 1))
+        res["csvm"] = kill_and_resume(
+            "csvm", lambda: dst.CascadeSVM(max_iter=CSVM_ITERS,
+                                           check_convergence=False),
+            (Xc, Yc), 1, 1, tmp,
+            lambda a, b: np.array_equal(a._sv_idx, b._sv_idx)
+            and np.array_equal(a._sv_alpha, b._sv_alpha),
+            lambda s: int(s["n_iter"]))
+        xd, _ = blobs(RES_DB_M, DB_N, 16, seed=4)
+        res["dbscan"] = kill_and_resume(
+            "dbscan", lambda: dst.DBSCAN(eps=DB_EPS, min_samples=DB_MIN),
+            (dst.array(xd),), 1, 2, tmp,
+            lambda a, b: np.array_equal(a.labels_, b.labels_),
+            lambda s: int(np.unique(s["label"]).size))
+        xa, _ = blobs(RES_DA_M, DA_N, 12, seed=6, std=0.05)
+        res["daura"] = kill_and_resume(
+            "daura", lambda: dst.Daura(cutoff=DA_CUT), (dst.array(xa),), 2,
+            2, tmp, lambda a, b: np.array_equal(a.labels_, b.labels_),
+            lambda s: int(s["cid"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "resilience", **res})
+    return out
 
 
 def main() -> int:
@@ -3922,7 +4285,18 @@ def main() -> int:
     kernels.update(ivf_phase(dev, cuda_ms))
     emit({"phase": "als_ivf_summary", "seconds": time.perf_counter() - t0})
 
-    # -- (14) the kernels line, then the result --------------------------------------
+    # -- (14) the checkpointed fit: snapshots, kills and resumes ------------------
+    torch.cuda.empty_cache()
+    res = resilience_phase(dev, smi)
+    for name, entry in (("distances_sq", "distances_sq"),
+                        ("node_histogram", "node_histogram")):
+        kernels[f"{name}/resilience"] = {
+            **kernels[entry], "at": "resilience (checked fit; the kernel's "
+            "times are the main path's entry at the same shape)",
+            "launches": res[name],
+            "launches_resumed": res[f"{name}_resumed"]}
+
+    # -- (15) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

@@ -45,9 +45,19 @@ steps, the condition read once per chunk of ``EVERY`` steps
 read (also ``"csvm"``).  ``decision_function`` is eager: dense queries
 take the 2-D ``distances_sq`` kernel against the support vectors, sparse
 queries an ``ops/spmm`` cross term.  ``random_state`` is unused, as in
-the reference: the fit is deterministic.  ``checkpoint=``/``health=``
-raise ``NotImplementedError`` (the reference's ``ChunkedFitLoop`` is
-ROADMAP.md A.12).
+the reference: the fit is deterministic.
+
+The cascade iterations run through
+:class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`, one iteration a chunk,
+as the reference's do: the state (SV indices, their α, the last
+objective) lives on the host, so the guard judges it with ``check_host``
+(a non-finite α or objective trips ``'nonfinite'``), and with
+``checkpoint=FitCheckpoint(path, every=k)`` it snapshots every k
+iterations under a fingerprint of the hyperparameters and the composite
+digest ``versioned_digest(Σx, Σ row·x, Σy, Σ y·row)``.  A level's node
+batches go through ``ops/overlap.host_pipeline`` (batch b+1 dispatched
+before batch b's read under the overlapped schedules; the schedules are
+bit-equal).
 """
 
 from __future__ import annotations
@@ -62,10 +72,14 @@ from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import SparseArray, check_input
 from dislib_tpu_torch.ops import kernels as _k
+from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops.precision import precise
+from dislib_tpu_torch.runtime import fitloop as _fitloop
+from dislib_tpu_torch.runtime.elastic import fetch_packed
 from dislib_tpu_torch.ops.spmm import spmm_rows
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.dlog import verbose_logger
+from dislib_tpu_torch.utils import profiling as _prof
 from dislib_tpu_torch.utils.profiling import count_read
 
 #: the dual ascent's step cap and stopping threshold (the reference's)
@@ -120,11 +134,11 @@ class CascadeSVM(BaseEstimator):
     def fit(self, x, y, checkpoint=None, health=None):
         """Fit the cascade on ``x``'s device: a dense ds-array or a
         ``SparseArray`` (ELL staging on the device, or the host-CSR
-        fallback past ``DSLIB_SPARSE_ELL_BUDGET``)."""
-        if checkpoint is not None or health is not None:
-            raise NotImplementedError(
-                "CascadeSVM.fit checkpoint=/health=: the ChunkedFitLoop is "
-                "not ported yet (ROADMAP.md A.12)")
+        fallback past ``DSLIB_SPARSE_ELL_BUDGET``).  ``checkpoint``:
+        snapshots of the SV state every ``every`` iterations, resumed on
+        a re-run; ``health``: the loop's guard policy."""
+        from dislib_tpu_torch.utils.checkpoint import (
+            digest_sums, validate_snapshot, versioned_digest)
         if self.kernel not in ("rbf", "linear"):
             raise ValueError(f"unsupported kernel {self.kernel!r}")
         if self.max_iter < 1:
@@ -147,10 +161,50 @@ class CascadeSVM(BaseEstimator):
         nodes0 = _pack_nodes([np.arange(s, min(s + part, m))
                               for s in range(0, m, part)])
         log = verbose_logger("csvm", self.verbose)
-        sv_idx = sv_alpha = last_w = None
-        it, done = 0, False
-        while it < self.max_iter and not done:
-            it += 1
+        box = {"sv_idx": None, "sv_alpha": None, "last_w": None}
+        fp = digest = None
+        if checkpoint is not None:
+            # everything the fed-back SV state depends on: shape,
+            # hyperparameters, the level-0 partitioning (exact), and the
+            # data digests (plain and row-weighted sums of x and y)
+            fp = np.asarray([m, n, float(gamma), float(self.c),
+                             float(self.cascade_arity),
+                             float(("rbf", "linear").index(self.kernel)),
+                             float(part)], np.float64)
+            if isinstance(x, SparseArray):
+                rows, vals = fetch_packed(x._rows, x._vals,
+                                          site="digest").result()
+                vals = vals.astype(np.float64)
+                x_sum, x_rowsum = float(vals.sum()), float(vals @ rows)
+            else:
+                x_sum, x_rowsum = digest_sums(x._data)
+            digest = versioned_digest(
+                x_sum, x_rowsum, float(y_pm.sum()),
+                float(y_pm @ np.arange(m, dtype=np.float64)))
+        loop = _fitloop.ChunkedFitLoop(
+            "csvm", checkpoint=checkpoint, health=health,
+            max_iter=self.max_iter, chunk_iters=1,
+            save_every=checkpoint.every if checkpoint is not None else 1,
+            elastic=_fitloop.data_rebind({"x": x}))
+
+        def init(rem):
+            box.update(sv_idx=None, sv_alpha=None, last_w=None)
+            return _fitloop.LoopState(())   # the state is host-side
+
+        def restore(snap, rem):
+            validate_snapshot(snap, fp, digest)
+            box["sv_idx"] = np.asarray(snap["sv_idx"], np.int64)
+            box["sv_alpha"] = np.asarray(snap["sv_alpha"], np.float32)
+            box["last_w"] = float(snap["last_w"])
+            # a converged snapshot only ends the fit when THIS fit checks
+            # convergence
+            return _fitloop.LoopState((), it=int(snap["n_iter"]),
+                                      done=bool(snap["converged"])
+                                      and self.check_convergence)
+
+        def step(st, chunk):
+            it = st.it + 1
+            sv_idx = box["sv_idx"]
             if sv_idx is not None and len(sv_idx):
                 # feed the global SVs back into every level-0 partition
                 nodes = _pack_nodes([np.unique(np.r_[r[r >= 0], sv_idx])
@@ -164,24 +218,46 @@ class CascadeSVM(BaseEstimator):
                     break
                 nodes = self._merge_level(nodes, alphas)
             top_idx, top_alpha = nodes[0], alphas[0]
-            keep = (top_alpha > 1e-8) & (top_idx >= 0)
-            if not keep.any():
-                warnings.warn("CascadeSVM: no support vector exceeded "
-                              "alpha=1e-8; retaining the max-alpha "
-                              "sample", RuntimeWarning, stacklevel=2)
-                keep[int(np.argmax(np.where(top_idx >= 0, top_alpha,
-                                            -np.inf)))] = True
-            w = float(objs[0])
-            done = bool(self.check_convergence and last_w is not None
-                        and abs(w - last_w)
-                        <= self.tol * max(abs(w), 1e-12))
-            sv_idx, last_w = top_idx[keep], w
-            sv_alpha = top_alpha[keep].astype(np.float32)
-            log.info("iter %d: W=%.6f, SVs=%d", it, w, len(sv_idx))
-        self.iterations_n = self.n_iter_ = it
-        self.converged_ = done
+
+            def commit():
+                # behind the verdict: a faulted iteration never leaves
+                # its values in the box
+                keep = (top_alpha > 1e-8) & (top_idx >= 0)
+                if not keep.any():
+                    warnings.warn("CascadeSVM: no support vector exceeded "
+                                  "alpha=1e-8; retaining the max-alpha "
+                                  "sample", RuntimeWarning, stacklevel=2)
+                    keep[int(np.argmax(np.where(top_idx >= 0, top_alpha,
+                                                -np.inf)))] = True
+                w = float(objs[0])
+                done = bool(self.check_convergence
+                            and box["last_w"] is not None
+                            and abs(w - box["last_w"])
+                            <= self.tol * max(abs(w), 1e-12))
+                box.update(sv_idx=top_idx[keep], last_w=w,
+                           sv_alpha=top_alpha[keep].astype(np.float32))
+                log.info("iter %d: W=%.6f, SVs=%d", it, w,
+                         len(box["sv_idx"]))
+                return _fitloop.LoopState((), it, done)
+
+            return _fitloop.ChunkOutcome(
+                commit, host_values={"sv_alpha": top_alpha,
+                                     "objective": np.asarray(objs[0])})
+
+        def snapshot(st):
+            return {"sv_idx": np.asarray(box["sv_idx"], np.int64),
+                    "sv_alpha": box["sv_alpha"], "last_w": box["last_w"],
+                    "n_iter": st.it, "fp": fp, "digest": digest,
+                    "converged": st.done}
+
+        st = loop.run(init=init, step=step, restore=restore,
+                      snapshot=snapshot)
+        sv_idx = box["sv_idx"]
+        self.iterations_n = self.n_iter_ = st.it
+        self.converged_ = st.done
+        self.fit_info_ = loop.info
         self._sv_idx = sv_idx
-        self._sv_alpha = sv_alpha
+        self._sv_alpha = box["sv_alpha"]
         self._sv_x = stage.rows(sv_idx, n)
         self._sv_y = y_pm[sv_idx]
         self._gamma_fit = gamma
@@ -375,8 +451,9 @@ def _solve_level_batched(stage, yv, nodes, c, n_feat, solver):
     """One cascade level in node batches bounded by
     ``DSLIB_CSVM_SOLVE_BUDGET``: ~3 (cap, cap) float32 buffers a node, plus
     its gathered rows (and ELL staging); a batch past the first is padded
-    with all-invalid nodes to the batch's size.  Returns host ``(alphas,
-    objectives)``, read once a batch."""
+    with all-invalid nodes to the batch's size.  The batches go through
+    ``ops/overlap.host_pipeline``.  Returns host ``(alphas,
+    objectives)``, read once a batch (``HOST_READS["csvm"]``)."""
     n_nodes, cap = nodes.shape
     per_node = 3 * cap * cap * 4
     if stage.mode != "csr":
@@ -384,19 +461,24 @@ def _solve_level_batched(stage, yv, nodes, c, n_feat, solver):
     if stage.mode == "ell":
         per_node += cap * stage.r * 8
     batch = min(n_nodes, max(1, _solve_budget() // per_node))
-    out_a, out_o = [], []
-    for s in range(0, n_nodes, batch):
-        chunk = nodes[s: s + batch]
+
+    def issue(b):
+        chunk = nodes[b * batch: (b + 1) * batch]
         if chunk.shape[0] < batch:
             chunk = np.concatenate(
                 [chunk, np.full((batch - chunk.shape[0], cap), -1, np.int64)])
         a, o = _solve_nodes(stage, yv, chunk, c, solver)
-        count_read("csvm")
-        host = torch.cat((a, o[:, None]), dim=1).cpu().numpy()
-        out_a.append(host[:, :cap])
-        out_o.append(host[:, cap])
-    return (np.concatenate(out_a)[:n_nodes],
-            np.concatenate(out_o)[:n_nodes])
+        return fetch_packed(a, o, site="csvm")
+
+    def drain(b, pack):
+        return pack.result()
+
+    sched = _ov.resolve()
+    _prof.count_schedule("csvm_levels", sched)
+    res = _ov.host_pipeline(-(-n_nodes // batch), issue, drain,
+                            overlap=_ov.overlapped(sched))
+    return (np.concatenate([a for a, _ in res])[:n_nodes],
+            np.concatenate([o for _, o in res])[:n_nodes])
 
 
 def _clip(v, c_vec):

@@ -26,10 +26,17 @@ round is cheap, so rounds run masked in chunks of ``loop.EVERY``
 (``runtime/loop.run_chunked``, one read of ``any(active)`` a chunk, site
 ``"daura"``): a round with nothing active changes nothing.  A tiled or
 ring round is a whole O(m²) ε-pass, so those tiers read once per
-extracted cluster.  Labels, medoids and the input's non-finite count come
-back in one read.  Non-finite input raises ``NumericalDivergence``
-(``"input-nonfinite"``), as the reference's default guard does;
-``checkpoint=``/``health=`` raise, naming ROADMAP.md A.12.
+extracted cluster.
+
+The fit runs through :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`,
+as DBSCAN's does (``cluster/dbscan.one_chunk_fit`` and ``checked_fit``):
+unchecked, one chunk whose labels, medoids and input health vector come
+back in one read (non-finite input raises ``NumericalDivergence``,
+``"input-nonfinite"``); with ``checkpoint=FitCheckpoint(path, every=k)``
+the streamed tier extracts k clusters a chunk and snapshots the greedy
+state (active mask, labels, medoids, cluster counter).  The greedy loop
+is deterministic in that state, so a resumed fit ends where the
+uninterrupted one does.
 """
 
 from __future__ import annotations
@@ -39,15 +46,15 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.dbscan import (
-    check_finite, f32, labels_array, refuse_fit_options,
+    checked_fit, f32, labels_array, one_chunk_fit,
 )
-from dislib_tpu_torch.cluster.kmeans import _to_host
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import tiled as _tiled
 from dislib_tpu_torch.ops.ring import ring_auto, ring_neigh_count_min
+from dislib_tpu_torch.runtime.elastic import fetch_packed
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.profiling import host_read
 
@@ -78,7 +85,10 @@ class Daura(BaseEstimator):
         self.cutoff = cutoff
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
-        refuse_fit_options("Daura", checkpoint, health)
+        """Fit.  With ``checkpoint=FitCheckpoint(path, every=k)`` the
+        greedy state snapshots every k extracted clusters of the streamed
+        tier; a re-run resumes the extraction.  ``health``: the loop's
+        guard policy (it watches the input frames)."""
         x = dense_input(x, "Daura")
         if x.shape[1] % 3 != 0:
             raise ValueError("Daura expects rows of 3*n_atoms coordinates")
@@ -87,21 +97,28 @@ class Daura(BaseEstimator):
         mesh = x._mesh
         cutoff = float(self.cutoff)
         xv = _tiled.pad_cols(x._data[:m, :n])
-        if ring_auto(_RING, mesh, x._data.shape[0] > _DENSE_MAX):
+        ring = ring_auto(_RING, mesh, x._data.shape[0] > _DENSE_MAX)
+        if ring:
             sched = _ov.resolve()
-            labels, medoids = _daura_fit_streamed(
-                xv, cutoff, n_atoms, lambda *a, **kw: ring_neigh_count_min(
-                    *a, mesh=mesh, overlap=sched, **kw))
-        elif x._data.shape[0] <= _DENSE_MAX:
-            labels, medoids = _daura_fit(xv, cutoff, n_atoms)
+
+            def ncm(*a, **kw):
+                return ring_neigh_count_min(*a, mesh=mesh, overlap=sched,
+                                            **kw)
         else:
-            tile = _tiled.TILE
-            labels, medoids = _daura_fit_streamed(
-                xv, cutoff, n_atoms, lambda *a, **kw: _tiled.neigh_count_min(
-                    *a, tile, **kw))
-        n_bad = (~torch.isfinite(xv)).sum()
-        labels, medoids, n_bad = _to_host(labels, medoids, n_bad)
-        check_finite(n_bad, "daura")
+            def ncm(*a, **kw):
+                return _tiled.neigh_count_min(*a, _tiled.TILE, **kw)
+        if checkpoint is not None:
+            labels, medoids = self._fit_checkpointed(x, xv, n_atoms, ncm,
+                                                     checkpoint, health)
+        else:
+            if ring or x._data.shape[0] > _DENSE_MAX:
+                def run():
+                    return _daura_fit_streamed(xv, cutoff, n_atoms, ncm)
+            else:
+                def run():
+                    return _daura_fit(xv, cutoff, n_atoms)
+            (labels, medoids), self.fit_info_ = one_chunk_fit(
+                "daura", health, run, xv)
         self.labels_ = labels.astype(np.int64)
         clusters = []
         for cid in range(int(labels.max()) + 1 if labels.size else 0):
@@ -110,6 +127,45 @@ class Daura(BaseEstimator):
             clusters.append(np.concatenate(([med], members[members != med])))
         self.clusters_ = clusters
         return self
+
+    def _fit_checkpointed(self, x, xv, n_atoms, ncm, checkpoint, health):
+        """The streamed extraction in chunks of ``every`` clusters, the
+        greedy state snapshotted between chunks; returns the host
+        (labels, medoids)."""
+        m = xv.shape[0]
+        cutoff = float(self.cutoff)
+        cut2 = f32(f32(f32(cutoff) * f32(cutoff)) * n_atoms)
+        dev = xv.device
+        fp = np.asarray([x.shape[0], x.shape[1], cutoff], np.float64)
+
+        def init():
+            return (torch.ones(m, dtype=torch.bool, device=dev),
+                    torch.full((m,), -1, dtype=torch.int32, device=dev),
+                    torch.full((m,), -1, dtype=torch.int32, device=dev), 0)
+
+        def restore(snap):
+            act, lab, med = (torch.from_numpy(np.asarray(snap[k])[:m].astype(
+                dt)).to(dev) for k, dt in (("active", bool),
+                                           ("labels", np.int32),
+                                           ("medoids", np.int32)))
+            return act, lab, med, int(snap["cid"])
+
+        def chunk(state, read):
+            active, labels, medoids, cid = state
+            active, labels, medoids, cid, left = _daura_extract(
+                xv, cut2, ncm, active, labels, medoids, cid,
+                checkpoint.every, read)
+            return (active, labels, medoids, cid), not left
+
+        def snapshot(state):
+            act, lab, med = fetch_packed(*state[:3], site="fetch").result()
+            return {"active": act, "labels": lab, "medoids": med,
+                    "cid": state[3]}
+
+        (_, labels, medoids, _), self.fit_info_ = checked_fit(
+            "daura", checkpoint, health, x, fp, init, chunk, snapshot,
+            restore)
+        return fetch_packed(labels, medoids).result()
 
     def fit_predict(self, x: Array, y=None) -> Array:
         self.fit(x)
@@ -151,19 +207,16 @@ def _daura_fit(xv, cutoff, n_atoms):
     return st["labels"], st["medoids"]
 
 
-def _daura_fit_streamed(xv, cutoff, n_atoms, ncm):
-    """The tiled and ring tiers: one ε-pass ``ncm`` (as in
-    ``cluster/dbscan._dbscan_fit_streamed``) and one host read per
-    extracted cluster."""
+def _daura_extract(xv, cut2, ncm, active, labels, medoids, cid, max_new,
+                   read):
+    """Up to ``max_new`` greedy extractions of the streamed tiers, one
+    ε-pass, one distance column and one read of ``any(active)`` each.
+    Returns ``(active, labels, medoids, cid, any_left)``; ``medoids`` is
+    updated in place."""
     m = xv.shape[0]
-    dev = xv.device
-    cut2 = f32(f32(f32(cutoff) * f32(cutoff)) * n_atoms)
-    ids = torch.arange(m, dtype=torch.int32, device=dev)
-    active = torch.ones(m, dtype=torch.bool, device=dev)
-    labels = torch.full((m,), -1, dtype=torch.int32, device=dev)
-    medoids = torch.full((m,), -1, dtype=torch.int32, device=dev)
-    cid = 0
-    while True:
+    ids = torch.arange(m, dtype=torch.int32, device=xv.device)
+    left = True
+    for _ in range(max_new):
         counts, _ = ncm(xv, cut2, ids, active, m, mins=False)
         counts = torch.where(active, counts, -1)
         medoid = torch.argmax(counts)
@@ -174,6 +227,24 @@ def _daura_fit_streamed(xv, cutoff, n_atoms, ncm):
         medoids[cid] = medoid.to(torch.int32)
         active = active & ~members
         cid += 1
-        if not host_read(active.any(), "daura"):
+        left = bool(read(active.any(), "daura"))
+        if not left:
             break
+    return active, labels, medoids, cid, left
+
+
+def _daura_fit_streamed(xv, cutoff, n_atoms, ncm):
+    """The tiled and ring tiers: one ε-pass ``ncm`` (as in
+    ``cluster/dbscan._dbscan_fit_streamed``) and one host read per
+    extracted cluster."""
+    m = xv.shape[0]
+    dev = xv.device
+    cut2 = f32(f32(f32(cutoff) * f32(cutoff)) * n_atoms)
+    active = torch.ones(m, dtype=torch.bool, device=dev)
+    labels = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    medoids = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    cid, left = 0, True
+    while left:
+        active, labels, medoids, cid, left = _daura_extract(
+            xv, cut2, ncm, active, labels, medoids, cid, 1, host_read)
     return labels, medoids

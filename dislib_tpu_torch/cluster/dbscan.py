@@ -31,11 +31,19 @@ and a round past the stop would pay a full pass, so they read once per
 round.  The labels, the core mask and the input's non-finite count come
 back in one read (``"results"``).
 
-A non-finite coordinate makes every ε-comparison false; as the
-reference's default health guard does, the fit then raises
-``NumericalDivergence`` (guard ``"input-nonfinite"``).  Not ported:
-``checkpoint=`` and ``health=`` (the ``ChunkedFitLoop``, ROADMAP.md A.12),
-which raise ``NotImplementedError``.
+The fit runs through :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`,
+as the reference's does.  Unchecked, it is one chunk: the whole fit on
+the tier above, its health vector over the INPUT (labels are integral:
+there is no numeric trajectory to diverge), read with the labels and the
+core mask in one transfer; a non-finite coordinate, which makes every
+ε-comparison false, raises ``NumericalDivergence`` (guard
+``"input-nonfinite"``).  With ``checkpoint=FitCheckpoint(path, every=k)``
+the fit runs the streamed passes (ring where the plain fit would take
+it, tiled otherwise, at any size): setup, then chunks of k propagation
+rounds, each snapshotting the label vector and the core mask, then the
+border pass.  Min-label propagation converges to the same labels from
+any intermediate state, so a resumed fit ends where the uninterrupted
+one does.
 """
 
 from __future__ import annotations
@@ -44,14 +52,15 @@ import numpy as np
 import torch
 
 from dislib_tpu_torch.base import BaseEstimator
-from dislib_tpu_torch.cluster.kmeans import _to_host
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import tiled as _tiled
 from dislib_tpu_torch.ops.ring import ring_auto, ring_neigh_count_min
+from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
+from dislib_tpu_torch.runtime.elastic import fetch_packed
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.profiling import host_read
 
@@ -65,23 +74,57 @@ _DENSE_MAX = 16384
 _RING = None
 
 
-def refuse_fit_options(name, checkpoint, health):
-    """``checkpoint=``/``health=`` wait for the ChunkedFitLoop."""
-    if checkpoint is not None or health is not None:
-        raise NotImplementedError(
-            f"{name}.fit checkpoint=/health=: the ChunkedFitLoop is not "
-            "ported yet (ROADMAP.md A.12)")
+def one_chunk_fit(name, health, run, xv):
+    """The unchecked fit of DBSCAN and Daura: one chunk of the fit loop
+    running ``run()`` (a tuple of device tensors), judged on the health
+    vector over the input ``xv`` (a non-finite coordinate raises
+    ``NumericalDivergence``, guard ``"input-nonfinite"``), read with the
+    results in one transfer.  Returns ``(host results, fit_info)``."""
+    loop = _fitloop.ChunkedFitLoop(name, health=health)
+
+    def step(st, chunk):
+        out = run()
+        pack = fetch_packed(*out, _health.health_vec(inputs=(xv,)))
+        return _fitloop.ChunkOutcome(
+            lambda: _fitloop.LoopState((), 0, True,
+                                       extra=pack.result()[:-1]),
+            hvec=pack.part(len(out)))
+
+    st = loop.run(init=lambda rem: _fitloop.LoopState(()), step=step)
+    return st.extra, loop.info
 
 
-def check_finite(n_bad, estimator):
-    """Raise the reference guard's ``input-nonfinite`` verdict when the
-    input held ``n_bad`` > 0 non-finite coordinates."""
-    if n_bad > 0:
-        raise _health.NumericalDivergence(
-            f"{estimator}: the input holds {int(n_bad)} non-finite "
-            "coordinates, which fail every distance comparison; quarantine "
-            "the rows at ingest", estimator=estimator, iteration=0,
-            guard="input-nonfinite", detail={"input_nonfinite": int(n_bad)})
+def checked_fit(name, checkpoint, health, x, fp, init, chunk, snapshot,
+                restore):
+    """The checkpointed fit of DBSCAN and Daura: chunks of ``chunk(state,
+    read) -> (state, done)`` from ``init()`` or ``restore(snap)``, each
+    judged on the input's health vector and snapshotted as
+    ``snapshot(state)`` (plus ``fp`` and the data digest).  Returns
+    ``(final state, fit_info)``."""
+    from dislib_tpu_torch.utils.checkpoint import (data_digest,
+                                                   validate_snapshot)
+    xv = x._data[: x.shape[0], : x.shape[1]]
+    digest = data_digest(x._data)
+    loop = _fitloop.ChunkedFitLoop(name, checkpoint=checkpoint,
+                                   health=health,
+                                   elastic=_fitloop.data_rebind({"x": x}))
+
+    def _restore(snap, rem):
+        validate_snapshot(snap, fp, digest)
+        return _fitloop.LoopState((), extra=restore(snap))
+
+    def step(st, n):
+        state, done = chunk(st.extra, loop.guard.read)
+        return _fitloop.ChunkOutcome(
+            _fitloop.LoopState((), st.it + 1, done, extra=state),
+            hvec=_health.health_vec(inputs=(xv,)))
+
+    def _snapshot(st):
+        return {**snapshot(st.extra), "fp": fp, "digest": digest}
+
+    st = loop.run(init=lambda rem: _fitloop.LoopState((), extra=init()),
+                  step=step, restore=_restore, snapshot=_snapshot)
+    return st.extra, loop.info
 
 
 def labels_array(labels: np.ndarray, mesh) -> Array:
@@ -122,27 +165,37 @@ class DBSCAN(BaseEstimator):
         self.max_samples = max_samples
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
-        refuse_fit_options("DBSCAN", checkpoint, health)
+        """Fit.  With ``checkpoint=FitCheckpoint(path, every=k)`` the label
+        vector snapshots every k propagation rounds of the streamed tier,
+        and a re-run resumes the propagation from the snapshot.
+        ``health``: the loop's guard policy (it watches the input)."""
         x = dense_input(x, "DBSCAN")
         m, n = x.shape
         mesh = x._mesh
         eps, ms = float(self.eps), int(self.min_samples)
         xv = _tiled.pad_cols(x._data[:m, :n])
-        if ring_auto(_RING, mesh, x._data.shape[0] > _DENSE_MAX):
+        ring = ring_auto(_RING, mesh, x._data.shape[0] > _DENSE_MAX)
+        if ring:
             sched = _ov.resolve()
-            raw, core = _dbscan_fit_streamed(
-                xv, eps, ms, lambda *a, **kw: ring_neigh_count_min(
-                    *a, mesh=mesh, overlap=sched, **kw))
-        elif x._data.shape[0] <= _DENSE_MAX:
-            raw, core = _dbscan_fit(xv, eps, ms)
+
+            def ncm(*a, **kw):
+                return ring_neigh_count_min(*a, mesh=mesh, overlap=sched,
+                                            **kw)
         else:
-            tile = _tiled.TILE
-            raw, core = _dbscan_fit_streamed(
-                xv, eps, ms, lambda *a, **kw: _tiled.neigh_count_min(
-                    *a, tile, **kw))
-        n_bad = (~torch.isfinite(xv)).sum()
-        raw, core, n_bad = _to_host(raw, core, n_bad)
-        check_finite(n_bad, "dbscan")
+            def ncm(*a, **kw):
+                return _tiled.neigh_count_min(*a, _tiled.TILE, **kw)
+        if checkpoint is not None:
+            raw, core = self._fit_checkpointed(x, xv, ncm, checkpoint,
+                                               health)
+        else:
+            if ring or x._data.shape[0] > _DENSE_MAX:
+                def run():
+                    return _dbscan_fit_streamed(xv, eps, ms, ncm)
+            else:
+                def run():
+                    return _dbscan_fit(xv, eps, ms)
+            (raw, core), self.fit_info_ = one_chunk_fit("dbscan", health,
+                                                        run, xv)
         # renumber root labels compactly in order of first appearance
         clustered = raw >= 0
         roots, first, inverse = np.unique(raw[clustered], return_index=True,
@@ -155,6 +208,43 @@ class DBSCAN(BaseEstimator):
         self.n_clusters_ = len(roots)
         self.core_sample_indices_ = np.nonzero(core)[0]
         return self
+
+    def _fit_checkpointed(self, x, xv, ncm, checkpoint, health):
+        """The streamed passes in chunks of ``every`` propagation rounds,
+        the (label, core) state snapshotted between chunks; returns the
+        host (raw labels, core mask)."""
+        eps, ms = float(self.eps), int(self.min_samples)
+        m = xv.shape[0]
+        eps2 = f32(f32(eps) * f32(eps))
+        fp = np.asarray([x.shape[0], x.shape[1], eps, ms], np.float64)
+
+        def init():
+            return _streamed_setup(xv, eps2, ms, ncm)
+
+        def restore(snap):
+            lab = np.asarray(snap["label"])[:m]
+            # labels are core row ids (< m) with "no label" = the
+            # writer's sentinel: re-base it to this fit's (m)
+            lab = np.where(lab < m, lab, m).astype(np.int32)
+            return (torch.from_numpy(lab).to(xv.device),
+                    torch.from_numpy(np.asarray(snap["core"])[:m]
+                                     .astype(bool)).to(xv.device))
+
+        def chunk(state, read):
+            label, core = state
+            label, changed = _streamed_rounds(xv, eps2, label, core, ncm,
+                                              checkpoint.every, read)
+            return (label, core), not changed
+
+        def snapshot(state):
+            lab, core = fetch_packed(*state, site="fetch").result()
+            return {"label": lab, "core": core}
+
+        (label, core), self.fit_info_ = checked_fit(
+            "dbscan", checkpoint, health, x, fp, init, chunk, snapshot,
+            restore)
+        _, border = ncm(xv, eps2, label, core, m, counts=False)
+        return fetch_packed(_final(label, core, border, m), core).result()
 
     def fit_predict(self, x: Array, y=None) -> Array:
         self.fit(x)
@@ -209,27 +299,45 @@ def _dbscan_fit(xv, eps, min_samples):
     return _final(label, core, border, sentinel), core
 
 
+def _streamed_setup(xv, eps2, min_samples, ncm):
+    """The streamed tiers' setup: one ε-pass for the core counts; returns
+    ``(label, core)`` with every core point its own label."""
+    m = xv.shape[0]
+    ids = torch.arange(m, dtype=torch.int32, device=xv.device)
+    valid = torch.ones(m, dtype=torch.bool, device=xv.device)
+    counts, _ = ncm(xv, eps2, ids, valid, m, mins=False)
+    core = counts >= min_samples
+    return torch.where(core, ids, m), core
+
+
+def _streamed_rounds(xv, eps2, label, core, ncm, max_rounds, read):
+    """Up to ``max_rounds`` propagation rounds, one ε-pass and one read of
+    ``changed`` each; returns ``(label, changed)`` (``changed`` False once
+    a round changed nothing)."""
+    m = xv.shape[0]
+    changed = True
+    for _ in range(max_rounds):
+        _, neigh = ncm(xv, eps2, label, core, m, counts=False)
+        new = _jump(torch.where(core, torch.minimum(label, neigh), m), m)
+        flag = (new != label).any()
+        label = new
+        changed = bool(read(flag, "dbscan"))
+        if not changed:
+            break
+    return label, changed
+
+
 def _dbscan_fit_streamed(xv, eps, min_samples, ncm):
     """The tiled and ring tiers: setup (one ε-pass for the core counts),
     propagation (one pass and one host read per round), finalize (one
     pass for the border labels).  ``ncm(xv, eps2, vals, colmask,
     sentinel, counts=, mins=)`` is the ε-pass."""
     m = xv.shape[0]
-    dev = xv.device
-    sentinel = m
     eps2 = f32(f32(eps) * f32(eps))
-    ids = torch.arange(m, dtype=torch.int32, device=dev)
-    valid = torch.ones(m, dtype=torch.bool, device=dev)
-    counts, _ = ncm(xv, eps2, ids, valid, sentinel, mins=False)
-    core = counts >= min_samples
-    label = torch.where(core, ids, sentinel)
-    while True:
-        _, neigh = ncm(xv, eps2, label, core, sentinel, counts=False)
-        new = _jump(torch.where(core, torch.minimum(label, neigh), sentinel),
-                    sentinel)
-        changed = (new != label).any()
-        label = new
-        if not host_read(changed, "dbscan"):
-            break
-    _, border = ncm(xv, eps2, label, core, sentinel, counts=False)
-    return _final(label, core, border, sentinel), core
+    label, core = _streamed_setup(xv, eps2, min_samples, ncm)
+    changed = True
+    while changed:
+        label, changed = _streamed_rounds(xv, eps2, label, core, ncm, 1,
+                                          host_read)
+    _, border = ncm(xv, eps2, label, core, m, counts=False)
+    return _final(label, core, border, m), core

@@ -16,11 +16,16 @@ runs under :func:`~dislib_tpu_torch.ops.precision.precise` (TF32 off).
 
 Where the port departs from the reference's code:
 
-- ``fit`` runs :func:`_gm_fit` directly; the reference always goes through
-  its ``ChunkedFitLoop``.  ``checkpoint=``/``health=`` raise
-  ``NotImplementedError`` (ROADMAP.md A.12).  A ``SparseArray`` is
-  densified through its budget-guarded lazy backing, as the reference's
-  ``x._data`` is (``data/sparse.dense_input``).
+- ``fit`` runs through :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`
+  as the reference's does: one chunk of ``max_iter`` EM steps without a
+  checkpoint, ``every``-step chunks with ``checkpoint=FitCheckpoint(...)``
+  (snapshots of weights, means, covariances, lower bound and n_iter).
+  Each chunk's results and health vector come back in one packed read,
+  so an unchecked fit still reads once and a non-finite fit raises
+  ``NumericalDivergence``.  The ``'halve'`` action doubles ``reg_covar``
+  per tier attempt.  A ``SparseArray`` is densified through its
+  budget-guarded lazy backing, as the reference's ``x._data`` is
+  (``data/sparse.dense_input``).
 - The ``kmeans`` init runs the port's KMeans device loop, whose E-step is
   the hand CUDA kernel ``distances_sq`` on a card, in KMeans' fast mode
   (the bf16-operand variant) when ``DSLIB_KMEANS_FAST_DISTANCE=1`` asks
@@ -38,8 +43,9 @@ Where the port departs from the reference's code:
   NaN, with no host sync.
 - ``predict`` is the reference's fusion-graph node body, called eagerly.
 
-``fit`` is ``_fit_finalize(_fit_async(x))``, the search's async-trial
-hooks; ``_score_async`` is the mean log-likelihood as a device scalar.
+The search's async-trial hooks are ``_fit_async`` (one :func:`_gm_fit`)
+and ``_fit_finalize`` (its one read); ``_score_async`` is the mean
+log-likelihood as a device scalar.
 """
 
 from __future__ import annotations
@@ -52,7 +58,9 @@ from dislib_tpu_torch.cluster.kmeans import _crop, _to_host
 from dislib_tpu_torch.data.array import Array, ensure_canonical
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops.base import cholesky_nan, precise
+from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
+from dislib_tpu_torch.runtime.elastic import fetch, fetch_packed
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.dlog import verbose_logger
 
@@ -131,13 +139,90 @@ class GaussianMixture(BaseEstimator):
             raise ValueError("max_iter must be >= 1")
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
-        """Fit by EM on ``x``'s device; one read per chunk of EM steps and
-        one at the end."""
-        if checkpoint is not None or health is not None:
-            raise NotImplementedError(
-                "GaussianMixture.fit checkpoint=/health=: the ChunkedFitLoop"
-                " is not ported yet (ROADMAP.md A.12)")
-        self._fit_finalize(self._fit_async(x))
+        """Fit by EM on ``x``'s device.  With ``checkpoint=FitCheckpoint(
+        path, every=k)`` the EM steps run in k-step chunks, each
+        snapshotting (weights, means, covariances, lower_bound, n_iter);
+        a re-run resumes from the snapshot.  ``health``: the chunk
+        guard's :class:`~dislib_tpu_torch.runtime.HealthPolicy`; a trip
+        rolls back to the last good snapshot, and ``'halve'`` doubles
+        ``reg_covar`` per restart."""
+        self._check_params(x)
+        x = dense_input(x, "GaussianMixture")
+        n = x.shape[1]
+        dev = x.device
+        box = {"x": x, "reg_covar": float(self.reg_covar), "resp0": None,
+               "lb": None}
+        log = verbose_logger("gm", self.verbose)
+        loop = _fitloop.ChunkedFitLoop(
+            "gm", checkpoint=checkpoint, health=health,
+            max_iter=self.max_iter,
+            increasing=True,            # the EM lower bound must not fall
+            carry_names=("weights", "means", "covariances"),
+            carry_shapes=((self.n_components,), (self.n_components, n)),
+            snapshot_expect={"weights": (self.n_components,),
+                             "means": (self.n_components, n)},
+            elastic=_fitloop.data_rebind(box))
+
+        def init(rem):
+            box["reg_covar"] = float(self.reg_covar) * rem.damping
+            box["resp0"] = self._init_resp(box["x"])
+            box["lb"] = None
+            return _fitloop.LoopState(self._explicit_inits(dev))
+
+        def restore(snap, rem):
+            # the three parameters come from the snapshot: no
+            # responsibility init (weights/means shapes are judged by the
+            # rollback funnel)
+            box["reg_covar"] = float(self.reg_covar) * rem.damping
+            box["resp0"] = None
+            params = tuple(torch.from_numpy(np.asarray(rem.perturb(
+                np.asarray(snap[k], np.float32)))).to(dev)
+                for k in ("weights", "means", "covariances"))
+            box["lb"] = float(snap["lower_bound"])
+            return _fitloop.LoopState(params, it=int(snap["n_iter"]),
+                                      done=bool(snap.get("converged",
+                                                         False)))
+
+        def step(st, chunk):
+            xd = box["x"]
+            out = _gm_fit(xd._data, xd.shape, box["resp0"],
+                          self.covariance_type, box["reg_covar"],
+                          float(self.tol), chunk, st.carries,
+                          prev_lb0=box["lb"], read=loop.guard.read)
+            pack = fetch_packed(*out)
+
+            def commit():
+                w, mu, cv, lb, n_done, conv, _, _ = pack.result()
+                box["lb"] = float(lb)
+                it = st.it + int(n_done)
+                log.info("iter %d: lower_bound=%.6g", it, box["lb"])
+                return _fitloop.LoopState(out[:3], it, bool(conv),
+                                          extra=(w, mu, cv))
+
+            def history():
+                res = pack.result()
+                return res[6][: int(res[4])]
+
+            return _fitloop.ChunkOutcome(commit, hvec=pack.part(7),
+                                         history=history)
+
+        def snapshot(st):
+            w, mu, cv = st.extra
+            return {"weights": w, "means": mu, "covariances": cv,
+                    "lower_bound": box["lb"], "n_iter": st.it,
+                    "converged": st.done}
+
+        st = loop.run(init=init, step=step, restore=restore,
+                      snapshot=snapshot)
+        # a resumed, already finished fit ran no chunk
+        params = st.extra if st.extra is not None else \
+            [fetch(p) for p in st.carries]
+        self.weights_, self.means_, self.covariances_ = params
+        self.lower_bound_ = box["lb"] if box["lb"] is not None else -np.inf
+        self.n_iter_ = st.it
+        self.converged_ = st.done
+        self.history_ = np.asarray(loop.history, dtype=np.float64)
+        self.fit_info_ = loop.info
         return self
 
     # async trial protocol: the EM fit (the KMeans init included) runs on
@@ -319,13 +404,15 @@ def _e_step(xv, w, m, weights, means, covs, cov_type):
 
 @precise
 def _gm_fit(xp, shape, resp0, cov_type, reg_covar, tol, max_iter,
-            overrides=(None, None, None)):
+            overrides=(None, None, None), prev_lb0=None, read=None):
     """EM on the padded backing ``xp`` of logical ``shape`` from the
     responsibilities ``resp0`` (or the explicit ``overrides``), until
     ``|lb − prev_lb| < tol`` or ``max_iter`` (the reference's ``cond``),
-    in chunks of masked steps (:func:`run_chunked`).  Returns ``(weights,
-    means, covs, lb, n_iter, converged, hist, hvec)`` as device tensors —
-    the reference's 8-tuple."""
+    in chunks of masked steps (:func:`run_chunked`).  ``prev_lb0``: the
+    lower bound the first step is compared with (a resumed chunk's);
+    ``read``: the loop's stop-flag read.  Returns ``(weights, means, covs,
+    lb, n_iter, converged, hist, hvec)`` as device tensors — the
+    reference's 8-tuple."""
     m, n = shape
     xv, w = _crop(xp, shape)
     dev, dt = xv.device, xv.dtype
@@ -337,9 +424,13 @@ def _gm_fit(xp, shape, resp0, cov_type, reg_covar, tol, max_iter,
         covs = _estimate_covs(xv, resp, nk, means, cov_type, reg_covar, w)
         return nk / m, means, covs
 
-    weights, means, covs = (o if o is not None else v for o, v in
-                            zip(overrides, m_step(resp0.to(dt))))
-    lb = torch.full((), float("-inf"), dtype=dt, device=dev)
+    if any(o is None for o in overrides):
+        weights, means, covs = (o if o is not None else v for o, v in
+                                zip(overrides, m_step(resp0.to(dt))))
+    else:                               # a resumed chunk: no M-step init
+        weights, means, covs = overrides
+    lb = torch.full((), float("-inf") if prev_lb0 is None else prev_lb0,
+                    dtype=dt, device=dev)
     conv = torch.zeros((), dtype=torch.bool, device=dev)
     n_iter = torch.zeros((), dtype=torch.int32, device=dev)
     hist = torch.zeros((max_iter,), dtype=dt, device=dev)
@@ -358,7 +449,8 @@ def _gm_fit(xp, shape, resp0, cov_type, reg_covar, tol, max_iter,
         n_iter = n_iter + active.to(torch.int32)
 
     # |lb - prev_lb| < tol never holds at tol <= 0
-    run_chunked(step, None if tol <= 0 else lambda: ~conv, max_iter, "gm")
+    run_chunked(step, None if tol <= 0 else lambda: ~conv, max_iter, "gm",
+                read=read)
     hvec = _health.health_vec(carries=(weights, means, covs), hist=hist,
                               n_done=n_iter, increasing=True)
     return weights, means, covs, lb, n_iter, conv, hist, hvec

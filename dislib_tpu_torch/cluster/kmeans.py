@@ -38,8 +38,18 @@ fit's; ``predict`` and ``score`` take a SparseArray too.  The random
 init gathers its k rows from the array's host CSR mirror, as the
 reference gathers them from its host triplets.
 
-Not ported yet: ``checkpoint=``/``health=`` (the ``ChunkedFitLoop``,
-ROADMAP.md A.12), which raise ``NotImplementedError``.
+``fit`` runs through :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`,
+checkpointed or not, as the reference's does: one chunk of ``max_iter``
+steps without a checkpoint, chunks of ``every`` steps with
+``checkpoint=FitCheckpoint(path, every=k)``.  Each chunk is one call of
+:func:`_kmeans_fit` (or :func:`_kmeans_fit_sparse`) from the carried
+centers, and ONE packed read (``runtime.fetch_packed``) of its centers,
+step count, inertia, shift, history and health vector: the guard judges
+the health part under its watchdog, the deferred commit and the snapshot
+take the rest from the same host buffer.  So an unchecked fit still
+makes one read, and a NaN in the data raises ``NumericalDivergence``
+(guard ``'nonfinite'``) instead of returning NaN centers.  ``fit_info_``
+is the loop's resilience summary.
 """
 
 from __future__ import annotations
@@ -55,9 +65,11 @@ from dislib_tpu_torch.data.sparse import SparseArray
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops.base import distances_sq as _distances_sq, precise
 from dislib_tpu_torch.ops.spmm import seg_sum, spmm_rows
+from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
+from dislib_tpu_torch.runtime.elastic import fetch as _fetch, fetch_packed
 from dislib_tpu_torch.runtime.loop import run_chunked
-from dislib_tpu_torch.utils.profiling import count_read
+from dislib_tpu_torch.utils.dlog import verbose_logger
 
 
 class KMeans(BaseEstimator):
@@ -137,12 +149,85 @@ class KMeans(BaseEstimator):
 
     def fit(self, x: Array, y=None, checkpoint=None, health=None):
         """Fit on ``x``: Lloyd steps on the device until ``shift < tol`` or
-        ``max_iter``; one read per chunk of steps and one at the end."""
-        if checkpoint is not None or health is not None:
-            raise NotImplementedError(
-                "KMeans.fit checkpoint=/health=: the ChunkedFitLoop is not "
-                "ported yet (ROADMAP.md A.12)")
-        self._fit_finalize(self._fit_async(x))
+        ``max_iter``.  With ``checkpoint=FitCheckpoint(path, every=k)``
+        the steps run in k-step chunks, each snapshotting (centers,
+        n_iter); a re-run resumes from the snapshot.  ``health``: a
+        :class:`~dislib_tpu_torch.runtime.HealthPolicy` (or a fault
+        injector) for the chunk guard; the loop owns rollback, the
+        watchdog and the preemption poll."""
+        self._check_supported(x)
+        sparse_in = isinstance(x, SparseArray)
+        k, n = self.n_clusters, x.shape[1]
+        box = {"x": x, "inertia": None}
+        log = verbose_logger("kmeans", self.verbose)
+        loop = _fitloop.ChunkedFitLoop(
+            "kmeans", checkpoint=checkpoint, health=health,
+            max_iter=self.max_iter, carry_names=("centers",),
+            carry_shapes=((k, n),), snapshot_expect={"centers": (k, n)},
+            elastic=_fitloop.data_rebind(box))
+
+        def init(rem):
+            box["inertia"] = None
+            return _fitloop.LoopState(
+                (rem.perturb(self._init_centers(box["x"])),))
+
+        def restore(snap, rem):
+            # centers' shape is judged by the rollback funnel
+            # (snapshot_expect); a faulted chunk's inertia must not leak
+            box["inertia"] = None
+            centers = torch.from_numpy(np.asarray(
+                rem.perturb(np.asarray(snap["centers"], np.float32))))
+            return _fitloop.LoopState(
+                (centers.to(box["x"].device),), it=int(snap["n_iter"]),
+                done=bool(snap.get("converged", False)))
+
+        def step(st, chunk):
+            (centers,) = st.carries
+            xd = box["x"]
+            if sparse_in:
+                out = _kmeans_fit_sparse(xd, centers, chunk,
+                                         float(self.tol),
+                                         read=loop.guard.read)
+            else:
+                out = _kmeans_fit(xd._data, xd.shape, centers, chunk,
+                                  float(self.tol), fast=self._fast(),
+                                  read=loop.guard.read)
+            # the chunk's one read: results and health vector together
+            pack = fetch_packed(*out)
+
+            def commit():
+                c_h, n_done, inertia, shift, _, _ = pack.result()
+                box["inertia"] = float(inertia)
+                it = st.it + int(n_done)
+                log.info("iter %d: inertia=%.6g shift=%.3g", it,
+                         float(inertia), float(shift))
+                return _fitloop.LoopState((out[0],), it,
+                                          float(shift) < self.tol,
+                                          extra=c_h)
+
+            def history():
+                _, n_done, _, _, hist, _ = pack.result()
+                return hist[: int(n_done)]
+
+            return _fitloop.ChunkOutcome(commit, hvec=pack.part(5),
+                                         history=history)
+
+        def snapshot(st):
+            # the host centers of the chunk's own read: no extra transfer
+            return {"centers": st.extra, "n_iter": st.it,
+                    "converged": st.done}
+
+        st = loop.run(init=init, step=step, restore=restore,
+                      snapshot=snapshot)
+        # a resumed, already finished fit ran no chunk: its centers are
+        # the snapshot's, on the device
+        self.centers_ = st.extra if st.extra is not None \
+            else _fetch(st.carries[0])
+        self.n_iter_ = st.it
+        self.history_ = np.asarray(loop.history, dtype=np.float64)
+        self.fit_info_ = loop.info
+        self.inertia_ = float(box["inertia"]) \
+            if box["inertia"] is not None else -self.score(box["x"])
         return self
 
     # async trial protocol: the fit runs on the device with no host read
@@ -210,18 +295,10 @@ class KMeans(BaseEstimator):
 
 
 def _to_host(*tensors):
-    """Read device tensors back in ONE transfer: pack into float64 (exact
-    for float32 and int32 values), copy, split.  Counted as one host read
-    under ``"results"``."""
-    count_read("results")
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
-    out, pos = [], 0
-    for t in tensors:
-        part = host[pos: pos + t.numel()].reshape(tuple(t.shape))
-        out.append(part.astype(str(t.dtype).removeprefix("torch.")))
-        pos += t.numel()
-    return out
+    """Read device tensors back in ONE transfer (``runtime.fetch_packed``:
+    packed into float64, exact for float32 and int32 values), counted as
+    one host read under ``"results"``."""
+    return fetch_packed(*tensors).result()
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +317,14 @@ def _crop(xp: torch.Tensor, shape):
 
 
 @precise
-def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False):
+def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False, read=None):
     """Lloyd steps on the padded backing ``xp`` of logical ``shape`` from
     ``centers0`` until ``shift < tol`` or ``max_iter`` (the reference's
     ``cond``), in chunks of masked steps (:func:`run_chunked`).  ``fast``:
     the E-step on the bf16 copy of x stored here once, with ‖x‖² hoisted
     from the float32 x.  Returns ``(centers, n_iter, inertia, shift, hist,
-    hvec)`` as device tensors — the reference's 6-tuple."""
+    hvec)`` as device tensors — the reference's 6-tuple.  ``read``: the
+    loop's stop-flag read (``run_chunked``'s)."""
     xv, w = _crop(xp, shape)
     if fast:
         x16 = _k.bf16_rows(xv)
@@ -283,7 +361,7 @@ def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False):
     # at tol <= 0 only a NaN shift stops the loop, and the masks already
     # freeze the state after one
     run_chunked(step, None if tol <= 0 else lambda: shift >= tol, max_iter,
-                "kmeans")
+                "kmeans", read=read)
     hvec = _health.health_vec(carries=(centers,), hist=hist, n_done=n_iter)
     return centers, n_iter, inertia, shift, hist, hvec
 
@@ -319,7 +397,7 @@ def _sparse_distances(x: SparseArray, centers, rowsq=None):
     return torch.clamp_min(rowsq[:, None] - 2.0 * cross + c_sq[None, :], 0.0)
 
 
-def _kmeans_fit_sparse(x: SparseArray, centers0, max_iter, tol):
+def _kmeans_fit_sparse(x: SparseArray, centers0, max_iter, tol, read=None):
     """Lloyd steps on the sparse ``x`` (the reference's
     ``_kmeans_fit_sparse_sharded`` on one shard), masked and chunked as
     :func:`_kmeans_fit`.  The per-cluster sums ``xᵀ onehot`` are one
@@ -360,6 +438,6 @@ def _kmeans_fit_sparse(x: SparseArray, centers0, max_iter, tol):
         n_iter = n_iter + active.to(torch.int32)
 
     run_chunked(step, None if tol <= 0 else lambda: shift >= tol, max_iter,
-                "kmeans")
+                "kmeans", read=read)
     hvec = _health.health_vec(carries=(centers,), hist=hist, n_done=n_iter)
     return centers, n_iter, inertia, shift, hist, hvec

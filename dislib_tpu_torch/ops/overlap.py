@@ -13,6 +13,10 @@ hand CUDA kernel (``ops/kernels.panel_gemm``).  ``pallas`` is accepted as
 an alias of ``kernel``, so ``DSLIB_OVERLAP=pallas`` means what it means
 for the reference.  There is no silent degrade: on a CUDA tensor the
 kernel route launches the kernel or raises.
+
+:func:`host_pipeline` lifts the same discipline to host loops of the fit
+drivers (the cascade SVM's per-level node batches, the forest's
+per-level snapshot reads).
 """
 
 from __future__ import annotations
@@ -83,3 +87,35 @@ def panel_pipeline(steps, pan0, fetch, consume, acc0, overlap):
         pan = fetch(t, pan)                # fetch ...
         acc = consume(t, acc, pan)         # ... THEN compute
     return acc
+
+
+def host_pipeline(steps, fetch, consume, overlap=True):
+    """:func:`panel_pipeline`'s discipline lifted to HOST loops — the fit
+    drivers' dispatch→read sequences (the CSVM cascade's per-level node
+    batches, the forest's per-level snapshot reads), where the "fetch" is
+    a device dispatch or an enqueued device→host copy and the "compute"
+    is the blocking host read.
+
+    ``fetch(t)`` ISSUES step t's work and returns its handle without
+    blocking; ``consume(t, handle)`` blocks on the handle and returns the
+    step's host result.  ``overlap=True`` issues fetch(t+1) before
+    consume(t), with exactly ONE extra step in flight; ``overlap=False``
+    is the strict fetch-then-consume chain.  Both evaluate the same
+    ``consume(t, fetch(t))`` pairs in the same order, so the schedules
+    are bit-equal by construction.  Returns ``[consume(0, ...), ...,
+    consume(steps-1, ...)]``."""
+    steps = int(steps)
+    out = []
+    if steps <= 0:
+        return out
+    if overlap:
+        pending = fetch(0)
+        for t in range(1, steps):
+            nxt = fetch(t)                 # issue step t ...
+            out.append(consume(t - 1, pending))   # ... under t-1's read
+            pending = nxt
+        out.append(consume(steps - 1, pending))   # epilogue drain
+        return out
+    for t in range(steps):
+        out.append(consume(t, fetch(t)))
+    return out

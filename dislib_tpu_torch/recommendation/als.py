@@ -45,10 +45,19 @@ dense mask and in the sparse entries alike.
   vals]``; its serving wrapper (``dislib_tpu/serving/sparse.py``) is
   ROADMAP.md A.12's serving half.
 
-Not ported: ``checkpoint=``/``health=`` (the ``ChunkedFitLoop``,
-ROADMAP.md A.12), which raise ``NotImplementedError``, and the multi-rank
-sparse fit (the reference's ``shard_map`` with one ``psum`` per item
-half-step, A.2).
+- **The chunked fit.** ``fit`` runs through
+  :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`, as the reference's
+  does: one chunk of ``max_iter`` sweeps without a checkpoint,
+  ``every``-sweep chunks with ``checkpoint=FitCheckpoint(...)``, each
+  chunk starting from the carried factors and RMSE.  Each chunk's
+  factors, RMSE, counters, history and health vector come back in ONE
+  packed read, so an unchecked fit still reads once, a NaN rating raises
+  ``NumericalDivergence`` (guard ``'nonfinite'``), and a snapshot's
+  factors (with the logical ``m``, ``n``) are the chunk's own host
+  copies.  The ``'halve'`` action scales λ by ``rem.damping``.
+
+Not ported: the multi-rank sparse fit (the reference's ``shard_map`` with
+one ``psum`` per item half-step, ROADMAP.md A.2).
 """
 
 from __future__ import annotations
@@ -66,7 +75,11 @@ from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.ops.base import cholesky_nan, precise
 from dislib_tpu_torch.ops.spmm import seg_sum
 from dislib_tpu_torch.parallel import mesh as _mesh
+from dislib_tpu_torch.runtime import fitloop as _fitloop
+from dislib_tpu_torch.runtime import health as _health
+from dislib_tpu_torch.runtime.elastic import fetch as _fetch, fetch_packed
 from dislib_tpu_torch.runtime.loop import run_chunked
+from dislib_tpu_torch.utils.dlog import verbose_logger
 from dislib_tpu_torch.utils.profiling import count_read
 
 #: bytes of (entries, f²) float32 outer products one chunk of a sparse
@@ -85,8 +98,7 @@ class ALS(BaseEstimator):
     tol : float, default 1e-4 — convergence on |ΔRMSE| between sweeps.
     max_iter : int, default 100
     random_state : int or None
-    verbose : bool — accepted for parity; the fit reads only its loop
-        condition until it ends, so there is no per-iteration log.
+    verbose : bool — logs each chunk's RMSE under ``dslib.als``.
     arity : int — accepted and ignored.
 
     Attributes
@@ -115,12 +127,103 @@ class ALS(BaseEstimator):
         ds-array or a :class:`SparseArray`.  ``test``: held-out ratings of
         the same shape (ndarray, scipy sparse, ds-array or SparseArray;
         0 = unobserved) whose RMSE decides convergence instead of the
-        training ratings'."""
-        if checkpoint is not None or health is not None:
-            raise NotImplementedError(
-                "ALS.fit checkpoint=/health=: the ChunkedFitLoop is not "
-                "ported yet (ROADMAP.md A.12)")
-        self._fit_finalize(self._fit_async(x, test=test))
+        training ratings'.  ``checkpoint``: a ``FitCheckpoint`` — sweeps
+        run in ``every``-sweep chunks, each snapshotting (users, items,
+        rmse, n_iter, the logical m and n); a re-run resumes from it.
+        ``health``: the chunk guard's policy; ``'halve'`` doubles
+        ``lambda_`` per restart."""
+        if self.max_iter < 1:
+            raise ValueError("max_iter must be >= 1")
+        sparse_in = isinstance(x, SparseArray)
+        if not sparse_in and not isinstance(x, Array):
+            raise TypeError(f"ALS takes a ds-array or a SparseArray, got "
+                            f"{type(x).__name__}")
+        m, n = x.shape
+        nf = int(self.n_f)
+        seed = self.random_state if self.random_state is not None else 0
+        if sparse_in:
+            t = x if test is None else _test_sparse(test, x)
+            rows_u, rows_v = m, n
+        else:
+            t = x._data if test is None else _test_dense(test, x)
+            rows_u, rows_v = x._data.shape
+        box = {"lam": float(self.lambda_), "rmse": np.inf}
+        log = verbose_logger("als", self.verbose)
+        loop = _fitloop.ChunkedFitLoop(
+            "als", checkpoint=checkpoint, health=health,
+            max_iter=self.max_iter, carry_names=("users", "items"),
+            carry_shapes=((m, nf), (n, nf)),
+            # the stored factor rows may carry another padding: only the
+            # logical dims and the factor width are pinned
+            snapshot_expect={"m": int(m), "n": int(n),
+                             "users": (None, nf), "items": (None, nf)},
+            elastic=_fitloop.data_rebind({"x": x}))
+
+        def init(rem):
+            box["lam"] = float(self.lambda_) * rem.damping
+            box["rmse"] = np.inf
+            return _fitloop.LoopState(())   # fresh: the fit draws V0
+
+        def restore(snap, rem):
+            box["lam"] = float(self.lambda_) * rem.damping
+            box["rmse"] = float(snap["rmse"])
+            sm, sn = int(snap["m"]), int(snap["n"])
+            u = _repad(rem.perturb(np.asarray(snap["users"], np.float32)),
+                       sm, rows_u)
+            v = _repad(rem.perturb(np.asarray(snap["items"], np.float32)),
+                       sn, rows_v)
+            return _fitloop.LoopState(
+                (torch.from_numpy(u).to(x.device),
+                 torch.from_numpy(v).to(x.device)),
+                it=int(snap["n_iter"]),
+                done=bool(snap.get("converged", False)),
+                extra=(box["rmse"], None, None))
+
+        def step(st, chunk):
+            state = (*st.carries, st.extra[0]) if st.carries else None
+            args = (nf, box["lam"], float(self.tol), int(chunk), int(seed))
+            if sparse_in:
+                out = _als_fit_sparse(x, t, *args, init_state=state,
+                                      read=loop.guard.read)
+            else:
+                out = _als_fit(x._data, t, *args, init_state=state,
+                               read=loop.guard.read)
+            pack = fetch_packed(*out)
+
+            def commit():
+                u, v, rmse, n_done, conv, _, _ = pack.result()
+                box["rmse"] = float(rmse)
+                it = st.it + int(n_done)
+                log.info("iter %d: rmse=%.6g", it, box["rmse"])
+                # the chunk's own host factors ride along for the
+                # snapshot and the fitted attributes
+                return _fitloop.LoopState(out[:2], it, bool(conv),
+                                          extra=(box["rmse"], u, v))
+
+            def history():
+                res = pack.result()
+                return res[5][: int(res[3])]
+
+            return _fitloop.ChunkOutcome(commit, hvec=pack.part(6),
+                                         history=history)
+
+        def snapshot(st):
+            rmse, u, v = st.extra
+            return {"users": u, "items": v, "m": m, "n": n, "rmse": rmse,
+                    "n_iter": st.it, "converged": st.done}
+
+        st = loop.run(init=init, step=step, restore=restore,
+                      snapshot=snapshot)
+        _, u, v = st.extra
+        if u is None:                   # a resumed, finished fit
+            u, v = (_fetch(c) for c in st.carries)
+        self.users_ = u[:m]
+        self.items_ = v[:n]
+        self.rmse_ = float(box["rmse"])
+        self.n_iter_ = st.it
+        self.converged_ = st.done
+        self.history_ = np.asarray(loop.history, dtype=np.float64)
+        self.fit_info_ = loop.info
         return self
 
     # async trial protocol: the fit runs on the device with no host read
@@ -147,7 +250,7 @@ class ALS(BaseEstimator):
         if state is None:
             return
         out, (m, n) = state
-        u, v, rmse, n_iter, conv, hist = _to_host(*out)
+        u, v, rmse, n_iter, conv, hist, _ = _to_host(*out)
         self.users_ = u[:m]
         self.items_ = v[:n]
         self.rmse_ = float(rmse)
@@ -295,6 +398,18 @@ def _fold_in_pack(ratings, n_items, device):
 # device functions
 # ---------------------------------------------------------------------------
 
+def _repad(a: np.ndarray, logical: int, target: int) -> np.ndarray:
+    """A snapshot's factor rows for this fit: the first ``logical`` rows
+    (pad rows are zero), zero-filled to ``target``."""
+    if a.shape[0] < logical:
+        raise ValueError(
+            f"snapshot factors have {a.shape[0]} rows but the fit needs "
+            f"{logical} — stale or foreign snapshot")
+    out = np.zeros((target,) + a.shape[1:], a.dtype)
+    out[:logical] = a[:logical]
+    return out
+
+
 def _draw_items(seed, n, n_f, device) -> torch.Tensor:
     """The starting item factors V₀: uniform [0, 1) of shape (n, n_f) from
     a ``torch.Generator`` seeded with ``seed`` (the reference draws
@@ -325,13 +440,16 @@ def _solve_factors(r, mask, v, lambda_, n_f):
     return _chol_solve(a, b)
 
 
-def _sweeps(solve, rmse, u, v, tol, max_iter):
+def _sweeps(solve, rmse, u, v, tol, max_iter, prev0=None, read=None):
     """The fit loop: ``solve(v) -> (u, v)`` one sweep, ``rmse(u, v)`` its
     convergence RMSE; masked sweeps in chunks (:func:`run_chunked`) until
-    |ΔRMSE| < tol or ``max_iter``.  Returns the reference's ``(u, v,
-    rmse, n_iter, converged, hist)`` as device tensors."""
+    |ΔRMSE| < tol or ``max_iter``.  ``prev0``: the RMSE the first sweep is
+    compared with (a resumed chunk's); ``read``: the loop's stop-flag
+    read.  Returns the reference's ``(u, v, rmse, n_iter, converged, hist,
+    hvec)`` as device tensors."""
     dev, dt = v.device, v.dtype
-    prev = torch.full((), float("inf"), dtype=dt, device=dev)
+    prev = torch.full((), float("inf") if prev0 is None else prev0,
+                      dtype=dt, device=dev)
     n_iter = torch.zeros((), dtype=torch.int32, device=dev)
     conv = torch.zeros((), dtype=torch.bool, device=dev)
     hist = torch.zeros((max_iter,), dtype=dt, device=dev)
@@ -350,20 +468,25 @@ def _sweeps(solve, rmse, u, v, tol, max_iter):
 
     # at tol <= 0 |ΔRMSE| < tol never holds (a NaN neither), so the fit
     # runs max_iter sweeps with no read
-    run_chunked(step, None if tol <= 0 else lambda: ~conv, max_iter, "als")
-    return u, v, prev, n_iter, conv, hist
+    run_chunked(step, None if tol <= 0 else lambda: ~conv, max_iter, "als",
+                read=read)
+    hvec = _health.health_vec(carries=(u, v), hist=hist, n_done=n_iter)
+    return u, v, prev, n_iter, conv, hist, hvec
 
 
 @precise
-def _als_fit(rp, test_p, n_f, lambda_, tol, max_iter, seed):
+def _als_fit(rp, test_p, n_f, lambda_, tol, max_iter, seed, init_state=None,
+             read=None):
     """The dense fit on the padded ratings ``rp`` (zero = unobserved, the
-    padding included) with held-out ratings ``test_p`` of the same shape."""
+    padding included) with held-out ratings ``test_p`` of the same shape.
+    ``init_state``: ``(u, v, rmse)`` to resume from (a chunk of the
+    checked fit), else V₀ is drawn from ``seed``."""
     dt = rp.dtype
     mask = (rp != 0).to(dt)
     tmask = (test_p != 0).to(dt)
     t_count = torch.clamp_min(torch.sum(tmask), 1.0)
-    v0 = _draw_items(seed, rp.shape[1], n_f, rp.device).to(dt)
-    u0 = torch.zeros((rp.shape[0], n_f), dtype=dt, device=rp.device)
+    u0, v0, prev0 = _start(init_state, rp.shape[0], rp.shape[1], n_f,
+                           seed, dt, rp.device)
 
     def solve(v):
         u = _solve_factors(rp, mask, v, lambda_, n_f)
@@ -373,7 +496,18 @@ def _als_fit(rp, test_p, n_f, lambda_, tol, max_iter, seed):
         se = ((px.pdot(u, v.T) - test_p) * tmask) ** 2
         return torch.sqrt(torch.sum(se) / t_count)
 
-    return _sweeps(solve, rmse, u0, v0, tol, max_iter)
+    return _sweeps(solve, rmse, u0, v0, tol, max_iter, prev0, read)
+
+
+def _start(init_state, m, n, n_f, seed, dt, device):
+    """``(u0, v0, prev_rmse)`` of a fit or chunk: the carried state, or
+    zeros, the seeded V₀ draw and no previous RMSE.  U₀ is never read
+    before the first user half-step overwrites it."""
+    if init_state is not None:
+        u, v, prev = init_state
+        return u.to(dt), v.to(dt), float(prev)
+    return (torch.zeros((m, n_f), dtype=dt, device=device),
+            _draw_items(seed, n, n_f, device).to(dt), None)
 
 
 def _row_chunks(lengths: np.ndarray, max_entries: int):
@@ -444,7 +578,7 @@ def _half_steps(x: SparseArray, n_f, lambda_):
 
 @precise
 def _als_fit_sparse(x: SparseArray, t: SparseArray, n_f, lambda_, tol,
-                    max_iter, seed):
+                    max_iter, seed, init_state=None, read=None):
     """The sparse fit on the entries of ``x`` (weight ``value != 0``),
     convergence RMSE over the entries of ``t`` (``x`` itself without
     held-out ratings)."""
@@ -455,8 +589,7 @@ def _als_fit_sparse(x: SparseArray, t: SparseArray, n_f, lambda_, tol,
     t_cols = t._cols.to(torch.int64)
     tw = (t._vals != 0).to(t.dtype)
     t_count = torch.clamp_min(torch.sum(tw), 1.0)
-    v0 = _draw_items(seed, n, n_f, dev).to(x.dtype)
-    u0 = torch.zeros((m, n_f), dtype=x.dtype, device=dev)
+    u0, v0, prev0 = _start(init_state, m, n, n_f, seed, x.dtype, dev)
 
     def solve(v):
         u = users.solve(v)
@@ -466,7 +599,7 @@ def _als_fit_sparse(x: SparseArray, t: SparseArray, n_f, lambda_, tol,
         pred = torch.sum(u[t_rows] * v[t_cols], dim=1)
         return torch.sqrt(torch.sum(tw * (pred - t._vals) ** 2) / t_count)
 
-    return _sweeps(solve, rmse, u0, v0, tol, max_iter)
+    return _sweeps(solve, rmse, u0, v0, tol, max_iter, prev0, read)
 
 
 @precise

@@ -37,9 +37,9 @@ the port departs: a d² below 0 (cancellation) ranks as 0, as in
 ``ops/ring.py``, and the lists and the merge keys are float32 (the
 reference keeps a float64 catalog in float64).
 
-Not ported: ``checkpoint=``/``health=`` of the quantizer's fit
-(ROADMAP.md A.12), which raise; ``rebind_mesh`` onto any mesh but (1, 1)
-(A.2); the serving pipeline ``retrieval/serving.py`` (A.12's serving
+``fit(checkpoint=, health=)`` hands both to the quantizer's KMeans fit
+loop.  Not ported: ``rebind_mesh`` onto any mesh but (1, 1) (ROADMAP.md
+A.2); the serving pipeline ``retrieval/serving.py`` (A.12's serving
 half).
 """
 
@@ -123,12 +123,9 @@ class IVFIndex(BaseEstimator):
     # -- build ---------------------------------------------------------------
 
     def fit(self, items, y=None, checkpoint=None, health=None):
-        """Build the index: the KMeans quantizer on the catalog's device,
-        one labels pass, then the host layout of the lists."""
-        if checkpoint is not None or health is not None:
-            raise NotImplementedError(
-                "IVFIndex.fit checkpoint=/health=: the ChunkedFitLoop is "
-                "not ported yet (ROADMAP.md A.12)")
+        """Build the index: the KMeans quantizer on the catalog's device
+        (its fit loop takes ``checkpoint=``/``health=``, as any KMeans
+        fit), one labels pass, then the host layout of the lists."""
         from dislib_tpu_torch.cluster import KMeans
         arr = items if isinstance(items, Array) \
             else _mk_array(np.atleast_2d(np.asarray(items, np.float32)))
@@ -140,7 +137,7 @@ class IVFIndex(BaseEstimator):
         nlist = min(int(nlist), n)
         km = KMeans(n_clusters=nlist, max_iter=self.kmeans_max_iter,
                     random_state=self.random_state, verbose=self.verbose)
-        km.fit(arr)
+        km.fit(arr, checkpoint=checkpoint, health=health)
         labels = km.predict(arr).collect().ravel()
         self._build(arr.collect(), labels, km.centers_, device=arr.device)
         self.quantizer_ = km

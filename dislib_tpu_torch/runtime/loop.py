@@ -42,7 +42,7 @@ EVERY = 8
 
 def run_chunked(step: Callable[[int], None],
                 running: Callable[[], torch.Tensor] | None, max_iter: int,
-                site: str) -> int:
+                site: str, read: Callable | None = None) -> int:
     """Call ``step(t)`` for ``t = 0, 1, …`` in chunks of :data:`EVERY`, and
     after each chunk that leaves steps to run read ``running()`` (a
     one-element bool tensor: the reference's ``cond`` without its
@@ -50,13 +50,17 @@ def run_chunked(step: Callable[[int], None],
     Returns the number of steps run (enqueued), masked ones included.
     ``running`` is the reference's condition, NaN included: a NaN shift
     stops KMeans, while a NaN lower bound or residual keeps EM and ADMM
-    running to ``max_iter``, as there.  ``running=None``: no reads."""
+    running to ``max_iter``, as there.  ``running=None``: no reads.
+    ``read(tensor, site)`` does the read (default :func:`host_read`); a
+    checked fit passes its guard's ``read``, so the read is under the
+    chunk watchdog."""
+    read = host_read if read is None else read
     t = 0
     while t < max_iter:
         stop = max_iter if running is None else min(max_iter, t + EVERY)
         for i in range(t, stop):
             step(i)
         t = stop
-        if t < max_iter and not host_read(running(), site):
+        if t < max_iter and not read(running(), site):
             break
     return t

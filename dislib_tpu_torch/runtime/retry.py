@@ -10,10 +10,11 @@ error, a user bug) re-raises at once.
 Classification is conservative: a retried fatal error wastes attempts at
 worst, but a non-retried transient kills a job that would have survived,
 so network/IO error *types* are transient by default and everything else
-must match a known transient *message*.  The reference also classifies its
-preemption and coordination exceptions; the port has neither yet
-(ROADMAP.md A.12), so only ``KeyboardInterrupt`` and ``SystemExit`` are
-control flow here.
+must match a known transient *message*.  ``Preempted``,
+``KeyboardInterrupt`` and ``SystemExit`` are control flow, never retried,
+as in the reference.  The reference also classifies its coordination
+exceptions (``RankDead``, ``CoordinationTimeout``); the port has no
+coordination layer yet (ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ _FATAL_OSERRORS = (FileNotFoundError, IsADirectoryError, NotADirectoryError,
 
 def is_transient_error(exc: BaseException) -> bool:
     """Default transient-vs-fatal classification (see module docstring)."""
-    if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+    from dislib_tpu_torch.runtime.preemption import Preempted
+    if isinstance(exc, (Preempted, KeyboardInterrupt, SystemExit)):
         return False                      # control flow, not a failure
     if isinstance(exc, (ConnectionError, TimeoutError, InterruptedError,
                         BlockingIOError)):
@@ -85,7 +87,11 @@ class Retry:
         self.jitter = float(jitter)
         self.deadline = None if deadline is None else float(deadline)
         self.classify = classify
-        self._rng = random.Random(seed)
+        # the jitter's generator is made at the first retry: seeding one
+        # from the OS costs ~0.1 ms, and most calls never retry (a fit
+        # makes a policy per chunk read)
+        self._seed = seed
+        self._rng = None
         self._sleep = sleep
 
     @classmethod
@@ -125,6 +131,8 @@ class Retry:
                     raise
                 delay = min(self.max_backoff,
                             self.backoff * (2.0 ** (attempt - 1)))
+                if self._rng is None:
+                    self._rng = random.Random(self._seed)
                 delay *= 1.0 + self.jitter * self._rng.random()
                 if self.deadline is not None and \
                         time.monotonic() - start + delay > self.deadline:

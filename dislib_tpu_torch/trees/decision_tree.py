@@ -24,9 +24,18 @@ but not the reference's draws (``jax.random`` is another generator).
 hooks split it at the adoption, the fit's first host read; ``forest.py``
 scores the grown forest on the device (``_score_async``).
 
-Not ported yet: ``fit(checkpoint=..., health=...)``, the per-level
-snapshots and rollback of the reference's ``ChunkedFitLoop`` (ROADMAP.md
-A.12).
+The growth runs through :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`,
+one level a chunk, as the reference's does: unchecked, the loop judges
+nothing and reads nothing (the leaves are judged at adoption).  With
+``checkpoint=FitCheckpoint(path, every=k)`` the loop judges the level's
+health vector (over the node totals and ``w``) and snapshots every k
+levels: ``node``, ``w``, the per-level ``feats_i``/``tbins_i``, the seed
+and the generator's state (``gen_state``, a uint8 array), so a resumed
+growth draws what the uninterrupted one draws from that level on.  The
+snapshot's fingerprint holds the device type (a CPU snapshot is refused
+on the card: the two generators differ).  ``node`` and ``w`` go to the
+host by ``runtime.fetch(blocking=False)``, a copy enqueued on the
+stream before the next level's in-place update of ``node``.
 """
 
 from __future__ import annotations
@@ -40,7 +49,11 @@ from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
+from dislib_tpu_torch.ops import overlap as _ov
+from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
+from dislib_tpu_torch.runtime.elastic import fetch as _fetch
+from dislib_tpu_torch.utils import profiling as _prof
 
 # split thresholds are per-feature quantile bin edges, ``n_bins`` per
 # feature (constructor parameter, default N_BINS) — the reference's
@@ -216,9 +229,9 @@ def _forest_level(node, bx, w, stats, scores, n_nodes, try_features,
     ``node`` is updated in place and returned: the reference donates it to
     its level program, which aliases the new assignment onto the old
     buffer, and nothing reads the old assignment afterwards.  The
-    reference's per-level health vector is not built: its only reader is
-    the checkpointed fit loop (ROADMAP.md A.12); an unchecked fit is
-    judged at adoption, here too."""
+    reference's per-level health vector is built by the caller, and only
+    for a checkpointed growth, the loop's only reader of it; an unchecked
+    fit is judged at adoption, here too."""
     T = node.shape[0]
     m, n = bx.shape
     # gini's stats are one-hot classes and w Poisson counts: integers, and
@@ -339,44 +352,133 @@ class _BaseTreeEnsemble(BaseEstimator):
             return max(1, n // 3)
         return max(1, int(tf))
 
-    def _grow_forest(self, x: Array, stats_host, n_trees, bootstrap):
+    def _grow_forest(self, x: Array, stats_host, n_trees, bootstrap,
+                     checkpoint=None, health=None):
         """Grow the whole forest on x's device, one :func:`_forest_level`
-        per level, reading nothing back; :meth:`_adopt_forest` does."""
+        per level (one chunk of the fit loop), reading nothing back
+        unless checkpointed; :meth:`_adopt_forest` reads the result."""
+        from dislib_tpu_torch.utils.checkpoint import (data_digest,
+                                                       validate_snapshot)
         m, n = x.shape
         depth = self._effective_depth(m)
         n_bins = self._n_bins()
         try_features = self._try_features_count(n)
         xd = x._data
         dev, mp = xd.device, xd.shape[0]
+        fp = digest = None
+        if checkpoint is not None:
+            tf, rs = try_features, self.random_state
+            # every knob the grown state depends on, and the device type:
+            # the generator's stream differs between the CPU and the card
+            fp = np.asarray([m, n, n_trees, depth, int(bootstrap),
+                             float(("gini", "mse").index(self._criterion)),
+                             -1.0 if tf is None else float(tf),
+                             -1.0 if rs is None else float(rs),
+                             float(n_bins), float(dev.type == "cuda")],
+                            np.float64)
+            digest = data_digest(xd, stats=stats_host)
         edges = _quantile_bins(xd, (m, n), n_bins)
         bx = _bin_data(xd, (m, n), edges)
         stats = torch.as_tensor(np.asarray(stats_host, np.float32),
                                 device=dev)
-        seed = self.random_state if self.random_state is not None \
-            else np.random.randint(0, 2**31 - 1)
         gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
         valid = (torch.arange(mp, device=dev) < m).to(torch.float32)
-        w = torch.ones((n_trees, mp), dtype=torch.float32, device=dev)
-        if bootstrap:
-            w = torch.poisson(w, generator=gen)
-        w = w * valid[None, :]
-        node = torch.zeros((n_trees, mp), dtype=torch.int32, device=dev)
-        feats, tbins = [], []
-        for lvl in range(depth):
+        box = {"x": x, "feats": [], "tbins": []}
+        loop = _fitloop.ChunkedFitLoop(
+            "forest", checkpoint=checkpoint, health=health,
+            max_iter=depth, chunk_iters=1,
+            save_every=checkpoint.every if checkpoint is not None else 1,
+            # the level's health vector is read at snapshot boundaries;
+            # unchecked growth defers to the adoption-time check
+            check_on="save",
+            # growth snapshots only resumable mid-points
+            save_final=False,
+            carry_names=("node_totals", "w"),
+            elastic=_fitloop.data_rebind(box))
+
+        def init(rem):
+            if "seed" not in box:       # chosen once; rollbacks replay it
+                box["seed"] = self.random_state \
+                    if self.random_state is not None \
+                    else np.random.randint(0, 2**31 - 1)
+            gen.manual_seed(int(box["seed"]))
+            box["feats"], box["tbins"] = [], []
+            w = torch.ones((n_trees, mp), dtype=torch.float32, device=dev)
+            if bootstrap:
+                w = torch.poisson(w, generator=gen)
+            w = w * valid[None, :]
+            if rem.attempt:             # from-scratch rollback perturbs w
+                w = rem.perturb(w)
+            return _fitloop.LoopState(
+                (w,), extra=torch.zeros((n_trees, mp), dtype=torch.int32,
+                                        device=dev))
+
+        def restore(snap, rem):
+            validate_snapshot(snap, fp, digest)
+            box["seed"] = int(snap["seed"])
+            lvl = int(snap["lvl"])
+            gen.set_state(torch.from_numpy(
+                np.asarray(snap["gen_state"], np.uint8).copy()))
+            node = torch.from_numpy(np.asarray(snap["node"], np.int32)) \
+                .to(dev)
+            w = torch.from_numpy(np.asarray(rem.perturb(
+                np.asarray(snap["w"], np.float32)))).to(dev)
+            box["feats"] = [torch.from_numpy(np.asarray(
+                snap[f"feats_{i}"], np.int32)).to(dev) for i in range(lvl)]
+            box["tbins"] = [torch.from_numpy(np.asarray(
+                snap[f"tbins_{i}"], np.int32)).to(dev) for i in range(lvl)]
+            return _fitloop.LoopState((w,), it=lvl, extra=node)
+
+        def step(st, chunk):
+            (w,) = st.carries
+            lvl = st.it
             scores = None
             if try_features is not None and try_features < n:
                 scores = torch.rand((n_trees, 2 ** lvl, n), generator=gen,
                                     device=dev)
-            feat, tbin, _, node, _ = _forest_level(
-                node, bx, w, stats, scores, 2 ** lvl, try_features, 0.0,
+            feat, tbin, _, node, totals = _forest_level(
+                st.extra, bx, w, stats, scores, 2 ** lvl, try_features, 0.0,
                 self._criterion, n_bins)
-            feats.append(feat)
-            tbins.append(tbin)
-        leaves, hvec = _leaf_stats(node, w, stats, 2 ** depth)
-        return {"edges": edges, "feats": feats, "tbins": tbins,
-                "depth": depth, "leaves": leaves, "n_features": n,
-                "hvec": hvec}
+            box["feats"].append(feat)
+            box["tbins"].append(tbin)
+            hvec = None if checkpoint is None else \
+                _health.health_vec(carries=(totals, w))
+            nxt = lvl + 1
+            return _fitloop.ChunkOutcome(
+                _fitloop.LoopState((w,), nxt, nxt == depth, extra=node),
+                hvec=hvec)
+
+        def snapshot(st):
+            # node is updated in place by the next level: its copy (and
+            # w's) is enqueued now, on the stream, before that update;
+            # the snapshot worker waits for the bytes
+            state = {"lvl": st.it, "seed": box["seed"], "fp": fp,
+                     "digest": digest,
+                     "gen_state": gen.get_state().numpy().copy(),
+                     "node": _fetch(st.extra, blocking=False),
+                     "w": _fetch(st.carries[0], blocking=False)}
+            sched = _ov.resolve()
+            _prof.count_schedule("forest_snapshot", sched)
+            pairs = list(zip(box["feats"], box["tbins"]))
+
+            def issue(i):
+                return tuple(_fetch(buf, blocking=False) for buf in pairs[i])
+
+            def drain(i, handles):
+                state[f"feats_{i}"] = handles[0].result()
+                state[f"tbins_{i}"] = handles[1].result()
+
+            _ov.host_pipeline(len(pairs), issue, drain,
+                              overlap=_ov.overlapped(sched))
+            return state
+
+        st = loop.run(init=init, step=step, restore=restore,
+                      snapshot=snapshot)
+        self.fit_info_ = loop.info
+        leaves, hvec = _leaf_stats(st.extra, st.carries[0], stats, 2 ** depth)
+        return {"edges": edges, "feats": box["feats"],
+                "tbins": box["tbins"], "depth": depth, "leaves": leaves,
+                "n_features": n, "hvec": hvec}
 
     def _adopt_forest(self, grown):
         """Set the fitted attributes from a :meth:`_grow_forest` result.
@@ -407,18 +509,17 @@ class _BaseTreeEnsemble(BaseEstimator):
         return self
 
     def fit(self, x: Array, y: Array, checkpoint=None, health=None):
-        """Grow the forest on x's device and adopt it."""
-        if checkpoint is not None or health is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}.fit checkpoint=/health=: the "
-                "ChunkedFitLoop is not ported yet (ROADMAP.md A.12)")
-        self._fit_finalize(self._fit_async(x, y))
+        """Grow the forest on x's device and adopt it.  ``checkpoint``:
+        per-level snapshots and resume (see :meth:`_grow_forest`);
+        ``health``: the growth loop's guard policy."""
+        self._fit_finalize(self._fit_async(x, y, checkpoint=checkpoint,
+                                           health=health))
         return self
 
     # async trial protocol: growth reads nothing back; the handle is the
     # grown-forest dict.  The label / target encoding reads the INPUT y
     # (prep, not fit results) at dispatch time.
-    def _fit_async(self, x, y=None):
+    def _fit_async(self, x, y=None, checkpoint=None, health=None):
         if y is None:
             raise ValueError(f"{type(self).__name__} requires y")
         # a SparseArray densifies through its budget-guarded lazy
@@ -426,7 +527,8 @@ class _BaseTreeEnsemble(BaseEstimator):
         x = dense_input(x, type(self).__name__)
         stats = self._encode_stats(x, y)
         n_trees, bootstrap = self._fit_spec()
-        return self._grow_forest(x, stats, n_trees, bootstrap)
+        return self._grow_forest(x, stats, n_trees, bootstrap,
+                                 checkpoint=checkpoint, health=health)
 
     def _fit_finalize(self, state):
         if state is not None:

@@ -270,13 +270,20 @@ def test_predict_user_and_async_protocol(data, ref_fits):
         est.predict_user(M)
 
 
-def test_unported_options_and_bad_input_raise(data):
+def test_unported_options_and_bad_input_raise(data, tmp_path):
+    # checkpoint=/health= are ported: a checkpointed fit equals the
+    # unchecked one bit for bit (the kill-and-resume cases are in
+    # tests/test_torch_resilience.py)
+    from dislib_tpu_torch.runtime import HealthPolicy
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
     r, _ = data
     x = dst.array(r, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        ALS().fit(x, checkpoint=object())
-    with pytest.raises(NotImplementedError, match="A.12"):
-        ALS().fit(x, health=object())
+    plain = ALS(n_f=2, max_iter=4, tol=0.0, random_state=0).fit(x)
+    ck = ALS(n_f=2, max_iter=4, tol=0.0, random_state=0).fit(
+        x, checkpoint=FitCheckpoint(str(tmp_path / "als.npz"), every=2),
+        health=HealthPolicy())
+    np.testing.assert_array_equal(ck.users_, plain.users_)
+    assert (plain.fit_info_["chunks"], ck.fit_info_["chunks"]) == (1, 2)
     with pytest.raises(ValueError, match="max_iter"):
         ALS(max_iter=0).fit(x)
     with pytest.raises(TypeError, match="ds-array"):

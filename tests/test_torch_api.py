@@ -2,8 +2,10 @@
 
 ``dislib_tpu_torch.__all__`` must hold every name of
 ``dislib_tpu.__all__`` that the port implements; the reference entries
-still unported are named in :data:`UNPORTED`.  The port may export more
-(its subpackages, ``from_fitted_arrays``, ``IVFIndex``).  ``set_mesh``
+still unported are named in :data:`UNPORTED`, and the reference's
+``runtime.__all__`` entries still unported in :data:`RUNTIME_UNPORTED`.
+The port may export more (its subpackages, ``from_fitted_arrays``,
+``IVFIndex``).  ``set_mesh``
 takes the one-card mesh only, and ``overlap_schedule`` routes as the
 reference's ``ops/overlap.resolve`` does (``pallas`` is the port's
 ``kernel``).
@@ -16,9 +18,25 @@ import dislib_tpu as ds
 import dislib_tpu_torch as dst
 from dislib_tpu_torch.parallel import mesh as port_mesh
 
-# the reference's root entries with no port yet: the resilience runtime
-# and the serving layer (ROADMAP.md A.12)
-UNPORTED = ["runtime", "serving"]
+# the reference's root entries with no port yet: the serving layer
+# (ROADMAP.md A.12's serving half)
+UNPORTED = ["serving"]
+
+# the reference's runtime names with no port yet: the capacity level,
+# the coordination ledger and membership, repad_rows (A.11); adoption,
+# bundles and the continuous trainer (the serving half); xla_flags (JAX's)
+RUNTIME_UNPORTED = [
+    "capacity_target", "request_capacity", "clear_capacity", "repad_rows",
+    "Adoption", "AdoptionRejected", "adopt_latest", "generation_token",
+    "BundleIncompatible", "BundleShardCorrupt", "read_bundle",
+    "write_bundle",
+    "CapacityLedger", "CoordinationTimeout", "get_coordinator",
+    "LocalCoordinator", "FileCoordinator", "KVCoordinator",
+    "Membership", "LeaseKeeper", "RankDead", "TornCoordFile",
+    "set_membership", "current_membership", "resilient_exchange",
+    "lease_seconds", "barrier_timeout",
+    "ContinuousTrainer", "PromotionFailed", "xla_flags",
+]
 
 
 def test_all_holds_every_ported_reference_name():
@@ -29,6 +47,17 @@ def test_all_holds_every_ported_reference_name():
     assert sorted(ref - port) == sorted(UNPORTED)
     for name in dst.__all__:
         assert hasattr(dst, name), name
+
+
+def test_runtime_all_plus_the_unported_list_is_the_references():
+    import dislib_tpu.runtime as ref_rt
+    import dislib_tpu_torch.runtime as port_rt
+    assert not set(RUNTIME_UNPORTED) & set(port_rt.__all__)
+    assert sorted(set(port_rt.__all__) | set(RUNTIME_UNPORTED)) == \
+        sorted(ref_rt.__all__)
+    for name in port_rt.__all__:
+        assert hasattr(port_rt, name), name
+    assert dst.runtime is port_rt
 
 
 def test_star_import_gives_the_slice_names():

@@ -186,7 +186,8 @@ def test_batched_gram_plain_matches_reference(shape):
     assert K.LAUNCHES["distances_sq"] == 0                  # CPU: plain
 
 
-def test_two_fits_are_identical_and_refusals():
+def test_two_fits_are_identical_and_refusals(tmp_path):
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
     x, y, _ = _blobs(seed=4, m=160)
     a = PortSVM(max_iter=2).fit(dst.array(x, block_size=(32, 4)),
                                 dst.array(y))
@@ -194,8 +195,11 @@ def test_two_fits_are_identical_and_refusals():
                                 dst.array(y))
     for name in ("_sv_idx", "_sv_alpha", "_sv_x"):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        PortSVM().fit(dst.array(x), dst.array(y), checkpoint=object())
+    # checkpoint= is ported: a checkpointed fit is the same fit
+    c = PortSVM(max_iter=2).fit(
+        dst.array(x, block_size=(32, 4)), dst.array(y),
+        checkpoint=FitCheckpoint(str(tmp_path / "csvm.npz")))
+    np.testing.assert_array_equal(c._sv_alpha, a._sv_alpha)
     with pytest.raises(ValueError, match="kernel"):
         PortSVM(kernel="poly").fit(dst.array(x), dst.array(y))
     with pytest.raises(ValueError, match="binary"):

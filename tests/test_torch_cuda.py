@@ -48,7 +48,12 @@ the IVF quantizer's shape against their plain versions (as above); ALS on
 the card within 1e-4 of the CPU, two sparse fits bit-identical (fixed-order
 segment sums) and the dense fit within 1e-4 of the sparse one; the IVF
 index on the card with the CPU's ids and d² within 1e-5 of the cancelling
-magnitudes, under ``db`` and under ``kernel``.
+magnitudes, under ``db`` and under ``kernel``.  The checkpointed fit: an
+``AsyncFetch`` of a carry that the next chunk updates in place holds the
+value from before that chunk; a checkpointed KMeans fit bit-identical to
+the unchecked one, with ``distances_sq`` launched every step; a resumed
+forest bit-identical to the uninterrupted one, ``node_histogram``
+launched once per remaining level.
 """
 
 import numpy as np
@@ -1281,3 +1286,64 @@ def test_ivf_on_the_card_matches_the_cpu(dev):
         np.testing.assert_array_equal(card[r][1], cpu[r][1])
         np.testing.assert_allclose(card[r][0] ** 2, cpu[r][0] ** 2, rtol=0,
                                    atol=1e-5 * scale)
+
+
+# -- the checkpointed fit ------------------------------------------------------
+
+def test_async_fetch_holds_the_value_before_an_in_place_chunk(dev):
+    from dislib_tpu_torch.runtime import fetch
+    carry = torch.arange(1 << 22, dtype=torch.float32, device=dev)
+    want = carry.cpu().numpy()
+    for _ in range(3):
+        handle = fetch(carry, blocking=False)
+        # the next "chunk": many in-place updates enqueued right behind
+        # the copy on the same stream
+        for _ in range(20):
+            carry.mul_(1.0001).add_(1.0)
+        np.testing.assert_array_equal(handle.result(), want)
+        want = carry.cpu().numpy()
+
+
+def test_checkpointed_kmeans_is_the_unchecked_fit(dev, tmp_path):
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    from dislib_tpu_torch.utils import profiling as prof
+    x = dst.array(np.random.RandomState(4).rand(20000, 16).astype(
+        np.float32), device=dev)
+    kw = dict(n_clusters=8, random_state=0, max_iter=30, tol=0.0)
+    prof.reset_host_reads()
+    plain = dst.KMeans(**kw).fit(x)
+    assert prof.HOST_READS == {"results": 1}
+    assert K.LAUNCHES["distances_sq"] == 30
+    checked = dst.KMeans(**kw).fit(x, checkpoint=FitCheckpoint(
+        str(tmp_path / "k.npz"), every=10))
+    assert K.LAUNCHES["distances_sq"] == 60
+    np.testing.assert_array_equal(checked.centers_, plain.centers_)
+    assert checked.fit_info_["chunks"] == 3
+
+
+def test_resumed_forest_is_bit_identical(dev, tmp_path):
+    from dislib_tpu_torch.runtime import Preempted, clear_preemption
+    from dislib_tpu_torch.runtime import request_preemption
+    from dislib_tpu_torch.utils import faults
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    rng = np.random.RandomState(6)
+    x = rng.rand(5000, 12).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] > 1).astype(np.float32)[:, None]
+    X, Y = dst.array(x, device=dev), dst.array(y, device=dev)
+    kw = dict(n_estimators=4, random_state=0, try_features="sqrt")
+    plain = RandomForestClassifier(**kw).fit(X, Y)
+    path = str(tmp_path / "f.npz")
+    with pytest.raises(Preempted):
+        RandomForestClassifier(**kw).fit(X, Y, checkpoint=faults.
+                                         CallbackCheckpoint(
+                                             path, every=2, after=1,
+                                             callback=request_preemption))
+    clear_preemption()
+    lvl = int(FitCheckpoint(path).load()["lvl"])
+    K.reset_launches()
+    resumed = RandomForestClassifier(**kw).fit(
+        X, Y, checkpoint=FitCheckpoint(path, every=2))
+    assert K.LAUNCHES["node_histogram"] == plain._depth - lvl
+    np.testing.assert_array_equal(resumed._feats, plain._feats)
+    np.testing.assert_array_equal(resumed._tbins, plain._tbins)
+    assert torch.equal(resumed._leaves, plain._leaves)

@@ -247,12 +247,18 @@ def test_ring_neigh_count_min_matches_reference(overlap):
 
 # -- refusals --------------------------------------------------------------------
 
-def test_refusals_name_the_roadmap_items():
+def test_refusals_name_the_roadmap_items(tmp_path):
+    # checkpoint=/health= are ported (kill and resume in
+    # tests/test_torch_resilience.py): a checked fit is the same fit
+    from dislib_tpu_torch.runtime import HealthPolicy
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
     x = dst.array(np.zeros((6, 3), np.float32))
     for est in (PortDBSCAN(), PortDaura()):
-        for kw in ({"checkpoint": object()}, {"health": object()}):
-            with pytest.raises(NotImplementedError, match="A.12"):
-                est.fit(x, **kw)
+        plain = est.fit(x).labels_.copy()
+        got = est.fit(x, checkpoint=FitCheckpoint(
+            str(tmp_path / f"{type(est).__name__}.npz")),
+            health=HealthPolicy()).labels_
+        np.testing.assert_array_equal(got, plain)
     with pytest.raises(NotImplementedError, match="A.2"):
         port_ring.ring_neigh_count_min(
             torch.zeros((4, 2)), 1.0, torch.zeros(4, dtype=torch.int32),

@@ -169,10 +169,15 @@ def test_gm_carried_from_reference_predicts_like_it():
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_gm_refusals_name_the_roadmap_items(monkeypatch):
+def test_gm_refusals_name_the_roadmap_items(monkeypatch, tmp_path):
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
     p = dst.array(_blobs())
-    with pytest.raises(NotImplementedError, match="A.12"):
-        PortGM(n_components=K).fit(p, checkpoint=object())
+    # checkpoint= is ported: a checkpointed fit is the same fit
+    plain = PortGM(n_components=K, random_state=0, max_iter=6, tol=0).fit(p)
+    ck = PortGM(n_components=K, random_state=0, max_iter=6, tol=0).fit(
+        p, checkpoint=FitCheckpoint(str(tmp_path / "gm.npz"), every=4))
+    np.testing.assert_array_equal(ck.means_, plain.means_)
+    assert ck.fit_info_["chunks"] == 2
     # a SparseArray densifies through its lazy backing, as in the
     # reference: the fit equals the fit on the dense array, bit for bit
     sparse = PortGM(n_components=K, random_state=0).fit(

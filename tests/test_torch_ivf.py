@@ -166,7 +166,7 @@ def test_unfillable_slots_and_empty_lists_match_the_reference():
     assert (np.sort(pi1[:, :3], axis=1) == [0, 1, 2]).all()
 
 
-def test_default_n_lists_and_errors(blobs):
+def test_default_n_lists_and_errors(blobs, tmp_path):
     x, _ = blobs
     ix = IVFIndex(kmeans_max_iter=2, random_state=0).fit(
         dst.array(x[:64], device="cpu"))
@@ -177,8 +177,14 @@ def test_default_n_lists_and_errors(blobs):
         ix.search(x[:2], k=0)
     with pytest.raises(RuntimeError, match="not fitted"):
         IVFIndex().search(x[:2])
-    with pytest.raises(NotImplementedError, match="A.12"):
-        IVFIndex().fit(x, checkpoint=object())
+    # checkpoint= reaches the quantizer's fit loop
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    ck = IVFIndex(kmeans_max_iter=2, random_state=0).fit(
+        dst.array(x[:64], device="cpu"),
+        checkpoint=FitCheckpoint(str(tmp_path / "ivf.npz"), every=1))
+    assert ck.quantizer_.fit_info_["chunks"] == 2
+    np.testing.assert_array_equal(ck.quantizer_.centers_,
+                                  ix.quantizer_.centers_)
     with pytest.raises(NotImplementedError, match="A.2"):
         ix.rebind_mesh(port_mesh.Mesh(2, 1, torch.device("cpu")))
     assert ix.rebind_mesh(port_mesh.make_mesh((1, 1), "cpu")) is False

@@ -151,8 +151,15 @@ def test_kmeans_unported_options_name_the_roadmap_item(monkeypatch):
     assert not PortKMeans(n_clusters=3, fast_distance=False)._fast()
     monkeypatch.delenv("DSLIB_KMEANS_FAST_DISTANCE")
     assert PortKMeans(n_clusters=3, fast_distance=True)._fast()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        PortKMeans(n_clusters=3).fit(x, checkpoint=object())
+    # checkpoint= is ported (tests/test_torch_fitloop.py holds it against
+    # the reference): a checkpointed fit is the same fit
+    import tempfile
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    plain = PortKMeans(n_clusters=3, random_state=0, max_iter=4).fit(x)
+    with tempfile.TemporaryDirectory() as d:
+        ck = PortKMeans(n_clusters=3, random_state=0, max_iter=4).fit(
+            x, checkpoint=FitCheckpoint(f"{d}/km.npz", every=2))
+    np.testing.assert_array_equal(ck.centers_, plain.centers_)
     # sparse input is ported (held against the reference in
     # tests/test_torch_sparse.py); host data is not a ds-array
     import scipy.sparse as sp

@@ -89,11 +89,16 @@ def test_carried_from_reference_predicts_like_it():
     np.testing.assert_array_equal(port.counts_, ref.counts_)
 
 
-def test_refusals_name_the_roadmap_items():
+def test_refusals_name_the_roadmap_items(tmp_path):
     import scipy.sparse as sp
-    with pytest.raises(NotImplementedError, match="A.12"):
-        PortMBK(n_clusters=2).partial_fit(dst.array(_blobs()),
-                                          checkpoint=object())
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    # checkpoint= is ported: the stream snapshots and equals the plain one
+    plain = PortMBK(n_clusters=2, random_state=0).partial_fit(
+        dst.array(_blobs()))
+    ck = PortMBK(n_clusters=2, random_state=0).partial_fit(
+        dst.array(_blobs()), checkpoint=FitCheckpoint(
+            str(tmp_path / "mbk.npz")))
+    np.testing.assert_array_equal(ck.centers_, plain.centers_)
     # a sparse batch raises ValueError in both packages (the reference's
     # np.asarray of it fails); predict takes sparse queries, as KMeans'
     xs = sp.random(16, 3, density=0.5, format="csr", random_state=0,

@@ -665,12 +665,19 @@ def test_forest_fit_is_seeded_and_predicts_well():
 
 # -- what the port refuses ------------------------------------------------------
 
-def test_fit_checkpoint_and_health_are_not_ported():
+def test_fit_checkpoint_and_health_are_not_ported(tmp_path):
+    # they are ported now: a checked growth is the unchecked one
+    from dislib_tpu_torch.runtime import HealthPolicy
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
     x, y = _class_data(7, m=60)
-    for kw in ({"checkpoint": object()}, {"health": object()}):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            RandomForestClassifier(n_estimators=2).fit(
-                dst.array(x), dst.array(y[:, None]), **kw)
+    plain = RandomForestClassifier(n_estimators=2, random_state=1).fit(
+        dst.array(x), dst.array(y[:, None]))
+    ck = RandomForestClassifier(n_estimators=2, random_state=1).fit(
+        dst.array(x), dst.array(y[:, None]),
+        checkpoint=FitCheckpoint(str(tmp_path / "rf.npz"), every=2),
+        health=HealthPolicy())
+    np.testing.assert_array_equal(ck._feats, plain._feats)
+    assert ck.fit_info_["chunks"] == plain.fit_info_["chunks"]
 
 
 def test_non_finite_forest_is_refused_at_adoption():
