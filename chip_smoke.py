@@ -72,8 +72,17 @@ nprobe 32 (its quantizer's E-step on ``distances_sq``, the lists against
 a NumPy bucketing of the quantizer's labels, recall@10 ≥ 0.95 against
 float64 under ``db`` and under ``kernel``, whose centroid product is
 ``panel_gemm``, the exact ``kneighbors`` timed beside it, ``nprobe =
-n_lists`` against the exact kNN on a 20,000-row cut) — and checks every
-result.  Each
+n_lists`` against the exact kNN on a 20,000-row cut) — then the
+checkpointed fit (``resilience``) and the serving layer (``serving``: the
+KMeans main path behind a ``StandardScaler`` through ``PredictServer``
+over the 1/8/64/512 ladder, 20,000 requests from 8 client threads, every
+response against a direct predict, one CUDA-graph replay per bucket
+piece and no capture or kernel build after warm; a ``ModelPool``
+following a checkpointed KMeans fit continued during the traffic, a
+non-finite generation refused; two tenants and a 10 % canary behind a
+``ModelRouter``; the IVF index's queries through ``RetrievalPipeline``
+and the ALS model's fold-in through ``SparseFoldInPipeline``; each
+replay bit-equal to its eager chain) — and checks every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -255,10 +264,28 @@ RES_RF_EVERY, RES_GM_ITERS, RES_MBK_EVERY = 4, 6, 50
 RES_CSVM_M, RES_DB_M, RES_DA_M = 4_096, 20_000, 20_000
 
 
+# the serving phase (dislib_tpu_torch/serving): the main path's KMeans
+# behind a StandardScaler fitted on its rows, served over the default
+# bucket ladder; SERVE_REQ requests of 1 to SERVE_MAX_ROWS rows from
+# SERVE_THREADS client threads, each keeping SERVE_WINDOW requests in
+# flight; the hot-swap drill continues a checkpointed KMeans fit for
+# SERVE_SWAP_ROUNDS rounds of one step while the clients send traffic;
+# SERVE_ROUTER_REQ keyed requests through the router; the IVF index's
+# queries and SERVE_FOLD_USERS users of the ALS ratings, each in requests
+# of 1 to SERVE_MAX_ROWS rows
+SERVE_BUCKETS = (1, 8, 64, 512)
+SERVE_REQ, SERVE_MAX_ROWS, SERVE_THREADS, SERVE_WINDOW = 20_000, 64, 8, 4
+SERVE_SWAP_ROUNDS, SERVE_ROUTER_REQ = 12, 400
+SERVE_FOLD_USERS, SERVE_NSE_CAP = 4_096, 128
+
+
 _T0 = time.perf_counter()
 # the models the phases fit, by class name, with their input width, for
 # the saving phase
 MODELS = {}
+# what the main path, the ivf and the als phases leave for the serving
+# phase
+SERVED = {}
 
 
 def emit(obj) -> None:
@@ -2806,6 +2833,8 @@ def als_phase(dev, cuda_ms):
                                    "items": len(items.chunks)},
           "dense_vs_sparse_err": err_dense, "fold_in": folds,
           "half_step_floor_ms": als_floors(m, n, int(csr.nnz), f)})
+    # the fitted model and the users the serving phase folds in
+    SERVED["als"] = (sparse, csr[:SERVE_FOLD_USERS])
     del x, csr, users, items, v_dev, u_dev
     torch.cuda.empty_cache()
     phase_wall("als", t_phase)
@@ -2987,6 +3016,8 @@ def ivf_phase(dev, cuda_ms):
               IVF_Q, IVF_PROBE, IVF_M / IVF_LISTS, IVF_D),
           "cut": {"rows": IVF_CUT_M, "n_lists": IVF_CUT_LISTS,
                   "ids_equal_where_apart": True}})
+    # the index and its queries, for the serving phase
+    SERVED["ivf"] = (ix, q)
     del X, Q, xd, qd, x64, ix, nn, cut, out, plain, cents
     torch.cuda.empty_cache()
     phase_wall("ivf", t_phase)
@@ -3337,6 +3368,521 @@ def resilience_phase(dev, card):
     res["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "resilience", **res})
     return out
+
+
+def drive_clients(submit, n, stop=None, threads=SERVE_THREADS,
+                  window=SERVE_WINDOW):
+    """Requests 0..n-1 from ``threads`` client threads (client t sends t,
+    t + threads, ...), each keeping ``window`` in flight; ``submit(i)``
+    returns request i's Future.  With ``stop``, a client sends no new
+    request once it is set.  Returns the responses by request (None for
+    one never sent); the first client error is raised."""
+    import threading
+    from collections import deque
+    out = [None] * n
+    errs = []
+
+    def client(t):
+        pending = deque()
+        try:
+            for i in range(t, n, threads):
+                if stop is not None and stop.is_set():
+                    break
+                pending.append((i, submit(i)))
+                if len(pending) >= window:
+                    j, f = pending.popleft()
+                    out[j] = f.result(timeout=300)
+            while pending:
+                j, f = pending.popleft()
+                out[j] = f.result(timeout=300)
+        except Exception as exc:        # noqa: BLE001 — re-raised below
+            errs.append(exc)
+
+    ths = [threading.Thread(target=client, args=(t,))
+           for t in range(threads)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def cover_sizes(n, max_rows, seed):
+    """Request sizes of 1 to ``max_rows`` rows, drawn from ``seed``,
+    that cover ``n`` rows exactly, and their starts."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(min(int(rng.randint(1, max_rows + 1)), n - sum(sizes)))
+    return np.cumsum([0] + sizes[:-1]), np.asarray(sizes)
+
+
+def graph_ms(fn, cuda_ms, reps):
+    """CUDA-event time of ``fn`` replayed from a CUDA graph captured as
+    the serving layer captures (a side stream, ``thread_local``); the
+    capture's launches are recorded, not counted."""
+    import torch
+    from dislib_tpu_torch.ops import kernels as K
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with K.recording_launches(capturing=True) as rec:
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps), out, dict(rec)
+
+
+def serving_phase(dev, cuda_ms, card):
+    """The serving layer on the card: the main path's KMeans (1M × 100,
+    k = 10) behind a StandardScaler fitted on its rows, served by
+    ``PredictServer`` over the default ladder to SERVE_REQ requests from
+    SERVE_THREADS client threads — every response against a direct
+    predict, one CUDA-graph replay per bucket piece, no capture and no
+    kernel build after warm; a ``ModelPool`` following a checkpointed
+    KMeans fit continued during the traffic (no torn response, a
+    non-finite generation refused while serving goes on); two tenants
+    and a 10 % canary behind a ``ModelRouter``; the IVF index's 4,096
+    queries through ``RetrievalPipeline`` under ``kernel`` (ids equal to
+    ``IVFIndex.search``); the ALS model's fold-in of SERVE_FOLD_USERS
+    users through ``SparseFoldInPipeline`` against ``ALS.fold_in``.
+    Returns the kernels-line entries of ``distances_sq`` and
+    ``panel_gemm`` at the served shapes."""
+    import tempfile as _tf
+    import threading
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.retrieval import RetrievalPipeline
+    from dislib_tpu_torch.runtime import AdoptionRejected
+    from dislib_tpu_torch.serving import (ModelPool, ModelRouter,
+                                          PredictServer, ServePipeline,
+                                          SparseFoldInPipeline,
+                                          TenantQuotaExceeded)
+    from dislib_tpu_torch.utils import profiling as prof
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    t_phase = time.perf_counter()
+    res = {"card": card, "buckets": list(SERVE_BUCKETS)}
+
+    # -- the main path's KMeans behind a scaler fitted on its rows ----------
+    rng = np.random.RandomState(0)
+    x_host = rng.rand(KM_M, KM_N).astype(np.float32)
+    init = x_host[rng.choice(KM_M, KM_K, replace=False)].copy()
+    X = dst.array(x_host)
+    km = SERVED.pop("kmeans")
+    sc = dst.StandardScaler().fit(X)
+    XS = sc.transform(X)
+    labels_all = km.predict(XS).collect().ravel()
+    pipe = ServePipeline(km, transforms=(sc,))
+    draw = np.random.RandomState(13)
+    sizes = draw.randint(1, SERVE_MAX_ROWS + 1, SERVE_REQ)
+    starts = draw.randint(0, KM_M - SERVE_MAX_ROWS, SERVE_REQ)
+    srv = PredictServer(pipeline=pipe, buckets=SERVE_BUCKETS, name="km")
+    t0 = time.perf_counter()
+    srv.start()                     # warm: one capture a bucket
+    warm_s = time.perf_counter() - t0
+    check(all(pipe.program(b).mode == "graph" for b in SERVE_BUCKETS),
+          "serving: the scaler → KMeans chain was not captured")
+    warm = srv.cache.stats()
+    # the main path: counts zeroed just before, read just after
+    K.reset_launches()
+    prof.reset_counters()
+    t0 = time.perf_counter()
+    resp = drive_clients(lambda i: srv.submit(
+        x_host[starts[i]: starts[i] + sizes[i]]), SERVE_REQ)
+    traffic_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    counters = prof.counters()
+    st = srv.stats()
+    srv.stop()
+    bad = sum(not np.array_equal(r.values.ravel(),
+                                 labels_all[s: s + k])
+              for r, s, k in zip(resp, starts, sizes))
+    check(bad == 0, f"serving: {bad} responses differ from the direct "
+          "predict of their rows")
+    for i in draw.choice(SERVE_REQ, 64, replace=False):
+        rows = x_host[starts[i]: starts[i] + sizes[i]]
+        check(np.array_equal(resp[i].values, km.predict(sc.transform(
+            dst.array(rows))).collect()), "serving: a response differs "
+            "from a direct predict of the same rows")
+    batches = st["batches"]
+    check(st["dispatches_per_batch_max"] == 1
+          and st["dispatches_per_batch_mean"] == 1.0,
+          f"serving: a batch took more than one replay: {st}")
+    check(counters["dispatch_by"] == {"fused_chain": batches},
+          f"serving: dispatches {counters['dispatch_by']} for {batches} "
+          "batches")
+    check(counters["traces"] == 0, f"serving: captures or builds after "
+          f"warm: {counters['trace_by']}")
+    check(launches["distances_sq"] == batches, f"serving: distances_sq "
+          f"launched {launches['distances_sq']} times in {batches} replays")
+    per_bucket = {}
+    for b in SERVE_BUCKETS:
+        prog = pipe.program(b)
+        check(torch.equal(prog.replay_device().clone(), prog.eager_device()),
+              f"serving: bucket {b}'s replay differs from its eager chain")
+        per_bucket[str(b)] = {"replay_ms": cuda_ms(prog.replay_device, 50),
+                              "eager_ms": cuda_ms(prog.eager_device, 20),
+                              "kernels_per_replay": prog.kernels}
+    res["kmeans"] = {
+        "requests": SERVE_REQ, "threads": SERVE_THREADS,
+        "window": SERVE_WINDOW, "rows": int(sizes.sum()),
+        "warm_s": warm_s, "traffic_s": traffic_s,
+        "p50_ms": st["p50_ms"], "p95_ms": st["p95_ms"],
+        "p99_ms": st["p99_ms"], "rows_per_s": st["rows_per_s"],
+        "qps": st["qps"], "batches": batches,
+        "bucket_cost_ms": st["bucket_cost_ms"],
+        "dispatches_per_batch_max": st["dispatches_per_batch_max"],
+        "traces_after_warm": counters["traces"], "launches": launches,
+        "warm": warm, "per_bucket": per_bucket,
+        "responses_equal_direct_predict": True}
+    emit({"phase": "serving_kmeans", **res["kmeans"]})
+    dist_launches, dist_batches = launches["distances_sq"], batches
+
+    # -- hot-swap: a ModelPool following a continued checkpointed fit -------
+    tmp = _tf.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        path = os.path.join(tmp, "km.npz")
+        init_s = sc.transform(dst.array(init)).collect()
+
+        def fit_round(r):
+            # each round resumes from the snapshot and takes one step
+            dst.KMeans(n_clusters=KM_K, init=init_s, max_iter=r,
+                       tol=0.0).fit(XS, checkpoint=FitCheckpoint(
+                           path, every=1))
+
+        def build(state):
+            g = dst.KMeans(n_clusters=KM_K)
+            g.centers_ = np.asarray(state["centers"], np.float32)
+            return ServePipeline(g, transforms=(sc,), n_features=KM_N)
+
+        fit_round(1)
+        pool = ModelPool(FitCheckpoint(path), build, buckets=SERVE_BUCKETS,
+                         poll_interval_s=0.0)
+        gens = {}
+        current = pool.current
+
+        def recorded():
+            tok, p = current()
+            if p is not None:
+                gens.setdefault(tok, p.model.centers_)
+            return tok, p
+
+        pool.current = recorded
+        psrv = PredictServer(pool=pool, name="pool").start()
+        K.reset_launches()
+        prof.reset_counters()
+        a0 = pool.adoptions
+        stop = threading.Event()
+        t_err = []
+
+        def trainer():
+            try:
+                for r in range(2, SERVE_SWAP_ROUNDS + 2):
+                    fit_round(r)
+                    time.sleep(0.1)
+            except Exception as exc:    # noqa: BLE001 — checked below
+                t_err.append(exc)
+            finally:
+                stop.set()
+
+        n_max = 400 * SERVE_SWAP_ROUNDS * SERVE_THREADS
+        h_sizes = draw.randint(1, SERVE_MAX_ROWS + 1, n_max)
+        h_starts = draw.randint(0, KM_M - SERVE_MAX_ROWS, n_max)
+        th = threading.Thread(target=trainer)
+        th.start()
+        t0 = time.perf_counter()
+        hresp = drive_clients(lambda i: psrv.submit(
+            x_host[h_starts[i]: h_starts[i] + h_sizes[i]]), n_max, stop=stop)
+        th.join()
+        swap_s = time.perf_counter() - t0
+        check(not t_err, f"serving: the trainer failed: {t_err}")
+        pool.poll(force=True)
+        swaps = pool.adoptions - a0
+        swap_counters = prof.counters()
+        # a non-finite generation is refused, and serving goes on
+        FitCheckpoint(path).save({
+            "centers": np.full((KM_K, KM_N), np.nan, np.float32),
+            "n_iter": np.asarray(10_000), "converged": np.asarray(False)})
+        before = pool.current()[0]
+        check(not pool.poll(force=True) and isinstance(
+            pool.last_rejection, AdoptionRejected), "serving: the "
+            f"non-finite generation was not refused: {pool.last_rejection}")
+        after = psrv.submit(x_host[:64]).result(timeout=60)
+        check(after.generation == before, "serving: the refused "
+              "generation was served")
+        hst = psrv.stats()
+        psrv.stop()
+        sent = [(r, s, k) for r, s, k in zip(hresp, h_starts, h_sizes)
+                if r is not None] + [(after, 0, 64)]
+        gen_labels = {}
+        for tok, centers in gens.items():
+            g = dst.KMeans(n_clusters=KM_K)
+            g.centers_ = centers
+            gen_labels[tok] = g.predict(XS).collect().ravel()
+        torn = sum(not np.array_equal(r.values.ravel(),
+                                      gen_labels[r.generation][s: s + k])
+                   for r, s, k in sent)
+        check(torn == 0, f"serving: {torn} hot-swap responses differ from "
+              "their generation's direct predict")
+        served_gens = {r.generation for r, _, _ in sent}
+        check(swaps >= 2 and len(served_gens) >= 2, f"serving: {swaps} "
+              f"swaps, {len(served_gens)} generations served")
+        cap = swap_counters["trace_by"]
+        check(set(cap) <= {"cuda_graph"} and cap.get("cuda_graph", 0)
+              == swaps * len(SERVE_BUCKETS), "serving: a swap built a "
+              f"kernel or captured off warm: {cap}, {swaps} swaps")
+        res["hotswap"] = {
+            "rounds": SERVE_SWAP_ROUNDS, "requests": len(sent),
+            "seconds": swap_s, "swaps": swaps,
+            "generations_served": len(served_gens),
+            "captures": cap.get("cuda_graph", 0), "builds": 0,
+            "rejections": pool.rejections,
+            "rejected": type(pool.last_rejection).__name__,
+            "p50_ms": hst["p50_ms"], "p99_ms": hst["p99_ms"],
+            "torn_responses": 0}
+        emit({"phase": "serving_hotswap", **res["hotswap"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- two tenants and a canary behind the router -------------------------
+    last = max(gens.items(), key=lambda kv: kv[0][2])   # newest mtime
+    cpipe = build({"centers": last[1]})
+    primary = PredictServer(pipeline=pipe, name="primary")
+    canary = PredictServer(pipeline=cpipe, name="canary")
+    router = ModelRouter()
+    router.add_tenant("bulk", primary, quota_rows=64)
+    router.add_tenant("ui", primary)
+    with router:
+        primary.deadline_s = 1.0
+        f1 = router.submit(x_host[:64], "bulk")
+        try:
+            router.submit(x_host[64:65], "bulk")
+            shed = False
+        except TenantQuotaExceeded:
+            shed = True
+        f2 = router.submit(x_host[:8], "ui")
+        primary.deadline_s = 0.005
+        check(shed and np.array_equal(f1.result(timeout=60).values.ravel(),
+                                      labels_all[:64])
+              and np.array_equal(f2.result(timeout=60).values.ravel(),
+                                 labels_all[:8]),
+              "serving: the quota did not shed the offender alone")
+        router.set_canary("ui", canary, fraction=0.1)
+        r_starts = draw.randint(0, KM_M - 8, SERVE_ROUTER_REQ)
+        arms = [router.route("ui", x_host[s: s + 8], key=f"user{i}")[1]
+                for i, s in enumerate(r_starts)]
+        futs = [router.submit(x_host[s: s + 8], "ui", key=f"user{i}")
+                for i, s in enumerate(r_starts)]
+        c_labels = gen_labels[last[0]]
+        for arm, s, f in zip(arms, r_starts, futs):
+            want = c_labels if arm == "ui:canary" else labels_all
+            check(np.array_equal(f.result(timeout=60).values.ravel(),
+                                 want[s: s + 8]),
+                  f"serving: a {arm} response differs from its model")
+        share = arms.count("ui:canary") / len(arms)
+        check(0.04 <= share <= 0.2, f"serving: canary share {share}")
+        router.promote("ui")
+        check(router.route("ui", x_host[:8], key="user0")[0] is canary,
+              "serving: promote did not move the tenant")
+        rst = router.stats()
+    res["router"] = {"quota_shed": rst["bulk"]["quota_shed"],
+                     "canary_fraction": 0.1, "canary_share": share,
+                     "requests": SERVE_ROUTER_REQ,
+                     "promotions": rst["ui"]["promotions"]}
+    emit({"phase": "serving_router", **res["router"]})
+    del X, XS, x_host, resp, hresp, sent, gen_labels, labels_all
+    torch.cuda.empty_cache()
+
+    # -- IVF retrieval under kernel ------------------------------------------
+    ix, q = SERVED.pop("ivf")
+    rpipe = RetrievalPipeline(ix, k=IVF_K, nprobe=IVF_PROBE,
+                              overlap="kernel")
+    want_d, want_i = (a.collect() for a in ix.search(
+        q, k=IVF_K, nprobe=IVF_PROBE, overlap="kernel"))
+    q_starts, q_sizes = cover_sizes(IVF_Q, SERVE_MAX_ROWS, 17)
+    with PredictServer(pipeline=rpipe, name="ivf") as isrv:
+        K.reset_launches()
+        prof.reset_counters()
+        t0 = time.perf_counter()
+        iresp = drive_clients(lambda i: isrv.submit(
+            q[q_starts[i]: q_starts[i] + q_sizes[i]]), len(q_sizes))
+        ivf_s = time.perf_counter() - t0
+        ilaunch = dict(K.LAUNCHES)
+        ist = isrv.stats()
+        ic = prof.counters()
+    got = np.concatenate([r.values for r in iresp])
+    check(np.array_equal(got[:, :IVF_K].astype(np.int32), want_i),
+          "serving: IVF ids differ from IVFIndex.search")
+    scale = float((q.astype(np.float64) ** 2).sum(1).max())
+    d_err = float(np.abs(got[:, IVF_K:].astype(np.float64) ** 2
+                         - want_d.astype(np.float64) ** 2).max())
+    check(d_err <= 1e-5 * max(1.0, scale), f"serving: IVF d² off by {d_err}")
+    check(ic["traces"] == 0 and ilaunch["panel_gemm"] == ist["batches"]
+          and ist["dispatches_per_batch_max"] == 1,
+          f"serving: IVF replays {ic}, launches {ilaunch}")
+    for b in SERVE_BUCKETS:
+        prog = rpipe.program(b)
+        check(prog.mode == "graph" and torch.equal(
+            prog.replay_device().clone(), prog.eager_device()),
+            f"serving: IVF bucket {b}'s replay differs from its eager chain")
+    res["ivf"] = {"queries": IVF_Q, "requests": len(q_sizes),
+                  "seconds": ivf_s, "queries_per_s": IVF_Q / ivf_s,
+                  "p50_ms": ist["p50_ms"], "p99_ms": ist["p99_ms"],
+                  "batches": ist["batches"],
+                  "bucket_cost_ms": ist["bucket_cost_ms"],
+                  "launches": ilaunch, "d2_max_abs_err": d_err,
+                  "ids_equal_search": True}
+    emit({"phase": "serving_ivf", **res["ivf"]})
+    gemm_launches, gemm_batches = ilaunch["panel_gemm"], ist["batches"]
+    del ix, rpipe, iresp
+    torch.cuda.empty_cache()
+
+    # -- ALS fold-in ---------------------------------------------------------
+    als, users = SERVED.pop("als")
+    fpipe = SparseFoldInPipeline(als, nse_cap=SERVE_NSE_CAP, top_n=ALS_TOP)
+    packed = fpipe.pack(users)
+    want_ids, want_sc = als.fold_in(users, top_n=ALS_TOP)
+    u_starts, u_sizes = cover_sizes(SERVE_FOLD_USERS, SERVE_MAX_ROWS, 19)
+    with PredictServer(pipeline=fpipe, name="fold_in") as fsrv:
+        prof.reset_counters()
+        t0 = time.perf_counter()
+        fresp = drive_clients(lambda i: fsrv.submit(
+            packed[u_starts[i]: u_starts[i] + u_sizes[i]]), len(u_sizes))
+        fold_s = time.perf_counter() - t0
+        fst = fsrv.stats()
+        fc = prof.counters()
+    got = np.concatenate([r.values for r in fresp])
+    sc_err = rel_err(got[:, ALS_TOP:], want_sc)
+    check(sc_err <= 1e-4, f"serving: fold-in scores off ALS.fold_in by "
+          f"{sc_err}")
+    srt = want_sc.astype(np.float64)
+    gap = 1e-3 * max(1.0, float(np.abs(srt).max()))
+    d = -np.diff(srt, axis=1)
+    apart = np.concatenate([d > gap, np.ones((len(srt), 1), bool)], axis=1) \
+        & np.concatenate([np.ones((len(srt), 1), bool), d > gap], axis=1)
+    bad = int(((got[:, :ALS_TOP].astype(np.int32) != want_ids)
+               & apart).sum())
+    check(bad == 0, f"serving: {bad} fold-in ids differ where apart")
+    check(fc["traces"] == 0 and fst["dispatches_per_batch_max"] == 1,
+          f"serving: fold-in replays {fc}")
+    for b in SERVE_BUCKETS:
+        prog = fpipe.program(b)
+        check(prog.mode == "graph" and torch.equal(
+            prog.replay_device().clone(), prog.eager_device()),
+            f"serving: fold-in bucket {b}'s replay differs from eager")
+    res["fold_in"] = {"users": SERVE_FOLD_USERS, "nse_cap": SERVE_NSE_CAP,
+                      "top_n": ALS_TOP, "requests": len(u_sizes),
+                      "seconds": fold_s, "users_per_s":
+                      SERVE_FOLD_USERS / fold_s, "p50_ms": fst["p50_ms"],
+                      "p99_ms": fst["p99_ms"], "batches": fst["batches"],
+                      "score_err_vs_fold_in": sc_err}
+    emit({"phase": "serving_fold_in", **res["fold_in"]})
+    del als, users, fpipe, fresp
+
+    # -- the two kernels at the served shapes, in and out of a graph --------
+    g = torch.Generator(device=dev).manual_seed(5)
+    cents = torch.from_numpy(np.asarray(km.centers_)).to(dev)
+    shapes = {}
+    for m in (1, SERVE_BUCKETS[-1]):
+        a = torch.randn((m, KM_N), generator=g, device=dev)
+        in_ms, gout, rec = graph_ms(lambda: K.distances_sq(a, cents),
+                                    cuda_ms, 200)
+        check(rec == {"distances_sq": 1}, f"serving: graph records {rec}")
+        plain = K.distances_sq_plain(a, cents, "highest")
+        scale = float((a.double() ** 2).sum(1).max()
+                      + (cents.double() ** 2).sum(1).max())
+        err = float((gout.double() - plain.double()).abs().max()) / scale
+        check(err <= 1e-5 and torch.equal(gout, K.distances_sq(a, cents)),
+              f"serving: distances_sq in a graph at m = {m}: error {err}")
+
+        def cdist():
+            with px.precise():
+                return torch.cdist(a, cents,
+                                   compute_mode="use_mm_for_euclid_dist")
+
+        bms, bby = dist_bound(m, KM_K, KM_N,
+                              4.0 * (m * KM_N + KM_K * KM_N + m * KM_K))
+        shapes[f"{m}x{KM_K}x{KM_N}"] = {
+            "ms_in_graph": in_ms,
+            "ms_out_of_graph": cuda_ms(lambda: K.distances_sq(a, cents),
+                                       200),
+            "plain_ms": cuda_ms(lambda: K.distances_sq_plain(
+                a, cents, "highest"), 200),
+            "library_ms": cuda_ms(cdist, 200),
+            "max_abs_err": float((gout - plain).abs().max()),
+            "normalized_err_vs_plain": err,
+            "bound_ms": bms, "bound_by": bby}
+    big = shapes[f"{SERVE_BUCKETS[-1]}x{KM_K}x{KM_N}"]
+    dist = {"name": "distances_sq", "at": "serving", "route": "cuda",
+            "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+            "shape": [SERVE_BUCKETS[-1], KM_K, KM_N],
+            "launches": dist_launches,
+            "launches_per_batch": dist_launches / max(1, dist_batches),
+            "max_abs_err": big["max_abs_err"], "ms": big["ms_in_graph"],
+            "ms_out_of_graph": big["ms_out_of_graph"],
+            "plain_ms": big["plain_ms"], "library_ms": big["library_ms"],
+            "library_call": "torch.cdist(a, b, compute_mode="
+                            "'use_mm_for_euclid_dist'), TF32 off (includes "
+                            "a square root)",
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "bound_basis": DIST_BOUND_BASIS, "by_shape": shapes,
+            "card": card}
+    emit({"phase": "kernel", **dist})
+    ix_cents = torch.randn((IVF_D, IVF_LISTS), generator=g, device=dev)
+    qa = torch.randn((SERVE_BUCKETS[-1], IVF_D), generator=g, device=dev)
+    in_ms, gout, rec = graph_ms(lambda: K.panel_gemm(qa, ix_cents,
+                                                     px.FLOAT32),
+                                cuda_ms, 200)
+    check(rec == {"panel_gemm": 1}, f"serving: graph records {rec}")
+    plain = K.panel_gemm_plain(qa, ix_cents, px.FLOAT32)
+    gscale = (torch.linalg.norm(qa.double())
+              * torch.linalg.norm(ix_cents.double()) / IVF_D ** 0.5)
+    gerr = float((gout.double() - plain.double()).abs().max() / gscale)
+    gemm_tol = px.ERROR_BOUNDS[("matmul", "float32")]
+    check(gerr <= gemm_tol and torch.equal(
+        gout, K.panel_gemm(qa, ix_cents, px.FLOAT32)),
+        f"serving: panel_gemm in a graph: normalized error {gerr}")
+
+    def mm():
+        with px.precise():
+            return torch.mm(qa, ix_cents)
+
+    mq, kk, nl = SERVE_BUCKETS[-1], IVF_D, IVF_LISTS
+    gb_ms, gb_by = bound(3 * 2.0 * mq * kk * nl,
+                         4.0 * (mq * kk + kk * nl + mq * nl),
+                         PEAK_TF32_FLOPS)
+    gemm = {"name": "panel_gemm", "at": "serving", "policy": "float32",
+            "route": "cuda", "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+            "shape": [mq, kk, nl], "launches": gemm_launches,
+            "launches_per_batch": gemm_launches / max(1, gemm_batches),
+            "max_abs_err": float((gout - plain).abs().max()),
+            "normalized_err_vs_plain": gerr, "ms": in_ms,
+            "ms_out_of_graph": cuda_ms(lambda: K.panel_gemm(
+                qa, ix_cents, px.FLOAT32), 200),
+            "plain_ms": cuda_ms(lambda: K.panel_gemm_plain(
+                qa, ix_cents, px.FLOAT32), 200),
+            "library_ms": cuda_ms(mm, 200),
+            "library_call": "torch.mm (f32, TF32 off)",
+            "bound_ms": gb_ms, "bound_by": gb_by,
+            "bound_basis": "3xTF32: three 2mkn TF32 tensor-core products "
+                           "at 495 TFLOP/s; each operand read once, C "
+                           "written once", "card": card}
+    emit({"phase": "kernel", **gemm})
+    emit({"phase": "serving", "seconds": time.perf_counter() - t_phase,
+          **{k: v for k, v in res.items() if k in ("card", "buckets")}})
+    phase_wall("serving", t_phase)
+    return {"distances_sq/serving": dist, "panel_gemm/serving": gemm}
 
 
 def main() -> int:
@@ -3925,6 +4471,7 @@ def main() -> int:
     km = dst.KMeans(n_clusters=KM_K, init=init, max_iter=500, tol=0.0).fit(x)
     t500 = time.perf_counter() - t0
     MODELS["KMeans"] = (km, KM_N)
+    SERVED["kmeans"] = km           # MODELS is emptied after the saving
     reads500 = dict(prof.HOST_READS)
     labels = km.predict(x)
     score = km.score(x)
@@ -4296,7 +4843,11 @@ def main() -> int:
             "launches": res[name],
             "launches_resumed": res[f"{name}_resumed"]}
 
-    # -- (15) the kernels line, then the result --------------------------------------
+    # -- (15) serving: one CUDA-graph replay a batch ---------------------------------
+    torch.cuda.empty_cache()
+    kernels.update(serving_phase(dev, cuda_ms, smi))
+
+    # -- (16) the kernels line, then the result --------------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

@@ -30,7 +30,8 @@ from dislib_tpu_torch.utils.base import shuffle, train_test_split
 from dislib_tpu_torch.utils.saving import save_model, load_model
 from dislib_tpu_torch import cluster, classification, decomposition, \
     math, model_selection, neighbors, trees, preprocessing, regression, \
-    optimization, recommendation, retrieval, runtime  # noqa: E402,F401
+    optimization, recommendation, retrieval, runtime, \
+    serving  # noqa: E402,F401
 
 # estimator classes re-exported at top level, as the reference does
 # (their canonical homes stay the submodules above)
@@ -73,4 +74,4 @@ __all__ = ["init", "get_mesh", "set_mesh", "Array", "array", "random_array", "ze
            "cluster", "classification", "decomposition", "math",
            "model_selection", "neighbors", "trees", "preprocessing",
            "regression", "optimization", "recommendation", "retrieval",
-           "runtime"]
+           "runtime", "serving"]

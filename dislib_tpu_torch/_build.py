@@ -24,6 +24,8 @@ import subprocess
 import threading
 import time
 
+from dislib_tpu_torch.utils.profiling import count_trace
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -120,6 +122,7 @@ def build_all() -> dict:
                 os.remove(tmp)
             continue
         os.replace(tmp, out)   # atomic: a concurrent loader sees old or new
+        count_trace(f"nvcc:{name}")
     if failures:
         raise RuntimeError("building the CUDA kernels failed:\n"
                            + "\n".join(failures))

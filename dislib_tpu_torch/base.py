@@ -29,6 +29,12 @@ class BaseEstimator:
     #: ``save_model`` beyond the trailing-underscore convention
     _private_fitted_attrs: tuple = ()
 
+    #: methods whose device work on a dense ds-array, once warm (kernels
+    #: built, leaves on the device), has no host read, no host → device
+    #: copy and no data-dependent shape: ``serving`` captures a chain of
+    #: them in one CUDA graph a bucket, and runs any other chain eagerly
+    _capturable: frozenset = frozenset()
+
     @classmethod
     def _param_names(cls):
         sig = inspect.signature(cls.__init__)

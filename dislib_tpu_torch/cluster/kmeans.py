@@ -97,6 +97,8 @@ class KMeans(BaseEstimator):
     history_ : ndarray (n_iter_,) — per-iteration inertia.
     """
 
+    _capturable = frozenset({"predict"})
+
     def __init__(self, n_clusters=8, init="random", max_iter=10, tol=1e-4,
                  arity=50, random_state=None, verbose=False,
                  fast_distance=None):
@@ -287,7 +289,10 @@ class KMeans(BaseEstimator):
         self.centers_ = np.array(arrays["centers_"], np.float32)
 
     def _centers_on(self, x: Array) -> torch.Tensor:
-        return torch.as_tensor(self.centers_, device=x.device)
+        # the device copy is cached per model (no host → device copy in a
+        # warm predict, so a served predict can be captured)
+        (centers,) = self._predict_leaves(x.device, self.centers_)
+        return centers
 
     def _check_fitted(self):
         if not hasattr(self, "centers_"):

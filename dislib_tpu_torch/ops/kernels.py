@@ -25,12 +25,17 @@ There is no fallback from a CUDA tensor to the plain version.
 its main path went through the kernels: one per call that reaches the
 CUDA code of a source, whatever number of CUDA kernels the call runs
 (node_histogram runs four); ``"distances_sq"`` counts all three of its
-entry points (float32, bf16 operands, batched).
+entry points (float32, bf16 operands, batched).  A call made while a
+CUDA graph is captured launches nothing: it is recorded instead
+(:func:`recording_launches`), and each replay of the graph counts it
+(:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -53,6 +58,45 @@ _BF16_PRECISIONS = ("default", "bfloat16")
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# a thread's launches while it records a served program (see
+# :func:`recording_launches`)
+_RECORD = threading.local()
+
+
+def _launched(name: str) -> None:
+    """Count one launch of ``name`` in :data:`LAUNCHES`; on a thread that
+    records (:func:`recording_launches`), also in its record — or only
+    there, while it captures a CUDA graph, which launches nothing until
+    it is replayed."""
+    rec = getattr(_RECORD, "counts", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        if _RECORD.capturing:
+            return
+    LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches(capturing: bool = False):
+    """Yield a dict of this thread's kernel launches inside the block.
+    ``capturing``: the block captures a CUDA graph, so its launches are
+    recorded but not counted in :data:`LAUNCHES`; the graph's replays add
+    them (:func:`add_launches`).  Other threads' launches are not seen."""
+    prev = (getattr(_RECORD, "counts", None),
+            getattr(_RECORD, "capturing", False))
+    _RECORD.counts, _RECORD.capturing = {}, capturing
+    try:
+        yield _RECORD.counts
+    finally:
+        _RECORD.counts, _RECORD.capturing = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Count the kernels of one replay of a captured graph."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _on_cpu(*ts) -> bool:
@@ -214,7 +258,7 @@ def panel_gemm(a: torch.Tensor, b: torch.Tensor,
                               f"the TMA descriptor was refused (CUresult "
                               f"{rc - 2000})"))
     _raise_on_error("panel_gemm", rc)
-    LAUNCHES["panel_gemm"] += 1
+    _launched("panel_gemm")
     return out
 
 
@@ -363,7 +407,7 @@ def distances_sq(a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, d, *plan,
             torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on_error("distances_sq", rc)
-    LAUNCHES["distances_sq"] += 1
+    _launched("distances_sq")
     return out
 
 
@@ -426,7 +470,7 @@ def distances_sq_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             a.data_ptr(), b.data_ptr(), out.data_ptr(), nb, m, k, d, *plan,
             torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on_error("distances_sq_batched", rc)
-    LAUNCHES["distances_sq"] += 1
+    _launched("distances_sq")
     return out
 
 
@@ -505,7 +549,7 @@ def distances_sq_bf16(a16: torch.Tensor, a_sq: torch.Tensor,
             a16.data_ptr(), a_sq.data_ptr(), b.data_ptr(), out.data_ptr(), m,
             k, d, dp, *plan, torch.cuda.current_stream(a16.device).cuda_stream)
     _raise_on_error("distances_sq_bf16", rc)
-    LAUNCHES["distances_sq"] += 1
+    _launched("distances_sq")
     return out
 
 
@@ -789,5 +833,5 @@ the same declaration (:func:`node_histogram_plain`)."""
             partial.data_ptr() if slots else None, T, m, n, n_nodes, n_bins,
             S, slots, *plan, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on_error("node_histogram", rc)
-    LAUNCHES["node_histogram"] += 1
+    _launched("node_histogram")
     return out

@@ -28,6 +28,8 @@ class StandardScaler(BaseEstimator):
     Attributes: mean_ (Array 1×n), var_ (Array 1×n).
     """
 
+    _capturable = frozenset({"transform"})
+
     def __init__(self, with_mean=True, with_std=True):
         self.with_mean = with_mean
         self.with_std = with_std
@@ -105,6 +107,8 @@ class StandardScaler(BaseEstimator):
 class MinMaxScaler(BaseEstimator):
     """Scale features to a [lo, hi] range (reference parity:
     feature_range)."""
+
+    _capturable = frozenset({"transform"})
 
     def __init__(self, feature_range=(0, 1)):
         self.feature_range = feature_range

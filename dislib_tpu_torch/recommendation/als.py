@@ -42,8 +42,9 @@ dense mask and in the sparse entries alike.
   new users' normal equations against the frozen item factors, solved
   and scored in one pass, the top ``top_n`` items picked in the same
   call.  ``_als_fold_in_packed`` unpacks the serving form ``[cols |
-  vals]``; its serving wrapper (``dislib_tpu/serving/sparse.py``) is
-  ROADMAP.md A.12's serving half.
+  vals]``, which ``serving/sparse.SparseFoldInPipeline`` replays as one
+  CUDA graph a batch (the batched Cholesky is ``cholesky_ex`` and two
+  triangular solves, with no host check).
 
 - **The chunked fit.** ``fit`` runs through
   :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`, as the reference's
@@ -111,6 +112,11 @@ class ALS(BaseEstimator):
         sweep.
     history_ : ndarray (n_iter_,) — the per-sweep RMSE.
     """
+
+    # the served fold-in (serving/sparse.py: ``_als_fold_in_packed`` on
+    # a staged packed batch) has no host read once the item factors are
+    # on the device; ``fold_in`` itself packs and reads on the host
+    _capturable = frozenset({"fold_in"})
 
     def __init__(self, n_f=8, lambda_=0.065, tol=1e-4, max_iter=100,
                  random_state=None, verbose=False, arity=48):
@@ -422,8 +428,13 @@ def _draw_items(seed, n, n_f, device) -> torch.Tensor:
 def _chol_solve(a, b):
     """Solutions of the batched systems ``a`` (k, f, f) x = ``b`` (k, f) by
     Cholesky; NaN where a matrix is not positive definite, as the
-    reference's ``cho_factor``."""
-    return torch.cholesky_solve(b[..., None], cholesky_nan(a))[..., 0]
+    reference's ``cho_factor``.  Two triangular solves, not
+    ``cholesky_solve``: on CUDA a batched ``cholesky_solve`` may take
+    MAGMA's path, which checks its status on the host, and the served
+    fold-in runs inside a CUDA graph."""
+    low = cholesky_nan(a)
+    y = torch.linalg.solve_triangular(low, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(low.mT, y, upper=True)[..., 0]
 
 
 def _solve_factors(r, mask, v, lambda_, n_f):

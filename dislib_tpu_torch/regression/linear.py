@@ -33,6 +33,8 @@ class LinearRegression(BaseEstimator):
     intercept_ : ndarray (n_targets,)
     """
 
+    _capturable = frozenset({"predict"})
+
     def __init__(self, fit_intercept=True, arity=50):
         self.fit_intercept = fit_intercept
         self.arity = arity  # reference parity; ignored

@@ -38,9 +38,9 @@ the port departs: a d² below 0 (cancellation) ranks as 0, as in
 reference keeps a float64 catalog in float64).
 
 ``fit(checkpoint=, health=)`` hands both to the quantizer's KMeans fit
-loop.  Not ported: ``rebind_mesh`` onto any mesh but (1, 1) (ROADMAP.md
-A.2); the serving pipeline ``retrieval/serving.py`` (A.12's serving
-half).
+loop.  ``retrieval/serving.RetrievalPipeline`` serves the search as one
+CUDA-graph replay a batch.  Not ported: ``rebind_mesh`` onto any mesh
+but (1, 1) (ROADMAP.md A.2).
 """
 
 from __future__ import annotations
@@ -108,6 +108,10 @@ class IVFIndex(BaseEstimator):
 
     # the host layout inputs: load_model rebuilds the lists from them
     _private_fitted_attrs = ("_items_h", "_labels_h", "_centers_h")
+
+    # the served search (retrieval/serving.py: ``_ivf_topk`` on a staged
+    # query batch) has no host read; ``search`` itself wraps its results
+    _capturable = frozenset({"search"})
 
     def __init__(self, n_lists=None, nprobe=8, list_quantum=None,
                  kmeans_max_iter=10, random_state=None, verbose=False):

@@ -13,13 +13,16 @@ part:
 - **fitloop** — :class:`ChunkedFitLoop`, the driver every iterative fit
   runs on (``fitloop.py``);
 - **loop** — ``run_chunked``, the masked device loop inside one chunk,
-  which stands for the reference's ``lax.while_loop`` (``loop.py``).
+  which stands for the reference's ``lax.while_loop`` (``loop.py``);
+- **adoption** — the gated read side of model hot-swap:
+  :func:`adopt_latest` over a rotating ``FitCheckpoint``, the serving
+  layer's only way to read a model (``adoption.py``).
 
 Snapshots live with their format in ``dislib_tpu_torch.utils.checkpoint``;
 the fault injectors in ``dislib_tpu_torch.utils.faults``.  Not ported yet:
 the capacity level, the coordination ledger and membership, and
-``repad_rows`` (ROADMAP.md A.11); snapshot adoption, deployment bundles
-and the continuous trainer (the serving slice); ``xla_flags`` (JAX's).
+``repad_rows`` (ROADMAP.md A.11); deployment bundles and the continuous
+trainer (A.12's deployment half); ``xla_flags`` (JAX's).
 """
 
 from dislib_tpu_torch.runtime import health  # noqa: F401
@@ -36,6 +39,9 @@ from dislib_tpu_torch.runtime.retry import Retry, is_transient_error, \
 from dislib_tpu_torch.runtime.fitloop import (ChunkedFitLoop, ChunkOutcome,
                                               Escalation, EscalationLadder,
                                               LoopState)
+from dislib_tpu_torch.runtime.adoption import (Adoption, AdoptionRejected,
+                                               adopt_latest,
+                                               generation_token)
 
 __all__ = [
     "Preempted", "PreemptionWatcher", "preemption_requested",
@@ -46,5 +52,6 @@ __all__ = [
     "HealthPolicy", "ChunkGuard", "NumericalDivergence", "WatchdogTimeout",
     "ChunkedFitLoop", "ChunkOutcome", "LoopState", "Escalation",
     "EscalationLadder",
+    "Adoption", "AdoptionRejected", "adopt_latest", "generation_token",
     "health",
 ]

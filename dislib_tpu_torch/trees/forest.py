@@ -54,6 +54,7 @@ def _mask_rows(vals: torch.Tensor, m: int) -> torch.Tensor:
 
 class _ClassifierMixin:
     _criterion = "gini"
+    _capturable = frozenset({"predict", "predict_proba"})
 
     def _encode_labels(self, x: Array, y: Array):
         mp = x._data.shape[0]
@@ -117,6 +118,7 @@ class _ClassifierMixin:
 
 class _RegressorMixin:
     _criterion = "mse"
+    _capturable = frozenset({"predict"})
 
     def _encode_targets(self, x: Array, y: Array):
         mp = x._data.shape[0]

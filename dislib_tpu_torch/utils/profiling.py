@@ -11,7 +11,12 @@ Counterpart of ``dislib_tpu/utils/profiling.py``.
   fitted results (``runtime.fetch_packed``, a fit chunk's packed read)
   counts under ``"results"``.
 - **Counters** (the reference's ``_Counters``): dispatches
-  (:func:`count_dispatch`), host↔device transfers through the blessed
+  (:func:`count_dispatch`; a served batch's CUDA-graph replay is one,
+  under ``"fused_chain"``, the reference's name for its one fused
+  program), traces (:func:`count_trace`: a CUDA-graph capture under
+  ``"cuda_graph"``, an ``nvcc`` build of a kernel source under
+  ``"nvcc:<source>"`` — the port's counterparts of a jit (re)trace),
+  host↔device transfers through the blessed
   boundaries (:func:`count_transfer`: ``runtime.fetch`` and
   ``AsyncFetch.result``), the resilience tallies of the fit-loop driver,
   the watchdog and the ingest quarantine (:func:`count_resilience`), and
@@ -23,9 +28,10 @@ Counterpart of ``dislib_tpu/utils/profiling.py``.
   ``torch.cuda.memory_stats``.
 
 Not ported, because they are JAX's: ``profiled_jit`` (a counting
-``jax.jit``), ``op_graph`` (compiled HLO text) and ``trace_count`` (jit
-retraces).  The port compiles nothing at run time but its kernels, which
-``_build`` builds once per source.
+``jax.jit``) and ``op_graph`` (compiled HLO text).  The port compiles
+nothing at run time but its kernels, which ``_build`` builds once per
+source, and the serving layer's CUDA graphs, captured at warmup; both
+count in :func:`trace_count`.
 """
 
 from __future__ import annotations
@@ -64,13 +70,15 @@ class _Counters:
     """Process-wide dispatch and transfer tallies (total, dispatches also
     per name), the resilience tallies and the overlap schedules."""
 
-    __slots__ = ("dispatches", "transfers", "dispatch_by", "resilience",
-                 "schedules")
+    __slots__ = ("dispatches", "traces", "transfers", "dispatch_by",
+                 "trace_by", "resilience", "schedules")
 
     def __init__(self):
         self.dispatches = 0
+        self.traces = 0
         self.transfers = 0
         self.dispatch_by: dict[str, int] = {}
+        self.trace_by: dict[str, int] = {}
         self.resilience: dict[str, int] = {}
         self.schedules: dict[str, int] = {}
 
@@ -79,16 +87,41 @@ _COUNTERS = _Counters()
 _COUNTERS_LOCK = threading.Lock()
 
 
+_THREAD = threading.local()
+
+
 def count_dispatch(name: str, n: int = 1) -> None:
     """Record ``n`` device dispatches under ``name``."""
     with _COUNTERS_LOCK:
         _COUNTERS.dispatches += n
         _COUNTERS.dispatch_by[name] = _COUNTERS.dispatch_by.get(name, 0) + n
+    _THREAD.dispatches = getattr(_THREAD, "dispatches", 0) + n
 
 
 def dispatch_count() -> int:
     """Total dispatches recorded since the last :func:`reset_counters`."""
     return _COUNTERS.dispatches
+
+
+def thread_dispatch_count() -> int:
+    """Dispatches this thread has recorded (never reset): a serving
+    worker's per-batch delta, which other threads' device work cannot
+    inflate."""
+    return getattr(_THREAD, "dispatches", 0)
+
+
+def count_trace(name: str, n: int = 1) -> None:
+    """Record ``n`` traces under ``name``: a CUDA-graph capture
+    (``"cuda_graph"``) or a kernel build (``"nvcc:<source>"``)."""
+    with _COUNTERS_LOCK:
+        _COUNTERS.traces += n
+        _COUNTERS.trace_by[name] = _COUNTERS.trace_by.get(name, 0) + n
+
+
+def trace_count() -> int:
+    """Total captures and kernel builds since the last
+    :func:`reset_counters`."""
+    return _COUNTERS.traces
 
 
 def count_transfer(n: int = 1) -> None:
@@ -136,12 +169,14 @@ def schedule_counters() -> dict:
 
 
 def counters() -> dict:
-    """Copies of every tally: ``{dispatches, transfers, dispatch_by,
-    resilience, schedules}``."""
+    """Copies of every tally: ``{dispatches, traces, transfers,
+    dispatch_by, trace_by, resilience, schedules}``."""
     with _COUNTERS_LOCK:
         return {"dispatches": _COUNTERS.dispatches,
+                "traces": _COUNTERS.traces,
                 "transfers": _COUNTERS.transfers,
                 "dispatch_by": dict(_COUNTERS.dispatch_by),
+                "trace_by": dict(_COUNTERS.trace_by),
                 "resilience": dict(_COUNTERS.resilience),
                 "schedules": dict(_COUNTERS.schedules)}
 
@@ -150,8 +185,10 @@ def reset_counters() -> None:
     """Zero every tally of :func:`counters` (not :data:`HOST_READS`)."""
     with _COUNTERS_LOCK:
         _COUNTERS.dispatches = 0
+        _COUNTERS.traces = 0
         _COUNTERS.transfers = 0
         _COUNTERS.dispatch_by.clear()
+        _COUNTERS.trace_by.clear()
         _COUNTERS.resilience.clear()
         _COUNTERS.schedules.clear()
 

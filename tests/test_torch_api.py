@@ -2,8 +2,10 @@
 
 ``dislib_tpu_torch.__all__`` must hold every name of
 ``dislib_tpu.__all__`` that the port implements; the reference entries
-still unported are named in :data:`UNPORTED`, and the reference's
-``runtime.__all__`` entries still unported in :data:`RUNTIME_UNPORTED`.
+still unported are named in :data:`UNPORTED`, the reference's
+``runtime.__all__`` entries still unported in :data:`RUNTIME_UNPORTED`,
+and its ``serving.__all__`` entries still unported (the deployment
+bundles) in :data:`SERVING_UNPORTED`.
 The port may export more (its subpackages, ``from_fitted_arrays``,
 ``IVFIndex``).  ``set_mesh``
 takes the one-card mesh only, and ``overlap_schedule`` routes as the
@@ -18,16 +20,15 @@ import dislib_tpu as ds
 import dislib_tpu_torch as dst
 from dislib_tpu_torch.parallel import mesh as port_mesh
 
-# the reference's root entries with no port yet: the serving layer
-# (ROADMAP.md A.12's serving half)
-UNPORTED = ["serving"]
+# the reference's root entries with no port yet: none (the serving layer
+# is ported, less its deployment bundles)
+UNPORTED = []
 
 # the reference's runtime names with no port yet: the capacity level,
-# the coordination ledger and membership, repad_rows (A.11); adoption,
-# bundles and the continuous trainer (the serving half); xla_flags (JAX's)
+# the coordination ledger and membership, repad_rows (A.11); bundles and
+# the continuous trainer (A.12's deployment half); xla_flags (JAX's)
 RUNTIME_UNPORTED = [
     "capacity_target", "request_capacity", "clear_capacity", "repad_rows",
-    "Adoption", "AdoptionRejected", "adopt_latest", "generation_token",
     "BundleIncompatible", "BundleShardCorrupt", "read_bundle",
     "write_bundle",
     "CapacityLedger", "CoordinationTimeout", "get_coordinator",
@@ -60,11 +61,33 @@ def test_runtime_all_plus_the_unported_list_is_the_references():
     assert dst.runtime is port_rt
 
 
+# the reference's serving names with no port yet: the deployment bundles
+# (ROADMAP.md A.12's deployment half)
+SERVING_UNPORTED = ["export_bundle", "load_bundle", "BundlePipeline",
+                    "LoadedBundle", "runtime_fingerprint"]
+
+
+def test_serving_all_is_the_references_less_the_bundle_names():
+    import dislib_tpu.serving as ref_sv
+    import dislib_tpu_torch.serving as port_sv
+    assert set(SERVING_UNPORTED) <= set(ref_sv.__all__)
+    assert not set(SERVING_UNPORTED) & set(port_sv.__all__)
+    assert sorted(set(port_sv.__all__) | set(SERVING_UNPORTED)) == \
+        sorted(ref_sv.__all__)
+    for name in port_sv.__all__:
+        assert hasattr(port_sv, name), name
+    assert dst.serving is port_sv
+    # the bundle capture waits with the bundles
+    from dislib_tpu_torch.retrieval import RetrievalPipeline
+    assert not hasattr(RetrievalPipeline, "capture_bucket")
+    assert not hasattr(port_sv.SparseFoldInPipeline, "capture_bucket")
+
+
 def test_star_import_gives_the_slice_names():
     ns = {}
     exec("from dislib_tpu_torch import *", ns)
     for name in ("CascadeSVM", "ALS", "IVFIndex", "set_mesh",
-                 "overlap_schedule"):
+                 "overlap_schedule", "serving"):
         assert name in ns, name
     assert ns["retrieval"].IVFIndex is dst.IVFIndex
     assert ns["recommendation"].ALS is dst.ALS

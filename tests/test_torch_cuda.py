@@ -53,7 +53,13 @@ magnitudes, under ``db`` and under ``kernel``.  The checkpointed fit: an
 value from before that chunk; a checkpointed KMeans fit bit-identical to
 the unchecked one, with ``distances_sq`` launched every step; a resumed
 forest bit-identical to the uninterrupted one, ``node_histogram``
-launched once per remaining level.
+launched once per remaining level.  Serving: every declared chain
+captured at every bucket, each replay bit-equal to its eager chain and
+a served batch equal to a direct predict (the IVF search's ids and
+distances exactly); one replay per bucket piece and no capture or build
+after warm; a generation swap that captures four graphs and builds
+nothing; each kernel captured under the serving layer's capture mode
+bit-equal to a launch outside a graph.
 """
 
 import numpy as np
@@ -1347,3 +1353,180 @@ def test_resumed_forest_is_bit_identical(dev, tmp_path):
     np.testing.assert_array_equal(resumed._feats, plain._feats)
     np.testing.assert_array_equal(resumed._tbins, plain._tbins)
     assert torch.equal(resumed._leaves, plain._leaves)
+
+
+# ---------------------------------------------------------------------------
+# serving: one CUDA-graph replay a bucket
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = (1, 8, 64, 512)
+
+
+def _served(kind, dev):
+    """(pipeline, direct(rows) -> ndarray, feature width) of one served
+    chain, fitted on the card."""
+    from dislib_tpu_torch.retrieval import IVFIndex, RetrievalPipeline
+    from dislib_tpu_torch.serving import ServePipeline, SparseFoldInPipeline
+    dst.init(device=dev)
+    rng = np.random.RandomState(9)
+    x = rng.rand(4000, 20).astype(np.float32)
+    a = dst.array(x)
+    if kind == "scaler_kmeans":
+        sc = dst.StandardScaler().fit(a)
+        km = dst.KMeans(n_clusters=10, max_iter=5, random_state=0).fit(a)
+        return (ServePipeline(km, transforms=(sc,)),
+                lambda r: km.predict(sc.transform(dst.array(r))).collect(), x)
+    if kind == "linreg":
+        lr = dst.LinearRegression().fit(a, dst.array(x[:, :2] * 3 + 1))
+        return ServePipeline(lr), \
+            lambda r: lr.predict(dst.array(r)).collect(), x
+    if kind == "forest_proba":
+        y = (x[:, 0] + x[:, 1] > 1).astype(np.float32)[:, None]
+        rf = RandomForestClassifier(n_estimators=3, max_depth=5,
+                                    random_state=0).fit(a, dst.array(y))
+        return ServePipeline(rf, method="predict_proba"), \
+            lambda r: rf.predict_proba(dst.array(r)).collect(), x
+    if kind == "fold_in":
+        import scipy.sparse as sp
+        r = sp.random(500, 120, density=0.1, random_state=2, format="csr",
+                      dtype=np.float32)
+        r.data = 1 + 4 * r.data
+        als = dst.ALS(n_f=8, max_iter=3, tol=0.0, random_state=0).fit(
+            dst.SparseArray.from_dense(r.toarray(), device=dev))
+        pipe = SparseFoldInPipeline(als, nse_cap=32)
+        return pipe, lambda q: None, pipe.pack(r[:600])
+    cat = rng.randn(20000, 16).astype(np.float32)
+    ix = IVFIndex(n_lists=32, nprobe=4, random_state=0).fit(dst.array(cat))
+    pipe = RetrievalPipeline(ix, k=5, overlap="kernel")
+
+    def direct(q):
+        d, i = ix.search(q, k=5, overlap="kernel")
+        return np.concatenate([i.collect().astype(np.float32),
+                               d.collect()], axis=1)
+    return pipe, direct, cat[:600] + 0.01
+
+
+@pytest.mark.parametrize("kind", ["scaler_kmeans", "linreg",
+                                  "forest_proba", "fold_in", "ivf_kernel"])
+def test_served_replay_is_bit_equal_to_the_eager_chain(dev, kind):
+    from dislib_tpu_torch.serving import ProgramCache
+    pipe, direct, rows = _served(kind, dev)
+    cache = ProgramCache()
+    cache.warm(pipe, "g", SERVE_BUCKETS)
+    for b in SERVE_BUCKETS:
+        prog = pipe.program(b)
+        assert prog.mode == "graph", prog.reason
+        got = pipe.predict_bucket(rows[:b], b)
+        want = direct(rows[:b])
+        if want is not None:
+            np.testing.assert_array_equal(got, want)
+        replay = prog.replay_device().clone()
+        assert torch.equal(replay, prog.eager_device()), b
+    assert all(v["captures_at_warm"] == 1 and v["builds_at_warm"] == 0
+               for v in cache.stats().values())
+
+
+def test_pinned_template_fills_as_the_host_one(dev):
+    from dislib_tpu_torch.serving.buckets import BucketTemplate
+    rng = np.random.RandomState(1)
+    pinned, host = BucketTemplate((8, 4), pinned=True), \
+        BucketTemplate((8, 4))
+    assert pinned.tensor.is_pinned()
+    for k in (5, 2, 7, 1):
+        rows = rng.rand(k, 4).astype(np.float32)
+        np.testing.assert_array_equal(pinned.fill(rows), host.fill(rows))
+
+
+def test_one_replay_per_piece_and_no_capture_after_warm(dev):
+    from dislib_tpu_torch.serving import PredictServer, split_rows
+    from dislib_tpu_torch.utils import profiling as prof
+    pipe, direct, x = _served("scaler_kmeans", dev)
+    sizes = [1, 3, 17, 64, 100, 700, 1100]
+    want = {k: direct(x[:k]) for k in sizes}
+    with PredictServer(pipeline=pipe, buckets=SERVE_BUCKETS,
+                       deadline_ms=2) as srv:
+        assert prof.trace_count() >= len(SERVE_BUCKETS)
+        K.reset_launches()
+        prof.reset_counters()
+        # one request a batch: each batch's dispatches are its pieces
+        got = [srv.predict(x[:k]) for k in sizes]
+        hist = list(srv._dispatch_hist)
+        futs = [srv.submit(x[:k]) for k in sizes]     # coalesced
+        got += [f.result(timeout=60).values for f in futs]
+        c = prof.counters()
+    for k, g in zip(sizes + sizes, got):
+        np.testing.assert_array_equal(g, want[k])
+    assert hist == [len(split_rows(k, SERVE_BUCKETS)) for k in sizes]
+    assert c["traces"] == 0                 # no capture, no build
+    assert c["dispatch_by"] == {"fused_chain": c["dispatches"]}
+    assert K.LAUNCHES["distances_sq"] == c["dispatches"]
+
+
+def test_generation_swap_builds_nothing(dev, tmp_path):
+    from dislib_tpu_torch.serving import ModelPool, ServePipeline
+    from dislib_tpu_torch.utils import profiling as prof
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    dst.init(device=dev)
+    x = np.random.RandomState(3).rand(5000, 20).astype(np.float32)
+    X = dst.array(x)
+    path = str(tmp_path / "km.npz")
+
+    def build(state):
+        km = dst.KMeans(n_clusters=6)
+        km.centers_ = np.asarray(state["centers"], np.float32)
+        return ServePipeline(km, n_features=20)
+
+    pool = ModelPool(FitCheckpoint(path, keep=2), build,
+                     buckets=SERVE_BUCKETS, poll_interval_s=0.0)
+    dst.KMeans(n_clusters=6, max_iter=2, tol=0.0, random_state=0).fit(
+        X, checkpoint=FitCheckpoint(path, every=1))
+    assert pool.poll(force=True)
+    prof.reset_counters()
+    dst.KMeans(n_clusters=6, max_iter=3, tol=0.0, random_state=1).fit(
+        X, checkpoint=FitCheckpoint(path, every=1))
+    assert pool.poll(force=True)
+    c = prof.counters()["trace_by"]
+    assert c == {"cuda_graph": len(SERVE_BUCKETS)}      # no nvcc:*
+    tok, pipe = pool.current()
+    prof.reset_counters()
+    got = pipe.predict_bucket(x[:50], 64)
+    np.testing.assert_array_equal(
+        got, pipe.model.predict(dst.array(x[:50])).collect())
+    assert prof.trace_count() == 0
+    assert prof.counters()["dispatch_by"] == {"fused_chain": 1}
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("distances_sq", (1, 100, 10)), ("distances_sq", (512, 100, 10)),
+    ("panel_gemm", (512, 64, 1024))])
+def test_kernels_capture_under_the_serving_capture_mode(dev, kernel, shape):
+    """Each kernel on the served path in a CUDA graph captured as the
+    serving layer captures (a side stream, ``thread_local`` mode): its
+    ``cudaFuncSetAttribute`` and (``panel_gemm``) its host-encoded TMA
+    descriptors are legal inside the capture, and a replay is bit-equal
+    to a launch outside it."""
+    m, d, n = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((m, d), generator=g, device=dev)
+    b = torch.randn((n, d) if kernel == "distances_sq" else (d, n),
+                    generator=g, device=dev)
+
+    def fn():
+        return K.distances_sq(a, b) if kernel == "distances_sq" \
+            else K.panel_gemm(a, b, px.FLOAT32)
+
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with K.recording_launches(capturing=True) as rec:
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    assert rec == {kernel: 1}
+    before = K.LAUNCHES[kernel]
+    graph.replay()
+    K.add_launches(rec)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[kernel] == before + 1
+    assert torch.equal(out, want)
