@@ -82,7 +82,14 @@ following a checkpointed KMeans fit continued during the traffic, a
 non-finite generation refused; two tenants and a 10 % canary behind a
 ``ModelRouter``; the IVF index's queries through ``RetrievalPipeline``
 and the ALS model's fold-in through ``SparseFoldInPipeline``; each
-replay bit-equal to its eager chain) — and checks every result.  Each
+replay bit-equal to its eager chain) and the deployment bundles
+(``deploy``: the three served pipelines exported, each loaded by a fresh
+``python3`` child with an empty build directory and ``build_all``
+refusing, which serves every bucket bit-equal to the live pipeline with
+no ``nvcc`` build and one capture a bucket; a child without a bundle
+that builds the kernels, as the yardstick; ``ContinuousTrainer`` over
+``MiniBatchKMeans`` for four generations under client traffic, a torn
+export and a tripped canary among them) — and checks every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -286,6 +293,15 @@ MODELS = {}
 # what the main path, the ivf and the als phases leave for the serving
 # phase
 SERVED = {}
+# the served pipelines and their request rows, which the serving phase
+# leaves for the deploy phase
+DEPLOY = {}
+# the trainer in the deploy phase: DEPLOY_GENS generations of
+# DEPLOY_BATCHES MiniBatchKMeans batches of MBK_BATCH rows of the KMeans
+# data, under client requests of 1 to SERVE_MAX_ROWS rows
+DEPLOY_GENS, DEPLOY_BATCHES = 4, 8
+# the loading child's time limit, seconds
+DEPLOY_CHILD_S = 300
 
 
 def emit(obj) -> None:
@@ -3699,6 +3715,8 @@ def serving_phase(dev, cuda_ms, card):
                      "requests": SERVE_ROUTER_REQ,
                      "promotions": rst["ui"]["promotions"]}
     emit({"phase": "serving_router", **res["router"]})
+    DEPLOY.update(x_host=x_host, kmeans=(pipe, sc, km, x_host[:max(
+        SERVE_BUCKETS)].copy()))
     del X, XS, x_host, resp, hresp, sent, gen_labels, labels_all
     torch.cuda.empty_cache()
 
@@ -3743,6 +3761,7 @@ def serving_phase(dev, cuda_ms, card):
                   "ids_equal_search": True}
     emit({"phase": "serving_ivf", **res["ivf"]})
     gemm_launches, gemm_batches = ilaunch["panel_gemm"], ist["batches"]
+    DEPLOY["ivf"] = (rpipe, q[:max(SERVE_BUCKETS)].copy())
     del ix, rpipe, iresp
     torch.cuda.empty_cache()
 
@@ -3786,6 +3805,7 @@ def serving_phase(dev, cuda_ms, card):
                       "p99_ms": fst["p99_ms"], "batches": fst["batches"],
                       "score_err_vs_fold_in": sc_err}
     emit({"phase": "serving_fold_in", **res["fold_in"]})
+    DEPLOY["fold_in"] = (fpipe, packed[:max(SERVE_BUCKETS)].copy())
     del als, users, fpipe, fresp
 
     # -- the two kernels at the served shapes, in and out of a graph --------
@@ -3883,6 +3903,358 @@ def serving_phase(dev, cuda_ms, card):
           **{k: v for k, v in res.items() if k in ("card", "buckets")}})
     phase_wall("serving", t_phase)
     return {"distances_sq/serving": dist, "panel_gemm/serving": gemm}
+
+
+# the fresh process of the deploy phase: it loads one bundle (``bundle``
+# mode, with an empty build directory and ``build_all`` refusing) or a
+# saved scaler and model (``cold`` mode, building the kernels itself),
+# serves the fixed rows at every bucket and prints one JSON line
+DEPLOY_CHILD = r'''
+import time
+T0 = time.perf_counter()
+import json
+import sys
+import tempfile
+job = json.loads(sys.argv[1])
+from dislib_tpu_torch import _build
+_build.BUILD_DIR = tempfile.mkdtemp(prefix="chip_smoke_child_build_")
+CALLS = []
+if job["mode"] == "bundle":
+    def _refuse():
+        CALLS.append(1)
+        raise RuntimeError("build_all called in a process that loads a "
+                           "bundle")
+    _build.build_all = _refuse
+import numpy as np
+import torch
+import dislib_tpu_torch as dst
+from dislib_tpu_torch.ops import kernels as K
+from dislib_tpu_torch.utils import profiling as prof
+t_import = time.perf_counter() - T0
+dst.init(device=job["device"])
+torch.zeros(1, device=job["device"]).sum().item()   # the device is up
+t_device = time.perf_counter() - T0
+rows = np.load(job["rows"])
+if job["mode"] == "bundle":
+    from dislib_tpu_torch.serving import load_bundle
+    loaded = load_bundle(job["bundle"])
+    pipe, buckets = loaded.pipeline, list(loaded.buckets)
+else:
+    from dislib_tpu_torch.serving import ServePipeline
+    from dislib_tpu_torch.utils.saving import load_model
+    pipe = ServePipeline(load_model(job["model"]),
+                         transforms=(load_model(job["scaler"]),))
+    buckets = job["buckets"]
+    for b in buckets:
+        pipe.program(b)
+t_loaded = time.perf_counter() - T0
+first = pipe.predict_bucket(rows[:buckets[0]], buckets[0])
+t_first = time.perf_counter() - T0
+want = np.load(job["want"])
+equal = {str(b): bool(np.array_equal(pipe.predict_bucket(rows[:b], b),
+                                      want[str(b)])) for b in buckets}
+print(json.dumps({
+    "mode": job["mode"], "import_s": t_import,
+    "import_to_device_s": t_device, "import_to_loaded_s": t_loaded,
+    "import_to_first_response_s": t_first, "bit_equal": equal,
+    "first_equal": bool(np.array_equal(first, want[str(buckets[0])])),
+    "build_all_calls": len(CALLS), "trace_by": prof.counters()["trace_by"],
+    "modes": {str(b): pipe.program(b).mode for b in buckets},
+    "launches": dict(K.LAUNCHES),
+    "libraries": {name: path.startswith(_build.BUILD_DIR)
+                  for name, path in _build._LOADED_FROM.items()}}),
+    flush=True)
+'''
+
+
+def run_child(job, cwd):
+    """Run DEPLOY_CHILD on ``job`` in a fresh ``python3`` from the
+    checkout's root; (its JSON line, the process's wall seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", DEPLOY_CHILD, json.dumps(job)],
+        capture_output=True, text=True, cwd=cwd, timeout=DEPLOY_CHILD_S,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))))
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"deploy: the {job['mode']} child failed "
+          f"(exit {res.returncode}):\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1]), wall
+
+
+def deploy_phase(dev, card):
+    """The deployment bundles and the continuous trainer on the card.
+
+    Bundles: the serving phase's three pipelines (StandardScaler →
+    KMeans 1M × 100 k = 10; the IVF index 1M × 64, 1,024 lists, nprobe 32,
+    k 10 under ``kernel``; the ALS fold-in, n_f 16, 10,000 items,
+    ``nse_cap`` 128, top 10) exported over the 1/8/64/512 ladder; each
+    loaded by a fresh ``python3`` child whose build directory is empty
+    and whose ``build_all`` refuses.  Gates: every bucket's response
+    bit-equal to the live pipeline's, no ``nvcc`` build, ``build_all``
+    never called, one capture a bucket, every program a graph.  The
+    yardstick: a child with an empty build directory and no bundle that
+    loads the saved scaler and KMeans (``load_model``), builds the kernels
+    and captures the ladder (its responses bit-equal too).
+
+    Trainer: ``ContinuousTrainer`` over ``MiniBatchKMeans(k=10)``,
+    DEPLOY_BATCHES scaled 4096-row batches of the KMeans data a
+    generation, DEPLOY_GENS generations, a ``FitCheckpoint``, scaler →
+    model bundles, a ``ModelRouter`` tenant and a probe, with client
+    requests through the router from the second generation on;
+    ``TornBundleWrite(failures=1)`` in generation 2 and
+    ``CanaryGateTrip(times=1)`` in generation 3.  Gates: the verdicts
+    promoted, promoted (one export retry), rejected, promoted; the served
+    generation monotone; every response equal to the direct predict of
+    a generation exported so far (none torn); every ledger checksum its
+    file's CRC; no ``nvcc`` build after the first generation.  Returns
+    the launches of the deploy path's kernels: the trainer's and, per
+    kernel, the loading children's."""
+    import threading
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.cluster import MiniBatchKMeans
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.runtime import ContinuousTrainer, read_bundle
+    from dislib_tpu_torch.runtime.bundle_io import file_crc
+    from dislib_tpu_torch.serving import ModelRouter, export_bundle
+    from dislib_tpu_torch.serving import bundle as bundle_mod
+    from dislib_tpu_torch.utils import faults
+    from dislib_tpu_torch.utils import profiling as prof
+    from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
+    from dislib_tpu_torch.utils.saving import save_model
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    out = {"card": card, "buckets": list(SERVE_BUCKETS)}
+    child_launches = {}
+    try:
+        # -- export, then a fresh process per bundle ---------------------
+        bundles = {}
+        pipe, sc, km, km_rows = DEPLOY["kmeans"]
+        # the hand kernels each served chain launches (the fold-in's
+        # products are library calls)
+        for name, (live, rows), kernels_of in (
+                ("kmeans", (pipe, km_rows), {"distances_sq"}),
+                ("ivf", DEPLOY.pop("ivf"), {"panel_gemm"}),
+                ("fold_in", DEPLOY.pop("fold_in"), set())):
+            path = os.path.join(tmp, f"{name}.dsb.npz")
+            t0 = time.perf_counter()
+            man = export_bundle(live, path, buckets=SERVE_BUCKETS)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            crc = file_crc(path)
+            crc_s = time.perf_counter() - t0
+            want = {str(b): live.predict_bucket(rows[:b], b)
+                    for b in SERVE_BUCKETS}
+            np.save(os.path.join(tmp, f"{name}_rows.npy"), rows)
+            np.savez(os.path.join(tmp, f"{name}_want.npz"), **want)
+            job = {"mode": "bundle", "bundle": path, "device": str(dev),
+                   "rows": os.path.join(tmp, f"{name}_rows.npy"),
+                   "want": os.path.join(tmp, f"{name}_want.npz")}
+            got, wall = run_child(job, root)
+            check(all(got["bit_equal"].values()) and got["first_equal"],
+                  f"deploy: the loaded {name} bundle differs from the live "
+                  f"pipeline: {got['bit_equal']}")
+            check(got["build_all_calls"] == 0 and got["trace_by"] ==
+                  {"cuda_graph": len(SERVE_BUCKETS)}, f"deploy: the {name} "
+                  f"child built or captured off the ladder: {got}")
+            check(set(got["modes"].values()) == {"graph"},
+                  f"deploy: {name} programs {got['modes']}")
+            check(all(got["libraries"].values())
+                  and kernels_of <= set(got["libraries"])
+                  <= set(man["libraries"]),
+                  f"deploy: the {name} child's libraries (installed from "
+                  f"the bundle?) {got['libraries']}")
+            for k, n in got["launches"].items():
+                child_launches[k] = child_launches.get(k, 0) + n
+            bundles[name] = {
+                "bytes": os.path.getsize(path), "crc": crc,
+                "export_s": export_s, "capture_s": man["walls"]["capture_s"],
+                "write_s": man["walls"]["write_s"], "crc_s": crc_s,
+                "library_bytes": {k: v["bytes"] for k, v in
+                                  man["libraries"].items()},
+                "child_wall_s": wall, "import_s": got["import_s"],
+                "import_to_device_s": got["import_to_device_s"],
+                "import_to_loaded_s": got["import_to_loaded_s"],
+                "import_to_first_response_s":
+                    got["import_to_first_response_s"],
+                "captures": got["trace_by"].get("cuda_graph", 0),
+                "nvcc_builds": 0, "launches": got["launches"],
+                "bit_equal_to_live": True}
+            emit({"phase": "deploy_bundle", "name": name, **bundles[name]})
+        out["bundles"] = bundles
+
+        # -- the yardstick: a cold start with no bundle -------------------
+        for obj, fn in ((sc, "scaler.json"), (km, "kmeans.json")):
+            save_model(obj, os.path.join(tmp, fn))
+        job = {"mode": "cold", "device": str(dev),
+               "scaler": os.path.join(tmp, "scaler.json"),
+               "model": os.path.join(tmp, "kmeans.json"),
+               "buckets": list(SERVE_BUCKETS),
+               "rows": os.path.join(tmp, "kmeans_rows.npy"),
+               "want": os.path.join(tmp, "kmeans_want.npz")}
+        got, wall = run_child(job, root)
+        check(all(got["bit_equal"].values()), "deploy: the cold child's "
+              f"responses differ from the live pipeline: {got['bit_equal']}")
+        builds = {k: n for k, n in got["trace_by"].items()
+                  if k.startswith("nvcc:")}
+        out["cold_start"] = {
+            "child_wall_s": wall, "import_s": got["import_s"],
+            "import_to_device_s": got["import_to_device_s"],
+            "import_to_loaded_s": got["import_to_loaded_s"],
+            "import_to_first_response_s": got["import_to_first_response_s"],
+            "nvcc_builds": sum(builds.values()), "builds": builds,
+            "captures": got["trace_by"].get("cuda_graph", 0)}
+        emit({"phase": "deploy_cold_start", **out["cold_start"]})
+
+        # -- the continuous trainer under client traffic --------------------
+        x_host = DEPLOY.pop("x_host")
+        n_batches = DEPLOY_GENS * DEPLOY_BATCHES
+
+        def stream():
+            for i in range(n_batches):
+                rows = x_host[i * MBK_BATCH:(i + 1) * MBK_BATCH]
+                yield sc.transform(dst.array(rows)).collect()
+
+        est = MiniBatchKMeans(n_clusters=KM_K,
+                              init=sc.transform(dst.array(
+                                  x_host[:KM_K])).collect())
+        router = ModelRouter(name="deploy")
+        tr = ContinuousTrainer(
+            est, stream(), FitCheckpoint(os.path.join(tmp, "ck.npz"),
+                                         every=1, keep=2),
+            lambda e, g: dst.serving.ServePipeline(
+                e, transforms=(sc,), n_features=KM_N),
+            os.path.join(tmp, "trainer"), router=router, tenant="km",
+            buckets=SERVE_BUCKETS, batches_per_generation=DEPLOY_BATCHES,
+            probe=x_host[-64:], name="deploy")
+        draw = np.random.RandomState(23)
+        n_max = 400_000
+        sizes = draw.randint(1, SERVE_MAX_ROWS + 1, n_max)
+        starts = draw.randint(0, KM_M - SERVE_MAX_ROWS, n_max)
+        t_sub = np.zeros(n_max)
+        stop = threading.Event()
+
+        def submit(i):
+            t_sub[i] = time.perf_counter()
+            return router.submit(x_host[starts[i]: starts[i] + sizes[i]],
+                                 "km", key=f"c{i}")
+
+        box = {}
+
+        def clients():
+            try:
+                box["resp"] = drive_clients(submit, n_max, stop=stop)
+            except Exception as exc:    # noqa: BLE001 — checked below
+                box["err"] = exc
+
+        K.reset_launches()
+        prof.reset_counters()
+        records, windows, torn_writer = [], [], None
+        real_write = bundle_mod.write_bundle
+        th = threading.Thread(target=clients)
+        with router:
+            t0 = time.perf_counter()
+            for g in range(1, DEPLOY_GENS + 1):
+                if g == 2:
+                    torn_writer = faults.TornBundleWrite(failures=1)
+                    bundle_mod.write_bundle = torn_writer
+                if g == 3:
+                    tr.health_gate = faults.CanaryGateTrip(times=1)
+                check(tr.train_generation(), "deploy: the stream ended")
+                w0 = time.perf_counter()
+                try:
+                    records.append(tr.publish_generation())
+                finally:
+                    bundle_mod.write_bundle = real_write
+                windows.append((w0, time.perf_counter()))
+                if g == 1:
+                    nvcc_gen1 = {k: n for k, n in
+                                 prof.counters()["trace_by"].items()
+                                 if k.startswith("nvcc:")}
+                    th.start()
+            train_s = time.perf_counter() - t0
+            stop.set()
+            th.join()
+            launches = dict(K.LAUNCHES)
+            counters = prof.counters()
+            rstats = router.stats()
+            tr.close()
+        check("err" not in box, f"deploy: a client failed: {box.get('err')}")
+        verdicts = [r["verdict"] for r in records]
+        check(verdicts == ["promoted", "promoted", "rejected", "promoted"],
+              f"deploy: trainer verdicts {verdicts}")
+        check(records[1]["counters"]["export_retries"] == 1
+              and torn_writer.calls == 2, "deploy: the torn export was not "
+              f"retried once: {records[1]['counters']}")
+        served = [r["served"] for r in records]
+        check(served == sorted(served) == [1, 2, 2, 4],
+              f"deploy: served generations {served}")
+        for r in records:
+            check(r["checksum"] == file_crc(r["path"]),
+                  f"deploy: generation {r['generation']}'s ledger checksum")
+        nvcc_after = {k: n - nvcc_gen1.get(k, 0) for k, n in
+                      counters["trace_by"].items() if k.startswith("nvcc:")}
+        check(not any(nvcc_after.values()), f"deploy: the trainer built "
+              f"kernels after the first generation: {nvcc_after}")
+        # every response against the direct predict of each generation
+        XS = sc.transform(dst.array(x_host))
+        gen_labels = {}
+        for r in records:
+            g = dst.KMeans(n_clusters=KM_K)
+            g.centers_ = np.asarray(read_bundle(r["path"])[
+                "state__centers"], np.float32)
+            gen_labels[r["generation"]] = g.predict(XS).collect().ravel()
+        del XS
+        sent = [(i, r) for i, r in enumerate(box["resp"]) if r is not None]
+        torn, answered = 0, {}
+        lat, lat_promo = [], []
+        for i, r in sent:
+            s, k = starts[i], sizes[i]
+            gens = [g for g, lab in gen_labels.items()
+                    if np.array_equal(r.values.ravel(), lab[s: s + k])]
+            if not gens:
+                torn += 1
+            for g in gens:
+                answered[g] = answered.get(g, 0) + 1
+            lat.append(r.latency_s)
+            done = t_sub[i] + r.latency_s
+            if any(a <= done <= b for a, b in windows[1:]):
+                lat_promo.append(r.latency_s)
+        check(torn == 0, f"deploy: {torn} responses match no generation's "
+              "direct predict")
+        check(len(sent) > 0 and lat_promo, "deploy: no client traffic "
+              "during the promotions")
+        out["trainer"] = {
+            "generations": DEPLOY_GENS, "batches_per_generation":
+            DEPLOY_BATCHES, "batch_rows": MBK_BATCH, "verdicts": verdicts,
+            "served": served, "seconds": train_s,
+            "export_s": [r["export_s"] for r in records],
+            "promote_s": [r.get("promote_s") for r in records],
+            "requests": len(sent), "torn_responses": 0,
+            "responses_matching_generation": answered,
+            "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+            "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+            "p99_ms_during_promotions":
+                1e3 * float(np.percentile(lat_promo, 99)),
+            "requests_during_promotions": len(lat_promo),
+            "export_retries": records[-1]["counters"]["export_retries"],
+            "canary_rejections":
+                records[-1]["counters"]["canary_rejections"],
+            "nvcc_builds_first_generation": sum(nvcc_gen1.values()),
+            "nvcc_builds_after": 0, "captures": counters["trace_by"].get(
+                "cuda_graph", 0), "launches": launches,
+            "router": rstats.get("km", {})}
+        emit({"phase": "deploy_trainer", **out["trainer"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    DEPLOY.clear()
+    emit({"phase": "deploy", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    phase_wall("deploy", t_phase)
+    return {"trainer": out["trainer"]["launches"], "children": child_launches}
 
 
 def main() -> int:
@@ -4847,7 +5219,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.update(serving_phase(dev, cuda_ms, smi))
 
-    # -- (16) the kernels line, then the result --------------------------------------
+    # -- (16) deployment bundles and the continuous trainer ------------------
+    torch.cuda.empty_cache()
+    dep = deploy_phase(dev, smi)
+    check(dep["trainer"]["distances_sq"] > 0
+          and dep["children"]["distances_sq"] > 0
+          and dep["children"]["panel_gemm"] > 0,
+          f"deploy: a kernel of the path did not launch: {dep}")
+    kernels["distances_sq/deploy_trainer"] = {
+        **mbk_entry, "at": "deploy (the trainer's "
+        "partial_fit batches and the batches its generations served; the "
+        "kernel's times are the minibatch entry's at the same shape)",
+        "launches": dep["trainer"]["distances_sq"]}
+    for name in ("distances_sq", "panel_gemm"):
+        kernels[f"{name}/deploy_loaded"] = {
+            **kernels[f"{name}/serving"], "at": "deploy (the fresh "
+            "processes that loaded the bundles: warm runs and replays; the "
+            "kernel's times are the serving entry's at the same shapes)",
+            "launches": dep["children"][name]}
+
+    # -- (17) the kernels line, then the result ------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]

@@ -5,8 +5,15 @@ first use every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, one ``nvcc``
 process per source, all started together, and loaded with ``ctypes``.
 Libraries land in ``dislib_tpu_torch/_build/`` under a name that carries
-the hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.
+the digest of the source and the flags (:func:`source_key`), so an edited
+source rebuilds and an unchanged one is reused — by a process with no
+toolkit too: :func:`library` loads a library that is already there
+without looking for ``nvcc``.
+
+A deployment bundle (``serving/bundle.py``) carries the libraries a
+process loaded (:func:`loaded_libraries`) and the loading process
+installs them from those bytes (:func:`install_library`), checked
+against their SHA-256 and written under their key, so it never builds.
 
 A missing ``nvcc`` or a failed build raises with the compiler's output.
 There is no fallback: a CUDA tensor either reaches its kernel or the call
@@ -55,6 +62,8 @@ SIGNATURES = {
 }
 
 _LIBS: dict = {}
+#: name -> the file each loaded library was loaded from
+_LOADED_FROM: dict = {}
 _LOCK = threading.Lock()
 #: name -> {"seconds", "log", "path", "cached"} of the last build
 BUILD_INFO: dict = {}
@@ -81,12 +90,28 @@ def _sources() -> dict:
             for p in sorted(glob.glob(os.path.join(CSRC, "*.cu")))}
 
 
-def _target(name: str, src: str, nvcc: str) -> str:
+def source_key(name: str) -> str:
+    """SHA-256 (hex) of source ``name`` and :data:`NVCC_FLAGS`: the
+    identity of what its library was compiled from."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
+    with open(_sources()[name], "rb") as f:
         h.update(f.read())
-    h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def kernels_digest() -> str:
+    """SHA-256 (hex) over every source's :func:`source_key`, in name
+    order: the kernels a process of this checkout runs."""
+    h = hashlib.sha256()
+    for name in _sources():
+        h.update(f"{name}:{source_key(name)};".encode())
+    return h.hexdigest()
+
+
+def _target(name: str, key: str | None = None) -> str:
+    key = source_key(name) if key is None else key
+    return os.path.join(BUILD_DIR, f"{name}-{key[:16]}.so")
 
 
 def build_all() -> dict:
@@ -94,18 +119,20 @@ def build_all() -> dict:
 
     Raises ``RuntimeError`` with the compiler's output if any build fails.
     """
+    paths = {name: _target(name) for name in _sources()}
+    stale = [name for name, out in paths.items() if not os.path.exists(out)]
+    for name in set(paths) - set(stale):
+        # keep the record of a build this process made
+        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "",
+                                     "path": paths[name], "cached": True})
+    if not stale:
+        return paths
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths, procs = {}, {}
+    procs = {}
     t0 = time.perf_counter()
-    for name, src in _sources().items():
-        out = _target(name, src, nvcc)
-        paths[name] = out
-        if os.path.exists(out):
-            # keep the record of a build this process made
-            BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "",
-                                         "path": out, "cached": True})
-            continue
+    for name in stale:
+        src, out = _sources()[name], paths[name]
         tmp = f"{out}.{os.getpid()}.tmp"
         procs[name] = (subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
@@ -129,18 +156,74 @@ def build_all() -> dict:
     return paths
 
 
+def _bind(name: str, path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    _LIBS[name] = lib
+    _LOADED_FROM[name] = path
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name`` (building every source first if
-    any is missing), with ``argtypes``/``restype`` set on its entry
-    points."""
+    """The loaded kernel library ``name``, with ``argtypes``/``restype``
+    set on its entry points: the library already built or installed
+    under its key, else every stale source built first."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             if name not in SIGNATURES:
                 raise KeyError(f"no CUDA kernel library named {name!r}")
-            lib = ctypes.CDLL(build_all()[name])
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _LIBS[name] = lib
+            path = _target(name)
+            if not os.path.exists(path):
+                path = build_all()[name]
+            lib = _bind(name, path)
         return lib
+
+
+def loaded_libraries() -> dict:
+    """name -> ``{"key", "sha256", "bytes"}`` of every kernel library
+    this process has loaded: what a deployment bundle carries."""
+    with _LOCK:
+        paths = dict(_LOADED_FROM)
+    out = {}
+    for name, path in sorted(paths.items()):
+        with open(path, "rb") as f:
+            data = f.read()
+        out[name] = {"key": source_key(name),
+                     "sha256": hashlib.sha256(data).hexdigest(),
+                     "bytes": data}
+    return out
+
+
+def install_library(name: str, key: str, data: bytes, sha256: str) -> str:
+    """Install library ``name`` from ``data`` under ``key`` without
+    ``nvcc``; return its path.  ``key`` must be this checkout's
+    :func:`source_key` and ``data`` must hash to ``sha256``, else
+    ``ValueError``.  The file is written atomically (tmp + rename), a file
+    already there under the key is reused, and a library this process has
+    already loaded is never replaced."""
+    if name not in SIGNATURES:
+        raise ValueError(f"no CUDA kernel library named {name!r}")
+    if key != source_key(name):
+        raise ValueError(
+            f"library {name!r} was compiled from another source or other "
+            f"flags (key {key[:16]}, this checkout's "
+            f"{source_key(name)[:16]})")
+    if hashlib.sha256(data).hexdigest() != sha256:
+        raise ValueError(f"library {name!r}: its bytes do not hash to the "
+                         f"recorded SHA-256 {sha256[:16]}")
+    with _LOCK:
+        if name in _LIBS:
+            return _LOADED_FROM[name]
+        out = _target(name, key)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, out)
+        return out

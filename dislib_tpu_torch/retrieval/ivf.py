@@ -220,6 +220,32 @@ class IVFIndex(BaseEstimator):
             self._build(arrays["_items_h"], arrays["_labels_h"],
                         arrays["_centers_h"], device=device)
 
+    # the served buffers, in the order a deployment bundle carries them
+    _SERVED = ("_vecs", "_ids", "_vsq", "_offs", "_cnts", "_cents_t",
+               "_c_sq")
+
+    def _served_buffers(self):
+        return [getattr(self, name) for name in self._SERVED]
+
+    def _adopt_served(self, buffers, cap, n_items, device=None):
+        """The fitted index from its served buffers (host arrays in
+        :data:`_SERVED` order, as ``RetrievalPipeline.capture_bucket``
+        takes them): the same lists, ids and norms, with no layout pass
+        (``device``: the default mesh's when None).  The host layout
+        inputs are not carried, so ``save_model`` of such an index holds
+        no lists."""
+        mesh = _mesh.get_mesh() if device is None \
+            else _mesh.make_mesh((1, 1), device)
+        for name, b in zip(self._SERVED, buffers, strict=True):
+            setattr(self, name, torch.from_numpy(
+                np.ascontiguousarray(b)).to(mesh.device))
+        self._cap = int(cap)
+        self._mesh = mesh
+        self.d = int(self._vecs.shape[1])
+        self.n_items = int(n_items)
+        self.n_lists_ = int(self._c_sq.shape[0])
+        return self
+
     def rebind_mesh(self, mesh) -> bool:
         """The reference's elastic re-stripe onto another mesh.  One card
         has one mesh shape: ``None`` and a (1, 1) mesh re-lay nothing

@@ -2,7 +2,7 @@
 ladder.
 
 Counterpart of ``dislib_tpu/retrieval/serving.py`` (its
-``RetrievalPipeline`` less the bundle capture).
+``RetrievalPipeline`` with the bundle capture).
 :class:`RetrievalPipeline` is the ``pipeline=`` drop-in for
 :class:`~dislib_tpu_torch.serving.server.PredictServer`: a request row
 is a query embedding (``n_features = index.d``), a response row is
@@ -21,6 +21,7 @@ reference: a captured graph fixes the route it was captured with.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dislib_tpu_torch.data.array import _padded_shape
@@ -109,6 +110,45 @@ class RetrievalPipeline(ProgramHost):
         if rows.shape[1] != self.n_features:
             raise ValueError(f"request has {rows.shape[1]} features, the "
                              f"index holds {self.n_features}")
+
+    # -- deployment-bundle capture ------------------------------------------
+
+    def capture_bucket(self, bucket: int) -> dict:
+        """What :func:`~dislib_tpu_torch.serving.bundle.export_bundle`
+        stores for ``bucket``, WITHOUT executing the search: the
+        ``spec`` (``k``, ``nprobe``, the policy, the overlap route, the
+        index's class, hyperparameters and geometry) and the ``leaves`` —
+        the query canvas (the input slot) and the WHOLE index as served
+        (list buffers, ids, norms, offsets, counts, centroids), so the
+        loaded index searches bit for bit as this one does."""
+        from dislib_tpu_torch.utils.saving import _encode
+        ix = self.index
+        ix._check_fitted()
+        pshape = self._pshape(bucket)
+        leaves = [np.zeros(pshape, np.float32)] + [
+            b.detach().cpu().numpy() for b in ix._served_buffers()]
+        _prof.count_read("bundle")
+        spec = {"kind": "retrieval", "k": self.k, "nprobe": self.nprobe,
+                "precision": self.policy.name, "overlap": self.overlap,
+                "index": {"module": type(ix).__module__,
+                          "cls": type(ix).__qualname__,
+                          "params": {k: _encode(v) for k, v in
+                                     ix.get_params().items()},
+                          "cap": int(ix._cap), "n_items": int(ix.n_items)}}
+        return {"spec": spec, "leaves": leaves, "input_slot": 0,
+                "out_cols": self.out_cols, "pshape": list(pshape)}
+
+    @classmethod
+    def _from_capture(cls, spec, leaves):
+        """The pipeline a :meth:`capture_bucket` spec describes, its index
+        adopting the carried buffers on the default mesh's device."""
+        from dislib_tpu_torch.utils.saving import _decode, _estimator_class
+        ispec = spec["index"]
+        index = _estimator_class(ispec)(**{
+            k: _decode(v) for k, v in ispec["params"].items()})
+        index._adopt_served(leaves[1:], ispec["cap"], ispec["n_items"])
+        return cls(index, k=spec["k"], nprobe=spec["nprobe"],
+                   precision=spec["precision"], overlap=spec["overlap"])
 
     def predict_bucket(self, rows, bucket: int):
         """Serve one query batch: stage, ONE replay of the search, one

@@ -16,13 +16,20 @@ part:
   which stands for the reference's ``lax.while_loop`` (``loop.py``);
 - **adoption** — the gated read side of model hot-swap:
   :func:`adopt_latest` over a rotating ``FitCheckpoint``, the serving
-  layer's only way to read a model (``adoption.py``).
+  layer's only way to read a model (``adoption.py``);
+- **bundle_io** — the deployment bundle's byte seam: atomic
+  checksum-embedding writes and verified reads, the typed
+  :class:`BundleIncompatible` and :class:`BundleShardCorrupt`
+  (``bundle_io.py``; ``serving.bundle`` assembles the artifact);
+- **trainer** — :class:`ContinuousTrainer`, train → bundle → canary →
+  promote with every seam surviving its faults, and
+  :class:`PromotionFailed` (``trainer.py``).
 
 Snapshots live with their format in ``dislib_tpu_torch.utils.checkpoint``;
 the fault injectors in ``dislib_tpu_torch.utils.faults``.  Not ported yet:
 the capacity level, the coordination ledger and membership, and
-``repad_rows`` (ROADMAP.md A.11); deployment bundles and the continuous
-trainer (A.12's deployment half); ``xla_flags`` (JAX's).
+``repad_rows`` (ROADMAP.md A.11).  ``xla_flags`` and ``compat`` get no
+port: they set and patch JAX's own flags and APIs.
 """
 
 from dislib_tpu_torch.runtime import health  # noqa: F401
@@ -42,6 +49,11 @@ from dislib_tpu_torch.runtime.fitloop import (ChunkedFitLoop, ChunkOutcome,
 from dislib_tpu_torch.runtime.adoption import (Adoption, AdoptionRejected,
                                                adopt_latest,
                                                generation_token)
+from dislib_tpu_torch.runtime.bundle_io import (BundleIncompatible,
+                                                BundleShardCorrupt,
+                                                read_bundle, write_bundle)
+from dislib_tpu_torch.runtime.trainer import (ContinuousTrainer,
+                                              PromotionFailed)
 
 __all__ = [
     "Preempted", "PreemptionWatcher", "preemption_requested",
@@ -53,5 +65,7 @@ __all__ = [
     "ChunkedFitLoop", "ChunkOutcome", "LoopState", "Escalation",
     "EscalationLadder",
     "Adoption", "AdoptionRejected", "adopt_latest", "generation_token",
+    "BundleIncompatible", "BundleShardCorrupt", "read_bundle",
+    "write_bundle", "ContinuousTrainer", "PromotionFailed",
     "health",
 ]

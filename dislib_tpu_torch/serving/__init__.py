@@ -1,10 +1,7 @@
 """dislib_tpu_torch.serving — the low-latency predict path on one card.
 
-Counterpart of ``dislib_tpu/serving``, less the deployment bundles
-(``bundle.py``: ``export_bundle``, ``load_bundle``, ``BundlePipeline``,
-``LoadedBundle``, ``runtime_fingerprint``; ROADMAP.md A.12's deployment
-half).  One served batch costs one CUDA-graph replay, from pieces that
-compose:
+Counterpart of ``dislib_tpu/serving``.  One served batch costs one
+CUDA-graph replay, from pieces that compose:
 
 - **padded batch buckets** (``buckets.py``) — requests pad to a small
   ladder of fixed row counts (default 1/8/64/512,
@@ -32,6 +29,12 @@ compose:
   tenants onto shared servers, with per-tenant quotas
   (``TenantQuotaExceeded`` sheds only the offender), canary/A-B hashing
   and a health-gated ``promote``.
+- **deployment bundles** (``bundle.py``) — ``export_bundle`` writes a
+  served pipeline as ONE checksummed artifact: the kernel libraries'
+  bytes, the pipeline's spec and leaves, the ladder and the model state;
+  ``load_bundle`` in a fresh process installs the libraries (no
+  ``nvcc``), rebuilds the pipeline and captures every bucket before it
+  returns — the first request is a replay.
 
 IVF retrieval serves through ``retrieval.RetrievalPipeline`` on the same
 server.
@@ -49,6 +52,9 @@ from dislib_tpu_torch.serving.server import (PredictServer, QueueFull,
                                              ServeResponse, ShardDrained)
 from dislib_tpu_torch.serving.sparse import (SparseFoldInPipeline,
                                              pack_sparse_rows)
+from dislib_tpu_torch.serving.bundle import (BundlePipeline, LoadedBundle,
+                                             export_bundle, load_bundle,
+                                             runtime_fingerprint)
 
 __all__ = [
     "DEFAULT_BUCKETS", "BucketLadderError", "bucket_ladder", "bucket_for",
@@ -56,5 +62,7 @@ __all__ = [
     "ProgramCache", "ServePipeline", "PredictServer", "ServeResponse",
     "QueueFull", "ShardDrained", "ModelPool",
     "SparseFoldInPipeline", "pack_sparse_rows",
+    "export_bundle", "load_bundle", "BundlePipeline", "LoadedBundle",
+    "runtime_fingerprint",
     "ModelRouter", "TenantQuotaExceeded", "DeadlineShed",
 ]

@@ -29,6 +29,8 @@ build on.
 
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -117,10 +119,12 @@ class BucketProgram:
     and either a CUDA ``graph`` captured over it with its ``static_out``
     (``mode == "graph"``) or the chain run eagerly (``"eager"``, with
     the ``reason``).  ``kernels`` counts the hand kernels one replay
-    launches."""
+    launches, and ``label`` names the dispatch a replay counts
+    (``"bundle_exec"`` for a loaded deployment bundle)."""
 
     __slots__ = ("bucket", "mode", "reason", "template", "static_in",
-                 "graph", "static_out", "kernels", "_chain", "_pinned")
+                 "graph", "static_out", "kernels", "label", "_chain",
+                 "_pinned")
 
     def __init__(self, bucket, template, static_in, chain, mode="eager",
                  reason=None, graph=None, static_out=None, kernels=None,
@@ -134,6 +138,7 @@ class BucketProgram:
         self.graph = graph
         self.static_out = static_out
         self.kernels = dict(kernels or {})
+        self.label = "fused_chain"
         self._pinned = pinned
 
     def replay_device(self) -> torch.Tensor:
@@ -141,7 +146,7 @@ class BucketProgram:
         no fetch): the device half of :meth:`run`, for timing."""
         self.graph.replay()
         _k.add_launches(self.kernels)
-        _prof.count_dispatch("fused_chain")
+        _prof.count_dispatch(self.label)
         return self.static_out
 
     def eager_device(self) -> torch.Tensor:
@@ -193,6 +198,11 @@ def build_program(bucket, pshape, chain, objs, steps, where,
         torch.cuda.current_stream().wait_stream(side)
         side.synchronize()
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a collected cycle may
+        # free a pinned buffer (an earlier program's staging template),
+        # and the host allocator's event calls invalidate the capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with _k.recording_launches(capturing=True) as kernels:
                 with torch.cuda.graph(graph, stream=side,
@@ -205,6 +215,9 @@ def build_program(bucket, pshape, chain, objs, steps, where,
                 "declared capturable (_capturable), so its device work "
                 "must hold no host read, host → device copy or "
                 "data-dependent shape once warm") from exc
+        finally:
+            if collecting:
+                gc.enable()
     _prof.count_trace("cuda_graph")
     return BucketProgram(bucket, template, static_in, chain, mode="graph",
                          graph=graph, static_out=out, kernels=kernels,
@@ -323,3 +336,33 @@ class ServePipeline(ProgramHost):
         if rows.shape[1] != self.n_features:
             raise ValueError(f"request has {rows.shape[1]} features, "
                              f"pipeline serves {self.n_features}")
+
+    # -- deployment-bundle capture ------------------------------------------
+
+    def capture_bucket(self, bucket: int) -> dict:
+        """What :func:`~dislib_tpu_torch.serving.bundle.export_bundle`
+        stores for ``bucket``, WITHOUT executing the chain: the ``spec``
+        (each step's class, hyperparameters and fitted attributes in the
+        ``save_model`` encoding, with every array as a leaf index), the
+        ``leaves`` as NumPy (the request canvas at ``input_slot``, then
+        the steps' arrays), ``out_cols`` (None before the first warm) and
+        the padded ``pshape``.  ``load_bundle`` rebuilds the chain from
+        them (:meth:`_from_capture`) and captures its graphs."""
+        from dislib_tpu_torch.utils.saving import _estimator_state
+        pshape = self._pshape(bucket)
+        leaves = [np.zeros(pshape, np.float32)]
+        steps = [_estimator_state(s, leaves)
+                 for s in self.transforms + (self.model,)]
+        return {"spec": {"kind": "serve", "method": self.method,
+                         "n_features": self.n_features, "steps": steps},
+                "leaves": leaves, "input_slot": 0,
+                "out_cols": self.out_cols, "pshape": list(pshape)}
+
+    @classmethod
+    def _from_capture(cls, spec, leaves):
+        """The pipeline a :meth:`capture_bucket` spec describes, on the
+        default mesh's device."""
+        from dislib_tpu_torch.utils.saving import _estimator_restore
+        steps = [_estimator_restore(s, None, leaves) for s in spec["steps"]]
+        return cls(steps[-1], transforms=steps[:-1], method=spec["method"],
+                   n_features=spec["n_features"])

@@ -105,6 +105,10 @@ def _request_hash(rows: np.ndarray, key) -> int:
     return zlib.crc32(data) % _HASH_BUCKETS
 
 
+class _Retired(Exception):
+    """A routed server stopped before the request reached its queue."""
+
+
 class ModelRouter:
     """Multi-tenant front over shared :class:`PredictServer` instances.
 
@@ -274,6 +278,15 @@ class ModelRouter:
         rows = np.asarray(rows, np.float32)
         if rows.ndim == 1:
             rows = rows.reshape(1, -1)
+        try:
+            return self._submit(rows, tenant, key)
+        except _Retired:
+            # the routed server was retired (a promote, an aborted canary
+            # or a rollback stopped it) between the route and the queue:
+            # the route has moved on, so route again, once
+            return self._submit(rows, tenant, key, retry=False)
+
+    def _submit(self, rows, tenant, key, retry=True):
         k = rows.shape[0]
         with self._lock:
             t = self._get(tenant)
@@ -313,9 +326,12 @@ class ModelRouter:
                     deadline_ms=1e3 * self.deadline_s)
         try:
             fut = server.submit(rows, tenant=label)
-        except BaseException:
+        except BaseException as exc:
             with self._lock:
                 t.inflight_rows -= k
+                moved = server is not t.server and server is not t.canary
+            if retry and moved and not server._running:
+                raise _Retired() from exc
             raise
         def _release(_f, _t=t, _k=k):
             with self._lock:

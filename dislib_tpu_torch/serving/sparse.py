@@ -2,7 +2,7 @@
 PredictServer bucket ladder.
 
 Counterpart of ``dislib_tpu/serving/sparse.py`` (``pack_sparse_rows``
-and ``SparseFoldInPipeline``; the bundle capture is not ported).  A
+and ``SparseFoldInPipeline`` with its bundle capture).  A
 recommender's request is sparse: a user arrives as a handful of (item,
 rating) pairs, and the served computation is the ALS fold-in — solve
 the user's normal equations against the FROZEN item factors and score
@@ -192,3 +192,39 @@ class SparseFoldInPipeline(ProgramHost):
             raise ValueError(
                 f"request width {rows.shape[1]} != 2·nse_cap="
                 f"{self.n_features} — pack requests with pipeline.pack()")
+
+    # -- deployment-bundle capture ------------------------------------------
+
+    def capture_bucket(self, bucket: int) -> dict:
+        """What :func:`~dislib_tpu_torch.serving.bundle.export_bundle`
+        stores for ``bucket``, WITHOUT executing the fold-in: the
+        ``spec`` (the cap, ``top_n``, the policy, the model's class and
+        hyperparameters) and the ``leaves`` — the request canvas (the
+        input slot) and the frozen item factors, so the bundle carries the
+        model."""
+        from dislib_tpu_torch.utils.saving import _encode
+        m = self.model
+        leaves = [np.zeros((int(bucket), self.n_features), np.float32),
+                  np.ascontiguousarray(np.asarray(m.items_, np.float32))]
+        spec = {"kind": "sparse_fold_in", "nse_cap": self.nse_cap,
+                "top_n": self.top_n, "precision": self.policy.name,
+                "model": {"module": type(m).__module__,
+                          "cls": type(m).__qualname__,
+                          "params": {k: _encode(v) for k, v in
+                                     m.get_params().items()}}}
+        return {"spec": spec, "leaves": leaves, "input_slot": 0,
+                "out_cols": self.out_cols,
+                "pshape": [int(bucket), self.n_features]}
+
+    @classmethod
+    def _from_capture(cls, spec, leaves):
+        """The pipeline a :meth:`capture_bucket` spec describes: the
+        model's class with its hyperparameters and the carried item
+        factors."""
+        from dislib_tpu_torch.utils.saving import _decode, _estimator_class
+        mspec = spec["model"]
+        model = _estimator_class(mspec)(**{
+            k: _decode(v) for k, v in mspec["params"].items()})
+        model.items_ = np.array(leaves[1], np.float32)
+        return cls(model, nse_cap=spec["nse_cap"],
+                   precision=spec["precision"], top_n=spec["top_n"])

@@ -21,12 +21,15 @@ RNG — so the resilience tests reproduce bit-identically on any machine.
   :class:`FaultAtTier` trips until the escalation ladder reaches a given
   tier.  All are :class:`~dislib_tpu_torch.runtime.health.HealthPolicy`
   subclasses: pass them as ``fit(..., health=...)`` and the estimator's
-  own guard becomes the injector.
+  own guard becomes the injector;
+- **the trainer's seams** — :class:`TornBundleWrite` damages a published
+  deployment bundle after its atomic write (only the CRC-verified
+  read-back can catch it), :class:`CanaryGateTrip` refuses the first n
+  promotion health gates.
 
 Not ported yet: the capacity and multi-process injectors
 (``CapacityAtSave``, ``oscillation_schedule``, ``KillRankAt``,
-``LeaseExpiry``, ``TornCoordWrite``; ROADMAP.md A.11) and the serving
-ones (``TornBundleWrite``, ``CanaryGateTrip``).
+``LeaseExpiry``, ``TornCoordWrite``; ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from dislib_tpu_torch.utils.checkpoint import FitCheckpoint
 __all__ = ["CallbackCheckpoint", "SigtermAtNthSave", "sigterm_self",
            "corrupt_snapshot", "FlakyCall", "FlakyOpen",
            "NaNAtChunk", "DivergenceRamp", "HangAtChunk", "TripAtChunk",
-           "FaultAtTier"]
+           "FaultAtTier", "TornBundleWrite", "CanaryGateTrip"]
 
 
 class CallbackCheckpoint(FitCheckpoint):
@@ -376,3 +379,50 @@ class _FaultAtTierGuard(ChunkGuard):
 
     def check_host(self, values, it=None):
         return self._maybe_trip(it) or super().check_host(values, it)
+
+
+class TornBundleWrite:
+    """Bundle-export seam injector: a drop-in for
+    ``dislib_tpu_torch.serving.bundle.write_bundle`` whose first
+    ``failures`` calls complete the REAL atomic write and then damage the
+    published artifact in place (:func:`corrupt_snapshot` ``mode``) — the
+    post-rename torn or bit-rotted bundle a crash mid-export or a flaky
+    filesystem leaves behind, which only the CRC-verified read-back
+    (``SnapshotCorrupt``) can catch.  Later calls delegate untouched;
+    ``calls`` counts every invocation.  Install with
+    ``monkeypatch.setattr("dislib_tpu_torch.serving.bundle.write_bundle",
+    TornBundleWrite(failures=1))``."""
+
+    def __init__(self, failures: int = 1, mode: str = "truncate"):
+        from dislib_tpu_torch.runtime.bundle_io import write_bundle
+        self._real = write_bundle       # captured BEFORE any patching
+        self.failures = int(failures)
+        self.mode = mode
+        self.calls = 0
+
+    def __call__(self, path, arrays):
+        self.calls += 1
+        out = self._real(path, arrays)
+        if self.calls <= self.failures:
+            corrupt_snapshot(path, mode=self.mode)
+        return out
+
+
+class CanaryGateTrip:
+    """Promotion-seam injector: a ``health_gate(loaded, generation)``
+    callable that refuses the first ``times`` checks (the unhealthy
+    canary) and delegates to ``then`` — or accepts — afterwards.
+    ``checks`` counts every evaluation."""
+
+    def __init__(self, times: int = 1, then=None):
+        self.times = int(times)
+        self.then = then
+        self.checks = 0
+
+    def __call__(self, loaded, generation) -> bool:
+        self.checks += 1
+        if self.checks <= self.times:
+            return False
+        if self.then is not None:
+            return bool(self.then(loaded, generation))
+        return True

@@ -41,84 +41,112 @@ from dislib_tpu_torch.utils.profiling import count_read
 _ALLOWED_MODULES = ("dislib_tpu_torch.",)
 
 
-def _encode(obj):
+def _encode(obj, leaves=None):
+    """The JSON tree of ``obj``.  With a ``leaves`` list, every array's
+    bytes are appended to it as a NumPy array and its payload holds the
+    index (``"leaf"``) instead of base64 data (a deployment bundle's
+    encoding)."""
     if isinstance(obj, Array):
         count_read("save")
-        return {"__dsarray__": _np_payload(obj.collect()),
+        return {"__dsarray__": _np_payload(obj.collect(), leaves),
                 "block_size": list(obj._reg_shape)}
     if isinstance(obj, torch.Tensor):
         count_read("save")
-        return {"__ndarray__": _np_payload(obj.detach().cpu().numpy())}
+        return {"__ndarray__": _np_payload(obj.detach().cpu().numpy(),
+                                           leaves)}
     if isinstance(obj, np.ndarray):
-        return {"__ndarray__": _np_payload(obj)}
+        return {"__ndarray__": _np_payload(obj, leaves)}
     if isinstance(obj, (np.integer,)):
         return int(obj)
     if isinstance(obj, (np.floating,)):
         return float(obj)
     if isinstance(obj, (list, tuple)):
-        return {"__seq__": [_encode(o) for o in obj],
+        return {"__seq__": [_encode(o, leaves) for o in obj],
                 "tuple": isinstance(obj, tuple)}
     if isinstance(obj, dict):
-        return {"__dict__": {k: _encode(v) for k, v in obj.items()}}
+        return {"__dict__": {k: _encode(v, leaves) for k, v in obj.items()}}
     if hasattr(obj, "get_params") and hasattr(obj, "_fitted_attrs"):
-        return {"__estimator__": _estimator_state(obj)}
+        return {"__estimator__": _estimator_state(obj, leaves)}
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     raise TypeError(f"cannot serialise {type(obj).__name__}")
 
 
-def _np_payload(a):
+def _np_payload(a, leaves=None):
     a = np.ascontiguousarray(a)
+    if leaves is not None:
+        leaves.append(a)
+        return {"dtype": str(a.dtype), "shape": list(a.shape),
+                "leaf": len(leaves) - 1}
     return {"dtype": str(a.dtype), "shape": list(a.shape),
             "data": base64.b64encode(a.tobytes()).decode("ascii")}
 
 
-def _np_restore(p):
+def _np_restore(p, leaves=None):
+    if "leaf" in p:
+        a = np.asarray(leaves[p["leaf"]])
+        if str(a.dtype) != p["dtype"] or list(a.shape) != list(p["shape"]):
+            raise ValueError(f"leaf {p['leaf']} is {a.dtype}{a.shape}, the "
+                             f"payload names {p['dtype']}{p['shape']}")
+        return a.copy()
     a = np.frombuffer(base64.b64decode(p["data"]), dtype=np.dtype(p["dtype"]))
     return a.reshape(p["shape"]).copy()
 
 
-def _decode(obj, device=None):
+def _decode(obj, device=None, leaves=None):
     if isinstance(obj, dict):
         if "__dsarray__" in obj:
-            a = _np_restore(obj["__dsarray__"])
+            a = _np_restore(obj["__dsarray__"], leaves)
             return _make_array(a, block_size=tuple(obj["block_size"]),
                                dtype=a.dtype, device=device)
         if "__ndarray__" in obj:
-            return _np_restore(obj["__ndarray__"])
+            return _np_restore(obj["__ndarray__"], leaves)
         if "__seq__" in obj:
-            seq = [_decode(o, device) for o in obj["__seq__"]]
+            seq = [_decode(o, device, leaves) for o in obj["__seq__"]]
             return tuple(seq) if obj.get("tuple") else seq
         if "__dict__" in obj:
-            return {k: _decode(v, device) for k, v in obj["__dict__"].items()}
+            return {k: _decode(v, device, leaves)
+                    for k, v in obj["__dict__"].items()}
         if "__estimator__" in obj:
-            return _estimator_restore(obj["__estimator__"], device)
+            return _estimator_restore(obj["__estimator__"], device, leaves)
     return obj
 
 
-def _estimator_state(model):
+def _estimator_state(model, leaves=None):
     cls = type(model)
     return {
         "module": cls.__module__,
         "cls": cls.__qualname__,
-        "params": {k: _encode(v) for k, v in model.get_params().items()},
-        "fitted": {k: _encode(v) for k, v in model._fitted_attrs().items()},
+        "params": {k: _encode(v, leaves)
+                   for k, v in model.get_params().items()},
+        "fitted": {k: _encode(v, leaves)
+                   for k, v in model._fitted_attrs().items()},
     }
 
 
-def _estimator_restore(state, device=None):
-    """The estimator of a decoded payload: its class from this package
-    only, its hyperparameters, and (if fitted) its fitted attributes
-    carried in on ``device`` by :func:`base.from_fitted_arrays`."""
-    from dislib_tpu_torch.base import BaseEstimator, from_fitted_arrays
+def _estimator_class(state):
+    """The estimator class a payload names: from this package only."""
+    from dislib_tpu_torch.base import BaseEstimator
     module = state["module"]
     if not module.startswith(_ALLOWED_MODULES):
         raise ValueError(f"refusing to load estimator from module {module!r}")
     cls = getattr(importlib.import_module(module), state["cls"])
     if not (isinstance(cls, type) and issubclass(cls, BaseEstimator)):
         raise ValueError(f"{module}.{state['cls']} is not an estimator")
-    params = {k: _decode(v, device) for k, v in state["params"].items()}
-    fitted = {k: _decode(v, device) for k, v in state["fitted"].items()}
+    return cls
+
+
+def _estimator_restore(state, device=None, leaves=None):
+    """The estimator of a decoded payload: its class from this package
+    only, its hyperparameters, and (if fitted) its fitted attributes
+    carried in on ``device`` by :func:`base.from_fitted_arrays`;
+    ``leaves`` holds the arrays of a payload encoded with leaves."""
+    from dislib_tpu_torch.base import from_fitted_arrays
+    cls = _estimator_class(state)
+    params = {k: _decode(v, device, leaves)
+              for k, v in state["params"].items()}
+    fitted = {k: _decode(v, device, leaves)
+              for k, v in state["fitted"].items()}
     if not fitted:
         return cls(**params)
     return from_fitted_arrays(cls, fitted, device, **params)

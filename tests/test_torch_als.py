@@ -79,6 +79,7 @@ def data():
 @pytest.fixture(scope="module")
 def ref_fits(data):
     """The reference's dense fits, one per option set, fitted once."""
+    ds.init()           # built before the conftest's per-test mesh reset
     r, test = data
     fits = {
         "plain": RefALS(n_f=F, lambda_=LAM, tol=0.0, max_iter=3,

@@ -4,8 +4,8 @@
 ``dislib_tpu.__all__`` that the port implements; the reference entries
 still unported are named in :data:`UNPORTED`, the reference's
 ``runtime.__all__`` entries still unported in :data:`RUNTIME_UNPORTED`,
-and its ``serving.__all__`` entries still unported (the deployment
-bundles) in :data:`SERVING_UNPORTED`.
+and its ``serving.__all__`` entries still unported in
+:data:`SERVING_UNPORTED` (none: the deployment bundles are ported).
 The port may export more (its subpackages, ``from_fitted_arrays``,
 ``IVFIndex``).  ``set_mesh``
 takes the one-card mesh only, and ``overlap_schedule`` routes as the
@@ -20,23 +20,19 @@ import dislib_tpu as ds
 import dislib_tpu_torch as dst
 from dislib_tpu_torch.parallel import mesh as port_mesh
 
-# the reference's root entries with no port yet: none (the serving layer
-# is ported, less its deployment bundles)
+# the reference's root entries with no port yet: none
 UNPORTED = []
 
 # the reference's runtime names with no port yet: the capacity level,
-# the coordination ledger and membership, repad_rows (A.11); bundles and
-# the continuous trainer (A.12's deployment half); xla_flags (JAX's)
+# the coordination ledger and membership, repad_rows (A.11); xla_flags
+# (JAX's own, never ported)
 RUNTIME_UNPORTED = [
     "capacity_target", "request_capacity", "clear_capacity", "repad_rows",
-    "BundleIncompatible", "BundleShardCorrupt", "read_bundle",
-    "write_bundle",
     "CapacityLedger", "CoordinationTimeout", "get_coordinator",
     "LocalCoordinator", "FileCoordinator", "KVCoordinator",
     "Membership", "LeaseKeeper", "RankDead", "TornCoordFile",
     "set_membership", "current_membership", "resilient_exchange",
-    "lease_seconds", "barrier_timeout",
-    "ContinuousTrainer", "PromotionFailed", "xla_flags",
+    "lease_seconds", "barrier_timeout", "xla_flags",
 ]
 
 
@@ -61,10 +57,9 @@ def test_runtime_all_plus_the_unported_list_is_the_references():
     assert dst.runtime is port_rt
 
 
-# the reference's serving names with no port yet: the deployment bundles
-# (ROADMAP.md A.12's deployment half)
-SERVING_UNPORTED = ["export_bundle", "load_bundle", "BundlePipeline",
-                    "LoadedBundle", "runtime_fingerprint"]
+# the reference's serving names with no port yet: none (the deployment
+# bundles are ported)
+SERVING_UNPORTED = []
 
 
 def test_serving_all_is_the_references_less_the_bundle_names():
@@ -77,10 +72,24 @@ def test_serving_all_is_the_references_less_the_bundle_names():
     for name in port_sv.__all__:
         assert hasattr(port_sv, name), name
     assert dst.serving is port_sv
-    # the bundle capture waits with the bundles
+    # every served pipeline has the bundle capture, as the reference's
+    from dislib_tpu.retrieval import RetrievalPipeline as RefRetrieval
     from dislib_tpu_torch.retrieval import RetrievalPipeline
-    assert not hasattr(RetrievalPipeline, "capture_bucket")
-    assert not hasattr(port_sv.SparseFoldInPipeline, "capture_bucket")
+    assert hasattr(RefRetrieval, "capture_bucket")
+    assert hasattr(ref_sv.SparseFoldInPipeline, "capture_bucket")
+    for cls in (RetrievalPipeline, port_sv.SparseFoldInPipeline,
+                port_sv.ServePipeline):
+        assert callable(cls.capture_bucket) and callable(
+            cls._from_capture)
+    # the bundle names are exported where the reference exports them
+    import dislib_tpu.runtime as ref_rt
+    import dislib_tpu_torch.runtime as port_rt
+    for name in ("BundleIncompatible", "BundleShardCorrupt", "read_bundle",
+                 "write_bundle", "ContinuousTrainer", "PromotionFailed"):
+        assert name in ref_rt.__all__ and name in port_rt.__all__, name
+    for name in ("export_bundle", "load_bundle", "BundlePipeline",
+                 "LoadedBundle", "runtime_fingerprint"):
+        assert name in ref_sv.__all__ and name in port_sv.__all__, name
 
 
 def test_star_import_gives_the_slice_names():

@@ -1530,3 +1530,66 @@ def test_kernels_capture_under_the_serving_capture_mode(dev, kernel, shape):
     torch.cuda.synchronize()
     assert K.LAUNCHES[kernel] == before + 1
     assert torch.equal(out, want)
+
+
+_BUNDLE_CHILD = r"""
+import json, sys, tempfile
+import numpy as np
+from dislib_tpu_torch import _build
+_build.BUILD_DIR = tempfile.mkdtemp()
+
+def _refuse():
+    raise AssertionError("build_all called in the loading process")
+
+_build.build_all = _refuse
+import dislib_tpu_torch as dst
+from dislib_tpu_torch.serving import load_bundle
+from dislib_tpu_torch.utils import profiling as prof
+dst.init(device="cuda:0")
+loaded = load_bundle(sys.argv[1])
+rows = np.load(sys.argv[2])
+modes = {b: loaded.pipeline.program(b).mode for b in loaded.buckets}
+out = {str(b): loaded.pipeline.predict_bucket(rows[:b], b).tolist()
+       for b in loaded.buckets}
+print(json.dumps({"out": out, "modes": modes,
+                  "traces": prof.counters()["trace_by"],
+                  "dispatch_by": prof.counters()["dispatch_by"]}))
+"""
+
+
+def test_bundle_loads_in_a_fresh_process_without_a_build(dev, tmp_path):
+    """Export a scaler → KMeans pipeline on the card; a child process
+    with an empty build directory and ``build_all`` raising installs the
+    bundle's kernel libraries, captures every bucket and serves each
+    bit-equal to the live pipeline's replay."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from dislib_tpu_torch import _build
+    from dislib_tpu_torch.serving import ServePipeline, export_bundle
+    dst.init(device=dev)
+    x = np.random.RandomState(4).rand(3000, 20).astype(np.float32)
+    X = dst.array(x)
+    sc = dst.StandardScaler().fit(X)
+    km = dst.KMeans(n_clusters=6, max_iter=3, random_state=0).fit(
+        sc.transform(X))
+    live = ServePipeline(km, transforms=(sc,))
+    want = {b: live.predict_bucket(x[:b], b) for b in SERVE_BUCKETS}
+    path = str(tmp_path / "km.npz")
+    man = export_bundle(live, path, buckets=SERVE_BUCKETS)
+    assert sorted(man["libraries"]) == sorted(_build.SIGNATURES)
+    np.save(str(tmp_path / "rows.npy"), x[:max(SERVE_BUCKETS)])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", _BUNDLE_CHILD, path,
+         str(tmp_path / "rows.npy")], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(got["modes"].values()) == {"graph"}
+    assert got["traces"] == {"cuda_graph": len(SERVE_BUCKETS)}   # no nvcc
+    assert got["dispatch_by"]["bundle_exec"] == len(SERVE_BUCKETS)
+    for b in SERVE_BUCKETS:
+        np.testing.assert_array_equal(
+            np.asarray(got["out"][str(b)], want[b].dtype), want[b])

@@ -60,6 +60,7 @@ def _km(cls, **kw):
 
 @pytest.fixture(scope="module")
 def ref_fits(data, tmp_path_factory):
+    ds.init()           # built before the conftest's per-test mesh reset
     d = tmp_path_factory.mktemp("ref")
     a = ds.array(data)
     out = {"plain": _km(RefKMeans).fit(a),

@@ -57,6 +57,7 @@ def blobs():
 def fitted(blobs):
     x, _ = blobs
     dst.init(device="cpu")
+    ds.init()           # built before the conftest's per-test mesh reset
     ref = RefIVF(n_lists=NL, kmeans_max_iter=5, random_state=0).fit(x)
     port = IVFIndex(n_lists=NL, kmeans_max_iter=5, random_state=0).fit(
         dst.array(x, device="cpu"))

@@ -125,6 +125,11 @@ def _tree(path, module_from=None):
 
 @pytest.fixture(scope="module")
 def ref_models():
+    # a module fixture is built before the conftest's per-test mesh reset,
+    # so build it on the default mesh, whatever mesh the worker's previous
+    # test left: the reference's lazy attributes keep the mesh they were
+    # made on
+    ds.init()
     return _fits(ds)
 
 
