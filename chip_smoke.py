@@ -89,7 +89,15 @@ refusing, which serves every bucket bit-equal to the live pipeline with
 no ``nvcc`` build and one capture a bucket; a child without a bundle
 that builds the kernels, as the yardstick; ``ContinuousTrainer`` over
 ``MiniBatchKMeans`` for four generations under client traffic, a torn
-export and a tripped canary among them) — and checks every result.  Each
+export and a tripped canary among them) — then the mesh of ranks
+(``mesh``: NCCL at a world of one in this process, SUMMA and KMeans
+bit-equal to the same calls with no process group; two NCCL processes
+on one card, which ``initialize`` must refuse; then 4 gloo ranks on
+this one card, each ``python3 chip_smoke.py --mesh-rank R DIR``: SUMMA
+16384² under both policies on a (2, 2) grid, KMeans, the ring kNN at
+bench_knn's sizes and the shuffle of the KMeans data on (4, 1), each
+rank's blocks against the one-rank results, each rank's kernels timed
+while the others wait) — and checks every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -153,6 +161,9 @@ HIST_LAYOUTS = ["one-node", "half-empty", "node-minus-1",
 # distances_sq: feature widths (100 aligned takes the bulk-copy stream,
 # the rest the slices), k across the chunk of 16, an unaligned view of a
 DIST_D, DIST_K = [1, 3, 33, 100], [1, 10, 17, 257]
+# distances_sq's gate against its plain version: max |D - D_ref| over
+# max ‖a‖² + max ‖b‖², the magnitudes that cancel
+DIST_TOL = 1e-5
 # panel_gemm shapes held against the plain version: ragged in every
 # dimension, the last two over many K stages and several tiles each way
 GEMM_RAGGED = [(1000, 77, 33), (129, 257, 130), (1, 5, 300),
@@ -4257,6 +4268,593 @@ def deploy_phase(dev, card):
     return {"trainer": out["trainer"]["launches"], "children": child_launches}
 
 
+# -- the mesh of ranks -----------------------------------------------------------
+
+# the multi-rank phase: 4 gloo ranks on one card (NCCL takes one rank per
+# card, so a world above one cannot run on a one-card machine); SUMMA at
+# GEMM_N² on (2, 2), KMeans (MESH_KM_ITERS steps, tol 0) and the ring kNN
+# at bench_knn's sizes and the shuffle of the KMeans data on (4, 1)
+MESH_WORLD = 4
+MESH_KM_ITERS = 20
+MESH_RANK_S = 600          # the ranks' time limit, seconds
+MESH_BACKEND = "gloo (one card, staged through the host)"
+# one KMeans step from the same init against the one rank's: the centers
+# within MESH_KM_TOL (the sums' order differs); a 20-step fit's inertia
+# within MESH_KM_INERTIA (its centers drift apart as near-tie rows flip)
+MESH_KM_TOL = 1e-4
+MESH_KM_INERTIA = 1e-4
+
+
+def mesh_sizes():
+    """The mesh phase's sizes, handed to the ranks in their job file."""
+    return {"gemm_n": GEMM_N, "km_m": KM_M, "km_n": KM_N, "km_k": KM_K,
+            "km_iters": MESH_KM_ITERS, "knn_mf": KNN_MF, "knn_n": KNN_N,
+            "knn_mq": KNN_MQ, "knn_k": KNN_K}
+
+
+def mesh_data(which, z):
+    """The mesh phase's host inputs at sizes ``z``, the same in the parent
+    and in every rank: the KMeans data and init (bench.py's draw, seed
+    0), the kNN fit rows and queries (bench_knn's, seed 1)."""
+    import numpy as np
+    if which == "kmeans":
+        rng = np.random.RandomState(0)
+        x = rng.rand(z["km_m"], z["km_n"]).astype(np.float32)
+        return x, x[rng.choice(z["km_m"], z["km_k"], replace=False)].copy()
+    rng = np.random.RandomState(1)
+    return (rng.rand(z["knn_mf"], z["knn_n"]).astype(np.float32),
+            rng.rand(z["knn_mq"], z["knn_n"]).astype(np.float32))
+
+
+def mesh_operands(dev, n):
+    """SUMMA's operands, drawn on ``dev`` from seed 11: the same tensors
+    in every process on one kind of card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    return (torch.randn((n, n), generator=g, device=dev),
+            torch.randn((n, n), generator=g, device=dev))
+
+
+def mesh_clear(od):
+    """Positions j of the one-rank (k+1)-neighbour distances ``od`` whose
+    neighbours j-1, j, j+1 are more than 1e-5 apart: where the index is
+    the same whatever order sums the distance."""
+    import numpy as np
+    gap = np.diff(od, axis=1) > 1e-5
+    return np.concatenate([gap[:, :1], gap[:, :-1] & gap[:, 1:]], axis=1)
+
+
+def mesh_timer(dev):
+    """``ms(fn, reps)``: CUDA-event milliseconds a call on a card, wall
+    milliseconds on the CPU (a rehearsal)."""
+    import torch
+
+    def ms(fn, reps):
+        fn()
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    return ms
+
+
+def mesh_rank(argv) -> int:
+    """One rank of the mesh phase (``chip_smoke.py --mesh-rank RANK DIR``):
+    joins the gloo job of ``DIR/job.json``, runs the (2, 2) and (4, 1)
+    scenarios against the parent's one-rank results and writes
+    ``DIR/rank<RANK>.json``.  Every check raises, and the rank exits
+    non-zero."""
+    rank, work = int(argv[0]), argv[1]
+    with open(os.path.join(work, "job.json")) as f:
+        job = json.load(f)
+    z = job["sizes"]
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.parallel import distributed as dd
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    ms = mesh_timer(dev)
+    out = {"rank": rank, "phases": {}, "windows": {}}
+    dd.initialize(f"file://{os.path.join(work, 'store')}", job["world"], rank,
+                  backend="gloo", device=dev, timeout=job["timeout_s"])
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def window(name, fns, reps):
+        """Time ``fns`` (label -> call) on this rank while the others wait:
+        the ranks take the card in turn, so the times are uncontended
+        (the first barrier lets every rank finish its work before rank 0
+        starts)."""
+        sync()
+        tdist.barrier()
+        for r in range(job["world"]):
+            if r == rank:
+                out["windows"][name] = {k: ms(f, reps)
+                                        for k, f in fns.items()}
+            tdist.barrier()
+
+    def run(name, fn):
+        """Run a scenario with the launch counts set to 0 just before it
+        and read just after; record its wall time, launches and
+        collectives."""
+        tdist.barrier()
+        dd.reset_comm_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out["phases"][name] = {"wall_s": time.perf_counter() - t0,
+                               "launches": dict(K.LAUNCHES),
+                               "collectives": dd.comm_stats(), **res}
+
+    # -- SUMMA on (2, 2) ---------------------------------------------------------
+    mesh = dst.init((2, 2))
+    r, c = mesh.coord
+    n = z["gemm_n"]
+    a_h, b_h = mesh_operands(dev, n)
+    A, B = dst.array(a_h), dst.array(b_h)
+    rs = slice(r * (n // 2), (r + 1) * (n // 2))
+    cs = slice(c * (n // 2), (c + 1) * (n // 2))
+    scale = float(torch.linalg.norm(a_h.double()) * torch.linalg.norm(
+        b_h.double()) / n ** 0.5)
+    for pol in (px.FLOAT32, px.BFLOAT16):
+        box = {}
+
+        def summa():
+            box["c"] = dst.matmul(A, B, algorithm="summa", precision=pol)
+            return {"shape": [n, n, n], "mesh": [2, 2]}
+
+        run(f"summa_{pol.name}", summa)
+        got = box.pop("c")._local
+        # the one-rank product of this rank's rows and columns: one
+        # panel_gemm over the whole K, what the one-rank SUMMA runs
+        want = K.panel_gemm(a_h[rs].contiguous(), b_h[:, cs].contiguous(),
+                            pol)
+        err = float((got.double() - want.double()).abs().max()) / scale
+        check(err <= px.ERROR_BOUNDS[("matmul", pol.name)],
+              f"rank {rank}: SUMMA {pol.name} block off the one-rank "
+              f"product by {err} (normalized)")
+        out["phases"][f"summa_{pol.name}"]["normalized_err_vs_one_rank"] = err
+        if dev.type == "cuda":
+            check(out["phases"][f"summa_{pol.name}"]["launches"][
+                "panel_gemm"] >= 2, f"rank {rank}: SUMMA {pol.name} did not "
+                "launch panel_gemm per panel")
+        del got, want
+        # the kernel at the panel's shape, with the card to itself
+        a_p = A._local.contiguous()
+        b_p = B._local.contiguous()
+        kern = K.panel_gemm(a_p, b_p, pol)
+        plain = K.panel_gemm_plain(a_p, b_p, pol)
+        # the difference in f32: four ranks share the card's memory
+        g_abs = float((kern - plain).abs().max())
+        g_err = g_abs / float(torch.linalg.norm(a_p.double())
+                              * torch.linalg.norm(b_p.double())
+                              / a_p.shape[1] ** 0.5)
+        check(g_err <= px.ERROR_BOUNDS[("matmul", pol.name)],
+              f"rank {rank}: panel_gemm {pol.name} at SUMMA's panel "
+              f"{list(a_p.shape)}x{list(b_p.shape)}: normalized error "
+              f"{g_err} vs plain > ERROR_BOUNDS")
+        out["windows"][f"panel_gemm_{pol.name}_err"] = {
+            "max_abs_err": g_abs, "normalized_err_vs_plain": g_err}
+        del kern, plain
+        if pol is px.FLOAT32:
+            def lib(a=a_p, b=b_p):
+                with px.precise():
+                    return torch.matmul(a, b)
+        else:
+            a16, b16 = a_p.to(torch.bfloat16), b_p.to(torch.bfloat16)
+
+            def lib(a=a16, b=b16):
+                if dev.type == "cuda":
+                    return torch.mm(a, b, out_dtype=torch.float32)
+                return torch.mm(a.float(), b.float())
+        window(f"panel_gemm_{pol.name}", {
+            "ms": lambda: K.panel_gemm(a_p, b_p, pol),
+            "plain_ms": lambda: K.panel_gemm_plain(a_p, b_p, pol),
+            "library_ms": lib}, 3)
+        del a_p, b_p, lib
+    del A, B, a_h, b_h
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- KMeans, the ring kNN and the shuffle on (4, 1) -------------------------
+    dst.init((4, 1))
+    x_h, init = mesh_data("kmeans", z)
+    km_m, km_k = z["km_m"], z["km_k"]
+    X = dst.array(x_h)
+    row0, m_loc = X._at[0], X._local.shape[0]
+    ref = np.load(os.path.join(work, "kmeans.npz"))
+    box = {}
+
+    def kmeans():
+        box["km"] = dst.KMeans(n_clusters=km_k, init=init, max_iter=z[
+            "km_iters"], tol=0.0).fit(X)
+        return {"shape": list(x_h.shape), "k": km_k, "mesh": [4, 1],
+                "iters": z["km_iters"]}
+
+    run("kmeans", kmeans)
+    km = box.pop("km")
+    c_err = float(np.abs(km.centers_ - ref["centers"]).max())
+    inertia_err = abs(km.inertia_ - float(ref["inertia"])) / float(
+        ref["inertia"])
+    check(inertia_err <= MESH_KM_INERTIA, f"rank {rank}: a {z['km_iters']}"
+          f"-step fit's inertia off the one-rank fit's by {inertia_err}")
+    # the gate: one step from the same init against the one rank's step
+    km1 = dst.KMeans(n_clusters=km_k, init=init, max_iter=1, tol=0.0).fit(X)
+    c1_err = float(np.abs(km1.centers_ - ref["centers1"]).max())
+    check(c1_err <= MESH_KM_TOL, f"rank {rank}: one KMeans step's centers "
+          f"off the one-rank step's by {c1_err}")
+    labels = km1.predict(X)._local[:, 0].cpu().numpy()
+    live = max(0, min(m_loc, km_m - row0))
+    lab_ref = ref["labels1"][row0:row0 + live]
+    diff = np.nonzero(labels[:live] != lab_ref)[0]
+    # a differing label must be a near tie of the two centers
+    if len(diff):
+        xd = x_h[row0 + diff].astype(np.float64)
+        cd = km1.centers_.astype(np.float64)
+        d = ((xd[:, None, :] - cd[None]) ** 2).sum(-1)
+        gap = np.abs(d[np.arange(len(diff)), labels[diff]]
+                     - d[np.arange(len(diff)), lab_ref[diff]])
+        check(bool((gap <= 1e-4).all()), f"rank {rank}: {len(diff)} labels "
+              f"differ from the one-rank step's, gaps up to {gap.max()}")
+    del km1
+    if dev.type == "cuda":
+        check(out["phases"]["kmeans"]["launches"]["distances_sq"]
+              >= z["km_iters"], f"rank {rank}: KMeans did not launch "
+              "distances_sq once a step")
+    out["phases"]["kmeans"].update(
+        centers_max_abs_diff_vs_one_rank=c_err,
+        one_step_centers_max_abs_err_vs_one_rank=c1_err,
+        one_step_labels_differing=len(diff),
+        inertia_rel_err_vs_one_rank=inertia_err, rows=live)
+    xl = X._local.contiguous()
+    centers = torch.from_numpy(km.centers_).to(dev)
+    kern, plain = K.distances_sq(xl, centers), K.distances_sq_plain(
+        xl, centers, "highest")
+    d_scale = float((xl.double() ** 2).sum(1).max()
+                    + (centers.double() ** 2).sum(1).max())
+    k_err = float((kern.double() - plain.double()).abs().max()) / d_scale
+    check(k_err <= DIST_TOL, f"rank {rank}: distances_sq at "
+          f"{list(xl.shape)}x{list(centers.shape)}: error {k_err} vs plain "
+          f"> {DIST_TOL}")
+    out["windows"]["distances_sq_err"] = {
+        "max_abs_err": float((kern - plain).abs().max()),
+        "normalized_err_vs_plain": k_err}
+    del kern, plain
+
+    def cdist():
+        with px.precise():
+            return torch.cdist(xl, centers,
+                               compute_mode="use_mm_for_euclid_dist")
+
+    window("distances_sq", {
+        "ms": lambda: K.distances_sq(xl, centers),
+        "plain_ms": lambda: K.distances_sq_plain(xl, centers, "highest"),
+        "library_ms": cdist}, 20)
+    del xl
+
+    def shuffle():
+        box["xs"] = dst.shuffle(X, random_state=0)
+        return {"shape": list(x_h.shape), "mesh": [4, 1]}
+
+    run("shuffle", shuffle)
+    perm = np.random.RandomState(0).permutation(km_m)
+    got = box.pop("xs")._local[:live, :z["km_n"]].cpu().numpy()
+    check(np.array_equal(got, x_h[perm[row0:row0 + live]]),
+          f"rank {rank}: the shuffle's rows are not NumPy's permutation")
+    del X, x_h, got
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    f_h, q_h = mesh_data("knn", z)
+    knn_k = z["knn_k"]
+    F, Q = dst.array(f_h), dst.array(q_h)
+    ref = np.load(os.path.join(work, "knn.npz"))
+    q0 = Q._at[0]
+    q_loc = max(0, min(Q._local.shape[0], z["knn_mq"] - q0))
+
+    def ring():
+        box["nn"] = dst.NearestNeighbors(n_neighbors=knn_k).fit(
+            F).kneighbors(Q)
+        return {"fit_rows": z["knn_mf"], "queries": z["knn_mq"], "k": knn_k,
+                "mesh": [4, 1]}
+
+    run("ring_knn", ring)
+    d_arr, i_arr = box.pop("nn")
+    rd = d_arr._local[:q_loc, :knn_k].cpu().numpy()
+    ri = i_arr._local[:q_loc, :knn_k].cpu().numpy()
+    od, oi = ref["dist"][q0:q0 + q_loc], ref["idx"][q0:q0 + q_loc]
+    d_err = float(np.abs(rd - od[:, :knn_k]).max())
+    check(d_err <= 1e-5, f"rank {rank}: ring distances off the one-rank "
+          f"kneighbors by {d_err}")
+    clear = mesh_clear(od)
+    check(np.array_equal(ri[clear], oi[:, :knn_k][clear]),
+          f"rank {rank}: ring indices differ from the one-rank kneighbors "
+          f"at {int((ri[clear] != oi[:, :knn_k][clear]).sum())} clear places")
+    if dev.type == "cuda":
+        check(out["phases"]["ring_knn"]["launches"]["panel_gemm"]
+              == job["world"], f"rank {rank}: the ring did not launch "
+              "panel_gemm once a hop")
+    out["phases"]["ring_knn"].update(max_abs_dist_err_vs_one_rank=d_err,
+                                     clear_places=int(clear.sum()))
+    qd = Q._local.contiguous()
+    ft = F._local.T.contiguous()
+    kern = K.panel_gemm(qd, ft, px.FLOAT32)
+    plain = K.panel_gemm_plain(qd, ft, px.FLOAT32)
+    g_abs = float((kern - plain).abs().max())
+    g_err = g_abs / float(torch.linalg.norm(qd.double())
+                          * torch.linalg.norm(ft.double())
+                          / qd.shape[1] ** 0.5)
+    check(g_err <= px.ERROR_BOUNDS[("matmul", "float32")],
+          f"rank {rank}: panel_gemm at the ring's {list(qd.shape)}x"
+          f"{list(ft.shape)}: normalized error {g_err} vs plain > "
+          "ERROR_BOUNDS")
+    out["windows"]["panel_gemm_ring_err"] = {
+        "max_abs_err": g_abs, "normalized_err_vs_plain": g_err}
+    del kern, plain
+
+    def mm():
+        with px.precise():
+            return torch.mm(qd, ft)
+
+    window("panel_gemm_ring", {
+        "ms": lambda: K.panel_gemm(qd, ft, px.FLOAT32),
+        "plain_ms": lambda: K.panel_gemm_plain(qd, ft, px.FLOAT32),
+        "library_ms": mm}, 10)
+    out["shapes"] = {"summa_panel": [n // 2] * 3,
+                     "kmeans": [m_loc, km_k, z["km_n"]],
+                     "ring": [int(qd.shape[0]), int(qd.shape[1]),
+                              int(ft.shape[1])]}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dd.shutdown()
+    return 0
+
+
+def mesh_nccl_pair(argv) -> int:
+    """One of two processes that both ask for NCCL on one card
+    (``chip_smoke.py --mesh-nccl-pair RANK DIR``): ``initialize`` must
+    raise, naming the one card, before NCCL's own error; exit 0 then."""
+    rank, work = int(argv[0]), argv[1]
+    from dislib_tpu_torch.parallel import distributed as dd
+    try:
+        dd.initialize(f"file://{os.path.join(work, 'store_pair')}", 2, rank,
+                      device="cuda:0", timeout=60)
+    except RuntimeError as exc:
+        print(json.dumps({"rank": rank, "raised": str(exc)}), flush=True)
+        return 0 if "one card" in str(exc) else 1
+    print(json.dumps({"rank": rank, "raised": None}), flush=True)
+    return 1
+
+
+def mesh_spawn(args, n, work, timeout_s):
+    """Run ``n`` copies of this script with ``args + [rank, work]`` to
+    their end (killed at ``timeout_s``); returns each one's (exit code,
+    output)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)), OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args, str(r), work],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
+def mesh_phase(dev, card):
+    """The mesh of ranks on the card.
+
+    First NCCL with a world of one in this process: SUMMA (under
+    ``DSLIB_OVERLAP=pallas``, both policies) and KMeans over groups of one
+    rank must be bit-equal to the same calls with no process group.  Then
+    the one-rank results the ranks are held to (the KMeans fit, the
+    (k+1)-neighbour kneighbors), and 4 gloo ranks on this one card
+    (``--mesh-rank``): SUMMA at GEMM_N² on (2, 2), KMeans, the ring kNN and
+    the shuffle on (4, 1), each rank's blocks against the one-rank
+    results.  Returns the kernels-line entries at the per-rank shapes."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.parallel import distributed as dd
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    overlap = os.environ.get("DSLIB_OVERLAP")
+    os.environ["DSLIB_OVERLAP"] = "pallas"
+    try:
+        # -- NCCL with a world of one: bit-equal to no process group ----------
+        z = mesh_sizes()
+        a_h, b_h = mesh_operands(dev, z["gemm_n"])
+        x_h, init = mesh_data("kmeans", z)
+
+        def one_rank():
+            A, B, X = dst.array(a_h), dst.array(b_h), dst.array(x_h)
+            res = {pol.name: dst.matmul(A, B, algorithm="summa",
+                                        precision=pol)._data
+                   for pol in (px.FLOAT32, px.BFLOAT16)}
+            km = dst.KMeans(n_clusters=z["km_k"], init=init,
+                            max_iter=z["km_iters"], tol=0.0).fit(X)
+            res["centers"] = torch.from_numpy(km.centers_)
+            res["labels"] = km.predict(X)._data
+            res["inertia"] = torch.tensor(km.inertia_)
+            return res, km
+
+        plain, km = one_rank()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dd.reset_comm_stats()
+        dd.initialize(f"file://{os.path.join(work, 'store1')}", 1, 0,
+                      device=dev, timeout=120)
+        try:
+            mesh = dst.init()
+            check(mesh.backend == backend and mesh.groups is not None,
+                  f"the world of one runs {mesh.backend}, not {backend}")
+            job1, _ = one_rank()
+            comm1 = dd.comm_stats()
+        finally:
+            dd.shutdown()
+            dst.init(device=dev)
+        for key, want in plain.items():
+            check(torch.equal(job1[key], want), f"mesh: {key} under a "
+                  f"{backend} world of one differs from no process group")
+        check(comm1.get("broadcast", {}).get("calls", 0) == 4
+              and comm1.get("psum", {}).get("calls", 0) >= z["km_iters"],
+              f"the world of one ran no collective: {comm1}")
+        emit({"phase": "mesh_world_of_one", "backend": backend,
+              "bit_equal": sorted(plain), "collectives": comm1})
+        if dev.type == "cuda":
+            # two NCCL ranks on one card: initialize raises on both
+            pair = mesh_spawn(["--mesh-nccl-pair"], 2, work, 120)
+            for r, (rc, log) in enumerate(pair):
+                check(rc == 0, f"mesh: NCCL rank {r} of two on one card did "
+                      f"not raise as it should (exit {rc}):\n{log[-2000:]}")
+            emit({"phase": "mesh_nccl_two_ranks_one_card",
+                  "raised": [json.loads(next(
+                      ln for ln in log.splitlines()
+                      if ln.startswith('{"rank"')))["raised"]
+                      for _, log in pair]})
+        del job1, plain, a_h, b_h
+        # -- the one-rank results the ranks are held to ------------------------
+        X = dst.array(x_h)
+        km1 = dst.KMeans(n_clusters=z["km_k"], init=init, max_iter=1,
+                         tol=0.0).fit(X)
+        np.savez(os.path.join(work, "kmeans.npz"), centers=km.centers_,
+                 inertia=km.inertia_, centers1=km1.centers_,
+                 labels1=km1.predict(X).collect()[:, 0])
+        del km, km1, X, x_h
+        f_h, q_h = mesh_data("knn", z)
+        od, oi = dst.NearestNeighbors(n_neighbors=z["knn_k"] + 1).fit(
+            dst.array(f_h)).kneighbors(dst.array(q_h))
+        np.savez(os.path.join(work, "knn.npz"), dist=od.collect(),
+                 idx=oi.collect())
+        del od, oi, f_h, q_h
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        # -- 4 gloo ranks on this card ----------------------------------------
+        with open(os.path.join(work, "job.json"), "w") as f:
+            json.dump({"world": MESH_WORLD, "device": str(dev), "sizes": z,
+                       "timeout_s": MESH_RANK_S}, f)
+        t0 = time.perf_counter()
+        done = mesh_spawn(["--mesh-rank"], MESH_WORLD, work, MESH_RANK_S)
+        ranks_s = time.perf_counter() - t0
+        for r, (rc, log) in enumerate(done):
+            check(rc == 0, f"mesh: rank {r} failed (exit {rc}):\n"
+                  f"{log[-4000:]}")
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        if overlap is None:
+            del os.environ["DSLIB_OVERLAP"]
+        else:
+            os.environ["DSLIB_OVERLAP"] = overlap
+        shutil.rmtree(work, ignore_errors=True)
+    for name in ranks[0]["phases"]:
+        emit({"phase": f"mesh_{name}", "backend": MESH_BACKEND,
+              "card": card, "ranks": [{
+                  "rank": rr["rank"], **rr["phases"][name]} for rr in ranks]})
+    emit({"phase": "mesh_kernel_windows", "backend": MESH_BACKEND,
+          "card": card, "ranks": [{"rank": rr["rank"], **rr["windows"]}
+                                  for rr in ranks]})
+    # -- the kernels line's rows at the per-rank shapes (rank 0's windows) --
+    w0, shapes = ranks[0]["windows"], ranks[0]["shapes"]
+
+    def launches(phase, name):
+        return sum(rr["phases"][phase]["launches"][name] for rr in ranks)
+
+    entries = {}
+    h = shapes["summa_panel"][0]
+    for pol, ops, peak, basis in (
+            ("float32", 3 * 2.0 * h ** 3, PEAK_TF32_FLOPS,
+             "3xTF32: three 2n^3 TF32 tensor-core products at 495 TFLOP/s"),
+            ("bfloat16", 2.0 * h ** 3, PEAK_BF16_FLOPS,
+             "one 2n^3 bf16 tensor-core product at 989 TFLOP/s")):
+        bound_ms, bound_by = bound(ops, 3 * 4.0 * h * h, peak)
+        entries[f"panel_gemm/mesh_{pol}"] = {
+            "name": "panel_gemm", "at": "mesh (2, 2): SUMMA's panel on each "
+            "rank", "policy": pol, "route": "cuda",
+            "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+            "shape": shapes["summa_panel"],
+            "launches": launches(f"summa_{pol}", "panel_gemm"),
+            "launches_by_rank": [rr["phases"][f"summa_{pol}"]["launches"][
+                "panel_gemm"] for rr in ranks],
+            **w0[f"panel_gemm_{pol}_err"], **w0[f"panel_gemm_{pol}"],
+            "library_call": "torch.matmul (f32, TF32 off)" if pol ==
+            "float32" else "torch.mm(bf16, bf16, out_dtype=float32)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_basis": basis,
+            "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    m, k, d = shapes["kmeans"]
+    bound_ms, bound_by = dist_bound(m, k, d, 4.0 * (m * d + k * d + m * k))
+    entries["distances_sq/mesh_kmeans"] = {
+        "name": "distances_sq", "at": "mesh (4, 1): KMeans' E-step on each "
+        "rank's rows", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "shape": [m, k, d], "launches": launches("kmeans", "distances_sq"),
+        "launches_by_rank": [rr["phases"]["kmeans"]["launches"][
+            "distances_sq"] for rr in ranks],
+        **w0["distances_sq_err"], **w0["distances_sq"],
+        "library_call": "torch.cdist(a, b, compute_mode="
+                        "'use_mm_for_euclid_dist'), TF32 off (includes a "
+                        "square root)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": DIST_BOUND_BASIS,
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    mq, kq, nf = shapes["ring"]
+    bound_ms, bound_by = bound(3 * 2.0 * mq * nf * kq,
+                               4.0 * (mq * kq + kq * nf + mq * nf),
+                               PEAK_TF32_FLOPS)
+    entries["panel_gemm/mesh_ring"] = {
+        "name": "panel_gemm", "at": "mesh (4, 1): the ring's cross term a "
+        "hop", "policy": "float32", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+        "shape": shapes["ring"], "launches": launches("ring_knn",
+                                                      "panel_gemm"),
+        "launches_by_rank": [rr["phases"]["ring_knn"]["launches"][
+            "panel_gemm"] for rr in ranks],
+        **w0["panel_gemm_ring_err"], **w0["panel_gemm_ring"],
+        "library_call": "torch.mm (f32, TF32 off)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": "3xTF32 at 495 TFLOP/s against 4 bytes per element "
+                       "of q, f^T and the product",
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    for e in entries.values():
+        emit({"phase": "kernel", **e})
+    emit({"phase": "mesh_summary", "backend": MESH_BACKEND, "card": card,
+          "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase,
+          "nccl_world_above_one": "not run: one card, and NCCL takes one "
+                                  "rank per card"})
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4354,7 +4952,7 @@ def main() -> int:
     # -- (2) each kernel against its plain version on the card --------------------
     g = torch.Generator(device=dev).manual_seed(0)
     gemm_tol = px.ERROR_BOUNDS[("matmul", "float32")]
-    dist_tol = 1e-5
+    dist_tol = DIST_TOL
     for (m, k, n) in GEMM_RAGGED:
         a = torch.randn((m, k), generator=g, device=dev)
         b = torch.randn((k, n), generator=g, device=dev)
@@ -5238,7 +5836,11 @@ def main() -> int:
             "kernel's times are the serving entry's at the same shapes)",
             "launches": dep["children"][name]}
 
-    # -- (17) the kernels line, then the result ------------------------------
+    # -- (17) the mesh of ranks: NCCL at a world of one, 4 gloo ranks ------
+    torch.cuda.empty_cache()
+    kernels.update(mesh_phase(dev, smi))
+
+    # -- (18) the kernels line, then the result ------------------------------
     kernels["node_histogram"]["launches"] = launches_rf["node_histogram"]
     kernels["node_histogram/regressor"]["launches"] = \
         launches_rr["node_histogram"]
@@ -5259,4 +5861,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-nccl-pair"]:
+        sys.exit(mesh_nccl_pair(sys.argv[2:]))
     sys.exit(main())

@@ -164,7 +164,7 @@ def from_fitted_arrays(cls, arrays: dict, device=None, **params):
     loaded and saved again writes what was loaded."""
     from dislib_tpu_torch.parallel import mesh as _mesh
     dev = (_mesh.get_mesh() if device is None
-           else _mesh.make_mesh((1, 1), device)).device
+           else _mesh.local_mesh(device)).device
     est = cls(**params)
     est._carry_in(arrays, dev)
     for k, v in arrays.items():

@@ -50,6 +50,18 @@ take the rest from the same host buffer.  So an unchecked fit still
 makes one read, and a NaN in the data raises ``NumericalDivergence``
 (guard ``'nonfinite'``) instead of returning NaN centers.  ``fit_info_``
 is the loop's resilience summary.
+
+On a mesh of several ranks (the reference's ``_kmeans_fit``, its rows
+sharded and its columns replicated): the fit all-gathers each rank's row
+block over 'cols' once; the E-step runs ``distances_sq`` on the rank's
+rows; ONE packed ``psum`` over 'rows' a step carries (sums, counts,
+inertia), so the centers are the same on every rank, and so are the
+shift, the health vector and every decision taken from them; the loop's
+preemption flag is agreed across ranks (``distributed.any_rank``).
+``predict`` returns a row-sharded label array and ``score`` is a
+``psum``.  ``checkpoint=`` raises there, naming ROADMAP.md A.11 (snapshots
+of several ranks), as do the sparse fit (A.2c) and the search hooks
+(A.2b, through ``Array._data``).
 """
 
 from __future__ import annotations
@@ -60,11 +72,13 @@ import numpy as np
 import torch
 
 from dislib_tpu_torch.base import BaseEstimator
-from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.array import Array, _block_with
 from dislib_tpu_torch.data.sparse import SparseArray
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops.base import distances_sq as _distances_sq, precise
 from dislib_tpu_torch.ops.spmm import seg_sum, spmm_rows
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.elastic import fetch as _fetch, fetch_packed
@@ -142,7 +156,7 @@ class KMeans(BaseEstimator):
             rows = torch.from_numpy(x._csr()[np.sort(idx)].toarray().astype(
                 np.float32)).to(x.device)
         else:
-            rows = x[np.sort(idx), :]._data[: len(idx), : n]
+            rows = x[np.sort(idx), :]._gathered()[: len(idx), : n]
         if len(idx) < k:  # fewer samples than clusters: top up with jitter
             pick = torch.as_tensor(rng.randint(0, len(idx), k - len(idx)),
                                    device=rows.device)
@@ -159,6 +173,10 @@ class KMeans(BaseEstimator):
         watchdog and the preemption poll."""
         self._check_supported(x)
         sparse_in = isinstance(x, SparseArray)
+        if checkpoint is not None and x._mesh.world > 1:
+            raise NotImplementedError(
+                "KMeans(checkpoint=...) on a ds-array sharded over several "
+                "ranks: snapshots of a multi-rank fit are ROADMAP.md A.11")
         k, n = self.n_clusters, x.shape[1]
         box = {"x": x, "inertia": None}
         log = verbose_logger("kmeans", self.verbose)
@@ -166,7 +184,7 @@ class KMeans(BaseEstimator):
             "kmeans", checkpoint=checkpoint, health=health,
             max_iter=self.max_iter, carry_names=("centers",),
             carry_shapes=((k, n),), snapshot_expect={"centers": (k, n)},
-            elastic=_fitloop.data_rebind(box))
+            elastic=_fitloop.data_rebind(box), mesh=x._mesh)
 
         def init(rem):
             box["inertia"] = None
@@ -191,9 +209,10 @@ class KMeans(BaseEstimator):
                                          float(self.tol),
                                          read=loop.guard.read)
             else:
-                out = _kmeans_fit(xd._data, xd.shape, centers, chunk,
+                out = _kmeans_fit(xd._row_block(), xd.shape, centers, chunk,
                                   float(self.tol), fast=self._fast(),
-                                  read=loop.guard.read)
+                                  read=loop.guard.read, mesh=xd._mesh,
+                                  row0=xd._at[0])
             # the chunk's one read: results and health vector together
             pack = fetch_packed(*out)
 
@@ -273,7 +292,12 @@ class KMeans(BaseEstimator):
             d = _sparse_distances(x, self._centers_on(x))
             return Array._from_logical(
                 torch.argmin(d, dim=1).to(torch.int32)[:, None], x._mesh)
-        labels = _kmeans_predict(x._data, x.shape, self._centers_on(x))
+        labels = _kmeans_predict(x._row_block(), x.shape, self._centers_on(x),
+                                 x._at[0])
+        if x._mesh.world > 1:
+            return Array(_block_with(labels, (x._at[0], 0), (x.shape[0], 1),
+                                     x._mesh),
+                         (x.shape[0], 1), x._mesh)
         return Array._from_padded(labels, (x.shape[0], 1), x._mesh)
 
     def score(self, x: Array, y=None) -> float:
@@ -283,7 +307,9 @@ class KMeans(BaseEstimator):
         if isinstance(x, SparseArray):
             return -float(torch.sum(_sparse_distances(
                 x, self._centers_on(x)).amin(1)))
-        return float(_kmeans_score(x._data, x.shape, self._centers_on(x)))
+        return float(_dist.psum(
+            _kmeans_score(x._row_block(), x.shape, self._centers_on(x),
+                          x._at[0]), _mesh.ROWS, x._mesh))
 
     def _carry_in(self, arrays: dict, device):
         self.centers_ = np.array(arrays["centers_"], np.float32)
@@ -310,31 +336,36 @@ def _to_host(*tensors):
 # device kernels
 # ---------------------------------------------------------------------------
 
-def _crop(xp: torch.Tensor, shape):
+def _crop(xp: torch.Tensor, shape, row0=0):
     """Crop padded columns (the kernel takes contiguous rows) and weight
-    padded rows 0."""
+    padded rows 0; ``xp``'s first row is global row ``row0``."""
     m, n = shape
     xv = xp[:, :n]
     if not xv.is_contiguous():
         xv = xv.contiguous()
-    w = (torch.arange(xv.shape[0], device=xv.device) < m).to(xv.dtype)
+    w = (torch.arange(xv.shape[0], device=xv.device) < m - row0).to(xv.dtype)
     return xv, w
 
 
 @precise
-def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False, read=None):
+def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False, read=None,
+                mesh=None, row0=0):
     """Lloyd steps on the padded backing ``xp`` of logical ``shape`` from
     ``centers0`` until ``shift < tol`` or ``max_iter`` (the reference's
     ``cond``), in chunks of masked steps (:func:`run_chunked`).  ``fast``:
     the E-step on the bf16 copy of x stored here once, with ‖x‖² hoisted
     from the float32 x.  Returns ``(centers, n_iter, inertia, shift, hist,
     hvec)`` as device tensors — the reference's 6-tuple.  ``read``: the
-    loop's stop-flag read (``run_chunked``'s)."""
-    xv, w = _crop(xp, shape)
+    loop's stop-flag read (``run_chunked``'s).  On a ``mesh`` with a
+    process group ``xp`` is this rank's rows (the first is global row
+    ``row0``) and each step's (sums, counts, inertia) is one packed
+    ``psum`` over 'rows'."""
+    xv, w = _crop(xp, shape, row0)
+    ranks = mesh is not None and mesh.groups is not None
     if fast:
         x16 = _k.bf16_rows(xv)
         x_sq = torch.sum(xv * xv, dim=1)
-    k = centers0.shape[0]
+    k, n = centers0.shape
     dev, dt = xv.device, xv.dtype
     centers = centers0.to(device=dev, dtype=dt).contiguous()
     cluster_ids = torch.arange(k, device=dev)
@@ -352,11 +383,17 @@ def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False, read=None):
         onehot = (labels[:, None] == cluster_ids).to(dt) * w[:, None]
         sums = onehot.T @ xv                  # (k, n)
         counts = onehot.sum(dim=0)            # (k,)
+        step_inertia = torch.sum(min_d * w)
+        if ranks:
+            packed = _dist.psum(torch.cat([sums.reshape(-1), counts,
+                                           step_inertia.reshape(1)]),
+                                _mesh.ROWS, mesh)
+            sums = packed[: k * n].view(k, n)
+            counts, step_inertia = packed[k * n: k * n + k], packed[-1]
         new_centers = torch.where(
             counts[:, None] > 0,
             sums / torch.clamp_min(counts, 1.0)[:, None], centers)
         step_shift = torch.sum((new_centers - centers) ** 2)
-        step_inertia = torch.sum(min_d * w)
         centers = torch.where(active, new_centers, centers).contiguous()
         shift = torch.where(active, step_shift, shift)
         inertia = torch.where(active, step_inertia, inertia)
@@ -372,8 +409,8 @@ def _kmeans_fit(xp, shape, centers0, max_iter, tol, fast=False, read=None):
 
 
 @precise
-def _kmeans_predict(xp, shape, centers):
-    xv, w = _crop(xp, shape)
+def _kmeans_predict(xp, shape, centers, row0=0):
+    xv, w = _crop(xp, shape, row0)
     d = _distances_sq(xv, centers.to(xv.dtype).contiguous(), use_kernel=True)
     # labels stay int32; padded rows get label 0 (the Array invariant)
     labels = torch.argmin(d, dim=1).to(torch.int32) * w.to(torch.int32)
@@ -381,8 +418,8 @@ def _kmeans_predict(xp, shape, centers):
 
 
 @precise
-def _kmeans_score(xp, shape, centers):
-    xv, w = _crop(xp, shape)
+def _kmeans_score(xp, shape, centers, row0=0):
+    xv, w = _crop(xp, shape, row0)
     d = _distances_sq(xv, centers.to(xv.dtype).contiguous(), use_kernel=True)
     return -torch.sum(torch.min(d, dim=1).values * w)
 

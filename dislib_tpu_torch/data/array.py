@@ -1,14 +1,28 @@
 """The distributed array (ds-array) — the port's single data structure.
 
-Counterpart of ``dislib_tpu/data/array.py``, eager half.  The whole matrix
-is ONE torch tensor on the mesh's device.  The reference's irregular blocks
-become pad-and-mask metadata: ``_data`` is padded so every dimension is a
-multiple of the mesh pad quantum, and the region outside the logical
-``shape`` is ALWAYS ZERO, which keeps contractions exact with no masking;
-``min``/``max`` mask the pad and ``mean`` divides by the logical count.
-On this slice's ``(1, 1)`` mesh the quantum is 1, so nothing is padded, but
-the invariant is kept so the multi-GPU slice changes no caller.
-``block_size`` survives as a hint (``_reg_shape``) for API parity.
+Counterpart of ``dislib_tpu/data/array.py``, eager half.  The matrix is
+padded so every dimension is a multiple of the mesh pad quantum, and the
+region outside the logical ``shape`` is ALWAYS ZERO, which keeps
+contractions exact with no masking; ``min``/``max`` mask the pad and
+``mean`` divides by the logical count.  ``block_size`` survives as a hint
+(``_reg_shape``) for API parity.
+
+On a one-rank mesh the padded matrix is ONE torch tensor on the mesh's
+device.  On a mesh of R x C ranks (a ``torch.distributed`` job, see
+``parallel/distributed.py``) each rank holds its ``(M_pad/R, N_pad/C)``
+block of it — the reference's ``P(ROWS, COLS)`` placement — and the
+global logical shape.  Ported code reads the rank's block through
+``_local``; ``_data``, the whole padded tensor, exists only on a one-rank
+mesh and raises on a larger one, naming ROADMAP.md A.2b: every module not
+yet ported to the mesh reads ``_data``, so none of them computes on one
+rank's rows without knowing it.  Across ranks: the constructors place
+blocks (each rank takes its block of the same global input or draw),
+``collect`` all-gathers them, the elementwise ops of equal shapes and
+scalars stay local, the reductions reduce locally and then over the
+reduced mesh axis, and a row index gathers rows by one ``all_to_all``
+over 'rows' (:func:`_gather_rows`).  Everything else raises
+``NotImplementedError`` at world > 1, naming the ROADMAP.md item that
+ports it.
 
 Every op runs eagerly — what the reference does under ``DSLIB_EAGER=1``:
 ``is_lazy`` is always False, ``force()`` returns the array, and
@@ -31,6 +45,7 @@ from numbers import Number
 import numpy as np
 import torch
 
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["Array", "array", "random_array", "zeros", "full", "ones",
@@ -50,13 +65,17 @@ def _padded_shape(shape, quantum):
     return tuple(_padded_dim(int(s), quantum) for s in shape)
 
 
-def _zero_pad(data: torch.Tensor, logical_shape) -> torch.Tensor:
-    """Force the padding region to zero (the core Array invariant)."""
-    if tuple(data.shape) == tuple(logical_shape):
+def _zero_pad(data: torch.Tensor, logical_shape, at=(0, 0)) -> torch.Tensor:
+    """Force the padding region to zero (the core Array invariant).
+    ``at``: the global (row, col) of ``data[0, 0]`` when ``data`` is one
+    rank's block."""
+    rows = max(0, logical_shape[0] - at[0])
+    cols = max(0, logical_shape[1] - at[1])
+    if rows >= data.shape[0] and cols >= data.shape[1]:
         return data
     out = data.clone()
-    out[logical_shape[0]:, :] = 0
-    out[:, logical_shape[1]:] = 0
+    out[rows:, :] = 0
+    out[:, cols:] = 0
     return out
 
 
@@ -68,10 +87,11 @@ def _place(data: torch.Tensor, padded_shape, logical_shape) -> torch.Tensor:
     return out
 
 
-def _pad_mask(padded_shape, logical_shape, device) -> torch.Tensor:
-    """Boolean mask: True inside the logical region."""
-    r = torch.arange(padded_shape[0], device=device) < logical_shape[0]
-    c = torch.arange(padded_shape[1], device=device) < logical_shape[1]
+def _pad_mask(padded_shape, logical_shape, device, at=(0, 0)) -> torch.Tensor:
+    """Boolean mask: True inside the logical region (``at`` as in
+    :func:`_zero_pad`)."""
+    r = torch.arange(padded_shape[0], device=device) < logical_shape[0] - at[0]
+    c = torch.arange(padded_shape[1], device=device) < logical_shape[1] - at[1]
     return r[:, None] & c[None, :]
 
 
@@ -94,6 +114,101 @@ def _place_region(v: torch.Tensor, pshape) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# blocks on a mesh of several ranks
+# ---------------------------------------------------------------------------
+
+def _block_geom(shape, mesh):
+    """(row0, col0, rows, cols) of this rank's block of a ds-array of
+    logical ``shape`` on ``mesh``: the global offset and the extent."""
+    pm, pn = _padded_shape(shape, _mesh.pad_quantum(mesh))
+    r, c = mesh.coord
+    ml, nl = pm // mesh.rows, pn // mesh.cols
+    return r * ml, c * nl, ml, nl
+
+
+def _block_with(vals: torch.Tensor, at, shape, mesh) -> torch.Tensor:
+    """This rank's block of the ds-array of logical ``shape`` that is zero
+    except ``vals`` at global offset ``at`` (cut to the logical region)."""
+    r0, c0, ml, nl = _block_geom(shape, mesh)
+    out = torch.zeros((ml, nl), dtype=vals.dtype, device=mesh.device)
+    i0, j0 = at
+    a = max(i0, r0)
+    b = min(i0 + vals.shape[0], r0 + ml, shape[0])
+    lo = max(j0, c0)
+    hi = min(j0 + vals.shape[1], c0 + nl, shape[1])
+    if a < b and lo < hi:
+        out[a - r0: b - r0, lo - c0: hi - c0] = \
+            vals[a - i0: b - i0, lo - j0: hi - j0]
+    return out
+
+
+def _sharded(mesh) -> bool:
+    return mesh.world > 1
+
+
+def _guard(what, item="A.11"):
+    return NotImplementedError(
+        f"{what} of a ds-array sharded over several ranks is not ported "
+        f"yet (ROADMAP.md {item})")
+
+
+def _routing(src, m_in_loc, m_out_loc, p):
+    """Host routing plan of ``out[i] = x[src[i]]`` between contiguous row
+    shards, ``m_in_loc`` rows a shard of ``x`` and ``m_out_loc`` of
+    ``out`` (the reference's ``utils/base._routing``, which has one
+    height for both).  Returns (send_idx, dst_idx), both (p, p, cap)
+    int64: ``send_idx[s, d, c]`` the local row of ``x`` that shard s
+    sends as its c-th row to shard d (padding slots repeat row 0);
+    ``dst_idx[d, s, c]`` the local row of ``out`` it lands on (padding
+    slots hold ``m_out_loc``, a sink row that is cut off)."""
+    src = np.asarray(src, np.int64)
+    m = len(src)
+    i = np.arange(m)
+    s_shard = src // m_in_loc
+    d_shard = i // m_out_loc
+    order = np.lexsort((i, d_shard, s_shard))   # by (s, d), stable in i
+    s_sorted, d_sorted = s_shard[order], d_shard[order]
+    counts = np.zeros((p, p), np.int64)
+    np.add.at(counts, (s_sorted, d_sorted), 1)
+    cap = max(1, int(counts.max()))
+    send_idx = np.zeros((p, p, cap), np.int64)
+    dst_idx = np.full((p, p, cap), m_out_loc, np.int64)
+    flat = s_sorted * p + d_sorted
+    starts = np.concatenate([[0], np.cumsum(
+        np.bincount(flat, minlength=p * p))[:-1]])
+    slot = np.arange(m) - starts[flat]
+    send_idx[s_sorted, d_sorted, slot] = src[order] % m_in_loc
+    dst_idx[d_sorted, s_sorted, slot] = i[order] % m_out_loc
+    return send_idx, dst_idx
+
+
+def _gather_rows(x: "Array", src, plan=None):
+    """``x[src, :]`` on a sharded ``x``: every rank gathers the rows it
+    sends, ONE ``all_to_all`` over 'rows' moves them, every rank scatters
+    what it receives into its block (the reference's shuffle exchange).
+    Returns (Array, plan); a ``plan`` from an earlier call of the same
+    ``src`` on an array of the same height is reused."""
+    mesh = x._mesh
+    p = mesh.rows
+    out_shape = (len(src), x._shape[1])
+    m_in_loc = x._local.shape[0]
+    m_out_loc = _block_geom(out_shape, mesh)[2]
+    if plan is None:
+        send_idx, dst_idx = _routing(src, m_in_loc, m_out_loc, p)
+        plan = (torch.from_numpy(send_idx).to(mesh.device),
+                torch.from_numpy(dst_idx).to(mesh.device))
+    r = mesh.coord[0]
+    send_idx, dst_idx = plan[0][r], plan[1][r]
+    local = x._local
+    recv = _dist.all_to_all(local[send_idx], "rows", mesh)  # (p, cap, nl)
+    out = torch.zeros((m_out_loc + 1, local.shape[1]), dtype=local.dtype,
+                      device=local.device)
+    out[dst_idx.reshape(-1)] = recv.reshape(-1, local.shape[1])
+    arr = Array(out[:m_out_loc], out_shape, mesh, sparse=x._sparse)
+    return arr, plan
+
+
 def _default_block_size(shape, mesh):
     r, c = _mesh.mesh_shape(mesh)
     return (max(1, -(-shape[0] // r)), max(1, -(-shape[1] // c)))
@@ -103,13 +218,14 @@ class Array:
     """A 2-D matrix on the device mesh.
 
     Users build Arrays with :func:`array` or :func:`zeros`, or as results
-    of library operations.  ``data`` is the padded backing (zero outside
-    the logical ``shape``); ``mesh`` is the mesh it lives on.
+    of library operations.  ``data`` is this rank's block of the padded
+    backing (zero outside the logical ``shape``) — the whole backing on a
+    one-rank mesh; ``mesh`` is the mesh it lives on.
     """
 
     def __init__(self, data: torch.Tensor, shape, mesh, reg_shape=None,
                  sparse=False):
-        self._data = data
+        self._local = data
         self._sparse = bool(sparse)
         self._mesh = mesh
         self._shape = (int(shape[0]), int(shape[1]))
@@ -123,6 +239,9 @@ class Array:
         """Wrap a logically shaped (unpadded) tensor, placing it on the
         mesh's device and padding it to the mesh quantum."""
         shape = tuple(data.shape)
+        if _sharded(mesh):
+            return cls(_block_with(data.to(mesh.device), (0, 0), shape, mesh),
+                       shape, mesh, reg_shape=reg_shape)
         data = data.to(mesh.device)
         pshape = _padded_shape(shape, _mesh.pad_quantum(mesh))
         if shape != pshape:
@@ -153,16 +272,55 @@ class Array:
         return self._shape
 
     @property
+    def _data(self) -> torch.Tensor:
+        """The whole padded backing — on a one-rank mesh only.  A module
+        not yet ported to the mesh reads this, so on a mesh of several
+        ranks it raises instead of computing on one rank's block."""
+        if _sharded(self._mesh):
+            raise NotImplementedError(
+                "this operation reads the whole ds-array and the array is "
+                f"sharded over a {(self._mesh.rows, self._mesh.cols)} mesh "
+                "of ranks; only the ds-array, matmul, KMeans, the ring kNN "
+                "and the shuffle run across ranks so far (ROADMAP.md A.2b "
+                "ports the other estimators, A.2c the sparse tier)")
+        return self._local
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self._data.dtype
+        return self._local.dtype
 
     @property
     def device(self) -> torch.device:
-        return self._data.device
+        return self._local.device
 
     @property
     def _pshape(self) -> tuple[int, int]:
-        return tuple(self._data.shape)
+        if _sharded(self._mesh):
+            return _padded_shape(self._shape, _mesh.pad_quantum(self._mesh))
+        return tuple(self._local.shape)
+
+    @property
+    def _at(self) -> tuple[int, int]:
+        """The global (row, col) of this rank's block's first element."""
+        if not _sharded(self._mesh):
+            return (0, 0)
+        return _block_geom(self._shape, self._mesh)[:2]
+
+    def _gathered(self) -> torch.Tensor:
+        """The whole padded backing on every rank: the blocks all-gathered
+        over 'cols', then over 'rows' (the backing itself on one rank)."""
+        if not _sharded(self._mesh):
+            return self._local
+        t = _dist.all_gather(self._local, _mesh.COLS, 1, self._mesh)
+        return _dist.all_gather(t, _mesh.ROWS, 0, self._mesh)
+
+    def _row_block(self) -> torch.Tensor:
+        """This rank's rows with every column: its block all-gathered over
+        'cols' (the reference's ``row_sharding`` constraint); the first
+        row is global row ``_at[0]``."""
+        if not _sharded(self._mesh):
+            return self._local
+        return _dist.all_gather(self._local, _mesh.COLS, 1, self._mesh)
 
     @property
     def _n_blocks(self) -> tuple[int, int]:
@@ -195,13 +353,15 @@ class Array:
         """Wait until the device work queued before this call (on the
         current stream, which produced this array) is done, and return
         self: a sync, not a read."""
-        if self._data.device.type == "cuda":
-            torch.cuda.current_stream(self._data.device).synchronize()
+        if self._local.device.type == "cuda":
+            torch.cuda.current_stream(self._local.device).synchronize()
         return self
 
     def collect(self) -> np.ndarray:
-        """Materialise the logical region on the host as a NumPy array."""
-        out = self._data[: self._shape[0], : self._shape[1]]
+        """Materialise the logical region on the host as a NumPy array
+        (on every rank, from the all-gathered blocks, on a mesh of
+        several ranks)."""
+        out = self._gathered()[: self._shape[0], : self._shape[1]]
         if out.dtype == torch.bfloat16:       # numpy has no bfloat16
             out = out.to(torch.float32)
         out = out.cpu().numpy()
@@ -215,7 +375,7 @@ class Array:
         if self._shape != (1, 1):
             raise TypeError(
                 f"only a (1, 1) ds-array converts to float, got {self._shape}")
-        return float(self._data[0, 0].item())
+        return float(self._gathered()[0, 0].item())
 
     # -- layout ----------------------------------------------------------------
 
@@ -224,14 +384,16 @@ class Array:
         return rechunk(self, block_size)
 
     def astype(self, dtype) -> "Array":
-        return Array(self._data.to(_torch_dtype(dtype)), self._shape,
+        return Array(self._local.to(_torch_dtype(dtype)), self._shape,
                      self._mesh, self._reg_shape, self._sparse)
 
     def copy(self) -> "Array":
-        return Array(self._data.clone(), self._shape, self._mesh,
+        return Array(self._local.clone(), self._shape, self._mesh,
                      self._reg_shape, self._sparse)
 
     def transpose(self) -> "Array":
+        if _sharded(self._mesh):
+            raise _guard("transpose")
         shape = (self._shape[1], self._shape[0])
         reg = (self._reg_shape[1], self._reg_shape[0])
         return Array(self._data.T.contiguous(), shape, self._mesh, reg,
@@ -250,6 +412,12 @@ class Array:
         rows, cols = _split_key(key)
         r_idx, r_len = _normalize_index(rows, self._shape[0])
         c_idx, c_len = _normalize_index(cols, self._shape[1])
+        if _sharded(self._mesh):
+            if c_idx != slice(0, self._shape[1], 1):
+                raise _guard("column indexing")
+            src = np.arange(self._shape[0])[r_idx] \
+                if isinstance(r_idx, slice) else r_idx
+            return _gather_rows(self, src)[0]
         data = self._data
         data = data[r_idx, :] if isinstance(r_idx, slice) else \
             data[torch.as_tensor(r_idx, device=data.device), :]
@@ -282,12 +450,23 @@ class Array:
                 raise ValueError(f"operands live on different devices: "
                                  f"{self.device} vs {other.device}")
             out_shape = _broadcast_shape(self._shape, other._shape)
+            if _sharded(self._mesh) or _sharded(other._mesh):
+                if other._mesh != self._mesh:
+                    raise ValueError("operands live on different meshes")
+                if other._shape != self._shape:
+                    raise _guard("a broadcast elementwise op", "A.2b")
+                # 0/0 and 0**0 would leave the pad non-zero: re-zero it
+                return Array(_zero_pad(_BINOPS[op](self._local, other._local),
+                                       self._shape, self._at),
+                             self._shape, self._mesh, self._reg_shape,
+                             self._sparse and other._sparse)
             data = _ew_array_body(self._data, other._data, self._shape,
                                   other._shape, op)
             return Array(data, out_shape, self._mesh, self._reg_shape,
                          self._sparse and other._sparse)
         scalar = float(other) if not isinstance(other, bool) else other
-        data = _ew_scalar_body(self._data, scalar, self._shape, op)
+        data = _ew_scalar_body(self._local, scalar, self._shape, op,
+                               self._at)
         # the ops that map zero to zero keep the sparse flag (exp does not)
         preserves = op != "exp_" and (
             op in ("mul", "div", "pow", "abs_", "sqrt_")
@@ -330,9 +509,34 @@ class Array:
             shape = (1, self._shape[1])
         else:
             shape = (self._shape[0], 1)
+        if _sharded(self._mesh):
+            return self._reduce_sharded(kind, axis, shape)
         data = _reduce_body(self._data, self._shape, kind, axis)
         return Array._from_logical_padded(_repad(data, shape, self._mesh),
                                           shape, self._mesh)
+
+    def _reduce_sharded(self, kind, axis, shape) -> "Array":
+        """The block's masked reduction, then ``psum``/``pmin``/``pmax``
+        over the reduced mesh axis; the result lands in the blocks of
+        the ranks that hold its logical region."""
+        a, at = self._local, self._at
+        over = {0: _mesh.ROWS, 1: _mesh.COLS, None: _dist.ALL}[axis]
+        red = _reduce_body(a, self._shape, "sum" if kind == "mean" else kind,
+                           axis, at, finish=False)
+        if kind in ("sum", "norm", "mean"):
+            red = _dist.psum(red, over, self._mesh)
+        else:
+            red = (_dist.pmin if kind == "min" else _dist.pmax)(
+                red, over, self._mesh)
+        if kind == "mean":
+            red = red / (self._shape[axis] if axis is not None
+                         else self._shape[0] * self._shape[1])
+        if kind == "norm":
+            red = torch.sqrt(red)
+        out_at = (0, at[1]) if axis == 0 else (at[0], 0) if axis == 1 \
+            else (0, 0)
+        return Array(_block_with(red, out_at, shape, self._mesh), shape,
+                     self._mesh)
 
     def sum(self, axis=0):  return self._reduce("sum", axis)
     def mean(self, axis=0): return self._reduce("mean", axis)
@@ -347,6 +551,8 @@ class Array:
     def iterator(self, axis=0):
         """Yield row-block (axis=0) or col-block (axis=1) sub-arrays, one
         per ``block_size`` stripe (reference ``Array.iterator``)."""
+        if _sharded(self._mesh):
+            raise _guard("iterator", "A.2b")
         n = self._shape[axis]
         step = self._reg_shape[axis]
         m, c = self._shape
@@ -399,17 +605,20 @@ def _ew_array_body(a, b, a_shape, b_shape, op):
                                max(a.shape[1], b.shape[1])))
 
 
-def _ew_scalar_body(a, scalar, shape, op):
+def _ew_scalar_body(a, scalar, shape, op, at=(0, 0)):
     """The scalar is cast to the array's dtype first, as in the reference;
     the padding is re-zeroed after (``0/0`` and ``x + c`` leave it
     non-zero)."""
     out = _BINOPS[op](a, torch.as_tensor(scalar, dtype=a.dtype,
                                          device=a.device))
-    return _zero_pad(out, shape)
+    return _zero_pad(out, shape, at)
 
 
-def _reduce_body(a, shape, kind, axis):
-    mask = _pad_mask(a.shape, shape, a.device)
+def _reduce_body(a, shape, kind, axis, at=(0, 0), finish=True):
+    """The masked reduction of ``a`` (a block at ``at``).  ``finish=False``
+    stops before ``norm``'s square root and ``mean``'s division: the
+    caller sums the blocks' partials first."""
+    mask = _pad_mask(a.shape, shape, a.device, at)
     if kind in ("sum", "norm", "mean"):
         x = torch.where(mask, a, torch.zeros((), dtype=a.dtype,
                                              device=a.device))
@@ -417,6 +626,8 @@ def _reduce_body(a, shape, kind, axis):
             x = x * x
         red = x.sum(dim=axis, keepdim=True, dtype=x.dtype) \
             if axis is not None else x.sum(dtype=x.dtype).reshape(1, 1)
+        if not finish:
+            return red
         if kind == "mean":
             red = red / (shape[axis] if axis is not None
                          else shape[0] * shape[1])
@@ -481,10 +692,9 @@ def _normalize_index(idx, dim):
 # ---------------------------------------------------------------------------
 
 def _mesh_for(device):
-    """The default mesh, or a one-device mesh on an explicitly requested
-    device (``device="cpu"`` runs the plain versions)."""
-    return _mesh.get_mesh() if device is None else _mesh.make_mesh(
-        (1, 1), device)
+    """The default mesh, or a one-rank mesh on an explicitly requested
+    device (``device="cpu"`` runs the plain versions), in any job."""
+    return _mesh.get_mesh() if device is None else _mesh.local_mesh(device)
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -553,30 +763,40 @@ def zeros(shape, block_size=None, dtype=torch.float32, device=None) -> Array:
     """All-zeros ds-array."""
     mesh = _mesh_for(device)
     shape = (int(shape[0]), int(shape[1]))
-    pshape = _padded_shape(shape, _mesh.pad_quantum(mesh))
+    pshape = _local_pshape(shape, mesh)
     data = torch.zeros(pshape, dtype=_torch_dtype(dtype), device=mesh.device)
     return Array(data, shape, mesh, reg_shape=block_size)
+
+
+def _local_pshape(shape, mesh):
+    """The shape of this rank's block (the padded shape on one rank)."""
+    return _block_geom(shape, mesh)[2:]
 
 
 def random_array(shape, block_size=None, random_state=None,
                  dtype=torch.float32, device=None) -> Array:
     """Uniform [0, 1) ds-array, deterministic per seed (seeded for the
-    whole array, as in the reference)."""
+    whole array, as in the reference): its logical values do not depend
+    on the mesh; on a mesh of several ranks each rank draws the whole
+    array and keeps its block."""
     mesh = _mesh_for(device)
     shape = (int(shape[0]), int(shape[1]))
     pshape = _padded_shape(shape, _mesh.pad_quantum(mesh))
     data = _random_uniform(_seed_from(random_state), pshape, shape,
                            _torch_dtype(dtype), mesh.device)
+    if _sharded(mesh):
+        data = _block_with(data, (0, 0), shape, mesh)
     return Array(data, shape, mesh, reg_shape=block_size)
 
 
 def _random_uniform(seed, pshape, shape, dtype, device) -> torch.Tensor:
-    """The ds-array's one uniform draw.  It draws from a
-    ``torch.Generator`` seeded with ``seed``: the same seed gives the same
-    array in this package, not the reference's (threefry) draw."""
+    """The ds-array's one uniform draw, at the logical ``shape``, placed on
+    a zero canvas of ``pshape``.  It draws from a ``torch.Generator``
+    seeded with ``seed``: the same seed gives the same array in this
+    package, not the reference's (threefry) draw."""
     g = torch.Generator(device=device).manual_seed(int(seed))
-    vals = torch.rand(pshape, generator=g, dtype=dtype, device=device)
-    return _zero_pad(vals, shape)
+    vals = torch.rand(shape, generator=g, dtype=dtype, device=device)
+    return _place_region(vals, pshape)
 
 
 def _seed_from(random_state):
@@ -594,10 +814,10 @@ def full(shape, fill_value, block_size=None, dtype=torch.float32,
     """Constant-filled ds-array."""
     mesh = _mesh_for(device)
     shape = (int(shape[0]), int(shape[1]))
-    pshape = _padded_shape(shape, _mesh.pad_quantum(mesh))
-    data = torch.full(pshape, float(fill_value), dtype=_torch_dtype(dtype),
-                      device=mesh.device)
-    return Array(_zero_pad(data, shape), shape, mesh, reg_shape=block_size)
+    data = torch.full(_local_pshape(shape, mesh), float(fill_value),
+                      dtype=_torch_dtype(dtype), device=mesh.device)
+    return Array(_zero_pad(data, shape, _block_geom(shape, mesh)[:2]), shape,
+                 mesh, reg_shape=block_size)
 
 
 def ones(shape, block_size=None, dtype=torch.float32, device=None) -> Array:
@@ -616,10 +836,13 @@ def eye(n, m=None, block_size=None, dtype=torch.float32,
     m = n if m is None else m
     mesh = _mesh_for(device)
     shape = (int(n), int(m))
-    pshape = _padded_shape(shape, _mesh.pad_quantum(mesh))
-    data = torch.zeros(pshape, dtype=_torch_dtype(dtype), device=mesh.device)
-    diag = torch.arange(min(shape), device=mesh.device)
-    data[diag, diag] = 1
+    r0, c0, ml, nl = _block_geom(shape, mesh)
+    data = torch.zeros((ml, nl), dtype=_torch_dtype(dtype),
+                       device=mesh.device)
+    # the diagonal entries that fall in this rank's block
+    diag = torch.arange(max(r0, c0), min(r0 + ml, c0 + nl, min(shape)),
+                        device=mesh.device)
+    data[diag - r0, diag - c0] = 1
     return Array(data, shape, mesh, reg_shape=block_size)
 
 
@@ -655,6 +878,10 @@ def rechunk(x: Array, new_blocks=None, mesh=None, *, schedule="auto",
     reg = _check_block_size(x._shape, new_blocks) if new_blocks is not None \
         else x._reg_shape
     target = mesh if mesh is not None else _mesh.get_mesh()
+    if _sharded(x._mesh) or _sharded(target):
+        if target is x._mesh and schedule == "auto":
+            return Array(x._local, x._shape, target, reg, x._sparse)
+        raise _guard("a re-layout")
     out_pshape = _padded_shape(x._shape, _mesh.pad_quantum(target))
     data = x._data
     if schedule == "auto" and data.device == target.device \
@@ -668,6 +895,8 @@ def ensure_canonical(x: Array) -> Array:
     """``x`` unchanged when its backing is on the default mesh's device at
     its pad quantum; otherwise :func:`rechunk` onto that mesh."""
     mesh = _mesh.get_mesh()
+    if x._mesh is mesh and _sharded(mesh):
+        return x
     pshape = _padded_shape(x._shape, _mesh.pad_quantum(mesh))
     if tuple(x._data.shape) == pshape and x.device == mesh.device:
         return x

@@ -332,6 +332,11 @@ class SparseArray:
     :meth:`from_dense`."""
 
     def __init__(self, rows, cols, vals, shape, mesh, reg_shape=None):
+        if mesh.world > 1:
+            raise NotImplementedError(
+                "a SparseArray over a mesh of several ranks: the sparse "
+                "tier across ranks is ROADMAP.md A.2c (densify with "
+                "to_dense, or pass device= for a one-rank array)")
         self._rows, self._cols, self._vals = rows, cols, vals
         self._shape = (int(shape[0]), int(shape[1]))
         self._mesh = mesh

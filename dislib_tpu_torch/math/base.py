@@ -11,6 +11,11 @@ two dense schedules:
   ``DSLIB_OVERLAP`` schedule; ``kernel``/``pallas`` runs its panel GEMM on
   the hand CUDA kernel.
 
+On a mesh of several ranks ``auto`` keeps the reference's rule (SUMMA on
+a 2-D mesh at ``_summa_min_dim`` and above) and ``xla`` multiplies this
+rank's rows of A by its columns of B, each all-gathered once
+(:func:`_matmul_ranks`, the one place of that rule).
+
 ``kron`` builds its output from the index lattice; ``svd`` is the
 reference's one-sided Jacobi in both tiers (scalar Givens pairs below two
 column blocks, column-block pairs above), its sweeps driven from the host
@@ -36,6 +41,7 @@ from dislib_tpu_torch.data.array import Array, _padded_shape
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.ops.summa import summa_matmul, summa_supported
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.utils.profiling import host_read
 
@@ -102,6 +108,9 @@ def matmul(a: Array, b: Array, transpose_a: bool = False,
            b._reg_shape[0] if transpose_b else b._reg_shape[1])
     algo = _pick_algorithm(algorithm, a, b, a_shape, b_shape, transpose_a,
                            transpose_b)
+    if a._mesh.world > 1 or b._mesh.world > 1:
+        return _matmul_ranks(a, b, transpose_a or transpose_b, algo, policy,
+                             out_shape, reg)
     if algo == "summa":
         return _matmul_summa(a, b, transpose_a, transpose_b, policy,
                              out_shape, reg)
@@ -166,6 +175,29 @@ def _matmul_summa(a, b, transpose_a, transpose_b, policy, out_shape, reg):
     ad, bd = _match_inner(a._data, b._data, False, False)
     out = summa_matmul(ad, bd, a._mesh, policy, overlap=_ov.resolve())
     return Array(_crop_or_keep(out, out_shape), out_shape, a._mesh, reg)
+
+
+def _matmul_ranks(a, b, transposed, algo, policy, out_shape, reg):
+    """The product of two ds-arrays sharded over one mesh of several
+    ranks, into this rank's block of C.  ``summa``: the panel schedule.
+    ``xla``: this rank's rows of A (its block all-gathered over 'cols')
+    times its columns of B (all-gathered over 'rows') — what GSPMD plans
+    for the reference's sharded dot; on a one-column mesh only B
+    moves."""
+    mesh = a._mesh
+    if b._mesh != mesh:
+        raise ValueError("matmul operands live on different meshes")
+    if transposed:
+        raise NotImplementedError(
+            "a transposed matmul of ds-arrays sharded over several ranks "
+            "needs the transpose's exchange (ROADMAP.md A.11)")
+    if algo == "summa":
+        out = summa_matmul(a._local, b._local, mesh, policy,
+                           overlap=_ov.resolve())
+    else:
+        out = px.pdot(a._row_block(),
+                      _dist.all_gather(b._local, _mesh.ROWS, 0, mesh), policy)
+    return Array(out, out_shape, mesh, reg)
 
 
 def _match_inner(ad, bd, transpose_a, transpose_b):

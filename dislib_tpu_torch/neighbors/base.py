@@ -15,10 +15,13 @@ version.  Ties go to the lower fit index, as the reference's
 
 ``ring``: the reference takes the ring schedule of ``ops/ring.py`` only on
 a mesh of more than one row (``ring_kneighbors`` is not inner-tiled; with
-one row it would materialise the whole (mq, mf) block).  The port's mesh
-has one row until ROADMAP.md A.2, so every setting takes the path above;
-``ring=True`` says so in a warning.  The ring stays reachable by a direct
-call.
+one row it would materialise the whole (mq, mf) block).  On a mesh of
+several ranks (a ``torch.distributed`` job) the port routes as the
+reference does: ``ring_auto`` with a fit set of ``_RING_MIN`` rows or
+more on a mesh of more than one row takes the ring; otherwise the fit
+set is all-gathered and each rank runs the chunked path above on its own
+query rows.  On a one-row mesh ``ring=True`` says in a warning that the
+chunked path runs.
 
 Sparse fit sets and queries (the reference's ``_kneighbors_sparse`` and
 ``_stream_topk``) never densify a whole matrix: the fit set streams as
@@ -31,8 +34,8 @@ dense queries (outside any kernel, as in the reference) and
 ``ops/spmm.spmm_rows`` against the window's transpose for sparse
 queries.  The running merge is ``ops/base.merge_smallest``, ties to the
 lower index.  The reference's ``shard_map`` variants exist only for a
-mesh of more than one row (ROADMAP.md A.2); on one rank a sharded-backed
-query takes the same stream.
+mesh of more than one row; on one rank a sharded-backed query takes the
+same stream.  A ``SparseArray`` across ranks is ROADMAP.md A.2c.
 """
 
 from __future__ import annotations
@@ -42,15 +45,22 @@ import warnings
 import torch
 
 from dislib_tpu_torch.base import BaseEstimator, carried_array
-from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.array import Array, _block_with
 from dislib_tpu_torch.data.sparse import SparseArray, check_input
+from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops.base import distances_sq, merge_smallest, \
     precise, split_keys
+from dislib_tpu_torch.ops.ring import ring_auto, ring_kneighbors
 from dislib_tpu_torch.ops.spmm import seg_sum, spmm_rows
+from dislib_tpu_torch.parallel import mesh as _mesh
+from dislib_tpu_torch.utils import profiling as _prof
 
 # fitted-row chunk of the streaming path; fit sets up to 2×_CHUNK rows
 # take the direct path (module-level so tests can shrink it)
 _CHUNK = 4096
+
+# fit-set size at which a mesh of more than one row routes to the ring
+_RING_MIN = 1 << 16
 
 
 class NearestNeighbors(BaseEstimator):
@@ -81,6 +91,9 @@ class NearestNeighbors(BaseEstimator):
         if not 1 <= k <= f.shape[0]:
             raise ValueError(f"n_neighbors {k} not in [1, {f.shape[0]}]")
         check_input(x, "NearestNeighbors.kneighbors")
+        if x._mesh.world > 1:
+            return _kneighbors_ranks(x, f, k, getattr(self, "ring", None),
+                                     return_distance)
         if self.ring:
             warnings.warn("NearestNeighbors(ring=True): the ring schedule "
                           "needs a mesh of more than one row (ROADMAP.md "
@@ -99,6 +112,36 @@ class NearestNeighbors(BaseEstimator):
 
     def _carry_in(self, arrays: dict, device):
         self._fit_data = carried_array(arrays["_fit_data"], device)
+
+
+def _kneighbors_ranks(x, f, k, ring, return_distance):
+    """``kneighbors`` of a query array sharded over several ranks: the
+    ring at ``_RING_MIN`` fit rows and more on a mesh of more than one
+    row (or as ``ring`` forces it there), else the fit set all-gathered
+    and the chunked path on this rank's query rows.  The results are
+    row-sharded like the queries."""
+    mesh = x._mesh
+    if f._mesh != mesh:
+        raise ValueError("kneighbors: the queries and the fit set live on "
+                         "different meshes")
+    row0 = x._at[0]
+    mq_loc = max(0, min(x._local.shape[0], x.shape[0] - row0))
+    if ring_auto(ring, mesh, f.shape[0] >= _RING_MIN) \
+            and mesh.shape[_mesh.ROWS] > 1:
+        sched = _ov.resolve()
+        _prof.count_schedule("ring_kneighbors", sched)
+        d2, idx = ring_kneighbors(x._local.float(), f._local.float(), mesh,
+                                  k, f.shape[0], overlap=sched)
+        d, idx = _finish(d2, idx, mq_loc)
+    else:
+        d, idx = _kneighbors(x._row_block(), f._gathered(),
+                             (mq_loc, x.shape[1]), f.shape, k, chunk=_CHUNK)
+    shape = (x.shape[0], k)
+    i_arr = Array(_block_with(idx, (row0, 0), shape, mesh), shape, mesh)
+    if return_distance:
+        return Array(_block_with(d, (row0, 0), shape, mesh), shape,
+                     mesh), i_arr
+    return i_arr
 
 
 def _finish(d2, idx, mq):

@@ -3,9 +3,12 @@
 Counterpart of ``dislib_tpu/ops/overlap.py``.  :func:`panel_pipeline` is the
 ONE implementation of the panel loop every collective schedule runs: a
 prologue fetch, a body, an epilogue drain.  Here it is a Python loop over
-eager tensor ops; the multi-GPU slice makes ``fetch`` an NCCL broadcast
-and the double-buffered order then lets it run under the previous panel's
-GEMM.
+eager tensor ops.  On a mesh of several ranks a fetch returns its panel
+in flight (``parallel/distributed.Pending``: a collective's work handle
+and its buffer) and ``consume`` waits on it through :func:`landed` before
+it reads it; under ``db`` the fetch of panel t+1 is issued before panel t
+is consumed.  With NCCL the wait orders the current stream and not the
+host, so the transfer runs under the previous panel's GEMM.
 
 Routing (``DSLIB_OVERLAP``): ``db`` (default) = double-buffered, ``seq`` =
 sequential-phase, ``kernel`` = double-buffered with the panel GEMM on the
@@ -22,6 +25,8 @@ per-level snapshot reads).
 from __future__ import annotations
 
 import os
+
+from dislib_tpu_torch.parallel.distributed import Pending
 
 SCHEDULES = ("db", "seq", "kernel")
 
@@ -87,6 +92,12 @@ def panel_pipeline(steps, pan0, fetch, consume, acc0, overlap):
         pan = fetch(t, pan)                # fetch ...
         acc = consume(t, acc, pan)         # ... THEN compute
     return acc
+
+
+def landed(pan):
+    """The panel ``pan`` (a tuple) with each in-flight part waited on:
+    what a ``consume`` reads."""
+    return tuple(p.wait() if isinstance(p, Pending) else p for p in pan)
 
 
 def host_pipeline(steps, fetch, consume, overlap=True):

@@ -4,12 +4,18 @@ Counterpart of ``ring_auto``, ``ring_kneighbors`` and
 ``ring_neigh_count_min`` in ``dislib_tpu/ops/ring.py``.  The reference keeps each query shard resident
 and rotates the fitted shards around the 'rows' axis with ``ppermute``,
 folding each visiting shard into a running top-k, through
-``ops/overlap.panel_pipeline``.  The port runs the same schedule on one
-rank, a ``(1, 1)`` mesh: the fetch is the identity (the one panel is
-already home; the ``ppermute`` hop over NCCL is ROADMAP.md A.2) and the
-loop takes one step, so the single step materialises the whole
-(mq, mf) distance block — the reason ``neighbors/base.py`` routes here
-only on a mesh of more than one row, as the reference does.
+``ops/overlap.panel_pipeline``.  The port runs the same schedule over
+the ranks of a mesh: each rank keeps its query block and its fit block
+(features over 'cols'); the fetch is a ``ppermute`` by one over 'rows'
+(``parallel/distributed.ppermute``, in flight while the previous
+panel's block is consumed under ``db``), and the row norms and the
+cross term are ``psum``-ed over 'cols', as in
+``dislib_tpu/ops/ring.py:66-119``.  At step t a rank holds the fit block
+of the rank t places back, so a panel carries the fit index of its first
+row.  On a one-rank mesh the fetch is the identity and the loop takes
+one step, so the single step materialises the whole (mq, mf) distance
+block — the reason ``neighbors/base.py`` routes here only on a mesh of
+more than one row, as the reference does.
 
 The cross term ``q @ f_curᵀ`` is ``ops/kernels.panel_gemm`` at FLOAT32
 under ``overlap="kernel"`` (``pallas`` is its alias), the reference's
@@ -26,7 +32,9 @@ negative values; the distances returned are ``max(d², 0)`` on both.
 ``ring_neigh_count_min`` is the ε-neighbourhood pass of DBSCAN's and
 Daura's ring tier: the same ``panel_pipeline`` with the identity fetch,
 whose one step folds the home shard into the running (count, min) by
-``ops/tiled.neigh_count_min`` in row tiles of :data:`RING_TILE`.
+``ops/tiled.neigh_count_min`` in row tiles of :data:`RING_TILE`.  It runs
+on one rank only until DBSCAN and Daura run across ranks (ROADMAP.md
+A.2b).
 
 Not ported: ``comm_only=True`` of both kernels (a bench device: the
 rotation-only program that times the ring's communication alone, which
@@ -42,6 +50,7 @@ from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.ops import tiled as _tiled
 from dislib_tpu_torch.ops.base import merge_smallest, precise, split_keys
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
 
 
@@ -54,8 +63,8 @@ def _one_rank(what, mesh):
     nrows = mesh.shape[_mesh.ROWS]
     if nrows != 1:
         raise NotImplementedError(
-            f"{what} over {nrows} row shards: the port runs one rank; the "
-            "ppermute hop over NCCL is ROADMAP.md A.2")
+            f"{what} over {nrows} row shards: it runs one rank until DBSCAN "
+            "and Daura run across ranks (ROADMAP.md A.2b; see A.2)")
     return nrows
 
 
@@ -70,31 +79,44 @@ def ring_auto(flag, mesh, large):
 
 @precise
 def ring_kneighbors(qp, fp, mesh, k, m_fit, overlap="db"):
-    """(distances² (mq_pad, k) float32, indices (mq_pad, k) int32) of the
-    k nearest fitted rows per query row, ascending.
+    """(distances² (mq_loc, k) float32, indices (mq_loc, k) int32) of the
+    k nearest fitted rows per query row of this rank, ascending.
 
-    ``qp`` (mq_pad, d) and ``fp`` (mf_pad, d): the padded backings; fit
+    ``qp`` (mq_pad/R, d_pad/C) and ``fp`` (mf_pad/R, d_pad/C): this rank's
+    blocks of the padded backings (the whole backings on one rank); fit
     rows at or past ``m_fit`` are +inf and never neighbours.  Padded query
     rows carry garbage; callers crop.  ``overlap`` is a canonical schedule
     of ``ops/overlap.SCHEDULES``."""
-    nrows = _one_rank("ring_kneighbors", mesh)
+    nrows = mesh.shape[_mesh.ROWS]
+    my = mesh.coord[0]
+    mf_loc = fp.shape[0]
     q = qp.contiguous()
-    q_sq = torch.sum(q * q, dim=1)
+    q_sq = _dist.psum(torch.sum(q * q, dim=1), _mesh.COLS, mesh)
     # a panel: f^T, its row norms and the fit index of its first row
-    pan0 = (fp.T.contiguous(), torch.sum(fp * fp, dim=1), 0)
+    pan0 = (fp.T.contiguous(),
+            _dist.psum(torch.sum(fp * fp, dim=1), _mesh.COLS, mesh),
+            my * mf_loc)
+
+    def fetch(t, prev):
+        ft, fsq, _ = _ov.landed(prev)
+        # one hop: the fit block of the rank t places back
+        return (_dist.ppermute(ft, _mesh.ROWS, 1, mesh, async_op=True),
+                _dist.ppermute(fsq, _mesh.ROWS, 1, mesh, async_op=True),
+                (my - t) % nrows * mf_loc)
 
     def consume(t, best, pan):
-        ft_cur, fsq_cur, off = pan
+        ft_cur, fsq_cur, off = _ov.landed(pan)
         if overlap == "kernel":
             part = _k.panel_gemm(q, ft_cur, px.FLOAT32)
         else:
             part = torch.matmul(q, ft_cur)                # (mq, mf_loc)
+        part = _dist.psum(part, _mesh.COLS, mesh)
         # q_sq − 2·part + f_sq, in the reference's order of rounding
         d2 = part.mul_(-2.0).add_(q_sq[:, None]).add_(fsq_cur[None, :])
         d2[:, max(m_fit - off, 0):] = float("inf")
         return merge_smallest(best, d2.clamp_min_(0.0), k, off)
 
-    best = _ov.panel_pipeline(nrows, pan0, _identity_fetch, consume, None,
+    best = _ov.panel_pipeline(nrows, pan0, fetch, consume, None,
                               _ov.overlapped(overlap))
     return split_keys(best)
 

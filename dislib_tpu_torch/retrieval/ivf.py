@@ -133,6 +133,10 @@ class IVFIndex(BaseEstimator):
         from dislib_tpu_torch.cluster import KMeans
         arr = items if isinstance(items, Array) \
             else _mk_array(np.atleast_2d(np.asarray(items, np.float32)))
+        if arr._mesh.world > 1:
+            raise NotImplementedError(
+                "IVFIndex over a catalog sharded across ranks: the lists "
+                "striped over the row shards are ROADMAP.md A.2c")
         n = arr.shape[0]
         if n < 1:
             raise ValueError("cannot index an empty catalog")
@@ -165,7 +169,7 @@ class IVFIndex(BaseEstimator):
             raise ValueError(f"labels must lie in [0, {nlist})")
         quantum = _list_quantum(self.list_quantum)
         mesh = _mesh.get_mesh() if device is None \
-            else _mesh.make_mesh((1, 1), device)
+            else _mesh.local_mesh(device)
 
         counts_l = np.bincount(labels_h, minlength=nlist)       # (nlist,)
         pad_l = -(-counts_l // quantum) * quantum
@@ -235,7 +239,7 @@ class IVFIndex(BaseEstimator):
         inputs are not carried, so ``save_model`` of such an index holds
         no lists."""
         mesh = _mesh.get_mesh() if device is None \
-            else _mesh.make_mesh((1, 1), device)
+            else _mesh.local_mesh(device)
         for name, b in zip(self._SERVED, buffers, strict=True):
             setattr(self, name, torch.from_numpy(
                 np.ascontiguousarray(b)).to(mesh.device))

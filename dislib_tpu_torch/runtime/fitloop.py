@@ -47,6 +47,7 @@ from __future__ import annotations
 
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.health import NO_REMEDIATION
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.runtime.preemption import (preemption_requested,
                                                  raise_if_preempted)
 from dislib_tpu_torch.utils.profiling import count_resilience
@@ -223,6 +224,10 @@ class ChunkedFitLoop:
     elastic : callable(mesh) | None — rebind hook for the elastic tier:
         called with None before and with the mesh after the (would-be)
         switch.  None disables the tier for this fit.
+    mesh : parallel.mesh.Mesh | None — the fit's mesh; on one with a
+        process group the preemption flag is agreed across its ranks
+        (``distributed.any_rank``), so that every rank stops at the same
+        chunk.
 
     ``info`` carries the fit's resilience summary (chunks, rollbacks,
     escalations per tier, mesh shrinks/grows) — estimators expose it as
@@ -233,8 +238,10 @@ class ChunkedFitLoop:
     def __init__(self, name, *, checkpoint=None, health=None, max_iter=None,
                  chunk_iters=None, save_every=1, check_on="chunk",
                  save_final=True, carry_names=(), carry_shapes=(),
-                 increasing=False, elastic=None, snapshot_expect=None):
+                 increasing=False, elastic=None, snapshot_expect=None,
+                 mesh=None):
         self.name = name
+        self.mesh = mesh
         self.checkpoint = checkpoint
         self.guard = _health.guard(name, health, checkpoint)
         self.max_iter = max_iter
@@ -295,6 +302,8 @@ class ChunkedFitLoop:
         carries = self.guard.admit(*st.carries)
         out = step(LoopState(carries, st.it, st.done, st.extra), chunk)
         self._preempt = preemption_requested()
+        if self.mesh is not None:
+            self._preempt = _dist.any_rank(self._preempt, self.mesh)
         if self.check_on == "chunk":
             do_check = True
         else:                           # 'save': judge at save boundaries

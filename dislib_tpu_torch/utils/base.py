@@ -1,25 +1,41 @@
 """Global shuffle and train/test split.
 
-Counterpart of ``dislib_tpu/utils/base.py`` on one rank: the permutation
-is the reference's host ``RandomState`` draw, and the data movement is one
-row gather on the device per output (``Array.__getitem__``).  A
+Counterpart of ``dislib_tpu/utils/base.py``.  The permutation is the
+reference's host ``RandomState`` draw.  On one rank the data movement is
+one row gather on the device per output (``Array.__getitem__``); a
 ``SparseArray`` permutes through its row indexing and stays sparse, as in
-the reference.  The reference's multi-rank exchange (one ``all_to_all``
-over the mesh 'rows' axis) waits for the multi-GPU mesh, ROADMAP.md
-A.2/A.11.
+the reference.  On a mesh of several ranks it is the reference's
+exchange: the routing plan (``data/array._routing``, the reference's
+``_routing``) is made on the host, and ONE ``all_to_all`` over 'rows'
+moves the rows (``data/array._gather_rows``); ``y`` reuses ``x``'s plan.
+The rows are copied, never computed, so the result is bit-equal to the
+NumPy permutation.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.array import Array, _gather_rows
 
 
 def _check_input(x, who):
     # imported here: data/sparse imports this package (utils.profiling)
     from dislib_tpu_torch.data.sparse import check_input
     check_input(x, who)
+
+
+def _take(x, y, idx):
+    """``(x[idx], y[idx])`` (``y`` may be None); across ranks one exchange
+    plan serves both."""
+    if x._mesh.world == 1:
+        return x[idx, :], None if y is None else y[idx, :]
+    xs, plan = _gather_rows(x, idx)
+    if y is None:
+        return xs, None
+    if y._mesh != x._mesh:
+        raise ValueError("x and y live on different meshes")
+    return xs, _gather_rows(y, idx, plan)[0]
 
 
 def shuffle(x: Array, y: Array | None = None, random_state=None):
@@ -29,11 +45,10 @@ def shuffle(x: Array, y: Array | None = None, random_state=None):
     rng = random_state if isinstance(random_state, np.random.RandomState) \
         else np.random.RandomState(random_state)
     perm = rng.permutation(x.shape[0])
-    if y is None:
-        return x[perm, :]
-    if y.shape[0] != x.shape[0]:
+    if y is not None and y.shape[0] != x.shape[0]:
         raise ValueError("x and y must have the same number of rows")
-    return x[perm, :], y[perm, :]
+    xs, ys = _take(x, y, perm)
+    return xs if y is None else (xs, ys)
 
 
 def train_test_split(x: Array, y: Array | None = None, test_size: float = 0.25,
@@ -47,8 +62,10 @@ def train_test_split(x: Array, y: Array | None = None, test_size: float = 0.25,
     n_train = n - n_test if train_size is None else int(round(n * train_size))
     perm = np.random.RandomState(random_state).permutation(n)
     train, test = perm[:n_train], perm[n_train:n_train + n_test]
-    if y is None:
-        return x[train, :], x[test, :]
-    if y.shape[0] != n:
+    if y is not None and y.shape[0] != n:
         raise ValueError("x and y must have the same number of rows")
-    return x[train, :], x[test, :], y[train, :], y[test, :]
+    x_tr, y_tr = _take(x, y, train)
+    x_te, y_te = _take(x, y, test)
+    if y is None:
+        return x_tr, x_te
+    return x_tr, x_te, y_tr, y_te

@@ -165,7 +165,14 @@ def _cbor():
 def save_model(model, filepath: str, overwrite: bool = True,
                save_format: str = "json") -> None:
     """Save a fitted estimator of this package (reference:
-    ``utils.saving.save_model``) as 'json', 'cbor' or 'npz'."""
+    ``utils.saving.save_model``) as 'json', 'cbor' or 'npz'.  In a
+    ``torch.distributed`` job of several ranks it raises: every rank would
+    write one path (ROADMAP.md A.11)."""
+    from dislib_tpu_torch.parallel.distributed import process_info
+    if process_info()[1] > 1:
+        raise NotImplementedError(
+            "save_model in a job of several ranks: a coordinated save is "
+            "ROADMAP.md A.11")
     if os.path.exists(filepath) and not overwrite:
         raise FileExistsError(filepath)
     if save_format not in ("json", "cbor", "npz"):
