@@ -90,14 +90,16 @@ no ``nvcc`` build and one capture a bucket; a child without a bundle
 that builds the kernels, as the yardstick; ``ContinuousTrainer`` over
 ``MiniBatchKMeans`` for four generations under client traffic, a torn
 export and a tripped canary among them) — then the mesh of ranks
-(``mesh``: NCCL at a world of one in this process, SUMMA and KMeans
-bit-equal to the same calls with no process group; two NCCL processes
-on one card, which ``initialize`` must refuse; then 4 gloo ranks on
-this one card, each ``python3 chip_smoke.py --mesh-rank R DIR``: SUMMA
-16384² under both policies on a (2, 2) grid, KMeans, the ring kNN at
-bench_knn's sizes and the shuffle of the KMeans data on (4, 1), each
-rank's blocks against the one-rank results, each rank's kernels timed
-while the others wait) — and checks every result.  Each
+(``mesh``: NCCL at a world of one in this process, SUMMA, KMeans, tsqr
+and GaussianMixture bit-equal to the same calls with no process group;
+two NCCL processes on one card, which ``initialize`` must refuse; then
+4 gloo ranks on this one card, each ``python3 chip_smoke.py --mesh-rank
+R DIR``: SUMMA 16384² under both policies and tsqr on a (2, 2) grid;
+tsqr, KMeans, the ring kNN at bench_knn's sizes, the shuffle and the
+scalers of the KMeans data, random_svd and PCA at bench_randomsvd's
+size and GaussianMixture at bench_gmm's on (4, 1), each rank's blocks
+against the one-rank results, each rank's kernels timed while the
+others wait) — and checks every result.  Each
 phase prints one JSON line; the line before the last lists every kernel
 with its launches on the main path, its error against the plain version,
 its time, the plain version's and the library call's time, and the least
@@ -4272,10 +4274,23 @@ def deploy_phase(dev, card):
 
 # the multi-rank phase: 4 gloo ranks on one card (NCCL takes one rank per
 # card, so a world above one cannot run on a one-card machine); SUMMA at
-# GEMM_N² on (2, 2), KMeans (MESH_KM_ITERS steps, tol 0) and the ring kNN
-# at bench_knn's sizes and the shuffle of the KMeans data on (4, 1)
+# GEMM_N² and tsqr on (2, 2), KMeans (MESH_KM_ITERS steps, tol 0) and the
+# ring kNN at bench_knn's sizes, the shuffle and the scalers of the KMeans
+# data, tsqr at TSQR, random_svd and PCA at RSVD, and GaussianMixture at
+# bench_gmm's size (MESH_GM_ITERS EM steps from the kmeans init, tol 0)
+# on (4, 1)
 MESH_WORLD = 4
 MESH_KM_ITERS = 20
+MESH_GM_ITERS = 5
+# A.2b's calls against one rank's: R up to row signs and the scalers'
+# statistics and rows within MESH_QR_TOL / MESH_SCALER_TOL (relative);
+# the top singular values, the explained variance (relative to the
+# largest), every component up to sign, the lower bound of GM from the
+# kmeans init, and GM's weights, means, covariances and lower bound from
+# one rank's kmeans init within MESH_A2B_TOL (absolute and relative)
+MESH_QR_TOL = 1e-5
+MESH_SCALER_TOL = 1e-5
+MESH_A2B_TOL = 1e-4
 MESH_RANK_S = 600          # the ranks' time limit, seconds
 MESH_BACKEND = "gloo (one card, staged through the host)"
 # one KMeans step from the same init against the one rank's: the centers
@@ -4289,18 +4304,32 @@ def mesh_sizes():
     """The mesh phase's sizes, handed to the ranks in their job file."""
     return {"gemm_n": GEMM_N, "km_m": KM_M, "km_n": KM_N, "km_k": KM_K,
             "km_iters": MESH_KM_ITERS, "knn_mf": KNN_MF, "knn_n": KNN_N,
-            "knn_mq": KNN_MQ, "knn_k": KNN_K}
+            "knn_mq": KNN_MQ, "knn_k": KNN_K, "tsqr": list(TSQR),
+            "rsvd": list(RSVD), "rsvd_nsv": RSVD_NSV,
+            "rsvd_iters": RSVD_ITERS, "gm_m": GM_M, "gm_n": GM_N,
+            "gm_k": GM_K, "gm_iters": MESH_GM_ITERS}
 
 
 def mesh_data(which, z):
     """The mesh phase's host inputs at sizes ``z``, the same in the parent
     and in every rank: the KMeans data and init (bench.py's draw, seed
-    0), the kNN fit rows and queries (bench_knn's, seed 1)."""
+    0), the kNN fit rows and queries (bench_knn's, seed 1), tsqr's,
+    random_svd's and GaussianMixture's data (bench_tsqr's,
+    bench_randomsvd's and bench_gmm's draws, seed 0)."""
     import numpy as np
     if which == "kmeans":
         rng = np.random.RandomState(0)
         x = rng.rand(z["km_m"], z["km_n"]).astype(np.float32)
         return x, x[rng.choice(z["km_m"], z["km_k"], replace=False)].copy()
+    if which == "tsqr":
+        return np.random.RandomState(0).standard_normal(z["tsqr"]).astype(
+            np.float32)
+    if which == "rsvd":
+        return (np.random.RandomState(0).standard_normal(z["rsvd"])
+                * 0.95 ** np.arange(z["rsvd"][1])).astype(np.float32)
+    if which == "gm":
+        return np.random.RandomState(0).standard_normal(
+            (z["gm_m"], z["gm_n"])).astype(np.float32)
     rng = np.random.RandomState(1)
     return (rng.rand(z["knn_mf"], z["knn_n"]).astype(np.float32),
             rng.rand(z["knn_mq"], z["knn_n"]).astype(np.float32))
@@ -4322,6 +4351,41 @@ def mesh_clear(od):
     import numpy as np
     gap = np.diff(od, axis=1) > 1e-5
     return np.concatenate([gap[:, :1], gap[:, :-1] & gap[:, 1:]], axis=1)
+
+
+def mesh_tie_gaps(rows, centers, got, want):
+    """``|d²(x, c_got) − d²(x, c_want)|`` in float64 for each row ``x`` of
+    ``rows`` whose label is ``got`` here and ``want`` on one rank: small
+    where the two centers are a near tie for the row."""
+    import numpy as np
+    rows = np.asarray(rows, np.float64)
+    d = ((rows[:, None, :] - np.asarray(centers, np.float64)[None]) ** 2
+         ).sum(-1)
+    i = np.arange(len(rows))
+    return np.abs(d[i, got] - d[i, want])
+
+
+def mesh_close(got, want, tol):
+    """The largest ``|got − want| / (tol + tol·|want|)``: at most 1 when
+    ``got`` is within ``tol`` of ``want``, absolutely and relatively."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (tol + tol * np.abs(want))))
+
+
+def mesh_signed_rows(r):
+    """R with its rows signed so that its diagonal is non-negative."""
+    import numpy as np
+    r = np.asarray(r, np.float64)
+    return r * np.where(np.diag(r) < 0, -1.0, 1.0)[:, None]
+
+
+def mesh_signed_rows_by_max(c):
+    """Each row of ``c`` signed so that its largest entry is positive."""
+    import numpy as np
+    c = np.asarray(c, np.float64)
+    idx = np.abs(c).argmax(1)
+    return c * np.where(c[np.arange(len(c)), idx] < 0, -1.0, 1.0)[:, None]
 
 
 def mesh_timer(dev):
@@ -4351,9 +4415,9 @@ def mesh_timer(dev):
 def mesh_rank(argv) -> int:
     """One rank of the mesh phase (``chip_smoke.py --mesh-rank RANK DIR``):
     joins the gloo job of ``DIR/job.json``, runs the (2, 2) and (4, 1)
-    scenarios against the parent's one-rank results and writes
-    ``DIR/rank<RANK>.json``.  Every check raises, and the rank exits
-    non-zero."""
+    scenarios against the parent's one-rank results (``DIR/*.npz``) and
+    writes ``DIR/rank<RANK>.json``.  Every check raises, and the rank
+    exits non-zero."""
     rank, work = int(argv[0]), argv[1]
     with open(os.path.join(work, "job.json")) as f:
         job = json.load(f)
@@ -4474,6 +4538,53 @@ def mesh_rank(argv) -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    # -- tsqr on (2, 2) and on (4, 1) ---------------------------------------------
+    one = dict(np.load(os.path.join(work, "a2b.npz")))
+    x_t = mesh_data("tsqr", z)
+
+    def tsqr_on(shape):
+        """tsqr of bench_tsqr's data on a ``shape`` mesh: orthogonality
+        and residual from each rank's rows (one ``psum`` each), R
+        against one rank's up to row signs."""
+        mesh = dst.init(shape)
+        T = dst.array(x_t)
+        name = f"tsqr_{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        dst.tsqr(T)                 # the rank's first factorisations: warm
+        sync()
+        first_s = time.perf_counter() - t0
+
+        def call():
+            box[name] = dst.tsqr(T)
+            return {"shape": z["tsqr"], "mesh": list(shape),
+                    "first_call_s": first_s}
+
+        run(name, call)
+        q, r = box.pop(name)
+        qr_rows = q._row_block().double()[:, :z["tsqr"][1]]
+        r_t = torch.from_numpy(r.collect()).to(dev).double()
+        a_rows = T._row_block().double()[:, :z["tsqr"][1]]
+        gram = dd.psum(qr_rows.T @ qr_rows, "rows", mesh)
+        sq = dd.psum(torch.stack([((qr_rows @ r_t - a_rows) ** 2).sum(),
+                                  (a_rows ** 2).sum()]), "rows", mesh)
+        orth = float((gram - torch.eye(gram.shape[0], device=dev,
+                                       dtype=gram.dtype)).abs().max())
+        resid = float(torch.sqrt(sq[0] / sq[1]))
+        r_err = float(np.abs(mesh_signed_rows(r.collect())
+                             - mesh_signed_rows(one["tsqr_r"])).max()
+                      / np.abs(one["tsqr_r"]).max())
+        check(orth <= px.ERROR_BOUNDS[("tsqr_orth", "float32")]
+              and resid <= px.ERROR_BOUNDS[("tsqr_resid", "float32")]
+              and r_err <= MESH_QR_TOL,
+              f"rank {rank}: tsqr on {shape}: orth {orth}, resid {resid}, "
+              f"R off one rank's by {r_err}")
+        out["phases"][name].update(orth_err=orth, resid=resid,
+                                   r_rel_err_vs_one_rank=r_err)
+
+    tsqr_on((2, 2))
+    tsqr_on((4, 1))
+    del x_t
+
     # -- KMeans, the ring kNN and the shuffle on (4, 1) -------------------------
     dst.init((4, 1))
     x_h, init = mesh_data("kmeans", z)
@@ -4507,11 +4618,8 @@ def mesh_rank(argv) -> int:
     diff = np.nonzero(labels[:live] != lab_ref)[0]
     # a differing label must be a near tie of the two centers
     if len(diff):
-        xd = x_h[row0 + diff].astype(np.float64)
-        cd = km1.centers_.astype(np.float64)
-        d = ((xd[:, None, :] - cd[None]) ** 2).sum(-1)
-        gap = np.abs(d[np.arange(len(diff)), labels[diff]]
-                     - d[np.arange(len(diff)), lab_ref[diff]])
+        gap = mesh_tie_gaps(x_h[row0 + diff], km1.centers_, labels[diff],
+                            lab_ref[diff])
         check(bool((gap <= 1e-4).all()), f"rank {rank}: {len(diff)} labels "
               f"differ from the one-rank step's, gaps up to {gap.max()}")
     del km1
@@ -4559,7 +4667,41 @@ def mesh_rank(argv) -> int:
     got = box.pop("xs")._local[:live, :z["km_n"]].cpu().numpy()
     check(np.array_equal(got, x_h[perm[row0:row0 + live]]),
           f"rank {rank}: the shuffle's rows are not NumPy's permutation")
-    del X, x_h, got
+    del got
+
+    # the scalers: their statistics against one rank's, and this rank's
+    # rows against the same transform in float64 from one rank's
+    # statistics
+    def scalers():
+        box["std"] = dst.StandardScaler()
+        box["std_t"] = box["std"].fit_transform(X)
+        box["mm"] = dst.MinMaxScaler()
+        box["mm_t"] = box["mm"].fit_transform(X)
+        return {"shape": list(x_h.shape), "mesh": [4, 1]}
+
+    run("scalers", scalers)
+    rows64 = x_h[row0:row0 + live].astype(np.float64)
+    std, mm = box.pop("std"), box.pop("mm")
+    sc = {"std_mean": mesh_close(std.mean_.collect(), one["std_mean"],
+                                 MESH_SCALER_TOL),
+          "std_var": mesh_close(std.var_.collect(), one["std_var"],
+                                MESH_SCALER_TOL),
+          "mm_min": mesh_close(mm.data_min_.collect(), one["mm_min"],
+                               MESH_SCALER_TOL),
+          "mm_max": mesh_close(mm.data_max_.collect(), one["mm_max"],
+                               MESH_SCALER_TOL),
+          "std_rows": mesh_close(
+              box.pop("std_t")._local[:live, :z["km_n"]].cpu().numpy(),
+              (rows64 - one["std_mean"]) / np.sqrt(one["std_var"]),
+              MESH_SCALER_TOL),
+          "mm_rows": mesh_close(
+              box.pop("mm_t")._local[:live, :z["km_n"]].cpu().numpy(),
+              (rows64 - one["mm_min"]) / (one["mm_max"] - one["mm_min"]),
+              MESH_SCALER_TOL)}
+    check(max(sc.values()) <= 1.0, f"rank {rank}: the scalers off one "
+          f"rank's by {sc} of {MESH_SCALER_TOL} (absolute and relative)")
+    out["phases"]["scalers"]["err_of_tol_vs_one_rank"] = sc
+    del X, x_h, rows64, std, mm
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -4618,10 +4760,160 @@ def mesh_rank(argv) -> int:
         "ms": lambda: K.panel_gemm(qd, ft, px.FLOAT32),
         "plain_ms": lambda: K.panel_gemm_plain(qd, ft, px.FLOAT32),
         "library_ms": mm}, 10)
+    ring_shape = [int(qd.shape[0]), int(qd.shape[1]), int(ft.shape[1])]
+    del F, Q, qd, ft
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- random_svd and PCA on bench_randomsvd's data, (4, 1) -------------------
+    S = dst.array(mesh_data("rsvd", z))
+    nsv = z["rsvd_nsv"]
+
+    def rsvd():
+        box["svd"] = dst.random_svd(S, iters=z["rsvd_iters"], nsv=nsv,
+                                    oversample=10, random_state=0)
+        return {"shape": z["rsvd"], "nsv": nsv, "mesh": [4, 1]}
+
+    run("random_svd", rsvd)
+    sv = box.pop("svd")[1].collect().ravel()
+    s_err = float(np.abs(sv - one["rsvd_s"]).max() / one["rsvd_s"][0])
+    check(s_err <= MESH_A2B_TOL, f"rank {rank}: random_svd's {nsv} values "
+          f"off one rank's by {s_err} of the largest")
+    out["phases"]["random_svd"]["values_rel_err_vs_one_rank"] = s_err
+
+    def pca():
+        box["pca"] = dst.PCA(n_components=nsv).fit(S)
+        return {"shape": z["rsvd"], "n_components": nsv, "mesh": [4, 1]}
+
+    run("pca", pca)
+    est = box.pop("pca")
+    var = est.explained_variance_.collect().ravel()
+    v_err = float(np.abs(var - one["pca_var"]).max() / one["pca_var"][0])
+    c_diff = np.abs(mesh_signed_rows_by_max(est.components_.collect())
+                    - mesh_signed_rows_by_max(one["pca_comp"])).max(1)
+    c_err = float(c_diff.max())
+    check(v_err <= MESH_A2B_TOL and c_err <= MESH_A2B_TOL,
+          f"rank {rank}: PCA's explained variance off one rank's by {v_err} "
+          f"of the largest, its components by {c_err}")
+    out["phases"]["pca"].update(
+        variance_rel_err_vs_one_rank=v_err,
+        components_max_abs_err_vs_one_rank=c_err)
+    del S, est
+
+    # -- GaussianMixture at bench_gmm's size, (4, 1) -----------------------------
+    # from the kmeans init (the main path), held by its lower bound; then
+    # the init against one rank's (its first Lloyd step's centers, every
+    # differing label a near tie, and the labels it ends with, counted),
+    # and EM from one rank's init responsibilities, held whole: the fit
+    # differs from one rank's through its init alone
+    from dislib_tpu_torch.cluster import gm as gm_mod
+    G = dst.array(mesh_data("gm", z))
+    gm_k, gm_n = z["gm_k"], z["gm_n"]
+    row0 = G._at[0]
+    live = max(0, min(G._local.shape[0], z["gm_m"] - row0))
+
+    def gm():
+        box["gm"] = dst.GaussianMixture(n_components=gm_k, max_iter=z[
+            "gm_iters"], tol=0.0, random_state=0).fit(G)
+        return {"shape": [z["gm_m"], gm_n], "k": gm_k, "mesh": [4, 1],
+                "iters": z["gm_iters"], "init": "kmeans",
+                "covariance_type": "full"}
+
+    run("gm", gm)
+    est = box.pop("gm")
+    lb_err = mesh_close(est.lower_bound_, one["gm_lb"], MESH_A2B_TOL)
+    check(lb_err <= 1.0 and est.n_iter_ == z["gm_iters"],
+          f"rank {rank}: GaussianMixture's lower bound off one rank's by "
+          f"{lb_err} of {MESH_A2B_TOL}, n_iter {est.n_iter_}")
+    gm_launch = out["phases"]["gm"]["launches"]["distances_sq"]
+    if dev.type == "cuda":
+        check(1 <= gm_launch <= 11, f"rank {rank}: GM's kmeans init "
+              f"launched distances_sq {gm_launch} times (1 to 11)")
+    out["phases"]["gm"].update(
+        lower_bound_err_of_tol_vs_one_rank=lb_err,
+        max_abs_diff_vs_one_rank={
+            "weights": float(np.abs(est.weights_ - one["gm_weights"]).max()),
+            "means": float(np.abs(est.means_ - one["gm_means"]).max()),
+            "covariances": float(np.abs(est.covariances_
+                                        - one["gm_covs"]).max())})
+    c0 = dst.KMeans(n_clusters=gm_k, max_iter=10, tol=1e-4,
+                    random_state=0)._init_centers(G).cpu().numpy()
+    check(np.array_equal(c0, one["gmi_c0"]), f"rank {rank}: GM's kmeans "
+          "init starts from other centers than one rank's")
+    step1 = dst.KMeans(n_clusters=gm_k, init=c0, max_iter=1, tol=0.0).fit(G)
+    i_err = float(np.abs(step1.centers_ - one["gmi_centers1"]).max())
+    check(i_err <= MESH_KM_TOL, f"rank {rank}: the GM init's first Lloyd "
+          f"step's centers off the one-rank step's by {i_err}")
+    lab = step1.predict(G)._local[:live, 0].cpu().numpy()
+    lab_ref = one["gmi_labels1"][row0:row0 + live].astype(np.int64)
+    diff = np.nonzero(lab != lab_ref)[0]
+    gap = mesh_tie_gaps(G._local[diff][:, :gm_n].cpu().numpy(),
+                        step1.centers_, lab[diff], lab_ref[diff]) \
+        if len(diff) else np.zeros(1)
+    check(bool((gap <= 1e-4).all()), f"rank {rank}: {len(diff)} labels of "
+          f"the GM init's first step differ from one rank's, gaps up to "
+          f"{gap.max()}")
+    resp_own = est._init_resp(G)[:live].argmax(1).cpu().numpy()
+    lab_init = one["gmi_labels"][row0:row0 + live].astype(np.int64)
+    init_diff = int((resp_own != lab_init).sum())
+    resp = torch.zeros((G._local.shape[0], gm_k), device=dev)
+    resp[:live] = torch.nn.functional.one_hot(
+        torch.from_numpy(lab_init).to(dev), gm_k).to(torch.float32)
+
+    def gm_one_init():
+        box["gmo"] = gm_mod._gm_fit(
+            G._row_block(), G.shape, resp, "full", float(est.reg_covar),
+            0.0, z["gm_iters"], mesh=G._mesh, row0=row0)[:5]
+        return {"shape": [z["gm_m"], gm_n], "k": gm_k, "mesh": [4, 1],
+                "iters": z["gm_iters"], "init": "one rank's kmeans init",
+                "covariance_type": "full"}
+
+    run("gm_from_one_rank_init", gm_one_init)
+    w, mu, cv, lb, n_it = (t.cpu().numpy() for t in box.pop("gmo"))
+    g_err = {"weights": mesh_close(w, one["gm_weights"], MESH_A2B_TOL),
+             "means": mesh_close(mu, one["gm_means"], MESH_A2B_TOL),
+             "covariances": mesh_close(cv, one["gm_covs"], MESH_A2B_TOL),
+             "lower_bound": mesh_close(lb, one["gm_lb"], MESH_A2B_TOL)}
+    check(max(g_err.values()) <= 1.0 and int(n_it) == z["gm_iters"],
+          f"rank {rank}: GaussianMixture from one rank's kmeans init off "
+          f"one rank's fit by {g_err} of {MESH_A2B_TOL} (absolute and "
+          f"relative), n_iter {int(n_it)}")
+    out["phases"]["gm_from_one_rank_init"]["err_of_tol_vs_one_rank"] = g_err
+    out["phases"]["gm"]["init_vs_one_rank"] = {
+        "rows": live, "first_step_centers_max_abs_err": i_err,
+        "first_step_labels_differing": len(diff),
+        "first_step_max_tie_gap": float(gap.max()),
+        "labels_differing_after_init": init_diff}
+    del resp, step1
+    # distances_sq at the kmeans init's per-rank shape (d = 50: the
+    # slices), held to its plain version and timed with the card to itself
+    xg = G._local[:, :gm_n].contiguous()
+    cg = torch.from_numpy(est.means_).to(dev).contiguous()
+    kern, plain = K.distances_sq(xg, cg), K.distances_sq_plain(
+        xg, cg, "highest")
+    g_scale = float((xg.double() ** 2).sum(1).max()
+                    + (cg.double() ** 2).sum(1).max())
+    k_err = float((kern.double() - plain.double()).abs().max()) / g_scale
+    check(k_err <= DIST_TOL, f"rank {rank}: distances_sq at "
+          f"{list(xg.shape)}x{list(cg.shape)}: error {k_err} vs plain > "
+          f"{DIST_TOL}")
+    out["windows"]["distances_sq_gm_err"] = {
+        "max_abs_err": float((kern - plain).abs().max()),
+        "normalized_err_vs_plain": k_err}
+    del kern, plain
+
+    def cdist_gm():
+        with px.precise():
+            return torch.cdist(xg, cg, compute_mode="use_mm_for_euclid_dist")
+
+    window("distances_sq_gm", {
+        "ms": lambda: K.distances_sq(xg, cg),
+        "plain_ms": lambda: K.distances_sq_plain(xg, cg, "highest"),
+        "library_ms": cdist_gm}, 20)
     out["shapes"] = {"summa_panel": [n // 2] * 3,
                      "kmeans": [m_loc, km_k, z["km_n"]],
-                     "ring": [int(qd.shape[0]), int(qd.shape[1]),
-                              int(ft.shape[1])]}
+                     "ring": ring_shape,
+                     "gm_init": [int(xg.shape[0]), gm_k, gm_n]}
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dd.shutdown()
@@ -4670,13 +4962,16 @@ def mesh_phase(dev, card):
     """The mesh of ranks on the card.
 
     First NCCL with a world of one in this process: SUMMA (under
-    ``DSLIB_OVERLAP=pallas``, both policies) and KMeans over groups of one
-    rank must be bit-equal to the same calls with no process group.  Then
-    the one-rank results the ranks are held to (the KMeans fit, the
-    (k+1)-neighbour kneighbors), and 4 gloo ranks on this one card
-    (``--mesh-rank``): SUMMA at GEMM_N² on (2, 2), KMeans, the ring kNN and
-    the shuffle on (4, 1), each rank's blocks against the one-rank
-    results.  Returns the kernels-line entries at the per-rank shapes."""
+    ``DSLIB_OVERLAP=pallas``, both policies), KMeans, tsqr and a
+    GaussianMixture fit over groups of one rank must be bit-equal to the
+    same calls with no process group.  Then the one-rank results the
+    ranks are held to (the KMeans fit, the (k+1)-neighbour kneighbors,
+    tsqr's R, GM's parameters, random_svd's values, PCA's variances and
+    components, the scalers' statistics), and 4 gloo ranks on this one
+    card (``--mesh-rank``): SUMMA at GEMM_N² and tsqr on (2, 2); tsqr,
+    KMeans, the ring kNN, the shuffle, the scalers, random_svd, PCA and
+    GM on (4, 1), each rank's blocks against the one-rank results.
+    Returns the kernels-line entries at the per-rank shapes."""
     import numpy as np
     import torch
     import dislib_tpu_torch as dst
@@ -4691,6 +4986,7 @@ def mesh_phase(dev, card):
         z = mesh_sizes()
         a_h, b_h = mesh_operands(dev, z["gemm_n"])
         x_h, init = mesh_data("kmeans", z)
+        t_h, g_h = mesh_data("tsqr", z), mesh_data("gm", z)
 
         def one_rank():
             A, B, X = dst.array(a_h), dst.array(b_h), dst.array(x_h)
@@ -4702,6 +4998,14 @@ def mesh_phase(dev, card):
             res["centers"] = torch.from_numpy(km.centers_)
             res["labels"] = km.predict(X)._data
             res["inertia"] = torch.tensor(km.inertia_)
+            q, r = dst.tsqr(dst.array(t_h))
+            res["tsqr_q"], res["tsqr_r"] = q._data, r._data
+            gm = dst.GaussianMixture(n_components=z["gm_k"], max_iter=z[
+                "gm_iters"], tol=0.0, random_state=0).fit(dst.array(g_h))
+            res["gm_weights"] = torch.from_numpy(gm.weights_)
+            res["gm_means"] = torch.from_numpy(gm.means_)
+            res["gm_covs"] = torch.from_numpy(gm.covariances_)
+            res["gm_lb"] = torch.tensor(gm.lower_bound_)
             return res, km
 
         plain, km = one_rank()
@@ -4722,7 +5026,9 @@ def mesh_phase(dev, card):
             check(torch.equal(job1[key], want), f"mesh: {key} under a "
                   f"{backend} world of one differs from no process group")
         check(comm1.get("broadcast", {}).get("calls", 0) == 4
-              and comm1.get("psum", {}).get("calls", 0) >= z["km_iters"],
+              and comm1.get("psum", {}).get("calls", 0) >= z["km_iters"]
+              + z["gm_iters"]
+              and comm1.get("all_gather", {}).get("calls", 0) >= 1,
               f"the world of one ran no collective: {comm1}")
         emit({"phase": "mesh_world_of_one", "backend": backend,
               "bit_equal": sorted(plain), "collectives": comm1})
@@ -4737,8 +5043,40 @@ def mesh_phase(dev, card):
                       ln for ln in log.splitlines()
                       if ln.startswith('{"rank"')))["raised"]
                       for _, log in pair]})
-        del job1, plain, a_h, b_h
         # -- the one-rank results the ranks are held to ------------------------
+        rs = mesh_data("rsvd", z)
+        S = dst.array(rs)
+        sv = dst.random_svd(S, iters=z["rsvd_iters"], nsv=z["rsvd_nsv"],
+                            oversample=10, random_state=0)[1]
+        pca = dst.PCA(n_components=z["rsvd_nsv"]).fit(S)
+        X = dst.array(x_h)
+        std, mm = dst.StandardScaler().fit(X), dst.MinMaxScaler().fit(X)
+        # GM's kmeans init on one rank: its start, its first Lloyd step
+        # (centers and labels) and the labels it ends with
+        G1 = dst.array(g_h)
+        gi_c0 = dst.KMeans(n_clusters=z["gm_k"], max_iter=10, tol=1e-4,
+                           random_state=0)._init_centers(G1).cpu().numpy()
+        gi1 = dst.KMeans(n_clusters=z["gm_k"], init=gi_c0, max_iter=1,
+                         tol=0.0).fit(G1)
+        gi_lab = dst.GaussianMixture(
+            n_components=z["gm_k"], random_state=0)._init_resp(G1)[
+                : z["gm_m"]].argmax(1).to(torch.int8).cpu().numpy()
+        np.savez(os.path.join(work, "a2b.npz"),
+                 tsqr_r=plain["tsqr_r"].cpu().numpy(),
+                 gm_weights=plain["gm_weights"].numpy(),
+                 gm_means=plain["gm_means"].numpy(),
+                 gm_covs=plain["gm_covs"].numpy(),
+                 gm_lb=plain["gm_lb"].numpy(),
+                 gmi_c0=gi_c0, gmi_centers1=gi1.centers_,
+                 gmi_labels1=gi1.predict(G1).collect()[:, 0].astype(np.int8),
+                 gmi_labels=gi_lab,
+                 rsvd_s=sv.collect().ravel(),
+                 pca_var=pca.explained_variance_.collect().ravel(),
+                 pca_comp=pca.components_.collect(),
+                 std_mean=std.mean_.collect(), std_var=std.var_.collect(),
+                 mm_min=mm.data_min_.collect(), mm_max=mm.data_max_.collect())
+        del job1, plain, a_h, b_h, t_h, g_h, rs, S, sv, pca, X, std, mm
+        del G1, gi1, gi_lab
         X = dst.array(x_h)
         km1 = dst.KMeans(n_clusters=z["km_k"], init=init, max_iter=1,
                          tol=0.0).fit(X)
@@ -4821,6 +5159,23 @@ def mesh_phase(dev, card):
         "launches_by_rank": [rr["phases"]["kmeans"]["launches"][
             "distances_sq"] for rr in ranks],
         **w0["distances_sq_err"], **w0["distances_sq"],
+        "library_call": "torch.cdist(a, b, compute_mode="
+                        "'use_mm_for_euclid_dist'), TF32 off (includes a "
+                        "square root)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": DIST_BOUND_BASIS,
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    m, k, d = shapes["gm_init"]
+    bound_ms, bound_by = dist_bound(m, k, d, 4.0 * (m * d + k * d + m * k))
+    entries["distances_sq/mesh_gm_init"] = {
+        "name": "distances_sq", "at": "mesh (4, 1): GaussianMixture's "
+        "kmeans init on each rank's rows", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "shape": [m, k, d], "launches": launches("gm", "distances_sq"),
+        "launches_by_rank": [rr["phases"]["gm"]["launches"][
+            "distances_sq"] for rr in ranks],
+        **w0["distances_sq_gm_err"], **w0["distances_sq_gm"],
         "library_call": "torch.cdist(a, b, compute_mode="
                         "'use_mm_for_euclid_dist'), TF32 off (includes a "
                         "square root)",

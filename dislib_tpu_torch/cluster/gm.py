@@ -42,6 +42,26 @@ Where the port departs from the reference's code:
   with :func:`~dislib_tpu_torch.ops.base.cholesky_nan`, which keeps the
   NaN, with no host sync.
 - ``predict`` is the reference's fusion-graph node body, called eagerly.
+- The M-step's sums over rows are taken first and finished after
+  (:func:`_second_moments`, :func:`_covs_from_moments`), so that across
+  ranks they are ONE packed ``psum`` a step.  The ``full`` type's
+  √r-weighted scatter of a step is taken about the step's current means
+  and moved exactly to the new means (a rank cannot know the new means
+  before the sum); the init's, from the initial responsibilities, is
+  taken about the new means by a second ``psum``, as before.
+
+On a mesh of several ranks (the reference's ``_gm_fit``, its rows
+sharded): the fit all-gathers each rank's row block over 'cols' once a
+chunk; the E-step runs on the rank's rows; the packed ``psum`` over
+'rows' carries Σ r, Σ r x, the second moments and Σ lse·w, so weights,
+means, covariances, the lower bound, the stop flag and the health vector
+are the same on every rank (the loop's preemption flag is agreed with
+``distributed.any_rank``).  The ``kmeans`` init runs KMeans' sharded
+path (``distances_sq`` at each rank's rows); the ``random`` init draws
+once at the logical (m, k) rows and each rank keeps its rows.
+``predict`` returns a row-sharded label array and ``score`` is a
+``psum``.  ``checkpoint=`` raises there, naming ROADMAP.md A.11, and the
+search hooks name A.2b's second part.
 
 The search's async-trial hooks are ``_fit_async`` (one :func:`_gm_fit`)
 and ``_fit_finalize`` (its one read); ``_score_async`` is the mean
@@ -55,9 +75,11 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.kmeans import _crop, _to_host
-from dislib_tpu_torch.data.array import Array, ensure_canonical
+from dislib_tpu_torch.data.array import Array, _block_with, ensure_canonical
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops.base import cholesky_nan, precise
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.elastic import fetch, fetch_packed
@@ -115,21 +137,34 @@ class GaussianMixture(BaseEstimator):
         """Initial responsibilities (m_pad, k): hard KMeans labels or
         random."""
         k = self.n_components
+        row0 = x._at[0]
         if self.init_params == "kmeans":
             from dislib_tpu_torch.cluster.kmeans import (KMeans, _kmeans_fit,
                                                          _kmeans_predict)
             km = KMeans(n_clusters=k, max_iter=10, tol=1e-4,
                         random_state=self.random_state)
             km._check_supported(x)
-            centers = _kmeans_fit(x._data, x.shape, km._init_centers(x),
-                                  10, 1e-4, fast=km._fast())[0]
-            labels = _kmeans_predict(x._data, x.shape, centers)[:, 0]
+            rows = x._row_block()
+            centers = _kmeans_fit(rows, x.shape, km._init_centers(x), 10,
+                                  1e-4, fast=km._fast(), mesh=x._mesh,
+                                  row0=row0)[0]
+            labels = _kmeans_predict(rows, x.shape, centers, row0)[:, 0]
             return torch.nn.functional.one_hot(labels.long(), k).to(
                 torch.float32)
         if self.init_params == "random":
+            # one draw at the logical rows, whatever the mesh: each rank
+            # takes its rows of it (zero on its padded rows)
             seed = 0 if self.random_state is None else int(self.random_state)
-            resp = _random_resp(seed, (x._data.shape[0], k), x.device)
-            return resp / torch.sum(resp, dim=1, keepdim=True)
+            m = x.shape[0]
+            resp = _random_resp(seed, (m, k), x.device)
+            resp = resp / torch.sum(resp, dim=1, keepdim=True)
+            ml = x._local.shape[0]
+            if ml == m and row0 == 0:
+                return resp
+            out = torch.zeros((ml, k), dtype=resp.dtype, device=resp.device)
+            live = max(0, min(ml, m - row0))
+            out[:live] = resp[row0:row0 + live]
+            return out
         raise ValueError(f"unsupported init_params {self.init_params!r}")
 
     def _check_params(self, x):
@@ -148,6 +183,11 @@ class GaussianMixture(BaseEstimator):
         ``reg_covar`` per restart."""
         self._check_params(x)
         x = dense_input(x, "GaussianMixture")
+        if checkpoint is not None and x._mesh.world > 1:
+            raise NotImplementedError(
+                "GaussianMixture(checkpoint=...) on a ds-array sharded over "
+                "several ranks: snapshots of a multi-rank fit are "
+                "ROADMAP.md A.11")
         n = x.shape[1]
         dev = x.device
         box = {"x": x, "reg_covar": float(self.reg_covar), "resp0": None,
@@ -161,7 +201,7 @@ class GaussianMixture(BaseEstimator):
             carry_shapes=((self.n_components,), (self.n_components, n)),
             snapshot_expect={"weights": (self.n_components,),
                              "means": (self.n_components, n)},
-            elastic=_fitloop.data_rebind(box))
+            elastic=_fitloop.data_rebind(box), mesh=x._mesh)
 
         def init(rem):
             box["reg_covar"] = float(self.reg_covar) * rem.damping
@@ -185,10 +225,11 @@ class GaussianMixture(BaseEstimator):
 
         def step(st, chunk):
             xd = box["x"]
-            out = _gm_fit(xd._data, xd.shape, box["resp0"],
+            out = _gm_fit(xd._row_block(), xd.shape, box["resp0"],
                           self.covariance_type, box["reg_covar"],
                           float(self.tol), chunk, st.carries,
-                          prev_lb0=box["lb"], read=loop.guard.read)
+                          prev_lb0=box["lb"], read=loop.guard.read,
+                          mesh=xd._mesh, row0=xd._at[0])
             pack = fetch_packed(*out)
 
             def commit():
@@ -279,16 +320,18 @@ class GaussianMixture(BaseEstimator):
         self._check_fitted()
         x = ensure_canonical(x)
         weights, means, covs = self._params_on(x.device)
-        labels = _gm_predict(x._data, x.shape, weights, means, covs,
-                             self.covariance_type)
-        return Array._from_padded(labels, (x.shape[0], 1), x._mesh)
+        labels = _gm_predict(x._row_block(), x.shape, weights, means, covs,
+                             self.covariance_type, x._at[0])
+        return Array(_block_with(labels, (x._at[0], 0), (x.shape[0], 1),
+                                 x._mesh), (x.shape[0], 1), x._mesh)
 
     def score(self, x: Array, y=None) -> float:
-        """Mean per-sample log-likelihood under the fitted mixture."""
+        """Mean per-sample log-likelihood under the fitted mixture (a
+        ``psum`` of the ranks' sums across ranks)."""
         self._check_fitted()
-        return float(_gm_loglik(x._data, x.shape,
+        return float(_gm_loglik(x._row_block(), x.shape,
                                 *self._params_on(x.device),
-                                self.covariance_type))
+                                self.covariance_type, x._at[0], x._mesh))
 
     def _params_on(self, device):
         return self._predict_leaves(device, self.weights_, self.means_,
@@ -367,66 +410,128 @@ def _log_prob(xv, means, prec, cov_type, d):
     return -0.5 * (d * _LOG2PI + maha) + logdet[None, :]
 
 
-def _estimate_covs(xv, resp, nk, means, cov_type, reg_covar, w):
-    """M-step covariance update; ``resp`` already includes the row mask."""
-    d = xv.shape[1]
-    eye = torch.eye(d, dtype=xv.dtype, device=xv.device)
+def _second_moments(xv, resp, cov_type, w, shift=None):
+    """The rows' part of the M-step's second-moment sums, the part that
+    adds up over row blocks (``resp`` already includes the row mask):
+    ``full`` Σ r (x − c)(x − c)ᵀ per component about ``shift`` c (k, d, d),
+    √r-weighted as the reference's (wd = √r (x − c), wdᵀwd, one
+    component's (m, d) wd at a time); ``tied`` Σ w x xᵀ (d, d);
+    ``diag``/``spherical`` Σ r x² (k, d)."""
     if cov_type == "full":
-        # √r-weighted, as the reference: wd = √r_k (x − μ_k) makes the
-        # covariance wdᵀwd, symmetric PSD by construction; one component's
-        # (m, d) wd at a time
-        covs = torch.empty((len(means), d, d), dtype=xv.dtype,
-                           device=xv.device)
-        for c in range(len(means)):
-            wd = (xv - means[c][None, :]) * torch.sqrt(resp[:, c])[:, None]
-            covs[c] = wd.T @ wd / nk[c] + reg_covar * eye
-        return covs
+        k, d = shift.shape
+        out = torch.empty((k, d, d), dtype=xv.dtype, device=xv.device)
+        for c in range(k):
+            wd = (xv - shift[c][None, :]) * torch.sqrt(resp[:, c])[:, None]
+            out[c] = wd.T @ wd
+        return out
     if cov_type == "tied":
-        xw = xv * w[:, None]
-        avg_x2 = xw.T @ xv
+        return (xv * w[:, None]).T @ xv
+    return resp.T @ (xv * xv)
+
+
+def _covs_from_moments(mom, r_sum, sx, nk, means, cov_type, reg_covar,
+                       shift=None):
+    """The M-step covariances from the summed moments: ``r_sum`` = Σ r,
+    ``sx`` = Σ r x, ``nk`` = Σ r + 1e-10, ``means`` = sx / nk.  A ``full``
+    ``mom`` taken about ``shift`` c (not the new means μ) is moved to μ
+    exactly: Σ r (x−μ)(x−μ)ᵀ = S − s δᵀ − δ sᵀ + (Σ r) δ δᵀ with
+    δ = μ − c and s = Σ r (x − c)."""
+    d = means.shape[1]
+    eye = torch.eye(d, dtype=means.dtype, device=means.device)
+    if cov_type == "full":
+        if shift is not None:
+            delta = means - shift
+            s = sx - r_sum[:, None] * shift
+            cross = s[:, :, None] * delta[:, None, :]
+            mom = mom - cross - cross.mT \
+                + r_sum[:, None, None] * (delta[:, :, None]
+                                          * delta[:, None, :])
+        return mom / nk[:, None, None] + reg_covar * eye
+    if cov_type == "tied":
         avg_mu2 = (means * nk[:, None]).T @ means
-        cov = (avg_x2 - avg_mu2) / torch.sum(nk)
+        cov = (mom - avg_mu2) / torch.sum(nk)
         return cov + reg_covar * eye
-    avg_x2 = resp.T @ (xv * xv) / nk[:, None]
+    avg_x2 = mom / nk[:, None]
     if cov_type == "diag":
         return avg_x2 - means * means + reg_covar
     return torch.mean(avg_x2 - means * means, dim=1) + reg_covar
 
 
-def _e_step(xv, w, m, weights, means, covs, cov_type):
-    """Responsibilities (m_pad, k) and the mean log-likelihood."""
+def _e_step(xv, w, weights, means, covs, cov_type):
+    """Responsibilities (rows, k) and Σ lse·w, the rows' part of the
+    log-likelihood sum (the mean is that sum over all rows / m)."""
     prec = _chol_precisions(covs, cov_type, xv.shape[1])
     logp = _log_prob(xv, means, prec, cov_type, xv.shape[1]) \
         + torch.log(weights)[None, :]
     lse = torch.logsumexp(logp, dim=1)
-    return torch.exp(logp - lse[:, None]), torch.sum(lse * w) / m
+    return torch.exp(logp - lse[:, None]), torch.sum(lse * w)
+
+
+def _row_sums(mesh):
+    """``sums(*parts)``: the parts summed over the ranks of 'rows', in ONE
+    packed ``psum`` on a mesh of a ``torch.distributed`` job (the
+    identity elsewhere)."""
+    if mesh is None or mesh.groups is None:
+        return lambda *parts: parts
+
+    def sums(*parts):
+        flat = _dist.psum(torch.cat([p.reshape(-1) for p in parts]),
+                          _mesh.ROWS, mesh)
+        out, i = [], 0
+        for p in parts:
+            out.append(flat[i:i + p.numel()].view(p.shape))
+            i += p.numel()
+        return out
+    return sums
 
 
 @precise
 def _gm_fit(xp, shape, resp0, cov_type, reg_covar, tol, max_iter,
-            overrides=(None, None, None), prev_lb0=None, read=None):
+            overrides=(None, None, None), prev_lb0=None, read=None,
+            mesh=None, row0=0):
     """EM on the padded backing ``xp`` of logical ``shape`` from the
     responsibilities ``resp0`` (or the explicit ``overrides``), until
     ``|lb − prev_lb| < tol`` or ``max_iter`` (the reference's ``cond``),
     in chunks of masked steps (:func:`run_chunked`).  ``prev_lb0``: the
     lower bound the first step is compared with (a resumed chunk's);
-    ``read``: the loop's stop-flag read.  Returns ``(weights, means, covs,
+    ``read``: the loop's stop-flag read.  On a ``mesh`` of a
+    ``torch.distributed`` job ``xp`` is this rank's rows (the first is
+    global row ``row0``): the E-step runs on them, and ONE packed ``psum``
+    over 'rows' a step carries Σ r, Σ r x, the second-moment sums and the
+    E-step's Σ lse·w, so the parameters, the lower bound, the stop flag
+    and the health vector are the same on every rank.  The ``full``
+    moments of a step are taken about the step's current means
+    (:func:`_covs_from_moments`); the init's, from ``resp0``, about the
+    new means, by a second ``psum``.  Returns ``(weights, means, covs,
     lb, n_iter, converged, hist, hvec)`` as device tensors — the
     reference's 8-tuple."""
     m, n = shape
-    xv, w = _crop(xp, shape)
+    xv, w = _crop(xp, shape, row0)
     dev, dt = xv.device, xv.dtype
+    sums = _row_sums(mesh)
 
-    def m_step(resp):
+    def m_step(resp, shift=None, lse_sum=None):
         resp = resp * w[:, None]
-        nk = torch.sum(resp, dim=0) + 1e-10
-        means = resp.T @ xv / nk[:, None]
-        covs = _estimate_covs(xv, resp, nk, means, cov_type, reg_covar, w)
-        return nk / m, means, covs
+        late = cov_type == "full" and shift is None
+        parts = [torch.sum(resp, dim=0), resp.T @ xv]
+        if not late:
+            parts.append(_second_moments(xv, resp, cov_type, w, shift))
+        if lse_sum is not None:
+            parts.append(lse_sum.reshape(1))
+        parts = sums(*parts)
+        r_sum, sx = parts[0], parts[1]
+        nk = r_sum + 1e-10
+        means = sx / nk[:, None]
+        mom = sums(_second_moments(xv, resp, cov_type, w, means))[0] \
+            if late else parts[2]
+        covs = _covs_from_moments(mom, r_sum, sx, nk, means, cov_type,
+                                  reg_covar, shift)
+        return (nk / m, means, covs), (parts[-1][0] if lse_sum is not None
+                                       else None)
 
     if any(o is None for o in overrides):
         weights, means, covs = (o if o is not None else v for o, v in
-                                zip(overrides, m_step(resp0.to(dt))))
+                                zip(overrides, m_step(resp0.to(dt))[0]))
     else:                               # a resumed chunk: no M-step init
         weights, means, covs = overrides
     lb = torch.full((), float("-inf") if prev_lb0 is None else prev_lb0,
@@ -438,8 +543,9 @@ def _gm_fit(xp, shape, resp0, cov_type, reg_covar, tol, max_iter,
     def step(t):
         nonlocal weights, means, covs, lb, conv, n_iter
         active = ~conv
-        resp, new_lb = _e_step(xv, w, m, weights, means, covs, cov_type)
-        nw, nm, nc = m_step(resp)
+        resp, lse_sum = _e_step(xv, w, weights, means, covs, cov_type)
+        (nw, nm, nc), lse_sum = m_step(resp, means, lse_sum)
+        new_lb = lse_sum / m
         weights = torch.where(active, nw, weights)
         means = torch.where(active, nm, means)
         covs = torch.where(active, nc, covs)
@@ -457,16 +563,21 @@ def _gm_fit(xp, shape, resp0, cov_type, reg_covar, tol, max_iter,
 
 
 @precise
-def _gm_loglik(xp, shape, weights, means, covs, cov_type):
-    xv, w = _crop(xp, shape)
-    return _e_step(xv, w, shape[0], weights, means, covs, cov_type)[1]
+def _gm_loglik(xp, shape, weights, means, covs, cov_type, row0=0,
+               mesh=None):
+    """The mean log-likelihood: the rows' Σ lse·w (summed over the ranks
+    on a ``mesh`` of a job) / m."""
+    xv, w = _crop(xp, shape, row0)
+    lse_sum = _e_step(xv, w, weights, means, covs, cov_type)[1]
+    return _row_sums(mesh)(lse_sum.reshape(1))[0][0] / shape[0]
 
 
 @precise
-def _gm_predict(xp, shape, weights, means, covs, cov_type):
+def _gm_predict(xp, shape, weights, means, covs, cov_type, row0=0):
     """``predict``'s body (the reference's fusion node): the most likely
-    component per row as (m_pad, 1) int32, 0 on padded rows."""
-    xv, w = _crop(xp, shape)
+    component per row as (rows, 1) int32, 0 on padded rows (``xp``'s
+    first row is global row ``row0``)."""
+    xv, w = _crop(xp, shape, row0)
     prec = _chol_precisions(covs, cov_type, xv.shape[1])
     logp = _log_prob(xv, means, prec, cov_type, xv.shape[1]) \
         + torch.log(weights)[None, :]

@@ -148,7 +148,8 @@ class KMeans(BaseEstimator):
             return torch.from_numpy(c).to(x.device)
         if self.init != "random":
             raise ValueError(f"unsupported init {self.init!r}")
-        rng = np.random.RandomState(self.random_state)
+        rng = np.random.RandomState(_dist.agreed_seed(self.random_state,
+                                                      x._mesh))
         # sample k distinct rows — the same draw as the reference
         idx = rng.choice(x.shape[0], size=min(k, x.shape[0]), replace=False)
         if isinstance(x, SparseArray):

@@ -18,7 +18,9 @@ yet ported to the mesh reads ``_data``, so none of them computes on one
 rank's rows without knowing it.  Across ranks: the constructors place
 blocks (each rank takes its block of the same global input or draw),
 ``collect`` all-gathers them, the elementwise ops of equal shapes and
-scalars stay local, the reductions reduce locally and then over the
+scalars stay local, a (1, n), (m, 1) or (1, 1) operand of a broadcast
+op comes to each rank by one broadcast from the first mesh row (column)
+(:func:`_spread`), the reductions reduce locally and then over the
 reduced mesh axis, and a row index gathers rows by one ``all_to_all``
 over 'rows' (:func:`_gather_rows`).  Everything else raises
 ``NotImplementedError`` at world > 1, naming the ROADMAP.md item that
@@ -145,6 +147,29 @@ def _block_with(vals: torch.Tensor, at, shape, mesh) -> torch.Tensor:
 
 def _sharded(mesh) -> bool:
     return mesh.world > 1
+
+
+def _spread(x: "Array", out_shape) -> torch.Tensor:
+    """The operand ``x`` of a broadcast elementwise op whose result has
+    ``out_shape``, as this rank's part of it: its own block along an axis
+    it spans, and its one logical row (column) along an axis of length 1
+    that the result spans.  That row lives in the blocks of mesh row 0,
+    whose column blocks line up with the result's (the same length and
+    quantum), so it comes from there by one broadcast over 'rows'
+    (a column over 'cols'); a (1, 1) operand takes both."""
+    t, mesh = x._local, x._mesh
+    if x._shape[0] == 1 and out_shape[0] > 1:
+        own = mesh.coord[0] == 0
+        t = _dist.broadcast_from(t[:1].contiguous() if own else torch.empty(
+            (1, t.shape[1]), dtype=t.dtype, device=t.device), 0,
+            _mesh.ROWS, mesh)
+    if x._shape[1] == 1 and out_shape[1] > 1:
+        own = mesh.coord[1] == 0
+        t = _dist.broadcast_from(t[:, :1].contiguous() if own else
+                                 torch.empty((t.shape[0], 1), dtype=t.dtype,
+                                             device=t.device), 0,
+                                 _mesh.COLS, mesh)
+    return t
 
 
 def _guard(what, item="A.11"):
@@ -280,9 +305,11 @@ class Array:
             raise NotImplementedError(
                 "this operation reads the whole ds-array and the array is "
                 f"sharded over a {(self._mesh.rows, self._mesh.cols)} mesh "
-                "of ranks; only the ds-array, matmul, KMeans, the ring kNN "
-                "and the shuffle run across ranks so far (ROADMAP.md A.2b "
-                "ports the other estimators, A.2c the sparse tier)")
+                "of ranks; only the ds-array, matmul, KMeans, "
+                "GaussianMixture, the scalers, tsqr, random_svd, PCA, the "
+                "ring kNN and the shuffle run across ranks so far "
+                "(ROADMAP.md A.2b ports the other estimators, A.2c the "
+                "sparse tier)")
         return self._local
 
     @property
@@ -453,13 +480,12 @@ class Array:
             if _sharded(self._mesh) or _sharded(other._mesh):
                 if other._mesh != self._mesh:
                     raise ValueError("operands live on different meshes")
-                if other._shape != self._shape:
-                    raise _guard("a broadcast elementwise op", "A.2b")
                 # 0/0 and 0**0 would leave the pad non-zero: re-zero it
-                return Array(_zero_pad(_BINOPS[op](self._local, other._local),
-                                       self._shape, self._at),
-                             self._shape, self._mesh, self._reg_shape,
-                             self._sparse and other._sparse)
+                data = _BINOPS[op](_spread(self, out_shape),
+                                   _spread(other, out_shape))
+                return Array(_zero_pad(data, out_shape, _block_geom(
+                    out_shape, self._mesh)[:2]), out_shape, self._mesh,
+                    self._reg_shape, self._sparse and other._sparse)
             data = _ew_array_body(self._data, other._data, self._shape,
                                   other._shape, op)
             return Array(data, out_shape, self._mesh, self._reg_shape,
@@ -782,7 +808,8 @@ def random_array(shape, block_size=None, random_state=None,
     mesh = _mesh_for(device)
     shape = (int(shape[0]), int(shape[1]))
     pshape = _padded_shape(shape, _mesh.pad_quantum(mesh))
-    data = _random_uniform(_seed_from(random_state), pshape, shape,
+    data = _random_uniform(_seed_from(_dist.agreed_seed(random_state, mesh)),
+                           pshape, shape,
                            _torch_dtype(dtype), mesh.device)
     if _sharded(mesh):
         data = _block_with(data, (0, 0), shape, mesh)
@@ -839,10 +866,12 @@ def eye(n, m=None, block_size=None, dtype=torch.float32,
     r0, c0, ml, nl = _block_geom(shape, mesh)
     data = torch.zeros((ml, nl), dtype=_torch_dtype(dtype),
                        device=mesh.device)
-    # the diagonal entries that fall in this rank's block
-    diag = torch.arange(max(r0, c0), min(r0 + ml, c0 + nl, min(shape)),
-                        device=mesh.device)
-    data[diag - r0, diag - c0] = 1
+    # the diagonal entries that fall in this rank's block: none when the
+    # block misses the diagonal (or holds only padding)
+    lo, hi = max(r0, c0), min(r0 + ml, c0 + nl, min(shape))
+    if lo < hi:
+        diag = torch.arange(lo, hi, device=mesh.device)
+        data[diag - r0, diag - c0] = 1
     return Array(data, shape, mesh, reg_shape=block_size)
 
 

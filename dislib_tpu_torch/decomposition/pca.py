@@ -3,7 +3,10 @@
 Counterpart of ``dislib_tpu/decomposition/pca.py``: the covariance from one
 scatter GEMM XᵀX − m·μμᵀ (no centred copy of X), then an ``eigh`` (method
 'eig') or an SVD (method 'svd') of the (n, n) covariance.  The reference's
-``arity`` (reduction fan-in) is accepted and ignored, as there.
+``arity`` (reduction fan-in) is accepted and ignored, as there.  Across
+ranks each rank sums its rows and one packed ``psum`` joins them;
+``transform`` and ``inverse_transform`` run through the broadcast ops and
+the transposed ``matmul`` of ``math/base.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from dislib_tpu_torch.base import BaseEstimator, carried_array
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.math.base import matmul
 from dislib_tpu_torch.ops import precision as px
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 
 
 class PCA(BaseEstimator):
@@ -49,8 +54,9 @@ class PCA(BaseEstimator):
         k = self.n_components or n
         if self.method not in ("eig", "svd"):
             raise ValueError(f"unknown method {self.method!r}")
-        mean, comps, var = _pca_fit(x._data, x.shape, self.method == "svd",
-                                    px.resolve(self.precision))
+        mean, comps, var = _pca_fit(x._row_block(), x.shape,
+                                    self.method == "svd",
+                                    px.resolve(self.precision), x._mesh)
         self.mean_ = Array._from_logical(mean.reshape(1, -1), x._mesh)
         self.components_ = Array._from_logical(comps[:k].contiguous(),
                                                x._mesh)
@@ -73,13 +79,25 @@ class PCA(BaseEstimator):
 
 
 @px.precise
-def _pca_fit(xp: torch.Tensor, shape, use_svd: bool, policy=px.FLOAT32):
+def _pca_fit(xp: torch.Tensor, shape, use_svd: bool, policy=px.FLOAT32,
+             mesh=None):
+    """Mean, components and variances from the rows ``xp`` (the whole
+    padded backing, or in a ``torch.distributed`` job this rank's rows:
+    their column sums and XᵀX then travel in ONE packed ``psum`` over
+    'rows', and the (n, n) eigenproblem is solved on every rank)."""
     m, n = shape
     xv = xp[:, :n]  # crop cols; padded rows are zero
-    mean = torch.sum(xv, dim=0) / m
+    col_sum = torch.sum(xv, dim=0)
+    gram = px.pdot(xv.T, xv, policy)
+    if mesh is not None and mesh.groups is not None:
+        packed = _dist.psum(torch.cat([col_sum.to(gram.dtype),
+                                       gram.reshape(-1)]), _mesh.ROWS, mesh)
+        col_sum = packed[:n].to(col_sum.dtype)
+        gram = packed[n:].view(n, n)
+    mean = col_sum / m
     # Σ (x-μ)(x-μ)ᵀ over the logical rows = XᵀX − m μμᵀ (zero pad rows
     # add nothing to XᵀX)
-    scatter = px.pdot(xv.T, xv, policy) - m * torch.outer(mean, mean)
+    scatter = gram - m * torch.outer(mean, mean)
     cov = scatter / (m - 1)
     if use_svd:
         # symmetric PSD: the singular values are the eigenvalues

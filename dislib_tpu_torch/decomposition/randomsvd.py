@@ -6,7 +6,9 @@ of the projected matrix, and the back-multiplication.  A float32 dense
 Array takes the fused path (:func:`_random_svd_fused`, the whole pipeline
 on the padded backing with no intermediate ds-arrays); anything else the
 composed path through ``matmul`` and ``tsqr``.  Both start from the one
-draw :func:`_omega_of`.
+draw :func:`_omega_of`.  In a ``torch.distributed`` job the fused path
+runs on each rank's rows; the composed path runs through the transposed
+``matmul`` forms and the tsQR across ranks.
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dislib_tpu_torch.data.array import Array, _repad
-from dislib_tpu_torch.decomposition.tsqr import (tsqr, _tsqr_shardmap,
+from dislib_tpu_torch.data.array import Array, _block_geom, _zero_pad
+from dislib_tpu_torch.decomposition.tsqr import (tsqr, _col_repad,
+                                                 _tsqr_ranks, _tsqr_shardmap,
                                                  _use_cholqr)
 from dislib_tpu_torch.math.base import matmul
 from dislib_tpu_torch.ops import precision as px
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 
 
 def random_svd(a: Array, iters: int = 2, epsilon: float | None = None,
@@ -51,12 +56,14 @@ def random_svd(a: Array, iters: int = 2, epsilon: float | None = None,
     mesh = a._mesh
 
     if type(a) is Array and m >= sketch and a.dtype == torch.float32:
-        u_log, s, vt = _random_svd_fused(
-            a._data, _omega_of(seed, n, sketch, a.device), a.shape, iters,
-            sketch, nsv, mesh, mesh.rows, cholqr=_use_cholqr(a.device),
-            policy=policy)
-        u = Array._from_logical_padded(_repad(u_log, (m, nsv), mesh),
-                                       (m, nsv), mesh)
+        u_rows, s, vt = _random_svd_fused(
+            a._row_block(), _omega_of(seed, n, sketch, a.device), a.shape,
+            iters, nsv, mesh, cholqr=_use_cholqr(a.device), policy=policy)
+        # this rank's block of U (on one rank the backing's rows past the
+        # quantum pad are cut)
+        r0, c0, ml, nl = _block_geom((m, nsv), mesh)
+        u = _col_repad(u_rows, mesh)[:ml, c0:c0 + nl].contiguous()
+        u = Array(_zero_pad(u, (m, nsv), (r0, c0)), (m, nsv), mesh)
         v = Array._from_logical(vt.T[:, :nsv].contiguous(), mesh)
         return u, Array._from_logical(s[:nsv].reshape(1, -1), mesh), v
 
@@ -73,42 +80,44 @@ def random_svd(a: Array, iters: int = 2, epsilon: float | None = None,
         q, _ = tsqr(y, precision=px.FLOAT32) if m >= sketch \
             else _qr_fallback(y)
     b = matmul(q, a, transpose_a=True, precision=policy)    # (sketch, n)
-    bv = px.f32(b._data[: b.shape[0], : b.shape[1]])
+    bv = px.f32(b._gathered()[: b.shape[0], : b.shape[1]])
     with px.precise():
         ub, s, vt = torch.linalg.svd(bv, full_matrices=False)
-    u = matmul(q, Array._from_logical(ub, mesh), precision=policy)
-    u = u[:, :nsv]
+    u = matmul(q, Array._from_logical(ub[:, :nsv].contiguous(), mesh),
+               precision=policy)
     v = Array._from_logical(vt.T[:, :nsv].contiguous(), mesh)
     return u, Array._from_logical(s[:nsv].reshape(1, -1), mesh), v
 
 
 @px.precise
-def _random_svd_fused(a_pad, omega, a_shape, iters, sketch, nsv, mesh, p,
-                      *, cholqr, policy=px.FLOAT32):
-    """Sketch, power iterations, projection and SVD on the padded backing.
-    Its zero pad rows/cols add nothing to any GEMM, and tsQR's Q rows at
-    zero input rows are zero for a full-rank sketch, so the logical crop
-    of U is exact."""
-    m, n = a_shape
-    av = px.f32(a_pad[:, :n])
+def _random_svd_fused(a_rows, omega, a_shape, iters, nsv, mesh, *, cholqr,
+                      policy=px.FLOAT32):
+    """Sketch, power iterations, projection and SVD on the rows
+    ``a_rows``: the padded backing, or in a ``torch.distributed`` job this
+    rank's rows (its block all-gathered over 'cols').  Zero pad rows and
+    columns add nothing to any GEMM, and tsQR's Q rows at zero input rows
+    are zero for a full-rank sketch.  ``A·Ω`` and ``A·Q_z`` are local
+    products, re-orthonormalised by the tsQR over the ranks
+    (:func:`~decomposition.tsqr._tsqr_ranks`); ``AᵀQ`` and ``QᵀA`` are
+    local products plus one ``psum`` over 'rows' each (none on one
+    rank); the (n, sketch) ``AᵀQ`` is orthonormalised and the small SVD
+    taken on every rank.  Returns (``a_rows``' rows of U, s, Vᵀ)."""
+    n = a_shape[1]
+    av = px.f32(a_rows[:, :n])
 
     def ortho(y):
-        # rows must be ≥ sketch per shard and divisible by p
-        rows = y.shape[0]
-        target = max(p * sketch, -(-rows // p) * p)
-        if target != rows:
-            y = torch.nn.functional.pad(y, (0, 0, 0, target - rows))
-        q, _ = _tsqr_shardmap(y, mesh, p, cholqr=cholqr, policy=px.FLOAT32)
-        return q[:rows]
+        return _tsqr_ranks(y, mesh, cholqr=cholqr, policy=px.FLOAT32)[0]
+
+    def gram(left, right):          # leftᵀ·right summed over the ranks
+        return _dist.psum(px.pdot(left.T, right, policy), _mesh.ROWS, mesh)
 
     q = ortho(px.pdot(av, omega, policy))
     for _ in range(iters):
-        qz = ortho(px.pdot(av.T, q, policy))
+        qz = _tsqr_shardmap(gram(av, q), mesh, 1, cholqr=cholqr,
+                            policy=px.FLOAT32)[0]
         q = ortho(px.pdot(av, qz, policy))
-    b = px.pdot(q.T, av, policy)                           # (sketch, n)
-    ub, s, vt = torch.linalg.svd(b, full_matrices=False)
-    u = px.pdot(q, ub[:, :nsv], policy)                    # (mp, nsv)
-    return u[:m], s, vt
+    ub, s, vt = torch.linalg.svd(gram(q, av), full_matrices=False)
+    return px.pdot(q, ub[:, :nsv], policy), s, vt
 
 
 def _omega_of(seed: int, n: int, sketch: int, device) -> torch.Tensor:

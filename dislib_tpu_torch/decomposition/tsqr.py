@@ -4,15 +4,19 @@ Counterpart of ``dislib_tpu/decomposition/tsqr.py``.  The reference runs one
 ``shard_map`` over the mesh's row axis: each of the p shards factors its
 rows (A_i = Q1_i R_i), ONE ``all_gather`` stacks the p R factors, every
 shard factors the (p·n, n) stack (R_stack = Q2 R) and forms
-Q_i = Q1_i · Q2[i].  :func:`_tsqr_shardmap` keeps that algorithm for p row
-shards of one backing; on the one-card ``(1, 1)`` mesh p = 1 and the gather
-is the identity.  The multi-GPU gather over NCCL is ROADMAP.md A.2.
+Q_i = Q1_i · Q2[i].  :func:`_tsqr_ranks` runs it over the ranks of a
+``torch.distributed`` job: each factors its row block and ONE
+``all_gather`` over 'rows' stacks the R factors; on the one-card
+``(1, 1)`` mesh p = 1 and the gather is the identity.
+:func:`_tsqr_shardmap` keeps the algorithm for p row shards of one
+backing (``math/qr``'s panels, the 8-shard parity test).
 
 The local factorisation is the batched Householder reduction tree
 (:func:`_local_tsqr`) or CholeskyQR2 (:func:`_cholqr2`), chosen by
 ``DSLIB_TSQR_CHOLQR`` (:func:`_use_cholqr`).  CholeskyQR2 reads ONE
 scalar on the host per local QR to decide whether its result is usable;
 when it is not, the Householder tree runs instead — never an error.
+Across ranks that decision is agreed (``distributed.any_rank``).
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ import os
 
 import torch
 
-from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.array import Array, _block_geom, _zero_pad
 from dislib_tpu_torch.ops import precision as px
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.utils.profiling import host_read
 
@@ -47,21 +52,46 @@ def tsqr(a: Array, mode: str = "reduced", indexes=None, precision=None):
     if m < n:
         raise ValueError("tsqr requires a tall-skinny array (m >= n)")
     mesh = a._mesh
-    p = mesh.rows
-    av = px.f32(a._data[:, :n])  # keep padded rows (zeros), crop cols
-    # each shard must be at least n tall for its local R to be (n, n);
-    # zero rows leave Q's logical rows and R exact
-    if av.shape[0] // p < n:
-        av = torch.nn.functional.pad(av, (0, 0, 0, p * n - av.shape[0]))
-    q_pad, r = _tsqr_shardmap(av, mesh, p, cholqr=_use_cholqr(av.device),
-                              policy=policy)
+    if indexes is not None and mesh.world > 1:
+        raise NotImplementedError(
+            "tsqr(indexes=...) of a ds-array sharded over several ranks "
+            "needs column indexing (ROADMAP.md A.11)")
+    # this rank's rows (the whole padded backing on one rank), padded
+    # rows kept (zeros), columns cropped
+    av = px.f32(a._row_block()[:, :n])
+    q_rows, r = _tsqr_ranks(av, mesh, cholqr=_use_cholqr(av.device),
+                            policy=policy)
     if mode == "r":
         return Array._from_logical(r, mesh)
-    q = Array._from_logical_padded(_col_repad(q_pad, mesh), (m, n), mesh,
-                                   a._reg_shape)
+    r0, c0, ml, nl = _block_geom((m, n), mesh)
+    q = _col_repad(q_rows, mesh)[:, c0:c0 + nl].contiguous()
+    q = Array(_zero_pad(q, (m, n), (r0, c0)), (m, n), mesh, a._reg_shape)
     if indexes is not None:
         q = q[:, list(indexes)]
     return q, Array._from_logical(r, mesh)
+
+
+@px.precise
+def _tsqr_ranks(av: torch.Tensor, mesh, *, cholqr: bool,
+                policy=px.FLOAT32):
+    """tsQR over the ranks of ``mesh``'s 'rows' axis, ``av`` this rank's
+    rows (mesh row i of p; the whole array on one rank, p = 1): a local
+    QR, ONE ``all_gather`` of the (n, n) R factors over 'rows' (the
+    reference's), one QR of the (p·n, n) stack on every rank, and
+    Q_i = Q1_i · Q2[i].  A block shorter than n rows is padded with zero
+    rows, which leave Q's rows and R exact.  Returns (Q_i with ``av``'s
+    rows, R).  At a world of one the gather runs over a group of one and
+    the factors equal those with no process group, bit for bit."""
+    rows, n = av.shape
+    if rows < n:
+        av = torch.nn.functional.pad(av, (0, 0, 0, n - rows))
+    q1, r1 = _local_qr(av, cholqr, policy, mesh)
+    # (p·n, n), contiguous as a gathered stack is, whatever the route
+    r_stack = _dist.all_gather(r1.contiguous(), _mesh.ROWS, 0, mesh)
+    q2, r = _local_qr(r_stack, cholqr, policy, mesh)
+    i = mesh.coord[0]
+    q = px.pdot(q1, q2[i * n:(i + 1) * n], policy)
+    return q[:rows], r
 
 
 def _use_cholqr(device) -> bool:
@@ -101,14 +131,21 @@ def _cholqr2(a: torch.Tensor):
     return q2, r, ok
 
 
-def _local_qr(a: torch.Tensor, cholqr: bool, policy=px.FLOAT32):
+def _local_qr(a: torch.Tensor, cholqr: bool, policy=px.FLOAT32,
+              mesh=None):
     """One shard's tall-skinny QR: CholeskyQR2 when ``cholqr``, falling
     back to the Householder tree when its ``ok`` (one host read) is
     False; the tree otherwise.  ``policy`` governs only the tree's batched
-    Q-apply GEMMs."""
+    Q-apply GEMMs.  On a ``mesh`` of a ``torch.distributed`` job the
+    route is agreed: the tree runs on every rank when ``ok`` is False on
+    any (``distributed.any_rank``), so the ranks' R factors come from one
+    route."""
     if cholqr:
         q_c, r_c, ok = _cholqr2(a)
-        if host_read(ok, "cholqr2_ok"):
+        bad = not host_read(ok, "cholqr2_ok")
+        if mesh is not None and mesh.groups is not None:
+            bad = _dist.any_rank(bad, mesh)
+        if not bad:
             return q_c, r_c
     return _local_tsqr(a, policy)
 
@@ -145,12 +182,11 @@ def _tsqr_shardmap(av: torch.Tensor, mesh, p: int, *, cholqr: bool,
     ``all_gather``; the identity at p = 1), one QR of the stack, and each
     shard's Q1 times its (n, n) slice of Q2.  ``cholqr`` is required so
     every caller resolves :func:`_use_cholqr` itself."""
-    del mesh
     rows, n = av.shape
     shards = av.reshape(p, rows // p, n)
-    local = [_local_qr(shards[i], cholqr, policy) for i in range(p)]
+    local = [_local_qr(shards[i], cholqr, policy, mesh) for i in range(p)]
     r_stack = torch.cat([r1 for _, r1 in local], dim=0)      # (p·n, n)
-    q2, r = _local_qr(r_stack, cholqr, policy)
+    q2, r = _local_qr(r_stack, cholqr, policy, mesh)
     q = torch.cat([px.pdot(q1, q2[i * n:(i + 1) * n], policy)
                    for i, (q1, _) in enumerate(local)], dim=0)
     return q, r

@@ -14,7 +14,9 @@ two dense schedules:
 On a mesh of several ranks ``auto`` keeps the reference's rule (SUMMA on
 a 2-D mesh at ``_summa_min_dim`` and above) and ``xla`` multiplies this
 rank's rows of A by its columns of B, each all-gathered once
-(:func:`_matmul_ranks`, the one place of that rule).
+(:func:`_matmul_ranks`, the one place of that rule); of the transposed
+forms, AᵀB of two row-sharded arrays of one height and A·Bᵀ with a
+small B run there (random_svd's and PCA's), the others raise.
 
 ``kron`` builds its output from the index lattice; ``svd`` is the
 reference's one-sided Jacobi in both tiers (scalar Givens pairs below two
@@ -37,7 +39,8 @@ import warnings
 import numpy as np
 import torch
 
-from dislib_tpu_torch.data.array import Array, _padded_shape
+from dislib_tpu_torch.data.array import Array, _block_geom, \
+    _padded_shape
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.ops.summa import summa_matmul, summa_supported
@@ -109,7 +112,7 @@ def matmul(a: Array, b: Array, transpose_a: bool = False,
     algo = _pick_algorithm(algorithm, a, b, a_shape, b_shape, transpose_a,
                            transpose_b)
     if a._mesh.world > 1 or b._mesh.world > 1:
-        return _matmul_ranks(a, b, transpose_a or transpose_b, algo, policy,
+        return _matmul_ranks(a, b, transpose_a, transpose_b, algo, policy,
                              out_shape, reg)
     if algo == "summa":
         return _matmul_summa(a, b, transpose_a, transpose_b, policy,
@@ -177,20 +180,36 @@ def _matmul_summa(a, b, transpose_a, transpose_b, policy, out_shape, reg):
     return Array(_crop_or_keep(out, out_shape), out_shape, a._mesh, reg)
 
 
-def _matmul_ranks(a, b, transposed, algo, policy, out_shape, reg):
+def _matmul_ranks(a, b, transpose_a, transpose_b, algo, policy, out_shape,
+                  reg):
     """The product of two ds-arrays sharded over one mesh of several
     ranks, into this rank's block of C.  ``summa``: the panel schedule.
     ``xla``: this rank's rows of A (its block all-gathered over 'cols')
     times its columns of B (all-gathered over 'rows') — what GSPMD plans
     for the reference's sharded dot; on a one-column mesh only B
-    moves."""
+    moves.  Two transposed forms: ``transpose_a`` (AᵀB of two arrays
+    that share their rows) is each rank's rows' AᵢᵀBᵢ, summed by one
+    ``psum`` over 'rows'; ``transpose_b`` gathers the whole of B (the
+    small operand, as PCA's components) on every rank and multiplies the
+    rank's rows by Bᵀ.  Every other transposed form needs the transpose's
+    exchange and raises."""
     mesh = a._mesh
     if b._mesh != mesh:
         raise ValueError("matmul operands live on different meshes")
-    if transposed:
+    if (transpose_a or transpose_b) and (
+            algo == "summa" or (transpose_a and transpose_b)):
         raise NotImplementedError(
-            "a transposed matmul of ds-arrays sharded over several ranks "
-            "needs the transpose's exchange (ROADMAP.md A.11)")
+            "this transposed matmul of ds-arrays sharded over several "
+            "ranks needs the transpose's exchange (ROADMAP.md A.11)")
+    r0, c0, ml, nl = _block_geom(out_shape, mesh)
+    if transpose_a:
+        out = _dist.psum(px.pdot(a._row_block().T, b._row_block(), policy),
+                         _mesh.ROWS, mesh)
+        return Array(out[r0:r0 + ml, c0:c0 + nl].contiguous(), out_shape,
+                     mesh, reg)
+    if transpose_b:
+        out = px.pdot(a._row_block(), b._gathered().T, policy)
+        return Array(out[:, c0:c0 + nl].contiguous(), out_shape, mesh, reg)
     if algo == "summa":
         out = summa_matmul(a._local, b._local, mesh, policy,
                            overlap=_ov.resolve())

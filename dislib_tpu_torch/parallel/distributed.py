@@ -53,6 +53,7 @@ import socket
 import time
 from datetime import timedelta
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -419,6 +420,18 @@ def any_rank(flag: bool, mesh) -> bool:
     t = torch.tensor([int(bool(flag))], dtype=torch.int32,
                      device=mesh.device)
     return bool(pmax(t, ALL, mesh).item())
+
+
+def agreed_seed(random_state, mesh):
+    """``random_state`` for a host draw that every rank of ``mesh`` must
+    make alike: as given, except that None (a fresh seed) becomes rank
+    0's fresh seed on a mesh of several ranks, so that the ranks do not
+    draw apart."""
+    if random_state is not None or mesh.groups is None or mesh.world == 1:
+        return random_state
+    seed = torch.tensor([np.random.randint(0, 2**31 - 1)],
+                        dtype=torch.int64, device=mesh.device)
+    return int(broadcast_from(seed, 0, ALL, mesh)[0])
 
 
 def broadcast_from(t: torch.Tensor, owner: int, axis, mesh,

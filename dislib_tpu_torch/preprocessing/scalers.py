@@ -3,7 +3,10 @@
 Counterpart of ``dislib_tpu/preprocessing/scalers.py``: fit statistics are
 the ds-array's reductions, transform a broadcasted elementwise op on the
 device.  ``mean_``, ``var_``, ``data_min_`` and ``data_max_`` are (1, n)
-ds-arrays, as in the reference.
+ds-arrays, as in the reference.  On a mesh of several ranks the same code
+runs: the reductions reduce over the ranks, the (1, n) statistics reach
+each rank by the broadcast ops of ``data/array.py``, and the scale and
+range vectors are made on each rank's block.
 
 Sparse input, as in the reference: ``StandardScaler(with_mean=False)``
 fits a ``SparseArray`` by the one-pass moments ``mean``, ``square().mean``
@@ -18,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from dislib_tpu_torch.base import BaseEstimator, carried_array
-from dislib_tpu_torch.data.array import Array, _repad, _zero_pad
+from dislib_tpu_torch.data.array import Array, _zero_pad
 from dislib_tpu_torch.data.sparse import check_input as _check_input
 
 
@@ -158,18 +161,22 @@ class MinMaxScaler(BaseEstimator):
 
 
 def _sqrt_vec(v: Array) -> torch.Tensor:
-    """(n,) sqrt(max(v, 0)) with zeros → 1 (a no-op scale)."""
-    d = torch.sqrt(torch.clamp_min(v._data[0, : v._shape[1]], 0.0))
-    return torch.where(d == 0.0, torch.ones_like(d), d)
+    """(n,) sqrt(max(v, 0)) with zeros → 1 (a no-op scale), for the
+    sparse path (one rank)."""
+    return _safe_sqrt(v)._data[0, : v._shape[1]]
 
 
 def _safe_sqrt(v: Array) -> Array:
-    """:func:`_sqrt_vec` as a padded (1, n) ds-array."""
-    d = _sqrt_vec(v).reshape(1, -1)
-    return Array(_repad(d, v._shape, v._mesh), v._shape, v._mesh,
+    """sqrt(max(v, 0)) with zeros → 1 as a (1, n) ds-array, computed on
+    each rank's block (its pad re-zeroed)."""
+    d = torch.sqrt(torch.clamp_min(v._local, 0.0))
+    d = torch.where(d == 0.0, torch.ones_like(d), d)
+    return Array(_zero_pad(d, v._shape, v._at), v._shape, v._mesh,
                  v._reg_shape)
 
 
 def _nonzero(v: Array) -> Array:
-    d = torch.where(v._data == 0.0, torch.ones_like(v._data), v._data)
-    return Array(_zero_pad(d, v._shape), v._shape, v._mesh, v._reg_shape)
+    """``v`` with zeros → 1, on each rank's block (its pad re-zeroed)."""
+    d = torch.where(v._local == 0.0, torch.ones_like(v._local), v._local)
+    return Array(_zero_pad(d, v._shape, v._at), v._shape, v._mesh,
+                 v._reg_shape)

@@ -225,9 +225,10 @@ class ChunkedFitLoop:
         called with None before and with the mesh after the (would-be)
         switch.  None disables the tier for this fit.
     mesh : parallel.mesh.Mesh | None — the fit's mesh; on one with a
-        process group the preemption flag is agreed across its ranks
-        (``distributed.any_rank``), so that every rank stops at the same
-        chunk.
+        process group the preemption flag and each chunk's health verdict
+        are agreed across its ranks (``distributed.any_rank``), so that
+        every rank stops, raises or goes on at the same chunk (the stop
+        flag already is: it comes from all-reduced values).
 
     ``info`` carries the fit's resilience summary (chunks, rollbacks,
     escalations per tier, mesh shrinks/grows) — estimators expose it as
@@ -321,6 +322,7 @@ class ChunkedFitLoop:
                     increasing=self.increasing)
             else:
                 verdict = None
+            verdict = self._agreed(verdict, st.it)
             if verdict is not None and not verdict.ok:
                 esc = self.ladder.escalate(verdict, it=st.it)  # may raise
                 self.info["rollbacks"] += 1
@@ -332,6 +334,22 @@ class ChunkedFitLoop:
         state = out.state() if callable(out.state) else out.state
         hist = out.history() if callable(out.history) else out.history
         return state, hist
+
+    def _agreed(self, verdict, it):
+        """The chunk's verdict, agreed across the ranks of a multi-rank
+        fit (``distributed.any_rank``): a trip on any rank trips every
+        rank — on a rank whose own check passed, as the typed guard
+        ``'peer'`` (not recoverable: a multi-rank fit has no snapshot to
+        roll back to) — so no rank goes on into a collective that its
+        peers have left."""
+        if self.mesh is None or self.mesh.groups is None:
+            return verdict
+        bad = verdict is not None and not verdict.ok
+        if _dist.any_rank(bad, self.mesh) and not bad:
+            return _health.Verdict(False, guard="peer", recoverable=False,
+                                   detail={"iteration": it,
+                                           "tripped_on": "another rank"})
+        return verdict
 
     def _commit(self, st, hist, snapshot):
         self.info["chunks"] += 1

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from dislib_tpu_torch.data.array import Array, _gather_rows
+from dislib_tpu_torch.parallel import distributed as _dist
 
 
 def _check_input(x, who):
@@ -43,7 +44,7 @@ def shuffle(x: Array, y: Array | None = None, random_state=None):
     permutation)."""
     _check_input(x, "shuffle")
     rng = random_state if isinstance(random_state, np.random.RandomState) \
-        else np.random.RandomState(random_state)
+        else np.random.RandomState(_dist.agreed_seed(random_state, x._mesh))
     perm = rng.permutation(x.shape[0])
     if y is not None and y.shape[0] != x.shape[0]:
         raise ValueError("x and y must have the same number of rows")
@@ -60,7 +61,8 @@ def train_test_split(x: Array, y: Array | None = None, test_size: float = 0.25,
     n = x.shape[0]
     n_test = int(round(n * test_size))
     n_train = n - n_test if train_size is None else int(round(n * train_size))
-    perm = np.random.RandomState(random_state).permutation(n)
+    perm = np.random.RandomState(_dist.agreed_seed(
+        random_state, x._mesh)).permutation(n)
     train, test = perm[:n_train], perm[n_train:n_train + n_test]
     if y is not None and y.shape[0] != n:
         raise ValueError("x and y must have the same number of rows")

@@ -22,6 +22,22 @@ CPU devices, restored afterwards) and holds the ranks to it:
 - the ring kNN (and the gathered path) indices equal to the reference's
   on tie-free data, distances within 1e-5;
 - ``shuffle``/``train_test_split`` bit-equal to the NumPy permutation;
+- ``eye``/``identity`` equal to ``np.eye``, every block's pad zero;
+- each binary op of a full array with a (1, n), an (m, 1) and a (1, 1)
+  operand, in either order, equal to the same op on the host (NumPy's,
+  torch's for ``**``), the pad of every block still zero;
+- ``StandardScaler``/``MinMaxScaler`` within 1e-5 of the reference's;
+- ``tsqr`` (the tree, CholeskyQR2, and blocks shorter than n) within
+  ``ERROR_BOUNDS`` of orthogonality and residual, Q and R against the
+  reference's after sign normalisation; CholeskyQR2 refused on one rank
+  makes every rank take the tree, bit-equal to the tree route;
+- ``random_svd`` (fused and composed, the reference's test matrix handed
+  to ``_omega_of``) and PCA: values and explained variance within 1e-4,
+  U, V and the components within 1e-4 up to sign;
+- GaussianMixture (full and diag, the ``kmeans`` init) within rtol/atol
+  1e-4 of the reference's, ``n_iter_`` equal; the ``random`` init equal
+  to the port's one-rank fit from the same draw; a health trip on one
+  rank raises on every rank;
 - every estimator not yet ported to the mesh raises NotImplementedError.
 
 A rank that hangs fails the test in seconds: the job's collectives time
@@ -38,8 +54,10 @@ import numpy as np
 import pytest
 
 import dislib_tpu as ds
+from dislib_tpu.cluster import GaussianMixture as RefGM
 from dislib_tpu.cluster import KMeans as RefKMeans
 from dislib_tpu.neighbors import NearestNeighbors as RefNN
+from dislib_tpu.preprocessing import MinMaxScaler, StandardScaler
 
 from dislib_tpu_torch.ops.precision import ERROR_BOUNDS
 
@@ -51,7 +69,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run_ranks(tmp, rows, cols):
-    """Run the 4 ranks to their end; returns each rank's npz as a dict."""
+    """Run the 4 ranks to their end; returns each rank's npz as a dict.
+    random_svd's test matrix is the reference's draw (JAX's stream is not
+    reproducible in torch), handed to the ranks in ``omega.npz``."""
+    np.savez(os.path.join(tmp, "omega.npz"), **{
+        f"{W.SV_SEED}_{W.SV_SHAPE[1]}_{W.SV_SKETCH}": np.array(
+            jax.random.normal(jax.random.PRNGKey(W.SV_SEED),
+                              (W.SV_SHAPE[1], W.SV_SKETCH), np.float32))})
     store = os.path.join(tmp, "store")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
@@ -98,9 +122,40 @@ def _reference(rows, cols, inp):
         d, i = RefNN(n_neighbors=W.NN_K, ring=True).fit(
             ds.array(inp["fit"])).kneighbors(ds.array(inp["q"]))
         ref["knn_idx"], ref["knn_dist"] = i.collect(), d.collect()
+        _reference_a2b(ref, inp)
     finally:
         ds.init()
     return ref
+
+
+def _reference_a2b(ref, inp):
+    """The reference's results of A.2b's first part on the current mesh."""
+    x = ds.array(inp["x"])
+    for cls in (StandardScaler, MinMaxScaler):
+        ref[f"{cls.__name__}_t"] = np.asarray(cls().fit_transform(x).collect())
+    for name in ("x", "short"):
+        q, r = ds.tsqr(ds.array(inp[name]))
+        ref[f"tsqr_{name}_q"], ref[f"tsqr_{name}_r"] = (
+            np.asarray(q.collect()), np.asarray(r.collect()))
+    u, s, v = ds.random_svd(ds.array(inp["sv"]), nsv=W.SV_NSV,
+                            random_state=W.SV_SEED)
+    ref["rsvd_u"], ref["rsvd_s"], ref["rsvd_v"] = (
+        np.asarray(u.collect()), np.asarray(s.collect()),
+        np.asarray(v.collect()))
+    pca = ds.PCA(n_components=4).fit(x)
+    ref["pca_var"] = np.asarray(pca.explained_variance_.collect())
+    ref["pca_comp"] = np.asarray(pca.components_.collect())
+    ref["pca_mean"] = np.asarray(pca.mean_.collect())
+    ref["pca_t"] = np.asarray(pca.transform(x).collect())
+    g = ds.array(inp["gm"])
+    for cov in ("full", "diag"):
+        est = RefGM(covariance_type=cov, **W.GM_KW).fit(g)
+        for attr in ("weights_", "means_", "covariances_", "history_"):
+            ref[f"gm_{cov}_{attr}"] = getattr(est, attr)
+        ref[f"gm_{cov}_lb"] = est.lower_bound_
+        ref[f"gm_{cov}_n_iter"] = est.n_iter_
+        ref[f"gm_{cov}_labels"] = np.asarray(est.predict(g).collect())
+        ref[f"gm_{cov}_score"] = est.score(g)
 
 
 @pytest.fixture(scope="module", params=[(2, 2), (4, 1)],
@@ -252,3 +307,184 @@ def test_unported_estimators_raise_on_every_rank(job):
         assert comm[name]["calls"] > 0, name
     # the ring hops only on a mesh of more than one row
     assert comm["ppermute"]["calls"] > 0
+
+
+# -- A.2b's first part ------------------------------------------------------------
+
+def _blocks_hold_a_zero_pad(job, key, shape):
+    """Every rank's block of ``key`` has the block shape of a ds-array of
+    logical ``shape`` on the job's mesh, is finite, and is zero outside
+    the logical region."""
+    q = np.lcm(job["rows"], job["cols"])
+    pm, pn = (max(q, -(-d // q) * q) for d in shape)
+    ml, nl = pm // job["rows"], pn // job["cols"]
+    for rank, got in enumerate(job["ranks"]):
+        r, c = divmod(rank, job["cols"])
+        block = got[key]
+        assert block.shape == (ml, nl), key
+        assert np.isfinite(block).all(), key
+        rows = np.arange(r * ml, (r + 1) * ml)[:, None] < shape[0]
+        cols = np.arange(c * nl, (c + 1) * nl)[None, :] < shape[1]
+        np.testing.assert_array_equal(block[~(rows & cols)], 0, err_msg=key)
+
+
+def test_eye_and_identity_are_numpy_eye_on_every_rank(job):
+    for name, want in (("eye57", np.eye(5, 7)), ("eye5", np.eye(5)),
+                       ("identity5", np.eye(5))):
+        np.testing.assert_array_equal(_same_on_every_rank(job, name), want)
+        _blocks_hold_a_zero_pad(job, f"{name}_block", want.shape)
+
+
+@pytest.mark.parametrize("vec", ["row", "col", "one"])
+def test_broadcast_ops_against_a_vector_keep_a_zero_pad(job, vec):
+    import torch
+    x = job["inp"]["x"]
+    v = _same_on_every_rank(job, f"bc_{vec}")
+    assert v.shape == {"row": (1, x.shape[1]), "col": (x.shape[0], 1),
+                       "one": (1, 1)}[vec]
+    np.testing.assert_allclose(v, {"row": x.mean(0, keepdims=True),
+                                   "col": x.sum(1, keepdims=True),
+                                   "one": x.max(keepdims=True)}[vec],
+                               rtol=1e-6)
+    ops = {"add": np.add, "sub": np.subtract, "mul": np.multiply,
+           "div": np.divide,
+           # torch's pow, as one rank computes it (NumPy's powf differs
+           # from it in the last place)
+           "pow": lambda a, b: (torch.from_numpy(np.ascontiguousarray(a))
+                                ** torch.from_numpy(
+                                    np.ascontiguousarray(b))).numpy()}
+    for op, f in ops.items():
+        for order, want in (("xv", f(x, v)), ("vx", f(v, x))):
+            key = f"bc_{vec}_{op}_{order}"
+            np.testing.assert_array_equal(_same_on_every_rank(job, key),
+                                          want, err_msg=key)
+            _blocks_hold_a_zero_pad(job, f"{key}_block", x.shape)
+
+
+@pytest.mark.parametrize("cls", ["StandardScaler", "MinMaxScaler"])
+def test_scalers_match_the_reference(job, cls):
+    got = _same_on_every_rank(job, f"{cls}_t")
+    np.testing.assert_allclose(got, job["ref"][f"{cls}_t"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(_same_on_every_rank(job, f"{cls}_back"),
+                               job["inp"]["x"], rtol=1e-5, atol=1e-5)
+    _blocks_hold_a_zero_pad(job, f"{cls}_block", job["inp"]["x"].shape)
+
+
+def _signed_qr(q, r):
+    d = np.where(np.diag(r) < 0, -1.0, 1.0)
+    return q * d, r * d[:, None]
+
+
+@pytest.mark.parametrize("case", ["x", "short", "chol", "forced"])
+def test_tsqr_matches_the_reference(job, case):
+    a = job["inp"]["short" if case == "short" else "x"]
+    q = _same_on_every_rank(job, f"tsqr_{case}_q").astype(np.float64)
+    r = _same_on_every_rank(job, f"tsqr_{case}_r").astype(np.float64)
+    assert q.shape == a.shape and r.shape == (a.shape[1],) * 2
+    orth = np.abs(q.T @ q - np.eye(a.shape[1])).max()
+    assert orth <= ERROR_BOUNDS[("tsqr_orth", "float32")]
+    assert np.linalg.norm(q @ r - a) / np.linalg.norm(a) <= \
+        ERROR_BOUNDS[("tsqr_resid", "float32")]
+    ref = "short" if case == "short" else "x"
+    (qp, rp), (qr_, rr) = _signed_qr(q, r), _signed_qr(
+        job["ref"][f"tsqr_{ref}_q"], job["ref"][f"tsqr_{ref}_r"])
+    assert np.abs(qp - qr_).max() <= ERROR_BOUNDS[("tsqr_orth", "float32")]
+    assert np.abs(rp - rr).max() / np.abs(rr).max() <= 1e-5
+    if case == "x":
+        _blocks_hold_a_zero_pad(job, "tsqr_x_q_block", a.shape)
+    if case == "short":
+        _blocks_hold_a_zero_pad(job, "tsqr_short_q_block", a.shape)
+    if case == "forced":
+        # CholeskyQR2 refused on rank 1 alone: every rank took the tree
+        # for its block and for the R stack, so the factors are the tree
+        # route's, bit for bit
+        for got in job["ranks"]:
+            assert int(got["tsqr_forced_trees"]) == 2
+        np.testing.assert_array_equal(q, _same_on_every_rank(
+            job, "tsqr_x_q").astype(np.float64))
+        np.testing.assert_array_equal(r, _same_on_every_rank(
+            job, "tsqr_x_r").astype(np.float64))
+
+
+def _col_signs(u):
+    idx = np.abs(u).argmax(0)
+    return np.where(u[idx, np.arange(u.shape[1])] < 0, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("path", ["fused", "composed"])
+def test_random_svd_matches_the_reference(job, path):
+    ref = job["ref"]
+    s = _same_on_every_rank(job, f"rsvd_{path}_s").ravel()
+    s_ref = ref["rsvd_s"].ravel()
+    assert np.abs(s - s_ref).max() / s_ref[0] <= 1e-4
+    u = _same_on_every_rank(job, f"rsvd_{path}_u")
+    v = _same_on_every_rank(job, f"rsvd_{path}_v")
+    assert u.shape == (W.SV_SHAPE[0], W.SV_NSV)
+    assert v.shape == (W.SV_SHAPE[1], W.SV_NSV)
+    sg, sg_ref = _col_signs(u), _col_signs(ref["rsvd_u"])
+    assert np.abs(u * sg - ref["rsvd_u"] * sg_ref).max() <= 1e-4
+    assert np.abs(v * sg - ref["rsvd_v"] * sg_ref).max() <= 1e-4
+    _blocks_hold_a_zero_pad(job, f"rsvd_{path}_u_block", u.shape)
+
+
+def test_pca_matches_the_reference(job):
+    ref, x = job["ref"], job["inp"]["x"]
+    var = _same_on_every_rank(job, "pca_var")
+    np.testing.assert_allclose(var, ref["pca_var"], rtol=1e-4)
+    np.testing.assert_allclose(_same_on_every_rank(job, "pca_mean"),
+                               ref["pca_mean"], rtol=1e-6)
+    comp = _same_on_every_rank(job, "pca_comp")
+    sg, sg_ref = _col_signs(comp.T), _col_signs(ref["pca_comp"].T)
+    assert np.abs(comp.T * sg - ref["pca_comp"].T * sg_ref).max() <= 1e-4
+    t = _same_on_every_rank(job, "pca_t")
+    assert np.abs(t * sg - ref["pca_t"] * sg_ref).max() <= \
+        1e-4 * np.abs(ref["pca_t"]).max()
+    _blocks_hold_a_zero_pad(job, "pca_t_block", t.shape)
+    np.testing.assert_allclose(_same_on_every_rank(job, "pca_back"),
+                               (t @ comp) + ref["pca_mean"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("cov", ["full", "diag"])
+def test_gm_matches_the_reference(job, cov):
+    ref = job["ref"]
+    assert int(_same_on_every_rank(job, f"gm_{cov}_n_iter")) == \
+        ref[f"gm_{cov}_n_iter"]
+    for attr in ("weights_", "means_", "covariances_", "history_"):
+        np.testing.assert_allclose(
+            _same_on_every_rank(job, f"gm_{cov}_{attr}"),
+            ref[f"gm_{cov}_{attr}"], rtol=1e-4, atol=1e-4, err_msg=attr)
+    np.testing.assert_allclose(float(_same_on_every_rank(
+        job, f"gm_{cov}_lb")), ref[f"gm_{cov}_lb"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(_same_on_every_rank(
+        job, f"gm_{cov}_score")), ref[f"gm_{cov}_score"], rtol=1e-5,
+        atol=1e-5)
+    np.testing.assert_array_equal(_same_on_every_rank(
+        job, f"gm_{cov}_labels"), ref[f"gm_{cov}_labels"])
+    _blocks_hold_a_zero_pad(job, f"gm_{cov}_labels_block", (W.GM_SHAPE[0],
+                                                            1))
+
+
+def test_unseeded_draws_agree_across_ranks(job):
+    # without a seed each rank would pick its own init rows and its own
+    # permutation, and their row exchanges would not match
+    assert np.isfinite(_same_on_every_rank(job, "km_unseeded_centers")).all()
+    got = _same_on_every_rank(job, "shuffle_unseeded")
+    x = job["inp"]["x"]
+    np.testing.assert_array_equal(np.sort(got, axis=0), np.sort(x, axis=0))
+
+
+def test_gm_random_init_is_the_one_rank_fit_and_trips_agree(job):
+    assert int(_same_on_every_rank(job, "gm_random_ranks_n_iter")) == \
+        int(_same_on_every_rank(job, "gm_random_one_n_iter"))
+    for what in ("means", "covs"):
+        np.testing.assert_allclose(
+            _same_on_every_rank(job, f"gm_random_ranks_{what}"),
+            _same_on_every_rank(job, f"gm_random_one_{what}"), rtol=1e-4,
+            atol=1e-4)
+    # the trip was injected on rank 1: it raised there, and its peers
+    # raised as 'peer' instead of waiting in the next chunk's collectives
+    guards = [got["gm_trip_guard"].tobytes().decode()
+              for got in job["ranks"]]
+    assert guards == ["peer", "injected", "peer", "peer"]

@@ -6,15 +6,17 @@
 - the central guard: ``Array._data`` raises on a mesh of several ranks;
 - ``initialize``: no job without a launch variable, the backend rule,
   the one-rank-per-card check of NCCL, and ``init()``'s default mesh;
-- a gloo job of ONE rank (a FileStore under ``tmp_path``): SUMMA, KMeans
-  and the ring run their collectives over groups of one, and must be
-  bit-equal to the same calls with no process group;
+- a gloo job of ONE rank (a FileStore under ``tmp_path``): SUMMA, KMeans,
+  the ring, tsqr, GaussianMixture, random_svd, PCA and a scaler run their
+  collectives over groups of one, and must be bit-equal to the same calls
+  with no process group;
 - the ``random_array`` draw: the same logical values at the pad quanta
   of the (1, 1), (2, 2) and (4, 1) meshes;
 - the exchange plan of the shuffle: the reference's ``_routing`` plan.
 """
 
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -165,6 +167,25 @@ def _one_rank_results():
     q = torch.from_numpy(rng.rand(17, 6).astype(np.float32))
     d2, idx = port_ring.ring_kneighbors(q, f, dst.get_mesh(), 4, 50)
     out["ring_d2"], out["ring_idx"] = d2.numpy(), idx.numpy()
+    # A.2b's first part: tsqr (CholeskyQR2, its route agreed across the
+    # ranks), GaussianMixture, random_svd, PCA and the scalers
+    saved = os.environ.get("DSLIB_TSQR_CHOLQR")
+    os.environ["DSLIB_TSQR_CHOLQR"] = "1"
+    try:
+        qq, rr = dst.tsqr(a)
+    finally:
+        if saved is None:
+            os.environ.pop("DSLIB_TSQR_CHOLQR", None)
+        else:
+            os.environ["DSLIB_TSQR_CHOLQR"] = saved
+    out["tsqr_q"], out["tsqr_r"] = qq.collect(), rr.collect()
+    gm = dst.GaussianMixture(n_components=3, random_state=0, max_iter=4,
+                             tol=0).fit(x)
+    out["gm_means"], out["gm_covs"] = gm.means_, gm.covariances_
+    out["gm_score"] = np.float64(gm.score(x))
+    out["rsvd_s"] = dst.random_svd(a, nsv=3, random_state=0)[1].collect()
+    out["pca_t"] = dst.PCA(n_components=2).fit_transform(x).collect()
+    out["scaled"] = dst.StandardScaler().fit_transform(x).collect()
     return out
 
 
@@ -185,6 +206,7 @@ def test_a_gloo_world_of_one_is_bit_equal_to_no_job(tmp_path):
         dd.shutdown()
     # the collectives ran, over groups of one rank
     assert comm["broadcast"]["calls"] == 4 and comm["psum"]["calls"] > 8
+    assert comm["all_gather"]["calls"] > 0 and comm["pmax"]["calls"] > 0
     for key, want in plain.items():
         np.testing.assert_array_equal(job[key], want, err_msg=key)
     assert not dd.is_initialized()
