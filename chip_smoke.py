@@ -115,6 +115,7 @@ JAX.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
@@ -365,6 +366,22 @@ def blobs(m, n, k, seed=0, std=0.08):
     lab = rng.randint(0, k, m)
     x = centers[lab] + std * rng.standard_normal((m, n)).astype(np.float32)
     return x.astype(np.float32), lab.astype(np.int64)
+
+
+def lr_data(m, n):
+    """The regressions' draw (seed 8): x, y = x·beta + 0.5 + noise for
+    LinearRegression and yl = x·beta + noise for Lasso, beta with half
+    its entries 0 and a tenth 1e-3 (under the Lasso's threshold)."""
+    import numpy as np
+    rng = np.random.RandomState(8)
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    beta = rng.standard_normal(n)
+    beta[::2] = 0.0
+    beta[1::10] = 1e-3
+    noise = 0.1 * rng.standard_normal(m)
+    y = (x @ beta + 0.5 + noise).astype(np.float32)[:, None]
+    yl = (x @ beta + noise).astype(np.float32)[:, None]
+    return x, y, yl
 
 
 def numpy_leaf_stats(est, xq):
@@ -907,13 +924,7 @@ def scalers_and_regression_phases(dev):
     emit({"phase": "scalers", "shape": [SC_M, SC_N], **res})
     del X, x, x64
     # LinearRegression and Lasso: y = x·beta + noise, beta half zeros
-    rng = np.random.RandomState(8)
-    x = rng.standard_normal((LR_M, LR_N)).astype(np.float32)
-    beta = rng.standard_normal(LR_N)
-    beta[::2] = 0.0
-    beta[1::10] = 1e-3                      # under the Lasso's threshold
-    noise = 0.1 * rng.standard_normal(LR_M)
-    y = (x @ beta + 0.5 + noise).astype(np.float32)[:, None]
+    x, y, yl = lr_data(LR_M, LR_N)
     X, Y = dst.array(x), dst.array(y)
     x64 = x.astype(np.float64)
     dst.LinearRegression().fit(X, Y)                        # warm
@@ -931,7 +942,6 @@ def scalers_and_regression_phases(dev):
     del xa
     emit({"phase": "linear_regression", "shape": [LR_M, LR_N],
           "fit_s": lr_s, "coef_max_abs_err_vs_lstsq": lr_err, "r2": r2})
-    yl = (x @ beta + noise).astype(np.float32)[:, None]
     Yl = dst.array(yl)
 
     def lasso():
@@ -4298,6 +4308,18 @@ MESH_BACKEND = "gloo (one card, staged through the host)"
 # within MESH_KM_INERTIA (its centers drift apart as near-tie rows flip)
 MESH_KM_TOL = 1e-4
 MESH_KM_INERTIA = 1e-4
+# A.2b's second part on (4, 1), each held to one rank's result under the
+# CPU tests' gates (tests/test_torch_distributed.py): LinearRegression's
+# coefficients and R² and MiniBatchKMeans' centers within MESH_A2B2_TOL
+# (of the largest coefficient, absolutely for the centers and Lasso's
+# coefficients), qr's R and the singular values (lanczos_svd's too)
+# within MESH_QR_TOL of the largest, polar's U and H within ERROR_BOUNDS;
+# the MiniBatchKMeans stream is MESH_MBK_BATCHES batches of MBK_BATCH
+# rows, one epoch of the KMeans data; the search is the search phase's
+# kNN grid (4 candidates × 3 folds) on _blobs(GS_M, GS_N, 8)
+MESH_A2B2_TOL = 1e-5
+MESH_MBK_BATCHES = -(-KM_M // MBK_BATCH)
+MESH_GS_GRID = {"n_neighbors": [5, 15], "weights": ["uniform", "distance"]}
 
 
 def mesh_sizes():
@@ -4307,7 +4329,13 @@ def mesh_sizes():
             "knn_mq": KNN_MQ, "knn_k": KNN_K, "tsqr": list(TSQR),
             "rsvd": list(RSVD), "rsvd_nsv": RSVD_NSV,
             "rsvd_iters": RSVD_ITERS, "gm_m": GM_M, "gm_n": GM_N,
-            "gm_k": GM_K, "gm_iters": MESH_GM_ITERS}
+            "gm_k": GM_K, "gm_iters": MESH_GM_ITERS, "lr": [LR_M, LR_N],
+            "lasso": [LASSO_LMBD, LASSO_RHO, LASSO_ITERS],
+            "mbk_batch": MBK_BATCH, "mbk_batches": MESH_MBK_BATCHES,
+            "qr": list(QR_ECON), "svd": list(SVD_BLOCK),
+            "polar": list(POLAR), "lanczos": list(LANCZOS),
+            "lanczos_k": LANCZOS_K, "kron": [list(k) for k in KRON],
+            "gs_m": GS_M, "gs_n": GS_N}
 
 
 def mesh_data(which, z):
@@ -4315,7 +4343,10 @@ def mesh_data(which, z):
     and in every rank: the KMeans data and init (bench.py's draw, seed
     0), the kNN fit rows and queries (bench_knn's, seed 1), tsqr's,
     random_svd's and GaussianMixture's data (bench_tsqr's,
-    bench_randomsvd's and bench_gmm's draws, seed 0)."""
+    bench_randomsvd's and bench_gmm's draws, seed 0), the regressions'
+    (:func:`lr_data`), qr's, polar's and svd's (bench_svd's rand, seed 0),
+    lanczos_svd's (the linalg phase's, seed 6), kron's operands (seed 7)
+    and the search's blobs."""
     import numpy as np
     if which == "kmeans":
         rng = np.random.RandomState(0)
@@ -4330,6 +4361,22 @@ def mesh_data(which, z):
     if which == "gm":
         return np.random.RandomState(0).standard_normal(
             (z["gm_m"], z["gm_n"])).astype(np.float32)
+    if which == "lr":
+        return lr_data(*z["lr"])
+    if which in ("qr", "polar"):
+        return np.random.RandomState(0).standard_normal(z[which]).astype(
+            np.float32)
+    if which == "svd":                  # bench_svd's draw
+        return np.random.RandomState(0).rand(*z["svd"]).astype(np.float32)
+    if which == "lanczos":
+        return (np.random.RandomState(6).standard_normal(z["lanczos"])
+                * 0.9 ** np.arange(z["lanczos"][1])).astype(np.float32)
+    if which == "kron":
+        rng = np.random.RandomState(7)
+        return tuple(rng.standard_normal(k).astype(np.float32)
+                     for k in z["kron"])
+    if which == "search":
+        return blobs(z["gs_m"], z["gs_n"], 8)
     rng = np.random.RandomState(1)
     return (rng.rand(z["knn_mf"], z["knn_n"]).astype(np.float32),
             rng.rand(z["knn_mq"], z["knn_n"]).astype(np.float32))
@@ -4410,6 +4457,27 @@ def mesh_timer(dev):
         end.synchronize()
         return start.elapsed_time(end) / reps
     return ms
+
+
+def mesh_mbk_stream(dst, X, init, z, states=None, batches=None):
+    """MiniBatchKMeans (k = ``len(init)``, from ``init``) over the first
+    ``z["mbk_batches"]`` row slices of ``z["mbk_batch"]`` rows of ``X``,
+    one ``partial_fit`` a slice; ``states`` (a list) collects the
+    (centers, counts) after each batch, the host copies ``partial_fit``
+    already read, and ``batches`` (a list) each slice's block on this
+    rank, the rows the step consumed."""
+    est = dst.MiniBatchKMeans(n_clusters=len(init), init=init,
+                              batch_size=z["mbk_batch"])
+    b = z["mbk_batch"]
+    rows = min(X.shape[0], z["mbk_batches"] * b)
+    for s0 in range(0, rows, b):
+        xb = X[s0:min(s0 + b, rows), :]
+        est.partial_fit(xb)
+        if states is not None:
+            states.append((est.centers_, est.counts_))
+        if batches is not None:
+            batches.append(xb._local)
+    return est
 
 
 def mesh_rank(argv) -> int:
@@ -4910,14 +4978,369 @@ def mesh_rank(argv) -> int:
         "ms": lambda: K.distances_sq(xg, cg),
         "plain_ms": lambda: K.distances_sq_plain(xg, cg, "highest"),
         "library_ms": cdist_gm}, 20)
+    xg_shape = tuple(xg.shape)
+    del xg, cg, G, est
+    shapes = mesh_rank_a2b2(rank, z, dev, work, run, window, out)
     out["shapes"] = {"summa_panel": [n // 2] * 3,
                      "kmeans": [m_loc, km_k, z["km_n"]],
                      "ring": ring_shape,
-                     "gm_init": [int(xg.shape[0]), gm_k, gm_n]}
+                     "gm_init": [int(xg_shape[0]), gm_k, gm_n], **shapes}
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dd.shutdown()
     return 0
+
+
+def mesh_rank_a2b2(rank, z, dev, work, run, window, out):
+    """A.2b's second part on (4, 1), in one rank of the mesh phase, each
+    call held to the one-rank result of ``work/a2b2.npz`` under the CPU
+    tests' gates: LinearRegression and Lasso (the one-rank fit with the
+    same 4 agents, equal ``n_iter_``), the MiniBatchKMeans stream, qr's
+    panel loop, svd's block tier, polar, lanczos_svd, kron (bit-equal to
+    ``np.kron``) and the search over the kNN classifier (its scores and
+    host reads); ``distances_sq`` at the stream's per-rank batch and
+    ``panel_gemm`` at the search's ring hop against their plain versions,
+    timed with the card to this rank.  ``run``/``window``/``out`` are
+    :func:`mesh_rank`'s.  Returns the two per-rank kernel shapes."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.parallel import distributed as dd
+    from dislib_tpu_torch.utils import profiling as prof
+    one = dict(np.load(os.path.join(work, "a2b2.npz")))
+    mesh = dst.init((4, 1))
+    box = {}
+    ph = out["phases"]
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    # -- LinearRegression and Lasso on LR_M x LR_N ---------------------------
+    lx, ly, lyl = mesh_data("lr", z)
+    LX, LY, LYL = dst.array(lx), dst.array(ly), dst.array(lyl)
+    del lx, ly, lyl
+
+    def lr():
+        box["lr"] = dst.LinearRegression().fit(LX, LY)
+        return {"shape": z["lr"], "mesh": [4, 1]}
+
+    run("linear_regression", lr)
+    est = box.pop("lr")
+    c_err = rel(np.concatenate([est.coef_.ravel(), est.intercept_.ravel()]),
+                np.concatenate([one["lr_coef"].ravel(),
+                                one["lr_intercept"].ravel()]))
+    r2_err = rel(est.score(LX, LY), one["lr_r2"])
+    check(c_err <= MESH_A2B2_TOL and r2_err <= MESH_A2B2_TOL,
+          f"rank {rank}: LinearRegression off one rank's by {c_err} "
+          f"(coefficients, of the largest), {r2_err} (R², relative)")
+    ph["linear_regression"].update(coef_rel_err_vs_one_rank=c_err,
+                                   r2_rel_err_vs_one_rank=r2_err)
+
+    def lasso():
+        box["la"] = dst.Lasso(lmbd=z["lasso"][0], rho=z["lasso"][1],
+                              max_iter=int(z["lasso"][2])).fit(LX, LYL)
+        return {"shape": z["lr"], "mesh": [4, 1], "agents": 4}
+
+    run("lasso", lasso)
+    la = box.pop("la")
+    l_err = float(np.abs(la.coef_ - one["lasso_coef"]).max())
+    check(la.n_iter_ == int(one["lasso_n_iter"]) and l_err <= MESH_A2B2_TOL,
+          f"rank {rank}: Lasso ran {la.n_iter_} iterations (one rank with "
+          f"4 agents {int(one['lasso_n_iter'])}), coef off by {l_err}")
+    ph["lasso"].update(n_iter=la.n_iter_, coef_max_abs_err_vs_one_rank=l_err)
+    del LX, LY, LYL, est, la
+
+    # -- the MiniBatchKMeans stream over the KMeans data ---------------------
+    x_h, init = mesh_data("kmeans", z)
+    X = dst.array(x_h)
+
+    mbk_batches = []
+
+    def mbk():
+        box["mbk"] = mesh_mbk_stream(dst, X, init, z, batches=mbk_batches)
+        return {"shape": [z["km_m"], z["km_n"]], "mesh": [4, 1],
+                "batch": z["mbk_batch"], "batches": z["mbk_batches"]}
+
+    run("minibatch_kmeans", mbk)
+    est = box.pop("mbk")
+    n_rows = min(z["km_m"], z["mbk_batches"] * z["mbk_batch"])
+    check(est.n_batches_ == z["mbk_batches"] and np.isfinite(
+        est.centers_).all() and float(est.counts_.sum()) == n_rows,
+          f"rank {rank}: MiniBatchKMeans ran {est.n_batches_} batches, "
+          f"counts summing to {est.counts_.sum()} of {n_rows} rows")
+    launched = ph["minibatch_kmeans"]["launches"].get("distances_sq", 0)
+    if dev.type == "cuda":
+        check(launched == z["mbk_batches"], f"rank {rank}: the stream "
+              f"launched distances_sq {launched} times, not once a batch")
+    # the row gather: each batch's block on this rank holds exactly the
+    # rows of the slice it owns, zero past them
+    mbk_mod = importlib.import_module("dislib_tpu_torch.cluster.minibatch")
+    block_geom = importlib.import_module(
+        "dislib_tpu_torch.data.array")._block_geom
+    path_c, path_n = one["mbk_path_centers"], one["mbk_path_counts"]
+    b, n_f = z["mbk_batch"], z["km_n"]
+    bad_gathers = []
+    for i, blk in enumerate(mbk_batches):
+        s0 = i * b
+        m_b = min(b, n_rows - s0)
+        r0, _, ml, _ = block_geom((m_b, n_f), mesh)
+        live = max(0, min(ml, m_b - r0))
+        want = np.zeros((ml, blk.shape[1]), np.float32)
+        want[:live, :n_f] = x_h[s0 + r0:s0 + r0 + live]
+        if not np.array_equal(blk.cpu().numpy(), want):
+            bad_gathers.append(i)
+    check(len(mbk_batches) == z["mbk_batches"] and not bad_gathers,
+          f"rank {rank}: the stream's row gather gave wrong rows in "
+          f"batches {bad_gathers[:8]} of {len(mbk_batches)}")
+    # the free stream drifts from one rank's as near-tie rows flip (each
+    # flip moves a center, and the next batches' ties fall elsewhere), so
+    # every batch's step is held: from one rank's state before the batch,
+    # on the rows the stream gathered for it, against one rank's state
+    # after it, within MESH_A2B2_TOL with the same counts; and the free
+    # stream's batch inertias (its history_) within MESH_KM_INERTIA of
+    # one rank's, relatively, as the KMeans fit's inertia is held
+    step_err, step_ndiff = 0.0, 0.0
+    for i, blk in enumerate(mbk_batches):
+        m_b = min(b, n_rows - i * b)
+        r0 = block_geom((m_b, n_f), mesh)[0]
+        c0 = torch.from_numpy(init if i == 0 else path_c[i - 1]).to(dev)
+        n0 = torch.from_numpy(np.zeros(len(init), np.float32) if i == 0
+                              else path_n[i - 1]).to(dev)
+        c1, n1 = (t.cpu().numpy() for t in mbk_mod._mbk_step(
+            blk, (m_b, n_f), c0, n0, mesh=mesh, row0=r0)[:2])
+        step_err = max(step_err, float(np.abs(c1 - path_c[i]).max()))
+        step_ndiff = max(step_ndiff, float(np.abs(n1 - path_n[i]).max()))
+    m_err = float(np.abs(est.centers_ - one["mbk_centers"]).max())
+    n_diff = float(np.abs(est.counts_ - one["mbk_counts"]).max())
+    h1 = one["mbk_history"]
+    h_rel = float((np.abs(est.history_ - h1) / np.abs(h1)).max()) \
+        if est.history_.shape == h1.shape else float("inf")
+    check(step_err <= MESH_A2B2_TOL and step_ndiff == 0,
+          f"rank {rank}: a MiniBatchKMeans step from one rank's state off "
+          f"one rank's next state by {step_err}, counts by {step_ndiff}")
+    check(h_rel <= MESH_KM_INERTIA,
+          f"rank {rank}: the stream's batch inertias off one rank's by "
+          f"{h_rel} relatively > {MESH_KM_INERTIA}")
+    ph["minibatch_kmeans"].update(
+        gathered_batches_exact=len(mbk_batches),
+        steps_from_one_rank_state={"batches": z["mbk_batches"],
+                                   "centers_max_abs_err": step_err,
+                                   "counts_max_abs_diff": step_ndiff},
+        stream_centers_max_abs_diff_vs_one_rank=m_err,
+        stream_counts_max_abs_diff_vs_one_rank=n_diff,
+        stream_history_max_rel_diff_vs_one_rank=h_rel,
+        stream_last_inertia_rel_diff_vs_one_rank=float(
+            abs(est.inertia_ - h1[-1]) / abs(h1[-1])))
+    del mbk_batches
+    # distances_sq at a batch's rows on this rank, against its plain version
+    xb = X[0:z["mbk_batch"], :]._local[:, :z["km_n"]].contiguous()
+    cb = torch.from_numpy(est.centers_).to(dev).contiguous()
+    kern, plain = K.distances_sq(xb, cb), K.distances_sq_plain(
+        xb, cb, "highest")
+    b_scale = float((xb.double() ** 2).sum(1).max()
+                    + (cb.double() ** 2).sum(1).max())
+    k_err = float((kern.double() - plain.double()).abs().max()) / b_scale
+    check(k_err <= DIST_TOL, f"rank {rank}: distances_sq at "
+          f"{list(xb.shape)}x{list(cb.shape)}: error {k_err} vs plain > "
+          f"{DIST_TOL}")
+    out["windows"]["distances_sq_mbk_err"] = {
+        "max_abs_err": float((kern - plain).abs().max()),
+        "normalized_err_vs_plain": k_err}
+
+    def cdist_mbk():
+        with px.precise():
+            return torch.cdist(xb, cb, compute_mode="use_mm_for_euclid_dist")
+
+    window("distances_sq_mbk", {
+        "ms": lambda: K.distances_sq(xb, cb),
+        "plain_ms": lambda: K.distances_sq_plain(xb, cb, "highest"),
+        "library_ms": cdist_mbk}, 20)
+    mbk_shape = [int(xb.shape[0]), int(cb.shape[0]), int(xb.shape[1])]
+    del X, x_h, est, xb, cb, kern, plain
+
+    # -- qr, svd and polar at bench.py's rows --------------------------------
+    def rows_check(a_arr, factors):
+        """(‖QᵀQ − I‖_max, ‖Q·F − A‖_F / ‖A‖_F) from this rank's rows of
+        Q (the first factor), the replicated ``factors`` product and A,
+        each summed over the ranks in float64."""
+        n = a_arr.shape[1]
+        q_rows = factors[0]._row_block().double()[:, :n]
+        a_rows = a_arr._row_block().double()[:, :n]
+        gram = dd.psum(q_rows.T @ q_rows, "rows", mesh)
+        sq = dd.psum(torch.stack([((q_rows @ factors[1] - a_rows) ** 2).sum(),
+                                  (a_rows ** 2).sum()]), "rows", mesh)
+        eye = torch.eye(n, device=dev, dtype=gram.dtype)
+        return (float((gram - eye).abs().max()),
+                float(torch.sqrt(sq[0] / sq[1])))
+
+    A = dst.array(mesh_data("qr", z))
+
+    def qr():
+        box["qr"] = dst.qr(A, mode="economic")
+        return {"shape": z["qr"], "mesh": [4, 1], "mode": "economic"}
+
+    run("qr", qr)
+    q, r = box.pop("qr")
+    orth, resid = rows_check(A, (q, torch.from_numpy(r.collect()).to(
+        dev).double()))
+    r_err = float(np.abs(mesh_signed_rows(r.collect())
+                         - mesh_signed_rows(one["qr_r"])).max()
+                  / np.abs(one["qr_r"]).max())
+    check(orth <= px.ERROR_BOUNDS[("qr_orth", "float32")]
+          and resid <= px.ERROR_BOUNDS[("qr_resid", "float32")]
+          and r_err <= MESH_QR_TOL, f"rank {rank}: qr: orth {orth}, resid "
+          f"{resid}, R off one rank's by {r_err}")
+    ph["qr"].update(orth_err=orth, resid=resid, r_rel_err_vs_one_rank=r_err)
+    del A, q, r
+    A = dst.array(mesh_data("svd", z))
+
+    def svd():
+        box["svd"] = dst.svd(A)
+        return {"shape": z["svd"], "mesh": [4, 1], "tier": "block"}
+
+    run("svd", svd)
+    u, sv, v = box.pop("svd")
+    s_h = sv.collect().ravel()
+    # U·(S·Vᵀ) against A, and UᵀU
+    orth, resid = rows_check(A, (u, torch.from_numpy(
+        s_h[:, None] * v.collect().T).to(dev).double()))
+    s_err = float(np.abs(s_h - one["svd_s"]).max() / one["svd_s"][0])
+    check(s_err <= MESH_QR_TOL
+          and resid <= px.ERROR_BOUNDS[("svd_resid", "float32")],
+          f"rank {rank}: svd values off one rank's by {s_err} of the "
+          f"largest, resid {resid}")
+    ph["svd"].update(values_rel_err_vs_one_rank=s_err, resid=resid,
+                     u_orth_err=orth)
+    del A, u, sv, v
+    A = dst.array(mesh_data("polar", z))
+
+    def polar():
+        box["polar"] = dst.polar(A, info=True)
+        return {"shape": z["polar"], "mesh": [4, 1]}
+
+    run("polar", polar)
+    u, h, nfo = box.pop("polar")
+    orth, resid = rows_check(A, (u, torch.from_numpy(h.collect()).to(
+        dev).double()))
+    row0 = A._at[0]
+    live = max(0, min(A._local.shape[0], A.shape[0] - row0))
+    u_one = np.load(os.path.join(work, "polar_u.npy"), mmap_mode="r")
+    u_err = float(np.abs(u._local[:live, :A.shape[1]].cpu().numpy()
+                         - u_one[row0:row0 + live]).max())
+    h_err = rel(h.collect(), one["polar_h"])
+    check(nfo["iterations"] == int(one["polar_iters"])
+          and u_err <= px.ERROR_BOUNDS[("polar_orth", "float32")]
+          and h_err <= px.ERROR_BOUNDS[("polar_resid", "float32")]
+          and orth <= px.ERROR_BOUNDS[("polar_orth", "float32")]
+          and resid <= px.ERROR_BOUNDS[("polar_resid", "float32")],
+          f"rank {rank}: polar: {nfo['iterations']} iterations (one rank "
+          f"{int(one['polar_iters'])}), U off one rank's by {u_err}, H by "
+          f"{h_err}, orth {orth}, resid {resid}")
+    ph["polar"].update(iterations=nfo["iterations"], orth_err=orth,
+                       resid=resid, u_max_abs_err_vs_one_rank=u_err,
+                       h_rel_err_vs_one_rank=h_err)
+    del A, u, h, u_one
+
+    # -- lanczos_svd and kron -------------------------------------------------
+    A = dst.array(mesh_data("lanczos", z))
+
+    def lanczos():
+        box["lz"] = dst.lanczos_svd(A, k=z["lanczos_k"], random_state=0)
+        return {"shape": z["lanczos"], "mesh": [4, 1], "k": z["lanczos_k"]}
+
+    run("lanczos_svd", lanczos)
+    lz = box.pop("lz")[1].collect().ravel()
+    lz_err = float(np.abs(lz - one["lanczos_s"]).max()
+                   / one["lanczos_s"][0])
+    check(lz_err <= MESH_QR_TOL, f"rank {rank}: lanczos_svd's values off "
+          f"one rank's by {lz_err} of the largest")
+    ph["lanczos_svd"]["values_rel_err_vs_one_rank"] = lz_err
+    del A
+    ka, kb = mesh_data("kron", z)
+    KA, KB = dst.array(ka), dst.array(kb)
+
+    def kron():
+        box["kron"] = dst.kron(KA, KB)
+        return {"shapes": z["kron"], "mesh": [4, 1]}
+
+    run("kron", kron)
+    kr = box.pop("kron")
+    (r0, c0), blk = kr._at, kr._local.cpu().numpy()
+    want = np.zeros_like(blk)
+    full = np.kron(ka, kb)[r0:r0 + blk.shape[0], c0:c0 + blk.shape[1]]
+    want[:full.shape[0], :full.shape[1]] = full
+    check(np.array_equal(blk, want), f"rank {rank}: kron's block differs "
+          "from np.kron's")
+    ph["kron"]["block_bit_equal_to_np_kron"] = True
+    del KA, KB, kr, blk, want, full
+
+    # -- the search over the kNN classifier -----------------------------------
+    xs, lab = mesh_data("search", z)
+    XB, YB = dst.array(xs), dst.array(lab.astype(np.float32)[:, None])
+    del xs, lab
+    n_trials = len(MESH_GS_GRID["n_neighbors"]) \
+        * len(MESH_GS_GRID["weights"]) * 3
+
+    def search():
+        prof.reset_host_reads()
+        box["gs"] = dst.GridSearchCV(dst.KNeighborsClassifier(),
+                                     MESH_GS_GRID, cv=3, refit=False).fit(
+                                         XB, YB)
+        box["reads"] = dict(prof.HOST_READS)
+        return {"shape": [z["gs_m"], z["gs_n"]], "mesh": [4, 1],
+                "trials": n_trials}
+
+    run("search_knn", search)
+    gs, reads = box.pop("gs"), box.pop("reads")
+    scores = np.stack([gs.cv_results_[f"split{j}_test_score"]
+                       for j in range(3)])
+    g_err = float(np.max(np.abs(scores - one["gs_scores"])
+                         / np.abs(one["gs_scores"])))
+    best = json.dumps(gs.best_params_, sort_keys=True)
+    check(g_err <= MESH_A2B2_TOL and best == str(one["gs_best"])
+          and reads == json.loads(str(one["gs_reads"]))
+          and reads == {"search": n_trials},
+          f"rank {rank}: the kNN search's scores off one rank's by {g_err}, "
+          f"best {best} (one rank {one['gs_best']}), host reads {reads} "
+          f"(one rank {one['gs_reads']})")
+    hops = ph["search_knn"]["launches"].get("panel_gemm", 0)
+    if dev.type == "cuda":
+        check(hops == n_trials * MESH_WORLD, f"rank {rank}: the search's "
+              f"ring launched panel_gemm {hops} times, not once a hop")
+    ph["search_knn"].update(scores_rel_err_vs_one_rank=g_err,
+                            best_params=gs.best_params_, host_reads=reads)
+    # the ring's cross term at the first fold's shapes on this rank
+    xt, _, xv, _ = next(dst.KFold(3).split(XB))
+    qd = xv._local.contiguous()
+    ft = xt._local.T.contiguous()
+    kern = K.panel_gemm(qd, ft, px.FLOAT32)
+    plain = K.panel_gemm_plain(qd, ft, px.FLOAT32)
+    g_abs = float((kern - plain).abs().max())
+    p_err = g_abs / float(torch.linalg.norm(qd.double())
+                          * torch.linalg.norm(ft.double())
+                          / qd.shape[1] ** 0.5)
+    check(p_err <= px.ERROR_BOUNDS[("matmul", "float32")],
+          f"rank {rank}: panel_gemm at the search's ring hop "
+          f"{list(qd.shape)}x{list(ft.shape)}: normalized error {p_err} vs "
+          "plain > ERROR_BOUNDS")
+    out["windows"]["panel_gemm_search_ring_err"] = {
+        "max_abs_err": g_abs, "normalized_err_vs_plain": p_err}
+    del kern, plain
+
+    def mm():
+        with px.precise():
+            return torch.mm(qd, ft)
+
+    window("panel_gemm_search_ring", {
+        "ms": lambda: K.panel_gemm(qd, ft, px.FLOAT32),
+        "plain_ms": lambda: K.panel_gemm_plain(qd, ft, px.FLOAT32),
+        "library_ms": mm}, 10)
+    return {"mbk": mbk_shape,
+            "search_ring": [int(qd.shape[0]), int(qd.shape[1]),
+                            int(ft.shape[1])]}
 
 
 def mesh_nccl_pair(argv) -> int:
@@ -4967,16 +5390,24 @@ def mesh_phase(dev, card):
     same calls with no process group.  Then the one-rank results the
     ranks are held to (the KMeans fit, the (k+1)-neighbour kneighbors,
     tsqr's R, GM's parameters, random_svd's values, PCA's variances and
-    components, the scalers' statistics), and 4 gloo ranks on this one
-    card (``--mesh-rank``): SUMMA at GEMM_N² and tsqr on (2, 2); tsqr,
-    KMeans, the ring kNN, the shuffle, the scalers, random_svd, PCA and
-    GM on (4, 1), each rank's blocks against the one-rank results.
-    Returns the kernels-line entries at the per-rank shapes."""
+    components, the scalers' statistics; A.2b's second part: the
+    regressions, Lasso with the ranks' 4 agents, the MiniBatchKMeans
+    stream, qr's R, svd's values, polar's U and H, lanczos_svd's values
+    and the kNN search), and 4 gloo ranks on this one card
+    (``--mesh-rank``): SUMMA at GEMM_N² and tsqr on (2, 2); tsqr,
+    KMeans, the ring kNN, the shuffle, the scalers, random_svd, PCA, GM,
+    LinearRegression, Lasso, MiniBatchKMeans, qr, svd, polar,
+    lanczos_svd, kron and the search over the kNN classifier on (4, 1),
+    each rank's blocks against the one-rank results.  The world of one
+    also holds LinearRegression, Lasso, the MiniBatchKMeans stream, qr,
+    svd and polar bit-equal.  Returns the kernels-line entries at the
+    per-rank shapes."""
     import numpy as np
     import torch
     import dislib_tpu_torch as dst
     from dislib_tpu_torch.ops import precision as px
     from dislib_tpu_torch.parallel import distributed as dd
+    from dislib_tpu_torch.utils import profiling as prof
     t_phase = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     overlap = os.environ.get("DSLIB_OVERLAP")
@@ -4987,6 +5418,8 @@ def mesh_phase(dev, card):
         a_h, b_h = mesh_operands(dev, z["gemm_n"])
         x_h, init = mesh_data("kmeans", z)
         t_h, g_h = mesh_data("tsqr", z), mesh_data("gm", z)
+        lx, ly, lyl = mesh_data("lr", z)
+        q_h, s_h, p_h = (mesh_data(w, z) for w in ("qr", "svd", "polar"))
 
         def one_rank():
             A, B, X = dst.array(a_h), dst.array(b_h), dst.array(x_h)
@@ -5006,9 +5439,36 @@ def mesh_phase(dev, card):
             res["gm_means"] = torch.from_numpy(gm.means_)
             res["gm_covs"] = torch.from_numpy(gm.covariances_)
             res["gm_lb"] = torch.tensor(gm.lower_bound_)
+            # A.2b's second part: the linear models on LR_M x LR_N, the
+            # MiniBatchKMeans stream, qr's panel loop, svd's block tier
+            # and polar at bench.py's rows
+            LX, LY = dst.array(lx), dst.array(ly)
+            lr = dst.LinearRegression().fit(LX, LY)
+            res["lr_coef"] = torch.from_numpy(lr.coef_)
+            res["lr_intercept"] = torch.from_numpy(lr.intercept_)
+            la = dst.Lasso(lmbd=z["lasso"][0], rho=z["lasso"][1],
+                           max_iter=int(z["lasso"][2])).fit(
+                               LX, dst.array(lyl))
+            res["lasso_coef"] = torch.from_numpy(la.coef_)
+            res["lasso_n_iter"] = torch.tensor(la.n_iter_)
+            mbk = mesh_mbk_stream(dst, X, init, z, states=mbk_states)
+            res["mbk_centers"] = torch.from_numpy(mbk.centers_)
+            res["mbk_counts"] = torch.from_numpy(mbk.counts_)
+            res["mbk_history"] = torch.from_numpy(mbk.history_)
+            q, r = dst.qr(dst.array(q_h), mode="economic")
+            res["qr_q"], res["qr_r"] = q._data, r._data
+            u, sv, v = dst.svd(dst.array(s_h))
+            res["svd_u"], res["svd_s"], res["svd_v"] = (u._data, sv._data,
+                                                       v._data)
+            u, h, nfo = dst.polar(dst.array(p_h), info=True)
+            res["polar_u"], res["polar_h"] = u._data, h._data
+            res["polar_iters"] = torch.tensor(nfo["iterations"])
             return res, km
 
+        mbk_states = []
         plain, km = one_rank()
+        mbk_path = [np.stack([c for c, _ in mbk_states]),
+                    np.stack([n for _, n in mbk_states])]
         backend = "nccl" if dev.type == "cuda" else "gloo"
         dd.reset_comm_stats()
         dd.initialize(f"file://{os.path.join(work, 'store1')}", 1, 0,
@@ -5075,8 +5535,52 @@ def mesh_phase(dev, card):
                  pca_comp=pca.components_.collect(),
                  std_mean=std.mean_.collect(), std_var=std.var_.collect(),
                  mm_min=mm.data_min_.collect(), mm_max=mm.data_max_.collect())
+        # A.2b's second part: Lasso on one rank with the ranks' 4 agents
+        # (the consensus of 4 row blocks, kappa = lmbd / (rho · 4)), the
+        # R² of the regression, lanczos_svd, and the kNN search over the
+        # classifier with its host reads
+        admm = importlib.import_module("dislib_tpu_torch.optimization.admm")
+        agents = admm._agents
+        admm._agents = lambda: MESH_WORLD
+        try:
+            la4 = dst.Lasso(lmbd=z["lasso"][0], rho=z["lasso"][1],
+                            max_iter=int(z["lasso"][2])).fit(
+                                dst.array(lx), dst.array(lyl))
+        finally:
+            admm._agents = agents
+        lr_r2 = dst.LinearRegression().fit(dst.array(lx), dst.array(
+            ly)).score(dst.array(lx), dst.array(ly))
+        lz_s = dst.lanczos_svd(dst.array(mesh_data("lanczos", z)),
+                               k=z["lanczos_k"], random_state=0)[1]
+        xb, lab = mesh_data("search", z)
+        prof.reset_host_reads()
+        gs = dst.GridSearchCV(dst.KNeighborsClassifier(), MESH_GS_GRID,
+                              cv=3, refit=False).fit(
+                                  dst.array(xb), dst.array(
+                                      lab.astype(np.float32)[:, None]))
+        gs_reads = dict(prof.HOST_READS)
+        np.savez(os.path.join(work, "a2b2.npz"),
+                 lr_coef=plain["lr_coef"].numpy(),
+                 lr_intercept=plain["lr_intercept"].numpy(), lr_r2=lr_r2,
+                 lasso_coef=la4.coef_, lasso_n_iter=la4.n_iter_,
+                 mbk_centers=plain["mbk_centers"].numpy(),
+                 mbk_counts=plain["mbk_counts"].numpy(),
+                 mbk_path_centers=mbk_path[0], mbk_path_counts=mbk_path[1],
+                 mbk_history=plain["mbk_history"].numpy(),
+                 qr_r=plain["qr_r"].cpu().numpy(),
+                 svd_s=plain["svd_s"].cpu().numpy().ravel(),
+                 polar_h=plain["polar_h"].cpu().numpy(),
+                 polar_iters=plain["polar_iters"].numpy(),
+                 lanczos_s=lz_s.collect().ravel(),
+                 gs_scores=np.stack([gs.cv_results_[f"split{j}_test_score"]
+                                     for j in range(3)]),
+                 gs_best=json.dumps(gs.best_params_, sort_keys=True),
+                 gs_reads=json.dumps(gs_reads, sort_keys=True))
+        # polar's U, which each rank reads its rows of
+        np.save(os.path.join(work, "polar_u.npy"),
+                plain["polar_u"].cpu().numpy())
         del job1, plain, a_h, b_h, t_h, g_h, rs, S, sv, pca, X, std, mm
-        del G1, gi1, gi_lab
+        del G1, gi1, gi_lab, lx, ly, lyl, q_h, s_h, p_h, la4, xb, lab, gs
         X = dst.array(x_h)
         km1 = dst.KMeans(n_clusters=z["km_k"], init=init, max_iter=1,
                          tol=0.0).fit(X)
@@ -5196,6 +5700,43 @@ def mesh_phase(dev, card):
         "launches_by_rank": [rr["phases"]["ring_knn"]["launches"][
             "panel_gemm"] for rr in ranks],
         **w0["panel_gemm_ring_err"], **w0["panel_gemm_ring"],
+        "library_call": "torch.mm (f32, TF32 off)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": "3xTF32 at 495 TFLOP/s against 4 bytes per element "
+                       "of q, f^T and the product",
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    m, k, d = shapes["mbk"]
+    bound_ms, bound_by = dist_bound(m, k, d, 4.0 * (m * d + k * d + m * k))
+    entries["distances_sq/mesh_minibatch"] = {
+        "name": "distances_sq", "at": "mesh (4, 1): MiniBatchKMeans' "
+        "assignment on each rank's rows of a batch", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "shape": [m, k, d],
+        "launches": launches("minibatch_kmeans", "distances_sq"),
+        "launches_by_rank": [rr["phases"]["minibatch_kmeans"]["launches"][
+            "distances_sq"] for rr in ranks],
+        **w0["distances_sq_mbk_err"], **w0["distances_sq_mbk"],
+        "library_call": "torch.cdist(a, b, compute_mode="
+                        "'use_mm_for_euclid_dist'), TF32 off (includes a "
+                        "square root)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": DIST_BOUND_BASIS,
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    mq, kq, nf = shapes["search_ring"]
+    bound_ms, bound_by = bound(3 * 2.0 * mq * nf * kq,
+                               4.0 * (mq * kq + kq * nf + mq * nf),
+                               PEAK_TF32_FLOPS)
+    entries["panel_gemm/mesh_search_ring"] = {
+        "name": "panel_gemm", "at": "mesh (4, 1): the ring's cross term a "
+        "hop in the kNN classifier's search", "policy": "float32",
+        "route": "cuda", "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+        "shape": shapes["search_ring"],
+        "launches": launches("search_knn", "panel_gemm"),
+        "launches_by_rank": [rr["phases"]["search_knn"]["launches"][
+            "panel_gemm"] for rr in ranks],
+        **w0["panel_gemm_search_ring_err"], **w0["panel_gemm_search_ring"],
         "library_call": "torch.mm (f32, TF32 off)",
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_basis": "3xTF32 at 495 TFLOP/s against 4 bytes per element "

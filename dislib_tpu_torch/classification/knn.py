@@ -1,7 +1,7 @@
 """k-nearest-neighbours classifier.
 
 Counterpart of ``dislib_tpu/classification/knn.py``: the neighbour search
-is ``neighbors/base._kneighbors`` (the hand kernel ``distances_sq`` on a
+is ``neighbors/base._kneighbors_rows`` (the hand kernel ``distances_sq`` on a
 card) and the vote a weighted count per class, then the class with the
 most weight, the lowest class code on a tie, on the device.
 ``weights="distance"`` weighs each neighbour by ``1 / max(dist, 1e-10)``.
@@ -22,6 +22,14 @@ winning codes back to labels on the host.
 A sparse fit set or sparse queries (a ``SparseArray``) go through the
 sparse neighbour stream ``neighbors/base._kneighbors_sparse`` and the same
 vote, as in the reference.
+
+Across ranks the fit all-gathers ``y`` once and every rank maps all the
+labels to codes, so the vote can read any neighbour's code; the
+neighbour search is ``neighbors/base._kneighbors_rows`` on this rank's
+query rows (the ring at ``_RING_MIN`` fit rows and more on a mesh of
+several rows, else the gathered fit set), the vote is local,
+``predict`` returns a row-sharded label array and ``_score_async``'s
+hit count is one ``psum`` over 'rows'.  The reads stay as on one rank.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ from dislib_tpu_torch.base import BaseEstimator, carried_array
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import SparseArray, check_input
 from dislib_tpu_torch.neighbors import base as _nb
-from dislib_tpu_torch.ops.base import precise
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.utils.profiling import count_read
 
 
@@ -66,25 +75,30 @@ class KNeighborsClassifier(BaseEstimator):
         check_input(x, "KNeighborsClassifier")
 
     def _predict_codes(self, x: Array) -> torch.Tensor:
-        """Winning class code of each query row, (mq_pad,) int32."""
+        """Winning class code of each query row this rank holds (every
+        padded query row on one rank; the rows of its row block across
+        ranks, from global row ``x._at[0]``), int32, 0 on padded rows."""
         f = self._fit_x
         if isinstance(f, SparseArray) or isinstance(x, SparseArray):
             dist_k, idx = _nb._kneighbors_sparse(x, f, self.n_neighbors)
             return _vote(dist_k, idx, self._codes,
                          self.weights == "distance")
-        return _knn_predict(x._data, f._data, x.shape, f.shape, self._codes,
-                            self.n_neighbors, self.weights == "distance",
-                            _nb._CHUNK)
+        dist_k, idx, row0 = _nb._kneighbors_rows(x, f, self.n_neighbors)
+        winner = _vote(dist_k, idx, self._codes, self.weights == "distance")
+        winner[max(0, x.shape[0] - row0):] = 0
+        return winner
 
     def predict(self, x: Array) -> Array:
         """Label per row, (m, 1): int32 for integer classes, else
         float32."""
         self._check_predict(x)
-        codes = self._predict_codes(x)[: x.shape[0]].cpu().numpy()
+        live = max(0, min(x._local.shape[0], x.shape[0] - x._at[0])) \
+            if x._mesh.world > 1 else x.shape[0]
+        codes = self._predict_codes(x)[:live].cpu().numpy()
         labels = self.classes_[codes]
         dt = np.int32 if np.issubdtype(labels.dtype, np.integer) \
             else np.float32
-        return Array._from_padded(
+        return Array._from_rows(
             torch.as_tensor(labels.astype(dt)[:, None], device=x.device),
             (x.shape[0], 1), x._mesh)
 
@@ -102,7 +116,8 @@ class KNeighborsClassifier(BaseEstimator):
         if x.shape[0] != y.shape[0]:
             raise ValueError("x and y row counts differ")
         self._fit_x = x
-        yv = y._data[: y.shape[0], : y.shape[1]].reshape(-1)
+        # every label on every rank: the vote reads any neighbour's code
+        yv = y._gathered()[: y.shape[0], : y.shape[1]].reshape(-1)
         self._codes, self._sorted = _label_codes(yv.to(x.device))
         return self._sorted
 
@@ -122,10 +137,9 @@ class KNeighborsClassifier(BaseEstimator):
         if isinstance(f, SparseArray) or isinstance(x, SparseArray):
             return _score_codes(self._predict_codes(x), y._data,
                                 labels.to(y._data.dtype), codes, x.shape[0])
-        return _knn_score(x._data, f._data, y._data, x.shape, f.shape,
-                          self._codes, labels.to(y._data.dtype), codes,
-                          self.n_neighbors, self.weights == "distance",
-                          _nb._CHUNK)
+        yp = y._row_block()
+        return _score_codes(self._predict_codes(x), yp, labels.to(yp.dtype),
+                            codes, x.shape[0], x._at[0], x._mesh)
 
     def _carry_in(self, arrays: dict, device):
         # copies: the arrays may be read-only views of another package's
@@ -176,26 +190,15 @@ def _codes_of(yv, labels, codes):
     return codes[pos], labels[pos] == yv
 
 
-def _score_codes(pred, yp, labels, codes, mq):
+def _score_codes(pred, yp, labels, codes, mq, row0=0, mesh=None):
     """Accuracy, a device scalar, of the predicted class codes ``pred``
-    (rows,) against the labels ``yp`` (rows, 1)."""
+    (rows,) against the labels ``yp`` (rows, 1); the rows start at global
+    row ``row0``, and on a ``mesh`` the hits are summed over 'rows'."""
     yv = yp[: pred.shape[0], 0].to(labels.dtype).contiguous()
     yc, seen = _codes_of(yv, labels, codes)
-    valid = torch.arange(pred.shape[0], device=pred.device) < mq
+    valid = torch.arange(pred.shape[0], device=pred.device) < mq - row0
     hits = torch.sum((pred == yc) & seen & valid)
+    if mesh is not None:
+        hits = _dist.psum(hits, _mesh.ROWS, mesh)
     return hits.to(torch.float32) / mq
 
-
-@precise
-def _knn_score(qp, fp, yp, q_shape, f_shape, codes, labels, label_codes,
-               k, use_dist, chunk):
-    pred = _knn_predict(qp, fp, q_shape, f_shape, codes, k, use_dist, chunk)
-    return _score_codes(pred, yp, labels, label_codes, q_shape[0])
-
-
-@precise
-def _knn_predict(qp, fp, q_shape, f_shape, codes, k, use_dist, chunk):
-    dist_k, idx = _nb._kneighbors(qp, fp, q_shape, f_shape, k, chunk=chunk)
-    winner = _vote(dist_k, idx, codes, use_dist)
-    winner[q_shape[0]:] = 0
-    return winner

@@ -60,8 +60,8 @@ are the same on every rank (the loop's preemption flag is agreed with
 path (``distances_sq`` at each rank's rows); the ``random`` init draws
 once at the logical (m, k) rows and each rank keeps its rows.
 ``predict`` returns a row-sharded label array and ``score`` is a
-``psum``.  ``checkpoint=`` raises there, naming ROADMAP.md A.11, and the
-search hooks name A.2b's second part.
+``psum``; the search hooks run the same sharded fit and score.
+``checkpoint=`` raises there, naming ROADMAP.md A.11.
 
 The search's async-trial hooks are ``_fit_async`` (one :func:`_gm_fit`)
 and ``_fit_finalize`` (its one read); ``_score_async`` is the mean
@@ -273,10 +273,11 @@ class GaussianMixture(BaseEstimator):
     def _fit_async(self, x, y=None):
         self._check_params(x)
         x = dense_input(x, "GaussianMixture")
-        return _gm_fit(x._data, x.shape, self._init_resp(x),
+        return _gm_fit(x._row_block(), x.shape, self._init_resp(x),
                        self.covariance_type, float(self.reg_covar),
                        float(self.tol), int(self.max_iter),
-                       self._explicit_inits(x.device))
+                       self._explicit_inits(x.device), mesh=x._mesh,
+                       row0=x._at[0])
 
     def _fit_finalize(self, state):
         if state is None:
@@ -295,8 +296,8 @@ class GaussianMixture(BaseEstimator):
     def _score_async(self, state, x, y=None):
         if state is None:
             return super()._score_async(state, x, y)
-        return _gm_loglik(x._data, x.shape, state[0], state[1], state[2],
-                          self.covariance_type)
+        return _gm_loglik(x._row_block(), x.shape, state[0], state[1],
+                          state[2], self.covariance_type, x._at[0], x._mesh)
 
     def _explicit_inits(self, device):
         """(weights, means, covs) overrides from the *_init parameters."""

@@ -59,9 +59,9 @@ inertia), so the centers are the same on every rank, and so are the
 shift, the health vector and every decision taken from them; the loop's
 preemption flag is agreed across ranks (``distributed.any_rank``).
 ``predict`` returns a row-sharded label array and ``score`` is a
-``psum``.  ``checkpoint=`` raises there, naming ROADMAP.md A.11 (snapshots
-of several ranks), as do the sparse fit (A.2c) and the search hooks
-(A.2b, through ``Array._data``).
+``psum``; the search hooks run the same sharded fit and score.
+``checkpoint=`` raises there, naming ROADMAP.md A.11 (snapshots of
+several ranks), as does the sparse fit (A.2c).
 """
 
 from __future__ import annotations
@@ -261,9 +261,9 @@ class KMeans(BaseEstimator):
         if isinstance(x, SparseArray):
             return _kmeans_fit_sparse(x, self._init_centers(x),
                                       int(self.max_iter), float(self.tol))
-        return _kmeans_fit(x._data, x.shape, self._init_centers(x),
+        return _kmeans_fit(x._row_block(), x.shape, self._init_centers(x),
                            int(self.max_iter), float(self.tol),
-                           fast=self._fast())
+                           fast=self._fast(), mesh=x._mesh, row0=x._at[0])
 
     def _fit_finalize(self, state):
         if state is None:
@@ -280,7 +280,8 @@ class KMeans(BaseEstimator):
         self._check_supported(x)
         if isinstance(x, SparseArray):
             return -torch.sum(_sparse_distances(x, state[0]).amin(1))
-        return _kmeans_score(x._data, x.shape, state[0])
+        return _dist.psum(_kmeans_score(x._row_block(), x.shape, state[0],
+                                        x._at[0]), _mesh.ROWS, x._mesh)
 
     def fit_predict(self, x: Array, y=None) -> Array:
         return self.fit(x).predict(x)

@@ -26,6 +26,15 @@ not a ds-array into one with ``np.asarray``, which a sparse matrix (scipy, or a
 ``SparseArray``, whose ``fit`` slices are sparse too) fails with
 ``ValueError``; the port raises that type, naming the cause.  ``predict``
 and ``score`` are KMeans', sparse queries included.
+
+Across ranks ``fit``'s row slice is a row gather (one ``all_to_all``
+over 'rows', ``data/array._gather_rows``), the batch's rows and order
+unchanged; each rank assigns its rows of the batch (``distances_sq`` at
+the per-rank batch shape), ONE packed ``psum`` over 'rows' carries the
+per-center masses, sums and the inertia, and every rank makes the same
+online update.  The stream's health verdict is agreed across ranks
+(``ChunkedFitLoop(mesh=)``); ``checkpoint=`` raises there, naming
+ROADMAP.md A.11, as ``KMeans(checkpoint=)`` does.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from dislib_tpu_torch.cluster.kmeans import KMeans, _crop
 from dislib_tpu_torch.data.sparse import SparseArray
 from dislib_tpu_torch.data.array import Array, array as _ds_array
 from dislib_tpu_torch.ops.base import distances_sq as _distances_sq, precise
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.elastic import fetch_packed
@@ -88,6 +99,12 @@ class MiniBatchKMeans(KMeans):
                     "batch first (to_dense())")
             x = _ds_array(x, dtype=np.float32)
         k = self.n_clusters
+        if x._mesh.world > 1 and (checkpoint is not None or (
+                self._loop is not None and self._loop.checkpoint is not None)):
+            raise NotImplementedError(
+                "MiniBatchKMeans(checkpoint=...) on a ds-array sharded over "
+                "several ranks: snapshots of a multi-rank fit are "
+                "ROADMAP.md A.11")
         if self._loop is None:
             self._batch = {}
             self._loop = _fitloop.ChunkedFitLoop(
@@ -95,7 +112,7 @@ class MiniBatchKMeans(KMeans):
                 carry_names=("centers", "counts"),
                 carry_shapes=((k, x.shape[1]), (k,)),
                 save_every=checkpoint.every if checkpoint is not None else 1,
-                elastic=_fitloop.data_rebind(self._batch))
+                elastic=_fitloop.data_rebind(self._batch), mesh=x._mesh)
         batch, loop = self._batch, self._loop
         batch["x"] = x
         # THIS batch's width defines what a compatible snapshot holds
@@ -120,7 +137,8 @@ class MiniBatchKMeans(KMeans):
 
         def step(st, chunk):
             xd = batch["x"]
-            out = _mbk_step(xd._data, xd.shape, *st.carries)
+            out = _mbk_step(xd._row_block(), xd.shape, *st.carries,
+                            mesh=xd._mesh, row0=xd._at[0])
             pack = fetch_packed(*out)
 
             def commit():
@@ -183,24 +201,34 @@ class MiniBatchKMeans(KMeans):
 
 
 @precise
-def _mbk_step(xp, shape, centers, counts):
+def _mbk_step(xp, shape, centers, counts, mesh=None, row0=0):
     """One mini-batch update: assign (``distances_sq``), per-center batch
     mass and means, the online center update.  Returns ``(centers,
     counts, inertia, hvec)`` as device tensors; the health vector guards
     the new carries and the batch (no loss history: consecutive batches
-    are different data, so their inertias are no monotone trajectory)."""
-    xv, w = _crop(xp, shape)
-    k = centers.shape[0]
+    are different data, so their inertias are no monotone trajectory).
+    ``xp`` is the batch's padded backing, or this rank's rows of it (the
+    first global row ``row0``): the masses, sums and inertia are then one
+    packed ``psum`` over 'rows'."""
+    xv, w = _crop(xp, shape, row0)
+    k, n = centers.shape
     d = _distances_sq(xv, centers, use_kernel=True)
     min_d, labels = torch.min(d, dim=1)      # first index on ties
     onehot = (labels[:, None] == torch.arange(k, device=xv.device)).to(
         xv.dtype) * w[:, None]
     bc = onehot.sum(dim=0)                   # (k,) batch mass
-    bmean = (onehot.T @ xv) / torch.clamp_min(bc, 1.0)[:, None]
+    sums = onehot.T @ xv
+    inertia = torch.sum(min_d * w)
+    if mesh is not None and mesh.groups is not None:
+        packed = _dist.psum(torch.cat([bc, sums.reshape(-1),
+                                       inertia.reshape(1)]), _mesh.ROWS, mesh)
+        bc, sums, inertia = packed[:k], packed[k:k + k * n].view(k, n), \
+            packed[-1]
+    bmean = sums / torch.clamp_min(bc, 1.0)[:, None]
     new_counts = counts + bc
     eta = (bc / torch.clamp_min(new_counts, 1.0))[:, None]
     new_centers = torch.where(bc[:, None] > 0,
                               centers + eta * (bmean - centers), centers)
     hvec = _health.health_vec(carries=(new_centers, new_counts),
                               inputs=(xv,))
-    return new_centers.contiguous(), new_counts, torch.sum(min_d * w), hvec
+    return new_centers.contiguous(), new_counts, inertia, hvec

@@ -21,10 +21,12 @@ blocks (each rank takes its block of the same global input or draw),
 scalars stay local, a (1, n), (m, 1) or (1, 1) operand of a broadcast
 op comes to each rank by one broadcast from the first mesh row (column)
 (:func:`_spread`), the reductions reduce locally and then over the
-reduced mesh axis, and a row index gathers rows by one ``all_to_all``
-over 'rows' (:func:`_gather_rows`).  Everything else raises
-``NotImplementedError`` at world > 1, naming the ROADMAP.md item that
-ports it.
+reduced mesh axis, a row index gathers rows by one ``all_to_all``
+over 'rows' (:func:`_gather_rows`), and so do ``concat_rows`` and the
+iterator's row stripes; ``concat_cols``, ``apply_along_axis`` and the
+column stripes work on each rank's rows or columns.  Everything else
+raises ``NotImplementedError`` at world > 1, naming the ROADMAP.md item
+that ports it.
 
 Every op runs eagerly — what the reference does under ``DSLIB_EAGER=1``:
 ``is_lazy`` is always False, ``force()`` returns the array, and
@@ -178,18 +180,19 @@ def _guard(what, item="A.11"):
         f"yet (ROADMAP.md {item})")
 
 
-def _routing(src, m_in_loc, m_out_loc, p):
-    """Host routing plan of ``out[i] = x[src[i]]`` between contiguous row
-    shards, ``m_in_loc`` rows a shard of ``x`` and ``m_out_loc`` of
-    ``out`` (the reference's ``utils/base._routing``, which has one
-    height for both).  Returns (send_idx, dst_idx), both (p, p, cap)
-    int64: ``send_idx[s, d, c]`` the local row of ``x`` that shard s
-    sends as its c-th row to shard d (padding slots repeat row 0);
-    ``dst_idx[d, s, c]`` the local row of ``out`` it lands on (padding
-    slots hold ``m_out_loc``, a sink row that is cut off)."""
+def _routing(src, m_in_loc, m_out_loc, p, dst=None):
+    """Host routing plan of ``out[dst[i]] = x[src[i]]`` (``dst`` default
+    ``arange``: ``out[i] = x[src[i]]``) between contiguous row shards,
+    ``m_in_loc`` rows a shard of ``x`` and ``m_out_loc`` of ``out`` (the
+    reference's ``utils/base._routing``, which has one height for both).
+    Returns (send_idx, dst_idx), both (p, p, cap) int64: ``send_idx[s, d,
+    c]`` the local row of ``x`` that shard s sends as its c-th row to
+    shard d (padding slots repeat row 0); ``dst_idx[d, s, c]`` the local
+    row of ``out`` it lands on (padding slots hold ``m_out_loc``, a sink
+    row that is cut off)."""
     src = np.asarray(src, np.int64)
     m = len(src)
-    i = np.arange(m)
+    i = np.arange(m) if dst is None else np.asarray(dst, np.int64)
     s_shard = src // m_in_loc
     d_shard = i // m_out_loc
     order = np.lexsort((i, d_shard, s_shard))   # by (s, d), stable in i
@@ -208,28 +211,35 @@ def _routing(src, m_in_loc, m_out_loc, p):
     return send_idx, dst_idx
 
 
-def _gather_rows(x: "Array", src, plan=None):
+def _gather_rows(x: "Array", src, plan=None, dst=None, out_shape=None,
+                 out=None):
     """``x[src, :]`` on a sharded ``x``: every rank gathers the rows it
     sends, ONE ``all_to_all`` over 'rows' moves them, every rank scatters
     what it receives into its block (the reference's shuffle exchange).
     Returns (Array, plan); a ``plan`` from an earlier call of the same
-    ``src`` on an array of the same height is reused."""
+    ``src`` on an array of the same height is reused.  With ``dst``, row
+    ``src[i]`` lands on row ``dst[i]`` of an ``out_shape`` array, written
+    into the block ``out`` (this rank's (rows + 1, cols) canvas, its last
+    row a sink) when one is given, so several calls can fill one
+    result."""
     mesh = x._mesh
     p = mesh.rows
-    out_shape = (len(src), x._shape[1])
+    if out_shape is None:
+        out_shape = (len(src), x._shape[1])
     m_in_loc = x._local.shape[0]
     m_out_loc = _block_geom(out_shape, mesh)[2]
     if plan is None:
-        send_idx, dst_idx = _routing(src, m_in_loc, m_out_loc, p)
+        send_idx, dst_idx = _routing(src, m_in_loc, m_out_loc, p, dst)
         plan = (torch.from_numpy(send_idx).to(mesh.device),
                 torch.from_numpy(dst_idx).to(mesh.device))
     r = mesh.coord[0]
     send_idx, dst_idx = plan[0][r], plan[1][r]
     local = x._local
     recv = _dist.all_to_all(local[send_idx], "rows", mesh)  # (p, cap, nl)
-    out = torch.zeros((m_out_loc + 1, local.shape[1]), dtype=local.dtype,
-                      device=local.device)
-    out[dst_idx.reshape(-1)] = recv.reshape(-1, local.shape[1])
+    if out is None:
+        out = torch.zeros((m_out_loc + 1, local.shape[1]), dtype=local.dtype,
+                          device=local.device)
+    out[dst_idx.reshape(-1)] = recv.reshape(-1, local.shape[1]).to(out.dtype)
     arr = Array(out[:m_out_loc], out_shape, mesh, sparse=x._sparse)
     return arr, plan
 
@@ -290,6 +300,23 @@ class Array:
         return cls(padded_data.to(mesh.device), shape, mesh, reg_shape,
                    sparse)
 
+    @classmethod
+    def _from_rows(cls, rows: torch.Tensor, shape, mesh, reg_shape=None,
+                   sparse=False) -> "Array":
+        """Wrap this rank's rows of a result of logical ``shape``: ``rows``
+        holds the rows of the rank's block (its first row is the block's,
+        the global row ``_block_geom(shape, mesh)[0]``) with the columns
+        from 0 on, as many as it has; the rank keeps its columns and the
+        pad is zeroed.  On one rank ``rows`` is the whole result."""
+        r0, c0, ml, nl = _block_geom(shape, mesh)
+        t = rows[:ml, c0:c0 + nl]
+        if tuple(t.shape) != (ml, nl):
+            out = torch.zeros((ml, nl), dtype=rows.dtype, device=rows.device)
+            out[: t.shape[0], : t.shape[1]] = t
+            t = out
+        return cls(_zero_pad(t.contiguous(), shape, (r0, c0)), shape, mesh,
+                   reg_shape, sparse)
+
     # -- metadata ------------------------------------------------------------
 
     @property
@@ -305,11 +332,14 @@ class Array:
             raise NotImplementedError(
                 "this operation reads the whole ds-array and the array is "
                 f"sharded over a {(self._mesh.rows, self._mesh.cols)} mesh "
-                "of ranks; only the ds-array, matmul, KMeans, "
-                "GaussianMixture, the scalers, tsqr, random_svd, PCA, the "
-                "ring kNN and the shuffle run across ranks so far "
-                "(ROADMAP.md A.2b ports the other estimators, A.2c the "
-                "sparse tier)")
+                "of ranks; across ranks run so far: the ds-array and its "
+                "helpers, matmul, kron, qr, svd, polar, tsqr, random_svd, "
+                "lanczos_svd, PCA, KMeans, MiniBatchKMeans, "
+                "GaussianMixture, the scalers, LinearRegression, ADMM/Lasso, "
+                "NearestNeighbors, KNeighborsClassifier, the searches and "
+                "the shuffle (ROADMAP.md A.2b's part (ii) ports the trees, "
+                "DBSCAN/Daura and CascadeSVM, A.2c the sparse tier, ALS and "
+                "IVF)")
         return self._local
 
     @property
@@ -576,23 +606,21 @@ class Array:
 
     def iterator(self, axis=0):
         """Yield row-block (axis=0) or col-block (axis=1) sub-arrays, one
-        per ``block_size`` stripe (reference ``Array.iterator``)."""
-        if _sharded(self._mesh):
-            raise _guard("iterator", "A.2b")
+        per ``block_size`` stripe (reference ``Array.iterator``).  Across
+        ranks each stripe is a ds-array on the same mesh: a row stripe is
+        a row gather (one ``all_to_all`` over 'rows'), a column stripe
+        this rank's rows of those columns."""
         n = self._shape[axis]
         step = self._reg_shape[axis]
-        m, c = self._shape
+        m = self._shape[0]
         for start in range(0, n, step):
             stop = min(start + step, n)
             if axis == 0:
-                logical = self._data[start:stop, :c]
-                shape = (stop - start, c)
+                yield _gather_rows(self, np.arange(start, stop))[0]
             else:
-                logical = self._data[:m, start:stop]
-                shape = (m, stop - start)
-            yield Array._from_logical_padded(
-                _repad(logical, shape, self._mesh), shape, self._mesh,
-                sparse=self._sparse)
+                yield Array._from_rows(
+                    self._row_block()[:, start:stop], (m, stop - start),
+                    self._mesh, sparse=self._sparse)
 
 
 def _broadcastable(a, b):
@@ -941,10 +969,30 @@ def apply_along_axis(func, axis, x: Array, *args, **kwargs) -> Array:
     device, vectorised over the slices with ``torch.func.vmap``; any other
     ``func`` (one ``vmap`` cannot trace) runs ``np.apply_along_axis`` on the
     host and WARNS, since the device→host→device round trip is far
-    slower.  A 1-D result becomes a row (axis 0) or a column (axis 1)."""
+    slower.  A 1-D result becomes a row (axis 0) or a column (axis 1).
+
+    Across ranks each rank applies ``func`` to the slices it holds whole
+    and keeps its block of the result: along axis 1 its rows (its block
+    all-gathered over 'cols', none on a one-column mesh), along axis 0 its
+    columns (its block all-gathered over 'rows').  A slice of padding
+    gives a result the block's pad then drops."""
     if axis not in (0, 1):
         raise ValueError("axis must be 0 or 1")
-    logical = x._data[: x._shape[0], : x._shape[1]]
+    m, n = x._shape
+    mesh = x._mesh
+    if axis == 1:
+        rows = x._row_block()[:, :n]
+        out = _apply_slices(func, 1, rows, args, kwargs)
+        return Array._from_rows(out, (m, out.shape[1]), mesh)
+    cols = _dist.all_gather(x._local, _mesh.ROWS, 0, mesh)[:m]
+    out = _apply_slices(func, 0, cols, args, kwargs)
+    shape = (out.shape[0], n)
+    return Array(_block_with(out, (0, x._at[1]), shape, mesh), shape, mesh)
+
+
+def _apply_slices(func, axis, logical, args, kwargs) -> torch.Tensor:
+    """``func`` over the 1-D slices of the 2-D ``logical`` along ``axis``
+    (vmap, else the host tier with a warning), as a 2-D result."""
     try:
         out = torch.func.vmap(lambda v: func(v, *args, **kwargs),
                               in_dims=1 - axis)(logical)
@@ -958,42 +1006,61 @@ def apply_along_axis(func, axis, x: Array, *args, **kwargs) -> Array:
             f"apply_along_axis: {getattr(func, '__name__', func)!r} does "
             f"not run under torch.func.vmap ({type(e).__name__}: {e}); "
             "falling back to host NumPy (device->host->device round trip, "
-            "far slower)", UserWarning, stacklevel=2)
+            "far slower)", UserWarning, stacklevel=3)
         host = logical.to(torch.float32) if logical.dtype == torch.bfloat16 \
             else logical
         out = torch.as_tensor(np.apply_along_axis(
-            func, axis, host.cpu().numpy(), *args, **kwargs))
+            func, axis, host.cpu().numpy(), *args, **kwargs)).to(
+                logical.device)
     if out.dim() == 1:
         out = out.reshape(1, -1) if axis == 0 else out.reshape(-1, 1)
     if out.dim() != 2:
         raise ValueError(f"apply_along_axis: func produced a {out.dim()}-D "
                          "result; ds-arrays are 2-D")
-    return Array._from_logical(out.contiguous(), x._mesh)
+    return out
 
 
 def concat_rows(arrays) -> Array:
-    """Stack ds-arrays vertically (logical concatenation)."""
+    """Stack ds-arrays vertically (logical concatenation).  Across ranks
+    each input's rows go to their ranks in the result by the shuffle's
+    routing plan (one ``all_to_all`` over 'rows' an input)."""
     arrays = list(arrays)
     if not arrays:
         raise ValueError("concat_rows needs at least one array")
     cols = {a.shape[1] for a in arrays}
     if len(cols) > 1:
         raise ValueError(f"concat_rows: column counts differ: {sorted(cols)}")
-    out = torch.cat([a._data[: a._shape[0], : a._shape[1]] for a in arrays],
-                    dim=0)
-    return Array._from_logical(out, arrays[0]._mesh,
-                               reg_shape=arrays[0]._reg_shape)
+    mesh = arrays[0]._mesh
+    if any(a._mesh != mesh for a in arrays):
+        raise ValueError("concat_rows: arrays live on different meshes")
+    shape = (sum(a.shape[0] for a in arrays), arrays[0].shape[1])
+    dt = arrays[0].dtype
+    for a in arrays[1:]:
+        dt = torch.promote_types(dt, a.dtype)
+    out = torch.zeros((_block_geom(shape, mesh)[2] + 1,
+                       arrays[0]._local.shape[1]), dtype=dt,
+                      device=mesh.device)
+    off = 0
+    for a in arrays:
+        rows = np.arange(a.shape[0])
+        _gather_rows(a, rows, dst=off + rows, out_shape=shape, out=out)
+        off += a.shape[0]
+    return Array(out[:-1], shape, mesh, reg_shape=arrays[0]._reg_shape)
 
 
 def concat_cols(arrays) -> Array:
-    """Concatenate ds-arrays along columns."""
+    """Concatenate ds-arrays along columns.  Across ranks the inputs'
+    row blocks line up (one height), so each rank joins its rows (each
+    block all-gathered over 'cols' first, none on a one-column mesh)."""
     arrays = list(arrays)
     if not arrays:
         raise ValueError("concat_cols needs at least one array")
     rows = {a.shape[0] for a in arrays}
     if len(rows) > 1:
         raise ValueError(f"concat_cols: row counts differ: {sorted(rows)}")
-    out = torch.cat([a._data[: a._shape[0], : a._shape[1]] for a in arrays],
-                    dim=1)
-    return Array._from_logical(out, arrays[0]._mesh,
-                               reg_shape=arrays[0]._reg_shape)
+    mesh = arrays[0]._mesh
+    if any(a._mesh != mesh for a in arrays):
+        raise ValueError("concat_cols: arrays live on different meshes")
+    out = torch.cat([a._row_block()[:, : a._shape[1]] for a in arrays], dim=1)
+    return Array._from_rows(out, (arrays[0].shape[0], out.shape[1]), mesh,
+                            reg_shape=arrays[0]._reg_shape)

@@ -3,6 +3,14 @@
 Counterpart of ``dislib_tpu/decomposition/lanczos.py``: GEMVs on the padded
 operand with full reorthogonalisation of both Lanczos bases, then the SVD
 of the small bidiagonal matrix.
+
+Across ranks each rank holds its rows of A (its blocks all-gathered over
+'cols', none on a one-column mesh) and of the left basis U; the right
+basis V lives on every rank.  A·v is local; Uᵀu, ‖u‖² and Aᵀu are local
+products plus one ``psum`` over 'rows' each (each needs the one before
+it, so none can be packed with another without changing the one-rank
+arithmetic), and the bidiagonal SVD is taken on every rank.  The step
+count is fixed, so there is no stop decision to agree on.
 """
 
 from __future__ import annotations
@@ -11,6 +19,8 @@ import torch
 
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.ops import precision as px
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 
 
 def lanczos_svd(a: Array, k: int = 6, bs: int | None = None,
@@ -36,11 +46,13 @@ def lanczos_svd(a: Array, k: int = 6, bs: int | None = None,
     k = singular_values or rank or k
     m, n = a.shape
     steps = min(num_iterations or max(2 * k, k + 8), min(m, n))
-    u, s, v = _gkl(px.f32(a._data), n, steps,
-                   0 if random_state is None else random_state, policy)
-    return (Array._from_logical(u[:m, :k].contiguous(), a._mesh),
-            Array._from_logical(s[:k].reshape(1, -1), a._mesh),
-            Array._from_logical(v[:n, :k].contiguous(), a._mesh))
+    mesh = a._mesh
+    u, s, v = _gkl(px.f32(a._row_block()), n, steps,
+                   0 if random_state is None else random_state, policy,
+                   mesh)
+    return (Array._from_rows(u[:, :k], (m, k), mesh),
+            Array._from_logical(s[:k].reshape(1, -1), mesh),
+            Array._from_logical(v[:n, :k].contiguous(), mesh))
 
 
 def _start_vector(seed: int, n: int, device) -> torch.Tensor:
@@ -52,14 +64,19 @@ def _start_vector(seed: int, n: int, device) -> torch.Tensor:
 
 @px.precise
 def _gkl(a: torch.Tensor, n_valid: int, steps: int, seed: int,
-         policy=px.FLOAT32):
-    """``steps`` Lanczos steps on the padded operand: its pad rows/cols
-    are zero, and the start vector is masked to the logical columns, so
-    the pad entries of every Lanczos vector stay exactly zero."""
+         policy, mesh):
+    """``steps`` Lanczos steps on the padded operand (or this rank's rows
+    of it): its pad rows/cols are zero, and the start vector is drawn at
+    the logical columns, so the pad entries of every Lanczos vector stay
+    exactly zero."""
     m, n = a.shape
     dev = a.device
-    v = _start_vector(seed, n, dev)
-    v = v * (torch.arange(n, device=dev) < n_valid)
+
+    def rows_sum(t):
+        return _dist.psum(t, _mesh.ROWS, mesh)
+
+    v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v[:n_valid] = _start_vector(seed, n_valid, dev)
     v = v / torch.linalg.norm(v)
     vs = torch.zeros((n, steps), dtype=torch.float32, device=dev)
     us = torch.zeros((m, steps), dtype=torch.float32, device=dev)
@@ -71,12 +88,13 @@ def _gkl(a: torch.Tensor, n_valid: int, steps: int, seed: int,
         vs[:, j] = v
         u = px.pdot(a, v, policy) - beta * u
         # full reorthogonalisation (unfilled columns are zero)
-        u = u - us @ (us.T @ u)
-        alpha = torch.linalg.norm(u)
+        u = u - us @ rows_sum(us.T @ u)
+        alpha = torch.linalg.norm(u) if mesh.rows == 1 \
+            else torch.sqrt(rows_sum(torch.sum(u * u)))
         u = u / torch.where(alpha < 1e-30, 1.0, alpha)
         us[:, j] = u
         alphas[j] = alpha
-        w = px.pdot(a.T, u, policy) - alpha * v
+        w = rows_sum(px.pdot(a.T, u, policy)) - alpha * v
         w = w - vs @ (vs.T @ w)
         beta = torch.linalg.norm(w)
         betas[j] = beta

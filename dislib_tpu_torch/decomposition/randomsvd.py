@@ -16,10 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dislib_tpu_torch.data.array import Array, _block_geom, _zero_pad
-from dislib_tpu_torch.decomposition.tsqr import (tsqr, _col_repad,
-                                                 _tsqr_ranks, _tsqr_shardmap,
-                                                 _use_cholqr)
+from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.decomposition.tsqr import (tsqr, _tsqr_ranks,
+                                                 _tsqr_shardmap, _use_cholqr)
 from dislib_tpu_torch.math.base import matmul
 from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.parallel import distributed as _dist
@@ -59,11 +58,7 @@ def random_svd(a: Array, iters: int = 2, epsilon: float | None = None,
         u_rows, s, vt = _random_svd_fused(
             a._row_block(), _omega_of(seed, n, sketch, a.device), a.shape,
             iters, nsv, mesh, cholqr=_use_cholqr(a.device), policy=policy)
-        # this rank's block of U (on one rank the backing's rows past the
-        # quantum pad are cut)
-        r0, c0, ml, nl = _block_geom((m, nsv), mesh)
-        u = _col_repad(u_rows, mesh)[:ml, c0:c0 + nl].contiguous()
-        u = Array(_zero_pad(u, (m, nsv), (r0, c0)), (m, nsv), mesh)
+        u = Array._from_rows(u_rows, (m, nsv), mesh)
         v = Array._from_logical(vt.T[:, :nsv].contiguous(), mesh)
         return u, Array._from_logical(s[:nsv].reshape(1, -1), mesh), v
 

@@ -9,7 +9,8 @@ Q_i = Q1_i · Q2[i].  :func:`_tsqr_ranks` runs it over the ranks of a
 ``all_gather`` over 'rows' stacks the R factors; on the one-card
 ``(1, 1)`` mesh p = 1 and the gather is the identity.
 :func:`_tsqr_shardmap` keeps the algorithm for p row shards of one
-backing (``math/qr``'s panels, the 8-shard parity test).
+backing (random_svd's replicated (n, sketch) factor, the 8-shard parity
+test); ``math/qr``'s panels run :func:`_tsqr_ranks`.
 
 The local factorisation is the batched Householder reduction tree
 (:func:`_local_tsqr`) or CholeskyQR2 (:func:`_cholqr2`), chosen by
@@ -21,12 +22,11 @@ Across ranks that decision is agreed (``distributed.any_rank``).
 
 from __future__ import annotations
 
-import math
 import os
 
 import torch
 
-from dislib_tpu_torch.data.array import Array, _block_geom, _zero_pad
+from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
@@ -63,9 +63,7 @@ def tsqr(a: Array, mode: str = "reduced", indexes=None, precision=None):
                             policy=policy)
     if mode == "r":
         return Array._from_logical(r, mesh)
-    r0, c0, ml, nl = _block_geom((m, n), mesh)
-    q = _col_repad(q_rows, mesh)[:, c0:c0 + nl].contiguous()
-    q = Array(_zero_pad(q, (m, n), (r0, c0)), (m, n), mesh, a._reg_shape)
+    q = Array._from_rows(q_rows, (m, n), mesh, a._reg_shape)
     if indexes is not None:
         q = q[:, list(indexes)]
     return q, Array._from_logical(r, mesh)
@@ -190,13 +188,3 @@ def _tsqr_shardmap(av: torch.Tensor, mesh, p: int, *, cholqr: bool,
     q = torch.cat([px.pdot(q1, q2[i * n:(i + 1) * n], policy)
                    for i, (q1, _) in enumerate(local)], dim=0)
     return q, r
-
-
-def _col_repad(q_pad: torch.Tensor, mesh) -> torch.Tensor:
-    """Pad Q's column dim back to the mesh quantum (rows already padded)."""
-    q = _mesh.pad_quantum(mesh)
-    n = q_pad.shape[1]
-    target = max(q, int(math.ceil(n / q)) * q)
-    if target != n:
-        q_pad = torch.nn.functional.pad(q_pad, (0, target - n))
-    return q_pad

@@ -21,7 +21,13 @@ small B run there (random_svd's and PCA's), the others raise.
 ``kron`` builds its output from the index lattice; ``svd`` is the
 reference's one-sided Jacobi in both tiers (scalar Givens pairs below two
 column blocks, column-block pairs above), its sweeps driven from the host
-with ONE scalar read per sweep.
+with ONE scalar read per sweep.  Across ranks ``kron`` all-gathers both
+operands and each rank computes its block of the lattice; ``svd``
+rotates each rank's rows (its blocks all-gathered over 'cols'): a
+round's 2×2 Grams are one batched ``psum`` over 'rows' (scalar tier),
+its pair QRs a tsQR tree, local QRs plus one ``all_gather`` of the
+(2b, 2b) R factors (block tier), the sweep's convergence value is
+``pmax``-reduced and V is computed on every rank.
 
 A sparse lhs (``data/sparse.SparseArray``) takes the reference's second
 router, ``algorithm="auto"|"spmm"|"densify"``: ``spmm`` is
@@ -275,22 +281,32 @@ def kron(a: Array, b: Array, block_size=None) -> Array:
     """Kronecker product (reference: ``dislib_tpu.math.kron``), computed
     straight into the output through the index lattice
     ``out[r, c] = a[r // mb, c // nb] · b[r % mb, c % nb]`` — row and column
-    gathers of the operands, never the 4-D broadcast."""
+    gathers of the operands, never the 4-D broadcast.  Across ranks both
+    operands are all-gathered and each rank computes the lattice of its
+    own block; every entry is one float product, so the result does not
+    depend on the mesh."""
     if a.device != b.device:
         raise ValueError(f"kron operands live on different devices: "
                          f"{a.device} vs {b.device}")
     (ma, na), (mb, nb) = a.shape, b.shape
     shape = (ma * mb, na * nb)
-    pshape = _padded_shape(shape, _mesh.pad_quantum(a._mesh))
-    out = _kron_kernel(a._data, b._data, (a.shape, b.shape), pshape)
-    return Array(out, shape, a._mesh, reg_shape=block_size)
+    mesh = a._mesh
+    if b._mesh != mesh:
+        raise ValueError("kron operands live on different meshes")
+    r0, c0, ml, nl = _block_geom(shape, mesh)
+    out = _kron_kernel(a._gathered(), b._gathered(), (a.shape, b.shape),
+                       (ml, nl), (r0, c0))
+    return Array(out, shape, mesh, reg_shape=block_size)
 
 
-def _kron_kernel(ap, bp, shapes, pshape):
+def _kron_kernel(ap, bp, shapes, pshape, at):
+    """The ``pshape`` block at global offset ``at`` of the Kronecker
+    product of the logical regions of ``ap`` and ``bp``, zero past the
+    logical shape."""
     (ma, na), (mb, nb) = shapes
     av, bv = ap[:ma, :na], bp[:mb, :nb]
-    ri = torch.arange(pshape[0], device=ap.device)
-    ci = torch.arange(pshape[1], device=ap.device)
+    ri = at[0] + torch.arange(pshape[0], device=ap.device)
+    ci = at[1] + torch.arange(pshape[1], device=ap.device)
     # clamp keeps the pad-region gathers in bounds; the mask re-zeroes them
     a_exp = av[torch.clamp(ri // mb, 0, ma - 1)][
         :, torch.clamp(ci // nb, 0, na - 1)]
@@ -330,10 +346,13 @@ def svd(a: Array, compute_uv: bool = True, sort: bool = True,
     the reference's ``while_loop`` stops.  ``eps`` below 1e-6 is clamped
     with a warning (float32's pairwise-orthogonality floor); under
     bfloat16 the block tier's floor is 5e-3.  Bounds:
-    ``ERROR_BOUNDS[("svd_values"|"svd_resid", policy)]``."""
+    ``ERROR_BOUNDS[("svd_values"|"svd_resid", policy)]``.  The tiers are
+    chosen on the padded shape, so a mesh of ranks takes the tier the
+    reference takes on it."""
     del copy
     policy = px.resolve(precision)
     m, n = a.shape
+    mesh = a._mesh
     if float(eps) < 1e-6:
         warnings.warn(
             f"svd: eps={eps:g} is below the float32 convergence floor; "
@@ -342,20 +361,22 @@ def svd(a: Array, compute_uv: bool = True, sort: bool = True,
     eps = max(float(eps), 1e-6)
     # the pad rows/cols are zero, so they add nothing to the column dot
     # products; re-masking at ingest keeps a poisoned tail out of them
-    av = grow_canvas(px.f32(a._data), a._data.shape, valid=(m, n))
+    rows = a._row_block()
+    av = grow_canvas(px.f32(rows), rows.shape,
+                     valid=(max(0, m - a._at[0]), n))
+    pm, pn = _padded_shape(a.shape, _mesh.pad_quantum(mesh))
     with px.precise():
-        if av.shape[1] >= 2 * _JACOBI_BLOCK \
-                and av.shape[0] >= 2 * _JACOBI_BLOCK:
+        if pn >= 2 * _JACOBI_BLOCK and pm >= 2 * _JACOBI_BLOCK:
             eps = max(eps, _SVD_EPS_FLOOR.get(policy.name, 1e-6))
             u, s, v = _jacobi_svd_block(av, n, sort, eps, max_sweeps,
-                                        policy)
+                                        policy, mesh)
         else:
-            u, s, v = _jacobi_svd(av, n, sort, eps, max_sweeps)
-    s_arr = Array._from_logical(s[:n].reshape(1, -1), a._mesh)
+            u, s, v = _jacobi_svd(av, n, sort, eps, max_sweeps, mesh)
+    s_arr = Array._from_logical(s[:n].reshape(1, -1), mesh)
     if not compute_uv:
         return s_arr
-    return (Array._from_logical_padded(u, (m, n), a._mesh), s_arr,
-            Array._from_logical_padded(v, (n, n), a._mesh))
+    return (Array._from_rows(u, (m, n), mesh), s_arr,
+            Array._from_logical(v[:n, :n].contiguous(), mesh))
 
 
 def _sweep_rounds(n, device):
@@ -364,10 +385,26 @@ def _sweep_rounds(n, device):
     return [(pr[:, 0], pr[:, 1]) for pr in pairs]
 
 
-def _jacobi_svd(a, n_valid, sort, eps, max_sweeps):
+def _col_norms(u, mesh):
+    """The norms of ``u``'s columns, whose rows are spread over the rows
+    of ``mesh`` (on a mesh of one row ``u`` holds every row)."""
+    if mesh.rows == 1:
+        return torch.linalg.norm(u, dim=0)
+    return torch.sqrt(_dist.psum(torch.sum(u * u, dim=0), _mesh.ROWS, mesh))
+
+
+def _sweep_off(offs, mesh):
+    """The sweep's largest off-diagonal measure, ``pmax``-reduced over
+    every rank, read on the host once."""
+    off = _dist.pmax(torch.stack(offs).max(), _dist.ALL, mesh)
+    return host_read(off, "svd_sweep")
+
+
+def _jacobi_svd(a, n_valid, sort, eps, max_sweeps, mesh):
     """Scalar tier: one Givens rotation per disjoint column pair, every
     pair of a round from the pre-round matrix.  ``a`` is a fresh canvas
-    (``svd``'s ingest copy) and is rotated in place."""
+    (``svd``'s ingest copy) and is rotated in place; across ranks it is
+    this rank's rows, and each round's 2×2 Grams are one ``psum``."""
     m, n = a.shape
     rounds = _sweep_rounds(n, a.device)
     u = a
@@ -377,9 +414,9 @@ def _jacobi_svd(a, n_valid, sort, eps, max_sweeps):
         offs = []
         for i, j in rounds:
             ui, uj = u[:, i], u[:, j]
-            aii = torch.sum(ui * ui, dim=0)
-            ajj = torch.sum(uj * uj, dim=0)
-            aij = torch.sum(ui * uj, dim=0)
+            aii, ajj, aij = _dist.psum(torch.stack([
+                torch.sum(ui * ui, dim=0), torch.sum(uj * uj, dim=0),
+                torch.sum(ui * uj, dim=0)]), _mesh.ROWS, mesh).unbind()
             tau = (ajj - aii) / (2.0 * torch.where(aij.abs() < 1e-30,
                                                    1e-30, aij))
             t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
@@ -394,9 +431,9 @@ def _jacobi_svd(a, n_valid, sort, eps, max_sweeps):
             v[:, i] = c * vi - s_ * vj
             v[:, j] = s_ * vi + c * vj
             offs.append(off_r.max())
-        off = host_read(torch.stack(offs).max(), "svd_sweep")
+        off = _sweep_off(offs, mesh)
         it += 1
-    s = torch.linalg.norm(u, dim=0)
+    s = _col_norms(u, mesh)
     u = u / torch.where(s < 1e-30, 1.0, s)[None, :]
     # V's pad diagonal starts at 1 (eye) and must not leak out
     col_ok = torch.arange(n, device=a.device) < n_valid
@@ -409,16 +446,39 @@ def _jacobi_svd(a, n_valid, sort, eps, max_sweeps):
     return u, s, v
 
 
-def _jacobi_svd_block(a, n_valid, sort, eps, max_sweeps, policy=px.FLOAT32):
+def _pair_qr(w, mesh):
+    """The batched tall QR of the round's column-block pairs ``w`` (pairs,
+    rows, 2b).  On a mesh of several rows (``w`` this rank's rows) it is
+    the tsQR tree:
+    local QRs, ONE ``all_gather`` of the (2b, 2b) R factors over 'rows',
+    one QR of each pair's stack on every rank, and the local Q times its
+    slice of the stack's Q.  A block shorter than 2b rows is padded with
+    zero rows, which leave Q's rows and R exact."""
+    if mesh.rows == 1:
+        return torch.linalg.qr(w, mode="reduced")
+    rows, c = w.shape[1], w.shape[2]
+    if rows < c:
+        w = torch.nn.functional.pad(w, (0, 0, 0, c - rows))
+    q1, r1 = torch.linalg.qr(w, mode="reduced")
+    stack = _dist.all_gather(r1.contiguous(), _mesh.ROWS, 1, mesh)
+    q2, r = torch.linalg.qr(stack, mode="reduced")
+    i = mesh.coord[0]
+    return (q1 @ q2[:, i * c:(i + 1) * c])[:, :rows], r
+
+
+def _jacobi_svd_block(a, n_valid, sort, eps, max_sweeps, policy, mesh):
     """Block tier: round-robin over column blocks of width b.
 
     Per disjoint block pair (I, J), batched over the round's pairs:
-    W = [U_I | U_J] = Q_w R (one batched tall QR), R = U_r Σ V_rᵀ (one
-    batched (2b, 2b) SVD), then U_pair ← Q_w U_r Σ and V_pair ← V_pair V_r.
-    The new columns are orthogonal to working precision whatever the
-    pair's conditioning (R's SVD is σ-relative).  Convergence is measured
-    on G = RᵀR.  Zero (pad) columns stay zero; V starts with pad columns
-    zeroed; positions ≥ n_valid are re-masked after the final sort."""
+    W = [U_I | U_J] = Q_w R (one batched tall QR, :func:`_pair_qr`),
+    R = U_r Σ V_rᵀ (one batched (2b, 2b) SVD), then U_pair ← Q_w U_r Σ and
+    V_pair ← V_pair V_r.  The new columns are orthogonal to working
+    precision whatever the pair's conditioning (R's SVD is σ-relative);
+    R comes from the QR, never from the pair's Gram, which would square
+    the condition number.  Convergence is measured on G = RᵀR.  Zero
+    (pad) columns stay zero; V starts with pad columns zeroed; positions
+    ≥ n_valid are re-masked after the final sort.  Across ranks ``a`` is
+    this rank's rows and V is computed on every rank from the same R."""
     m, n_in = a.shape
     b = _JACOBI_BLOCK
     nb = -(-n_in // b)
@@ -436,7 +496,7 @@ def _jacobi_svd_block(a, n_valid, sort, eps, max_sweeps, policy=px.FLOAT32):
             ur = u.view(m, nb, b)
             vr = v.view(n, nb, b)
             w_u = torch.cat([ur[:, i], ur[:, j]], dim=-1)      # (m, w, 2b)
-            qw, r = torch.linalg.qr(w_u.transpose(0, 1), mode="reduced")
+            qw, r = _pair_qr(w_u.transpose(0, 1), mesh)
             g = torch.einsum("wki,wkj->wij", r, r)             # G = RᵀR
             d = torch.diagonal(g, dim1=1, dim2=2)
             # clamp the PRODUCT: clamped factors of 1e-30 underflow to 0
@@ -453,9 +513,9 @@ def _jacobi_svd_block(a, n_valid, sort, eps, max_sweeps, policy=px.FLOAT32):
             ur[:, j] = u_new[..., b:]
             vr[:, i] = v_new[..., :b]
             vr[:, j] = v_new[..., b:]
-        off = host_read(torch.stack(offs).max(), "svd_sweep")
+        off = _sweep_off(offs, mesh)
         it += 1
-    s = torch.linalg.norm(u, dim=0)
+    s = _col_norms(u, mesh)
     u = u / torch.where(s < 1e-30, 1.0, s)[None, :]
     if sort:
         order = torch.argsort(-s, stable=True)

@@ -16,16 +16,28 @@ algorithms on one device.
 
 Modes follow the reference: 'full' (Q m×m, R m×n), 'economic' (Q m×k,
 R k×n), 'r' (R only).
+
+Across ranks the panel loop runs on each rank's rows (its blocks
+all-gathered over 'cols', none on a one-column mesh): the projections
+QᵀP and QₛᵀT are local products plus one ``psum`` over 'rows' each, each
+panel is factored by the tsQR over the ranks
+(``decomposition/tsqr._tsqr_ranks``) and the trailing update is local;
+the complement's Gaussian block is drawn once at the padded height and
+each rank keeps its rows.  The Householder QR of a small or short-wide
+array factors the all-gathered array on every rank, as the reference's
+replicated fallback does, and each rank keeps its blocks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dislib_tpu_torch.data.array import Array
-from dislib_tpu_torch.decomposition.tsqr import _tsqr_shardmap, _use_cholqr
+from dislib_tpu_torch.data.array import Array, _block_geom, _padded_shape
+from dislib_tpu_torch.decomposition.tsqr import _tsqr_ranks, _use_cholqr
 from dislib_tpu_torch.math.base import grow_canvas
 from dislib_tpu_torch.ops import precision as px
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 
 # panel width for the blocked path (module-level so tests can shrink it)
 _PANEL = 256
@@ -58,20 +70,21 @@ def qr(a: Array, mode: str = "full", overwrite_a: bool = False,
     m, n = a.shape
     mesh = a._mesh
     p = mesh.rows
-    mp = a._data.shape[0]
+    mp = _padded_shape(a.shape, _mesh.pad_quantum(mesh))[0]
     blocked_ok = m >= n and n > _PANEL and mp // p >= _PANEL and mp % p == 0
     cholqr = _use_cholqr(a.device)
     if mode in ("economic", "r") and blocked_ok:
-        q_pad, r = _qr_blocked(a._data, (m, n), mesh, p, _PANEL,
-                               cholqr=cholqr, policy=policy)
+        q_rows, r = _qr_blocked(a._row_block(), (m, n), mesh, _PANEL,
+                                cholqr=cholqr, policy=policy)
         if mode == "r":
             return Array._from_logical(r[:n, :n], mesh)
-        return (Array._from_logical_padded(q_pad, (m, n), mesh,
-                                           a._reg_shape),
+        return (Array._from_rows(q_rows, (m, n), mesh, a._reg_shape),
                 Array._from_logical(r[:n, :n], mesh))
     if mode == "full" and blocked_ok and m - n > _PANEL:
-        return _qr_full_distributed(a, m, n, mesh, p, policy)
-    av = px.f32(a._data[:m, :n])
+        return _qr_full_distributed(a, m, n, mesh, policy)
+    # every rank factors the whole array (the all-gather is the backing
+    # itself on one rank) and keeps its blocks
+    av = px.f32(a._gathered()[:m, :n])
     if mode == "full":
         q, r = _qr_kernel(av, "complete")
         return Array._from_logical(q, mesh), Array._from_logical(r, mesh)
@@ -81,7 +94,7 @@ def qr(a: Array, mode: str = "full", overwrite_a: bool = False,
     return Array._from_logical(q, mesh), Array._from_logical(r, mesh)
 
 
-def _qr_full_distributed(a: Array, m, n, mesh, p, policy=px.FLOAT32):
+def _qr_full_distributed(a: Array, m, n, mesh, policy=px.FLOAT32):
     """mode='full' by the panel loop: Q₁ from the economic loop, then an
     orthonormal complement Q₂ from a Gaussian block projected against Q₁
     (twice) and factored by the loop.  Rank-deficient A carries the same
@@ -95,22 +108,23 @@ def _qr_full_distributed(a: Array, m, n, mesh, p, policy=px.FLOAT32):
     2.1e-3 and 0.144 on the CPU, against ``qr_orth`` 1e-4 and 4e-2
     (``tools/torch_linalg_diag.py``).  Q₂ is well conditioned, so the
     second pass brings it to the working precision of its GEMMs
-    (ROADMAP.md C.5)."""
+    (ROADMAP.md C.5).  Across ranks every factor is this rank's rows."""
     cholqr = _use_cholqr(a.device)
-    q1, r = _qr_blocked(a._data, (m, n), mesh, p, _PANEL, cholqr=cholqr,
+    q1, r = _qr_blocked(a._row_block(), (m, n), mesh, _PANEL, cholqr=cholqr,
                         policy=policy)
     k = m - n
     g = _qr_complement_seed(q1, (m, n), k, mesh, policy)
-    q2, _ = _qr_blocked(g, (m, k), mesh, p, _PANEL, cholqr=cholqr,
+    q2, _ = _qr_blocked(g, (m, k), mesh, _PANEL, cholqr=cholqr,
                         policy=policy)
     with px.precise():
-        q2 = q2 - px.pdot(q1, px.pdot(q1.T, q2))
-    q2, _ = _qr_blocked(q2, (m, k), mesh, p, _PANEL, cholqr=cholqr,
+        q2 = q2 - px.pdot(q1, _dist.psum(px.pdot(q1.T, q2), _mesh.ROWS,
+                                         mesh))
+    q2, _ = _qr_blocked(q2, (m, k), mesh, _PANEL, cholqr=cholqr,
                         policy=policy)
-    q_full = torch.cat([q1[:, :n], q2[:, :k]], dim=1)[:m]
+    q_rows = torch.cat([q1[:, :n], q2[:, :k]], dim=1)
     r_full = torch.zeros((m, n), dtype=torch.float32, device=q1.device)
     r_full[:n, :n] = r[:n, :n]
-    return (Array._from_logical(q_full, mesh, a._reg_shape),
+    return (Array._from_rows(q_rows, (m, m), mesh, a._reg_shape),
             Array._from_logical(r_full, mesh))
 
 
@@ -127,23 +141,28 @@ def _complement_draw(mp: int, k: int, device) -> torch.Tensor:
 @px.precise
 def _qr_complement_seed(q1: torch.Tensor, shape, k: int, mesh,
                         policy=px.FLOAT32) -> torch.Tensor:
-    """(mp, k) Gaussian block orthogonal to q1's columns up to roundoff:
-    two projection passes I − Q₁Q₁ᵀ.  q1's padded columns (≥ n) are zero,
-    so they drop out of the projections."""
-    del mesh
-    mp = q1.shape[0]
+    """(rows, k) Gaussian block orthogonal to q1's columns up to roundoff:
+    two projection passes I − Q₁Q₁ᵀ, on this rank's rows (the whole
+    padded height on one rank) of one draw at the padded height.  q1's
+    padded columns (≥ n) are zero, so they drop out of the
+    projections."""
     m, _ = shape
-    g = _complement_draw(mp, k, q1.device)
-    g[m:] = 0.0
+    r0, _, ml, _ = _block_geom(shape, mesh)
+    mp = _padded_shape(shape, _mesh.pad_quantum(mesh))[0]
+    g = _complement_draw(mp, k, q1.device)[r0:r0 + ml].clone()
+    g[max(0, m - r0):] = 0.0
     for _ in range(2):
-        g = g - px.pdot(q1, px.pdot(q1.T, g, policy), policy)
+        g = g - px.pdot(q1, _dist.psum(px.pdot(q1.T, g, policy),
+                                       _mesh.ROWS, mesh), policy)
     return g
 
 
 @px.precise
-def _qr_blocked(ap: torch.Tensor, shape, mesh, p, panel, *, cholqr,
+def _qr_blocked(ap: torch.Tensor, shape, mesh, panel, *, cholqr,
                 policy=px.FLOAT32):
-    """Right-looking blocked QR over the padded operand.
+    """Right-looking blocked QR over the padded operand, or over this
+    rank's rows of it (the projections then summed over 'rows', each
+    panel tsQR-factored over the ranks).
 
     At panel j (offset off = j·panel): Q's columns < off are final and
     its columns ≥ off zero; the trailing matrix T's columns ≥ off hold
@@ -156,26 +175,29 @@ def _qr_blocked(ap: torch.Tensor, shape, mesh, p, panel, *, cholqr,
     b = panel
     n_panels = -(-n // b)
     n_pad = n_panels * b
-    mp = ap.shape[0]
+    rows = ap.shape[0]
+    r0 = _block_geom(shape, mesh)[0]
     # the panel canvas is zero-grown AND re-masked past the logical columns
-    t = grow_canvas(px.f32(ap), (mp, n_pad), valid=(mp, n))
-    q = torch.zeros((mp, n_pad), dtype=torch.float32, device=ap.device)
+    t = grow_canvas(px.f32(ap), (rows, n_pad), valid=(rows, n))
+    q = torch.zeros((rows, n_pad), dtype=torch.float32, device=ap.device)
     r = torch.zeros((n_pad, n_pad), dtype=torch.float32, device=ap.device)
     for j in range(n_panels):
         off = j * b
         p_blk = t[:, off:off + b]
         if off:
-            c = px.pdot(q[:, :off].T, p_blk, policy)        # (off, b)
+            c = _dist.psum(px.pdot(q[:, :off].T, p_blk, policy), _mesh.ROWS,
+                       mesh)
             p_blk = p_blk - px.pdot(q[:, :off], c, policy)
             r[:off, off:off + b] += c
-        qs, rs = _tsqr_shardmap(p_blk, mesh, p, cholqr=cholqr)
+        qs, rs = _tsqr_ranks(p_blk, mesh, cholqr=cholqr)
         r[off:off + b, off:off + b] = rs
         if off + b < n_pad:
-            g = px.pdot(qs.T, t[:, off + b:], policy)      # (b, trailing)
+            g = _dist.psum(px.pdot(qs.T, t[:, off + b:], policy),
+                           _mesh.ROWS, mesh)
             t[:, off + b:] -= px.pdot(qs, g, policy)
             r[off:off + b, off + b:] = g
         q[:, off:off + b] = qs
     # a fully padded shard's local QR can leave garbage in Q's pad rows
-    q[m:] = 0.0
+    q[max(0, m - r0):] = 0.0
     q[:, n:] = 0.0
     return q, r

@@ -115,11 +115,26 @@ class NearestNeighbors(BaseEstimator):
 
 
 def _kneighbors_ranks(x, f, k, ring, return_distance):
-    """``kneighbors`` of a query array sharded over several ranks: the
-    ring at ``_RING_MIN`` fit rows and more on a mesh of more than one
-    row (or as ``ring`` forces it there), else the fit set all-gathered
-    and the chunked path on this rank's query rows.  The results are
-    row-sharded like the queries."""
+    """``kneighbors`` of a query array sharded over several ranks
+    (:func:`_kneighbors_rows`); the results are row-sharded like the
+    queries."""
+    mesh = x._mesh
+    d, idx, row0 = _kneighbors_rows(x, f, k, ring)
+    shape = (x.shape[0], k)
+    i_arr = Array(_block_with(idx, (row0, 0), shape, mesh), shape, mesh)
+    if return_distance:
+        return Array(_block_with(d, (row0, 0), shape, mesh), shape,
+                     mesh), i_arr
+    return i_arr
+
+
+def _kneighbors_rows(x, f, k, ring=None):
+    """(distances, indices, row0): the ``k`` nearest fit rows of this
+    rank's query rows (the first is global row ``row0``; 0 on padded
+    rows), on any mesh: the ring at ``_RING_MIN`` fit rows and more on a
+    mesh of more than one row (or as ``ring`` forces it there), else the
+    fit set all-gathered and the chunked path on this rank's query rows
+    (on one rank, the whole arrays)."""
     mesh = x._mesh
     if f._mesh != mesh:
         raise ValueError("kneighbors: the queries and the fit set live on "
@@ -136,12 +151,7 @@ def _kneighbors_ranks(x, f, k, ring, return_distance):
     else:
         d, idx = _kneighbors(x._row_block(), f._gathered(),
                              (mq_loc, x.shape[1]), f.shape, k, chunk=_CHUNK)
-    shape = (x.shape[0], k)
-    i_arr = Array(_block_with(idx, (row0, 0), shape, mesh), shape, mesh)
-    if return_distance:
-        return Array(_block_with(d, (row0, 0), shape, mesh), shape,
-                     mesh), i_arr
-    return i_arr
+    return d, idx, row0
 
 
 def _finish(d2, idx, mq):

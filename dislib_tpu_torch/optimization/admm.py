@@ -16,7 +16,18 @@ with the primal and dual residuals summed over the agents.  The loop
 stops on the reference's test (both residuals under their tolerances)
 through :func:`runtime.loop.run_chunked`: masked steps in chunks, one
 read per chunk.  ``p`` is the port mesh's rows (:func:`_agents`: 1 on
-one card).  Everything runs under
+one card).
+
+Across ranks each mesh row is one agent, as the reference's row shards
+are: a rank holds its rows (its blocks all-gathered over 'cols', none on
+a one-column mesh) as a batch of one.  Per iteration ``Σ_i(x_i + u_i)``
+is one ``psum`` over 'rows' (z̄ its mean), and the residuals' three sums
+(``Σ‖x_i − z‖²``, ``Σ‖x_i‖²``, ``Σ‖ρu_i‖²``) a second, packed one: they
+need the new z, and summing them directly keeps each as the one-card
+batch sums it (the one-psum form ``Σ‖x_i‖² − 2z·Σx_i + p‖z‖²`` cancels in
+float32 near convergence, where the stop test reads it).  So every rank
+computes the same residuals and stops at the same step.  Everything runs
+under
 :func:`~dislib_tpu_torch.ops.precision.precise` (TF32 off).  ``fit`` is
 ``_fit_finalize(_fit_async(x, y))``, the search's async-trial hooks.
 """
@@ -31,6 +42,7 @@ from dislib_tpu_torch.cluster.kmeans import _to_host
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops.base import cholesky_nan, precise
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.dlog import verbose_logger
@@ -49,6 +61,12 @@ def _agents() -> int:
     """The consensus agents: the default mesh's rows, as the reference's
     row shards."""
     return _mesh.mesh_shape()[0]
+
+
+def _agents_of(mesh) -> int:
+    """The agents of a fit on an array on ``mesh``: its rows across
+    ranks, :func:`_agents` on one rank."""
+    return mesh.rows if mesh.world > 1 else _agents()
 
 
 class ADMM(BaseEstimator):
@@ -101,10 +119,11 @@ class ADMM(BaseEstimator):
             raise ValueError(f"x and y row counts differ: {x.shape[0]} != "
                              f"{y.shape[0]}")
         prox = self.z_prox if self.z_prox is not None else identity_prox
-        return _admm_fit(x._data, y._data, x.shape, float(self.rho),
-                         float(self.prox_kappa), float(self.abstol),
-                         float(self.reltol), int(self.max_iter), prox,
-                         _agents())
+        return _admm_fit(x._row_block(), y._row_block(), x.shape,
+                         float(self.rho), float(self.prox_kappa),
+                         float(self.abstol), float(self.reltol),
+                         int(self.max_iter), prox, _agents_of(x._mesh),
+                         x._mesh)
 
     def _carry_in(self, arrays: dict, device):
         self.z_ = np.array(arrays["z_"], np.float32).ravel()
@@ -124,21 +143,34 @@ class ADMM(BaseEstimator):
 
 @precise
 def _admm_fit(xp, yp, x_shape, rho, kappa, abstol, reltol, max_iter, prox,
-              p):
+              p, mesh):
     """Consensus ADMM over ``p`` contiguous row blocks of the padded
     backings.  Returns ``(z, n_iter, converged, hist)`` as device
-    tensors — the reference's 4-tuple."""
+    tensors — the reference's 4-tuple.  On a ``mesh`` of several ranks
+    ``xp``/``yp`` are this rank's rows, the one agent of its mesh row; the
+    sums over the agents are ``psum`` calls over 'rows' (the identity
+    with no process group)."""
     n = x_shape[1]
     xv, yv = xp[:, :n], yp[:, :1]
-    rows = max(p, -(-xv.shape[0] // p) * p)      # the mesh's row padding
+    q = p // mesh.rows                  # the agents this rank holds
+    rows = max(q, -(-xv.shape[0] // q) * q)     # the mesh's row padding
     a = torch.nn.functional.pad(xv, (0, 0, 0, rows - xv.shape[0]))
     b = torch.nn.functional.pad(yv, (0, 0, 0, rows - yv.shape[0]))
-    a = a.reshape(p, rows // p, n)
-    b = b.reshape(p, rows // p, 1)
+    a = a.reshape(q, rows // q, n)
+    b = b.reshape(q, rows // q, 1)
+
+    def agents_sum(t):
+        """``t`` (agents, ...) summed over every agent, on every rank."""
+        return _dist.psum(torch.sum(t, dim=0), _mesh.ROWS, mesh)
+
     dev, dt = a.device, a.dtype
-    # each agent's Cholesky factor of (A_iᵀA_i + ρI), once
-    chol = cholesky_nan(a.mT @ a + rho * torch.eye(n, dtype=dt, device=dev))
-    atb = (a.mT @ b)[..., 0]                            # (p, n)
+    # each agent's Cholesky factor of (A_iᵀA_i + ρI), once.  One product
+    # an agent: on an H100 the batched product of 4 agents of 250000 rows
+    # put their Grams 7.3e-5 off float64, a plain product 6.6e-7
+    # (tools/torch_admm_diag.py)
+    gram = torch.stack([ai.T @ ai for ai in a])
+    chol = cholesky_nan(gram + rho * torch.eye(n, dtype=dt, device=dev))
+    atb = torch.stack([(ai.T @ bi)[:, 0] for ai, bi in zip(a, b)])  # (q, n)
 
     def solve(rhs):
         w = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
@@ -146,8 +178,8 @@ def _admm_fit(xp, yp, x_shape, rho, kappa, abstol, reltol, max_iter, prox,
 
     sq_np = float(np.sqrt(n * p))
     sq_p = float(np.sqrt(p))
-    x_i = torch.zeros((p, n), dtype=dt, device=dev)
-    u_i = torch.zeros((p, n), dtype=dt, device=dev)
+    x_i = torch.zeros((q, n), dtype=dt, device=dev)
+    u_i = torch.zeros((q, n), dtype=dt, device=dev)
     z = torch.zeros((n,), dtype=dt, device=dev)
     conv = torch.zeros((), dtype=torch.bool, device=dev)
     n_iter = torch.zeros((), dtype=torch.int32, device=dev)
@@ -157,16 +189,18 @@ def _admm_fit(xp, yp, x_shape, rho, kappa, abstol, reltol, max_iter, prox,
         nonlocal x_i, u_i, z, conv, n_iter
         active = ~conv
         nx = solve(atb + rho * (z[None, :] - u_i))
-        nz = prox(torch.mean(nx + u_i, dim=0), kappa)   # the pmean
+        nz = prox(agents_sum(nx + u_i) / p, kappa)      # the pmean
         nu = u_i + nx - nz
         # residuals: per-agent sums, then summed over the agents (psum)
-        r = torch.sqrt(torch.sum(torch.sum((nx - nz[None, :]) ** 2, dim=1)))
+        r2, x2, u2 = agents_sum(torch.stack([
+            torch.sum((nx - nz[None, :]) ** 2, dim=1),
+            torch.sum(nx ** 2, dim=1),
+            torch.sum((rho * nu) ** 2, dim=1)], dim=1)).unbind()
+        r = torch.sqrt(r2)
         s = rho * sq_p * torch.linalg.norm(nz - z)
         e_pri = sq_np * abstol + reltol * torch.maximum(
-            torch.sqrt(torch.sum(torch.sum(nx ** 2, dim=1))),
-            sq_p * torch.linalg.norm(nz))
-        e_dual = sq_np * abstol + reltol * torch.sqrt(
-            torch.sum(torch.sum((rho * nu) ** 2, dim=1)))
+            torch.sqrt(x2), sq_p * torch.linalg.norm(nz))
+        e_dual = sq_np * abstol + reltol * torch.sqrt(u2)
         x_i = torch.where(active, nx, x_i)
         u_i = torch.where(active, nu, u_i)
         z = torch.where(active, nz, z)

@@ -2,8 +2,9 @@
 
 Counterpart of ``dislib_tpu/regression/lasso.py``: delegates to
 :class:`dislib_tpu_torch.optimization.ADMM` with the L1 soft-threshold
-prox, ``kappa = lmbd / (rho · p)`` with ``p`` the port mesh's rows (the
-global objective carries λ once; each agent contributes ρ).  ``predict``
+prox, ``kappa = lmbd / (rho · p)`` with ``p`` the mesh's rows, the
+agents (the global objective carries λ once; each agent contributes ρ):
+across ranks, the rows of the mesh the data is sharded over.  ``predict``
 goes through the port's ``matmul``; ``score`` is the R² shared with
 ``LinearRegression``.
 """
@@ -35,8 +36,10 @@ class Lasso(BaseEstimator):
         self.atol = atol
         self.rtol = rtol
 
-    def _admm(self):
-        kappa = float(self.lmbd) / (float(self.rho) * _admm._agents())
+    def _admm(self, x):
+        """The ADMM estimator for a fit on ``x`` (its mesh's agents)."""
+        p = _admm._agents_of(x._mesh)
+        kappa = float(self.lmbd) / (float(self.rho) * p)
         return _admm.ADMM(z_prox=_admm.soft_threshold, prox_kappa=kappa,
                           rho=self.rho, max_iter=self.max_iter,
                           abstol=self.atol, reltol=self.rtol)
@@ -49,7 +52,7 @@ class Lasso(BaseEstimator):
     def _fit_async(self, x, y=None):
         if y is None:
             raise ValueError("Lasso requires y")
-        admm = self._admm()
+        admm = self._admm(x)
         return (admm, admm._fit_async(x, y))
 
     def _fit_finalize(self, state):
@@ -65,9 +68,10 @@ class Lasso(BaseEstimator):
         if state is None:
             return super()._score_async(state, x, y)
         coef = state[1][0].reshape(-1, 1)         # the device consensus z
-        return _r2_score(x._data, y._data, x.shape, y.shape, coef,
-                         torch.zeros((1,), dtype=coef.dtype,
-                                     device=coef.device))
+        return _r2_score(x._row_block(), y._row_block(), x.shape, y.shape,
+                         coef, torch.zeros((1,), dtype=coef.dtype,
+                                           device=coef.device),
+                         x._mesh, x._at[0])
 
     def predict(self, x: Array) -> Array:
         """x @ coef_ through ``matmul``, (m, 1); the weight ds-array is
@@ -88,8 +92,10 @@ class Lasso(BaseEstimator):
         self._check_fitted()
         coef = torch.as_tensor(np.asarray(self.coef_, np.float32),
                                device=x.device).reshape(-1, 1)
-        return float(_r2_score(x._data, y._data, x.shape, y.shape, coef,
-                               torch.zeros((1,), device=x.device)))
+        return float(_r2_score(x._row_block(), y._row_block(), x.shape,
+                               y.shape, coef,
+                               torch.zeros((1,), device=x.device), x._mesh,
+                               x._at[0]))
 
     def _carry_in(self, arrays: dict, device):
         self.coef_ = np.array(arrays["coef_"], np.float32).ravel()

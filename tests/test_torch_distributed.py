@@ -38,6 +38,28 @@ CPU devices, restored afterwards) and holds the ranks to it:
   1e-4 of the reference's, ``n_iter_`` equal; the ``random`` init equal
   to the port's one-rank fit from the same draw; a health trip on one
   rank raises on every rank;
+- ``LinearRegression`` (two targets): coefficients, intercepts and R²
+  within 1e-5 of the reference's, relative to the largest;
+  ``Lasso``: ``coef_`` within 1e-5 of the reference's, ``n_iter_`` equal
+  to the port's one-rank fit with the same agents (a stop before
+  ``max_iter``);
+- ``MiniBatchKMeans``: centers within 1e-5 of one rank's after the same
+  batches, counts equal; a health trip on one rank raises on every rank;
+- ``polar``: U and H within ``ERROR_BOUNDS`` of one rank's, the same
+  iteration count; ``lanczos_svd`` and ``svd`` (both tiers): values
+  within 1e-5 of the largest (one rank's, and a float64 NumPy oracle's),
+  vectors within 1e-4 up to sign where the values stand apart;
+- ``qr``: R within 1e-5 (of its largest entry) of NumPy's up to row
+  signs, orthogonality and residual within ``ERROR_BOUNDS``, the full Q
+  held by orthogonality and QᵀA = R (its complement is the port's own
+  draw);
+- ``kron``, ``concat_rows``/``concat_cols``, ``apply_along_axis`` and
+  ``iterator`` bit-equal to NumPy, every block's pad zero;
+- ``KNeighborsClassifier`` (the gathered route and the ring) predicting
+  the reference's labels; both searches' scores within 1e-5 of one
+  rank's (relative), the same ``best_params_`` and host reads;
+  GaussianMixture's async-trial hooks: the score the sharded fit's, the
+  model the reference's diagonal fit (rtol/atol 1e-4, ``n_iter_`` equal);
 - every estimator not yet ported to the mesh raises NotImplementedError.
 
 A rank that hangs fails the test in seconds: the job's collectives time
@@ -55,9 +77,12 @@ import pytest
 
 import dislib_tpu as ds
 from dislib_tpu.cluster import GaussianMixture as RefGM
+from dislib_tpu.classification import KNeighborsClassifier as RefKNC
 from dislib_tpu.cluster import KMeans as RefKMeans
 from dislib_tpu.neighbors import NearestNeighbors as RefNN
 from dislib_tpu.preprocessing import MinMaxScaler, StandardScaler
+from dislib_tpu.regression import Lasso as RefLasso
+from dislib_tpu.regression import LinearRegression as RefLR
 
 from dislib_tpu_torch.ops.precision import ERROR_BOUNDS
 
@@ -123,6 +148,7 @@ def _reference(rows, cols, inp):
             ds.array(inp["fit"])).kneighbors(ds.array(inp["q"]))
         ref["knn_idx"], ref["knn_dist"] = i.collect(), d.collect()
         _reference_a2b(ref, inp)
+        _reference_a2b2(ref, inp)
     finally:
         ds.init()
     return ref
@@ -156,6 +182,20 @@ def _reference_a2b(ref, inp):
         ref[f"gm_{cov}_n_iter"] = est.n_iter_
         ref[f"gm_{cov}_labels"] = np.asarray(est.predict(g).collect())
         ref[f"gm_{cov}_score"] = est.score(g)
+
+
+def _reference_a2b2(ref, inp):
+    """The reference's linear models and kNN classifier on the current
+    mesh."""
+    x, y = ds.array(inp["x"]), ds.array(inp["y"])
+    lr = RefLR().fit(x, y)
+    ref["lr_coef"], ref["lr_intercept"] = lr.coef_, lr.intercept_
+    ref["lr_score"] = lr.score(x, y)
+    la = RefLasso(**W.LASSO_KW).fit(x, ds.array(inp["y"][:, :1]))
+    ref["lasso_coef"], ref["lasso_n_iter"] = la.coef_, la.n_iter_
+    knn = RefKNC(n_neighbors=5).fit(ds.array(inp["fit"]),
+                                    ds.array(inp["fit_y"]))
+    ref["knn_pred"] = np.asarray(knn.predict(ds.array(inp["q"])).collect())
 
 
 @pytest.fixture(scope="module", params=[(2, 2), (4, 1)],
@@ -488,3 +528,230 @@ def test_gm_random_init_is_the_one_rank_fit_and_trips_agree(job):
     guards = [got["gm_trip_guard"].tobytes().decode()
               for got in job["ranks"]]
     assert guards == ["peer", "injected", "peer", "peer"]
+
+
+# -- A.2b's second part ---------------------------------------------------------
+
+def _rel_to_largest(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def test_linear_regression_matches_the_reference(job):
+    ref, x = job["ref"], job["inp"]["x"]
+    coef = _same_on_every_rank(job, "lr_coef")
+    icpt = _same_on_every_rank(job, "lr_intercept")
+    assert _rel_to_largest(coef, ref["lr_coef"]) <= 1e-5
+    assert _rel_to_largest(icpt, ref["lr_intercept"]) <= 1e-5
+    score = float(_same_on_every_rank(job, "lr_score"))
+    assert abs(score - ref["lr_score"]) <= 1e-5 * abs(ref["lr_score"])
+    # the search hook's device R² is the score
+    assert float(_same_on_every_rank(job, "lr_score_async")) == score
+    pred = _same_on_every_rank(job, "lr_pred")
+    np.testing.assert_allclose(pred, x.astype(np.float64) @ coef + icpt,
+                               rtol=1e-5, atol=1e-5)
+    _blocks_hold_a_zero_pad(job, "lr_pred_block", pred.shape)
+
+
+def test_lasso_matches_the_reference_and_stops_with_one_rank(job):
+    ref = job["ref"]
+    coef = _same_on_every_rank(job, "lasso_coef")
+    np.testing.assert_allclose(coef, ref["lasso_coef"], rtol=0, atol=1e-5)
+    # the ranks stop at one step, the one the one-rank fit with the same
+    # agents stops at, before max_iter
+    n_iter = int(_same_on_every_rank(job, "lasso_n_iter"))
+    assert n_iter == int(_same_on_every_rank(job, "lasso_one_n_iter"))
+    assert n_iter < W.LASSO_KW["max_iter"]
+    np.testing.assert_allclose(coef, _same_on_every_rank(
+        job, "lasso_one_coef"), rtol=0, atol=1e-5)
+    assert float(_same_on_every_rank(job, "lasso_score_async")) == \
+        float(_same_on_every_rank(job, "lasso_score"))
+    np.testing.assert_allclose(_same_on_every_rank(job, "lasso_pred"),
+                               job["inp"]["x"].astype(np.float64)
+                               @ coef[:, None], rtol=1e-5, atol=1e-5)
+
+
+def test_minibatch_kmeans_is_the_one_rank_stream(job):
+    np.testing.assert_allclose(_same_on_every_rank(job, "mbk_ranks_centers"),
+                               _same_on_every_rank(job, "mbk_one_centers"),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(_same_on_every_rank(job, "mbk_ranks_counts"),
+                                  _same_on_every_rank(job, "mbk_one_counts"))
+    n = int(_same_on_every_rank(job, "mbk_ranks_n_batches"))
+    assert n == int(_same_on_every_rank(job, "mbk_one_n_batches")) == \
+        2 * -(-W.KM_SHAPE[0] // W.MBK_KW["batch_size"])
+    np.testing.assert_allclose(_same_on_every_rank(job, "mbk_ranks_history"),
+                               _same_on_every_rank(job, "mbk_one_history"),
+                               rtol=1e-5)
+    assert _same_on_every_rank(job, "mbk_labels").shape == (W.KM_SHAPE[0], 1)
+    # a trip on rank 1 alone: the stream raises on every rank
+    guards = [got["mbk_trip_guard"].tobytes().decode()
+              for got in job["ranks"]]
+    assert guards == ["peer", "injected", "peer", "peer"]
+
+
+def test_polar_is_the_one_rank_factor(job):
+    a = job["inp"]["a"].astype(np.float64)
+    u = _same_on_every_rank(job, "polar_ranks_u").astype(np.float64)
+    h = _same_on_every_rank(job, "polar_ranks_h").astype(np.float64)
+    assert int(_same_on_every_rank(job, "polar_ranks_iters")) == \
+        int(_same_on_every_rank(job, "polar_one_iters"))
+    assert np.abs(u - _same_on_every_rank(job, "polar_one_u")).max() <= \
+        ERROR_BOUNDS[("polar_orth", "float32")]
+    assert _rel_to_largest(h, _same_on_every_rank(job, "polar_one_h")) <= \
+        ERROR_BOUNDS[("polar_resid", "float32")]
+    assert np.abs(u.T @ u - np.eye(u.shape[1])).max() <= \
+        ERROR_BOUNDS[("polar_orth", "float32")]
+    assert np.linalg.norm(u @ h - a) / np.linalg.norm(a) <= \
+        ERROR_BOUNDS[("polar_resid", "float32")]
+    _blocks_hold_a_zero_pad(job, "polar_u_block", a.shape)
+
+
+def _distinct(s, gap=1e-2):
+    """Columns whose value stands at least ``gap``·σ₁ from its
+    neighbours'."""
+    s = np.asarray(s, np.float64).ravel()
+    d = np.abs(np.diff(s)) >= gap * s[0]
+    return np.concatenate([d[:1], d[:-1] & d[1:], d[-1:]])
+
+
+def test_lanczos_svd_is_the_one_rank_factorisation(job):
+    s = _same_on_every_rank(job, "lz_ranks_s").ravel()
+    s1 = _same_on_every_rank(job, "lz_one_s").ravel()
+    assert np.abs(s - s1).max() <= 1e-5 * s1[0]
+    s64 = np.linalg.svd(job["inp"]["sv"].astype(np.float64),
+                        compute_uv=False)[:W.LANCZOS_K]
+    assert np.abs(s - s64).max() <= 1e-5 * s64[0]
+    keep = _distinct(s1)
+    for key in ("u", "v"):
+        got = _same_on_every_rank(job, f"lz_ranks_{key}")
+        one = _same_on_every_rank(job, f"lz_one_{key}")
+        sg, sg1 = (_col_signs(_same_on_every_rank(job, f"lz_{w}_u"))
+                   for w in ("ranks", "one"))
+        assert np.abs((got * sg - one * sg1)[:, keep]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("tier", ["scalar", "block"])
+def test_svd_matches_a_float64_oracle(job, tier):
+    a = job["inp"]["sv" if tier == "scalar" else "svb"].astype(np.float64)
+    u = _same_on_every_rank(job, f"svd_{tier}_u").astype(np.float64)
+    s = _same_on_every_rank(job, f"svd_{tier}_s").ravel()
+    v = _same_on_every_rank(job, f"svd_{tier}_v").astype(np.float64)
+    u64, s64, vt64 = np.linalg.svd(a, full_matrices=False)
+    assert np.abs(s - s64).max() <= 1e-5 * s64[0]
+    assert np.linalg.norm(u * s @ v.T - a) / np.linalg.norm(a) <= \
+        ERROR_BOUNDS[("svd_resid", "float32")]
+    keep = _distinct(s64)
+    sg, sg64 = _col_signs(u), _col_signs(u64)
+    assert np.abs((u * sg - u64 * sg64)[:, keep]).max() <= 1e-4
+    assert np.abs((v * sg - vt64.T * sg64)[:, keep]).max() <= 1e-4
+    assert int(_same_on_every_rank(job, f"svd_{tier}_sweeps")) >= 1
+    _blocks_hold_a_zero_pad(job, f"svd_{tier}_u_block", a.shape)
+
+
+@pytest.mark.parametrize("mode", ["economic", "full", "wide"])
+def test_qr_against_numpy_and_error_bounds(job, mode):
+    a = job["inp"]["wide" if mode == "wide" else "qr"].astype(np.float64)
+    modes = ("economic", "full") if mode == "wide" else (mode,)
+    for md in modes:
+        key = f"qr_wide_{md}" if mode == "wide" else f"qr_{md}"
+        q = _same_on_every_rank(job, f"{key}_q").astype(np.float64)
+        r = _same_on_every_rank(job, f"{key}_r").astype(np.float64)
+        k = min(a.shape)
+        assert q.shape == ((a.shape[0], a.shape[0]) if md == "full"
+                           else (a.shape[0], k))
+        assert np.abs(q.T @ q - np.eye(q.shape[1])).max() <= \
+            ERROR_BOUNDS[("qr_orth", "float32")]
+        assert np.linalg.norm(q @ r - a) / np.linalg.norm(a) <= \
+            ERROR_BOUNDS[("qr_resid", "float32")]
+        # QᵀA = R: the full Q's complement is orthogonal to A's columns
+        assert np.linalg.norm(q.T @ a - r) / np.linalg.norm(a) <= \
+            ERROR_BOUNDS[("qr_resid", "float32")]
+        r64 = np.linalg.qr(a)[1]
+        assert _rel_to_largest(_rows_signed(r[:k]), _rows_signed(r64)) <= 1e-5
+    if mode == "economic":
+        np.testing.assert_array_equal(_same_on_every_rank(job, "qr_r_only"),
+                                      _same_on_every_rank(job,
+                                                          "qr_economic_r"))
+    if mode != "wide":
+        _blocks_hold_a_zero_pad(job, f"qr_{mode}_q_block",
+                                _same_on_every_rank(job, f"qr_{mode}_q").shape)
+
+
+def _rows_signed(r):
+    """R's rows signed so that its diagonal is non-negative."""
+    return r * np.where(np.diag(r) < 0, -1.0, 1.0)[:, None]
+
+
+def test_kron_and_the_array_helpers_are_numpy_bit_for_bit(job):
+    inp = job["inp"]
+    x, y, short = inp["x"], inp["y"], inp["short"]
+    for key, want in (
+            ("kron", np.kron(inp["ka"], inp["kb"])),
+            ("concat_rows", np.vstack([x, short, x])),
+            ("concat_cols", np.hstack([x, y, x])),
+            ("apply_twice1", x * 2.0 + 1.0),
+            ("apply_max0", x.max(0, keepdims=True)),
+            ("apply_minmax1", np.stack([x.min(1), x.max(1)], 1)),
+            ("apply_head0", x[:3])):
+        np.testing.assert_array_equal(_same_on_every_rank(job, key), want,
+                                      err_msg=key)
+        _blocks_hold_a_zero_pad(job, f"{key}_block", want.shape)
+    # a func vmap cannot trace: the host tier, with its warning
+    np.testing.assert_array_equal(_same_on_every_rank(job, "apply_host"),
+                                  np.sort(x, axis=0))
+    assert int(_same_on_every_rank(job, "apply_host_warned")) == 1
+    for axis, step in ((0, 50), (1, 5)):
+        n = int(_same_on_every_rank(job, f"iter{axis}_n"))
+        assert n == -(-x.shape[axis] // step)
+        for i in range(n):
+            want = x[i * step:(i + 1) * step] if axis == 0 \
+                else x[:, i * step:(i + 1) * step]
+            np.testing.assert_array_equal(
+                _same_on_every_rank(job, f"iter{axis}_{i}"), want)
+
+
+@pytest.mark.parametrize("route", ["gathered", "ring"])
+def test_knn_classifier_predicts_the_reference_labels(job, route):
+    pred = _same_on_every_rank(job, f"knn_{route}_pred")
+    np.testing.assert_array_equal(pred, job["ref"]["knn_pred"])
+    _blocks_hold_a_zero_pad(job, f"knn_{route}_pred_block", pred.shape)
+    acc = float(np.mean(pred.ravel() == job["inp"]["q_y"].ravel()))
+    assert float(_same_on_every_rank(job, f"knn_{route}_score")) == acc
+    assert abs(float(_same_on_every_rank(job, f"knn_{route}_score_async"))
+               - acc) <= 1e-6
+    np.testing.assert_array_equal(_same_on_every_rank(job, "knn_classes"),
+                                  np.arange(W.KNN_CLASSES))
+
+
+@pytest.mark.parametrize("est", ["km", "knn"])
+def test_grid_search_is_the_one_rank_search(job, est):
+    scores = _same_on_every_rank(job, f"gs_{est}_ranks_scores")
+    one = _same_on_every_rank(job, f"gs_{est}_one_scores")
+    np.testing.assert_allclose(scores, one, rtol=1e-5, atol=0)
+    assert _same_on_every_rank(job, f"gs_{est}_ranks_best").tobytes() == \
+        _same_on_every_rank(job, f"gs_{est}_one_best").tobytes()
+    # each score read once, nothing else read in the dispatch
+    reads = json.loads(_same_on_every_rank(
+        job, f"gs_{est}_ranks_reads").tobytes())
+    grid = W.GS_KM_GRID if est == "km" else W.GS_KNN_GRID
+    assert reads == {"search": len(next(iter(grid.values()))) * W.GS_CV}
+    assert reads == json.loads(_same_on_every_rank(
+        job, f"gs_{est}_one_reads").tobytes())
+
+
+def test_gm_search_hooks_are_the_sharded_fit(job):
+    np.testing.assert_allclose(float(_same_on_every_rank(
+        job, "gm_hook_score")), float(_same_on_every_rank(
+            job, "gm_fit_score")), rtol=1e-5)
+    # the hooks' model is the reference's diagonal fit, as the parity
+    # case holds the sharded fit (rtol/atol 1e-4, n_iter exact)
+    ref = job["ref"]
+    assert int(_same_on_every_rank(job, "gm_hook_n_iter")) == \
+        ref["gm_diag_n_iter"]
+    for attr in ("weights_", "means_", "covariances_"):
+        np.testing.assert_allclose(
+            _same_on_every_rank(job, f"gm_hook_{attr}"),
+            ref[f"gm_diag_{attr}"], rtol=1e-4, atol=1e-4, err_msg=attr)
+    np.testing.assert_allclose(float(_same_on_every_rank(
+        job, "gm_hook_lb")), ref["gm_diag_lb"], rtol=1e-4, atol=1e-4)

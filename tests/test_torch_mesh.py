@@ -33,6 +33,7 @@ from dislib_tpu_torch.parallel import mesh as port_mesh
 
 # the module (``dislib_tpu_torch.data.array`` is also the function's name)
 port_array = importlib.import_module("dislib_tpu_torch.data.array")
+port_qr = importlib.import_module("dislib_tpu_torch.math.qr")
 
 
 @pytest.fixture(autouse=True)
@@ -92,8 +93,10 @@ def test_block_geometry_and_the_data_guard():
         a._data
     with pytest.raises(NotImplementedError, match="A.11"):
         a.T
-    with pytest.raises(NotImplementedError, match="A.2b"):
-        next(a.iterator())
+    # column indexing still needs the transpose's exchange (the iterator,
+    # which raised here before A.2b's second part, runs across ranks now)
+    with pytest.raises(NotImplementedError, match="A.11"):
+        a[:, 1:3]
     # the pad of a block is zeroed by its global position
     got = port_array._zero_pad(torch.ones(3, 4), (5, 7), (3, 4))
     want = torch.zeros(3, 4)
@@ -186,6 +189,27 @@ def _one_rank_results():
     out["rsvd_s"] = dst.random_svd(a, nsv=3, random_state=0)[1].collect()
     out["pca_t"] = dst.PCA(n_components=2).fit_transform(x).collect()
     out["scaled"] = dst.StandardScaler().fit_transform(x).collect()
+    # A.2b's second part: the linear models, MiniBatchKMeans, the panel
+    # QR (its panel shrunk so the loop runs), svd, polar and lanczos_svd
+    y = dst.array(rng.rand(120, 1).astype(np.float32))
+    lr = dst.LinearRegression().fit(x, y)
+    out["lr_coef"], out["lr_score"] = lr.coef_, np.float64(lr.score(x, y))
+    la = dst.Lasso(lmbd=0.5, rho=5.0).fit(x, y)
+    out["lasso_coef"], out["lasso_n_iter"] = la.coef_, np.int64(la.n_iter_)
+    mbk = dst.MiniBatchKMeans(n_clusters=3, batch_size=32,
+                              random_state=0).fit(x)
+    out["mbk_centers"] = mbk.centers_
+    panel = port_qr._PANEL
+    port_qr._PANEL = 8
+    try:
+        w = dst.array(rng.randn(60, 20).astype(np.float32))
+        out["qr_q"], out["qr_r"] = (t.collect() for t in dst.qr(
+            w, mode="economic"))
+    finally:
+        port_qr._PANEL = panel
+    out["svd_s"] = dst.svd(w)[1].collect()
+    out["polar_u"] = dst.polar(w)[0].collect()
+    out["lanczos_s"] = dst.lanczos_svd(w, k=3, random_state=0)[1].collect()
     return out
 
 

@@ -226,7 +226,8 @@ def test_soft_threshold_and_one_agent_lasso():
                                   [-2.0, 0.0, 0.0, 0.0, 1.0])
     # one agent (the card's mesh): kappa = lmbd / rho
     assert port_admm._agents() == 1
-    assert PortLasso(lmbd=4.0, rho=2.0)._admm().prox_kappa == 2.0
+    x1 = dst.array(np.ones((8, 2), np.float32))
+    assert PortLasso(lmbd=4.0, rho=2.0)._admm(x1).prox_kappa == 2.0
     with pytest.raises(ValueError, match="single target"):
         PortADMM().fit(dst.array(np.ones((8, 2), np.float32)),
                        dst.array(np.ones((8, 2), np.float32)))

@@ -32,6 +32,24 @@ SV_SHAPE, SV_NSV, SV_SEED = (203, 40), 6, 0
 SV_SKETCH = SV_NSV + 10
 GM_SHAPE, GM_K = (482, 4), 3
 GM_KW = dict(n_components=GM_K, max_iter=40, tol=1e-4, random_state=0)
+# A.2b's second part: qr's panel shrunk to QR_PANEL so a (203, 20) array
+# takes the blocked loop (3 panels) and the full QR its complement path;
+# a (13, 30) short-wide array the Householder fallback; svd's block tier
+# at (203, 130) (>= 2·64 padded columns), a decayed spectrum so the
+# values stand apart; kron of (5, 3) and (4, 7); the kNN classifier's
+# labels (3 classes) for the fit rows; MiniBatchKMeans' batches of 64
+# rows (the last 44) over 2 epochs; the searches' grids, 3 folds
+QR_PANEL = 8
+QR_SHAPE, WIDE_SHAPE = (203, 20), (13, 30)
+SVD_BLOCK_SHAPE = (203, 130)
+KRON_A, KRON_B = (5, 3), (4, 7)
+KNN_CLASSES = 3
+MBK_KW = dict(n_clusters=KM_K, batch_size=64, epochs=2, random_state=0)
+LASSO_KW = dict(lmbd=2.0, rho=5.0, max_iter=200)
+LANCZOS_K = 6
+GS_KM_GRID = {"n_clusters": [2, 3, 4]}
+GS_KNN_GRID = {"n_neighbors": [1, 3, 5, 7]}
+GS_CV = 3
 
 
 def inputs():
@@ -53,43 +71,42 @@ def inputs():
     g_lab = rng.randint(0, GM_K, GM_SHAPE[0])
     gm = (g_centers[g_lab] + np.array([0.5, 1.0, 1.5])[g_lab, None]
           * rng.standard_normal(GM_SHAPE)).astype(np.float32)
+    qr_a = rng.standard_normal(QR_SHAPE).astype(np.float32)
+    wide = rng.standard_normal(WIDE_SHAPE).astype(np.float32)
+    svb = (rng.standard_normal(SVD_BLOCK_SHAPE)
+           * 0.97 ** np.arange(SVD_BLOCK_SHAPE[1])).astype(np.float32)
+    ka = rng.standard_normal(KRON_A).astype(np.float32)
+    kb = rng.standard_normal(KRON_B).astype(np.float32)
+    fit_y = rng.randint(0, KNN_CLASSES, (NN_FIT[0], 1)).astype(np.float32)
+    q_y = rng.randint(0, KNN_CLASSES, (NN_Q[0], 1)).astype(np.float32)
     return dict(x=x, y=y, a=a, b=b, km=km, fit=fit, q=q, short=short,
-                sv=sv, gm=gm)
+                sv=sv, gm=gm, qr=qr_a, wide=wide, svb=svb, ka=ka, kb=kb,
+                fit_y=fit_y, q_y=q_y)
 
 
 def unported(dst, x, y):
     """Every estimator not yet ported to the mesh, fitted on the sharded
     ``x``: each must raise NotImplementedError.  Returns the names of
     those that did not."""
-    from dislib_tpu_torch import cluster, regression, trees, \
-        classification, recommendation, retrieval
-    from dislib_tpu_torch.model_selection import GridSearchCV
+    from dislib_tpu_torch import cluster, trees, classification, \
+        recommendation, retrieval
     calls = {
         "GaussianMixture(checkpoint=)": lambda: cluster.GaussianMixture(
             n_components=2, random_state=0).fit(x, checkpoint=object()),
-        "MiniBatchKMeans": lambda: cluster.MiniBatchKMeans(
-            n_clusters=2, random_state=0).fit(x),
+        "MiniBatchKMeans(checkpoint=)": lambda: cluster.MiniBatchKMeans(
+            n_clusters=2, random_state=0).partial_fit(
+                x, checkpoint=object()),
         "DBSCAN": lambda: cluster.DBSCAN().fit(x),
         "Daura": lambda: cluster.Daura(cutoff=0.5).fit(
             dst.array(np.zeros((x.shape[0], 12), np.float32))),
-        "LinearRegression": lambda: regression.LinearRegression().fit(x, y),
-        "Lasso": lambda: regression.Lasso().fit(x, y),
         "RandomForestClassifier": lambda: trees.RandomForestClassifier(
             n_estimators=2, random_state=0).fit(x, y),
         "DecisionTreeRegressor": lambda: trees.DecisionTreeRegressor(
             random_state=0).fit(x, y),
         "CascadeSVM": lambda: classification.CascadeSVM().fit(x, y),
-        "KNeighborsClassifier": lambda: classification.KNeighborsClassifier(
-        ).fit(x, y).predict(x),
-        "qr": lambda: dst.qr(x),
-        "svd": lambda: dst.svd(x),
         "ALS": lambda: recommendation.ALS(n_f=2).fit(x),
         "IVFIndex": lambda: retrieval.IVFIndex(n_lists=2).fit(x),
-        "GridSearchCV": lambda: GridSearchCV(
-            cluster.KMeans(max_iter=2), {"n_clusters": [2, 3]}, cv=2).fit(x),
         "transpose": lambda: x.T,
-        "apply_along_axis": lambda: dst.apply_along_axis(
-            lambda v: v * 2, 0, x),
         "KMeans(checkpoint=)": lambda: cluster.KMeans(
             n_clusters=2).fit(x, checkpoint=object()),
         "save_model": lambda: dst.save_model(cluster.KMeans(), os.devnull),
@@ -289,6 +306,200 @@ def run_a2b(dst, inp, job_dir):
     return out
 
 
+def run_a2b2(dst, inp):
+    """A.2b's second part: the linear models, MiniBatchKMeans, qr, svd,
+    polar, lanczos_svd, kron, the array helpers, KNeighborsClassifier and
+    the searches across ranks; where the test holds a call to the port on
+    one rank, that call runs here too on ``device="cpu"`` arrays (a mesh
+    of one rank in this process)."""
+    import torch
+    from dislib_tpu_torch import cluster, classification, regression
+    from dislib_tpu_torch.model_selection import GridSearchCV
+    from dislib_tpu_torch.runtime.health import NumericalDivergence
+    from dislib_tpu_torch.utils import faults, profiling
+    admm = importlib.import_module("dislib_tpu_torch.optimization.admm")
+    qr_mod = importlib.import_module("dislib_tpu_torch.math.qr")
+    nb = importlib.import_module("dislib_tpu_torch.neighbors.base")
+    rows = dst.get_mesh().rows
+    out = {}
+
+    def both(key):
+        """The sharded array of input ``key`` and the one-rank one."""
+        return dst.array(inp[key]), dst.array(inp[key], device="cpu")
+
+    # -- LinearRegression (two targets) and Lasso/ADMM ----------------------
+    (x, x1), (y, y1) = both("x"), both("y")
+    lr = regression.LinearRegression().fit(x, y)
+    out["lr_coef"], out["lr_intercept"] = lr.coef_, lr.intercept_
+    out["lr_score"] = np.float64(lr.score(x, y))
+    out["lr_score_async"] = np.float64(lr._score_async(
+        lr._fit_async(x, y), x, y))
+    pred = lr.predict(x)
+    out["lr_pred"], out["lr_pred_block"] = pred.collect(), pred._local.numpy()
+    y0 = dst.array(inp["y"][:, :1])
+    la = regression.Lasso(**LASSO_KW).fit(x, y0)
+    out["lasso_coef"], out["lasso_n_iter"] = la.coef_, np.int64(la.n_iter_)
+    out["lasso_score"] = np.float64(la.score(x, y0))
+    out["lasso_score_async"] = np.float64(la._score_async(
+        la._fit_async(x, y0), x, y0))
+    out["lasso_pred"] = la.predict(x).collect()
+    agents = admm._agents
+    admm._agents = lambda: rows       # one rank, the same agents
+    try:
+        one = regression.Lasso(**LASSO_KW).fit(
+            x1, dst.array(inp["y"][:, :1], device="cpu"))
+    finally:
+        admm._agents = agents
+    out["lasso_one_coef"], out["lasso_one_n_iter"] = (one.coef_,
+                                                      np.int64(one.n_iter_))
+    # -- MiniBatchKMeans: the same batches as one rank ----------------------
+    k, k1 = both("km")
+    for name, arr in (("ranks", k), ("one", k1)):
+        est = cluster.MiniBatchKMeans(**MBK_KW).fit(arr)
+        out[f"mbk_{name}_centers"] = est.centers_
+        out[f"mbk_{name}_counts"] = est.counts_
+        out[f"mbk_{name}_n_batches"] = np.int64(est.n_batches_)
+        out[f"mbk_{name}_history"] = est.history_
+    lab = est.predict(k)
+    out["mbk_labels"] = lab.collect()
+    # a health trip on rank 1 alone trips every rank's stream
+    health = faults.TripAtChunk(at_chunk=1, times=9) \
+        if dst.get_mesh().rank == 1 else None
+    try:
+        est = cluster.MiniBatchKMeans(**MBK_KW)
+        est.partial_fit(k, health=health)
+        est.partial_fit(k)
+        out["mbk_trip_guard"] = np.frombuffer(b"none", np.uint8)
+    except NumericalDivergence as exc:
+        out["mbk_trip_guard"] = np.frombuffer(str(exc.guard).encode(),
+                                              np.uint8)
+    # -- polar and lanczos_svd against one rank -----------------------------
+    a, a1 = both("a")
+    for name, arr in (("ranks", a), ("one", a1)):
+        u, h, info = dst.polar(arr, info=True)
+        out[f"polar_{name}_u"], out[f"polar_{name}_h"] = (u.collect(),
+                                                          h.collect())
+        out[f"polar_{name}_iters"] = np.int64(info["iterations"])
+        if name == "ranks":
+            out["polar_u_block"] = u._local.numpy()
+    sv, sv1 = both("sv")
+    for name, arr in (("ranks", sv), ("one", sv1)):
+        u, s_, v = dst.lanczos_svd(arr, k=LANCZOS_K, random_state=0)
+        out[f"lz_{name}_u"], out[f"lz_{name}_s"] = u.collect(), s_.collect()
+        out[f"lz_{name}_v"] = v.collect()
+    # -- qr: the blocked loop (economic, 'r', full) and the fallback --------
+    panel = qr_mod._PANEL
+    qr_mod._PANEL = QR_PANEL
+    try:
+        q_in = dst.array(inp["qr"])
+        for mode in ("economic", "full"):
+            q, r = dst.qr(q_in, mode=mode)
+            out[f"qr_{mode}_q"], out[f"qr_{mode}_r"] = q.collect(), r.collect()
+            out[f"qr_{mode}_q_block"] = q._local.numpy()
+        out["qr_r_only"] = dst.qr(q_in, mode="r").collect()
+        w = dst.array(inp["wide"])
+        for mode in ("economic", "full"):
+            q, r = dst.qr(w, mode=mode)
+            out[f"qr_wide_{mode}_q"] = q.collect()
+            out[f"qr_wide_{mode}_r"] = r.collect()
+    finally:
+        qr_mod._PANEL = panel
+    # -- svd: the scalar tier and the block tier ----------------------------
+    for name, key in (("scalar", "sv"), ("block", "svb")):
+        arr = dst.array(inp[key])
+        u, s_, v = dst.svd(arr)
+        out[f"svd_{name}_u"], out[f"svd_{name}_s"] = u.collect(), s_.collect()
+        out[f"svd_{name}_v"] = v.collect()
+        out[f"svd_{name}_u_block"] = u._local.numpy()
+        out[f"svd_{name}_sweeps"] = np.int64(
+            profiling.HOST_READS.get("svd_sweep", 0))
+        profiling.HOST_READS.pop("svd_sweep", None)
+    # -- kron and the array helpers: NumPy's, bit for bit -------------------
+    ka, kb = dst.array(inp["ka"]), dst.array(inp["kb"])
+    kr = dst.kron(ka, kb)
+    out["kron"], out["kron_block"] = kr.collect(), kr._local.numpy()
+    xb = dst.array(inp["x"], block_size=(50, 5))
+    short = dst.array(inp["short"])
+    cr = dst.concat_rows([x, short, x])
+    out["concat_rows"], out["concat_rows_block"] = (cr.collect(),
+                                                    cr._local.numpy())
+    cc = dst.concat_cols([x, y, x])
+    out["concat_cols"], out["concat_cols_block"] = (cc.collect(),
+                                                    cc._local.numpy())
+    for name, (fn, axis) in {
+            "twice1": (lambda v: v * 2.0 + 1.0, 1),
+            "max0": (lambda v: torch.max(v), 0),
+            "minmax1": (lambda v: torch.stack([v.min(), v.max()]), 1),
+            "head0": (lambda v: v[:3], 0)}.items():
+        r = dst.apply_along_axis(fn, axis, x)
+        out[f"apply_{name}"], out[f"apply_{name}_block"] = (
+            r.collect(), r._local.numpy())
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["apply_host"] = dst.apply_along_axis(
+            lambda v: np.sort(np.asarray(v)), 0, x).collect()
+    out["apply_host_warned"] = np.int64(len(caught))
+    for axis in (0, 1):
+        blocks = list(xb.iterator(axis=axis))
+        out[f"iter{axis}_n"] = np.int64(len(blocks))
+        for i, blk in enumerate(blocks):
+            out[f"iter{axis}_{i}"] = blk.collect()
+    # -- KNeighborsClassifier: the gathered route, then the ring ------------
+    f, fy = dst.array(inp["fit"]), dst.array(inp["fit_y"])
+    q, qy = dst.array(inp["q"]), dst.array(inp["q_y"])
+    ring_min = nb._RING_MIN
+    for route in ("gathered", "ring"):
+        nb._RING_MIN = ring_min if route == "gathered" else 64
+        try:
+            knn = classification.KNeighborsClassifier(n_neighbors=5).fit(
+                f, fy)
+            pred = knn.predict(q)
+            out[f"knn_{route}_pred"] = pred.collect()
+            out[f"knn_{route}_pred_block"] = pred._local.numpy()
+            out[f"knn_{route}_score"] = np.float64(knn.score(q, qy))
+            out[f"knn_{route}_score_async"] = np.float64(knn._score_async(
+                knn._fit_async(f, fy), q, qy))
+        finally:
+            nb._RING_MIN = ring_min
+    out["knn_classes"] = knn.classes_
+    # -- the searches, each against one rank's, host reads counted ----------
+    for name, est, grid, data in (
+            ("km", cluster.KMeans(max_iter=5, tol=0.0, random_state=0),
+             GS_KM_GRID, ("km", None)),
+            ("knn", classification.KNeighborsClassifier(), GS_KNN_GRID,
+             ("fit", "fit_y"))):
+        for where in ("ranks", "one"):
+            dev = None if where == "ranks" else "cpu"
+            xs = dst.array(inp[data[0]], device=dev)
+            ys = None if data[1] is None else dst.array(inp[data[1]],
+                                                        device=dev)
+            profiling.reset_host_reads()
+            gs = GridSearchCV(est, grid, cv=GS_CV, refit=False)
+            gs.fit(xs, ys) if ys is not None else gs.fit(xs)
+            reads = dict(profiling.HOST_READS)
+            out[f"gs_{name}_{where}_scores"] = np.stack([
+                gs.cv_results_[f"split{j}_test_score"]
+                for j in range(GS_CV)])
+            out[f"gs_{name}_{where}_best"] = np.frombuffer(json.dumps(
+                gs.best_params_).encode(), np.uint8)
+            out[f"gs_{name}_{where}_reads"] = np.frombuffer(json.dumps(
+                reads, sort_keys=True).encode(), np.uint8)
+    # -- the other async-trial hooks: GaussianMixture ----------------------
+    g = dst.array(inp["gm"])
+    gm = cluster.GaussianMixture(covariance_type="diag", **GM_KW)
+    state = gm._fit_async(g)
+    out["gm_hook_score"] = np.float64(gm._score_async(state, g))
+    gm._fit_finalize(state)
+    for attr in ("weights_", "means_", "covariances_"):
+        out[f"gm_hook_{attr}"] = getattr(gm, attr)
+    out["gm_hook_lb"] = np.float64(gm.lower_bound_)
+    out["gm_hook_n_iter"] = np.int64(gm.n_iter_)
+    out["gm_fit_score"] = np.float64(cluster.GaussianMixture(
+        covariance_type="diag", **GM_KW).fit(g).score(g))
+    return out
+
+
 def main(argv):
     rank, world, store, out_dir, rows, cols = argv[1:7]
     rank, world, rows, cols = int(rank), int(world), int(rows), int(cols)
@@ -301,6 +512,7 @@ def main(argv):
     inp = inputs()
     out = run(dst, mesh, inp)
     out.update(run_a2b(dst, inp, out_dir))
+    out.update(run_a2b2(dst, inp))
     x = dst.array(inp["x"])
     y = dst.array((inp["y"][:, :1] > 0.5).astype(np.float32))
     missed = unported(dst, x, y)

@@ -234,13 +234,13 @@ def qr_full(dev) -> None:
     qr_mod = importlib.import_module("dislib_tpu_torch.math.qr")
     twice = qr_mod._qr_full_distributed
 
-    def once(a, m, n, mesh, p, policy=px.FLOAT32):
+    def once(a, m, n, mesh, policy=px.FLOAT32):
         """The reference's algorithm: one projection pass of the seed."""
         cholqr = qr_mod._use_cholqr(a.device)
-        q1, r = qr_mod._qr_blocked(a._data, (m, n), mesh, p, qr_mod._PANEL,
+        q1, r = qr_mod._qr_blocked(a._data, (m, n), mesh, qr_mod._PANEL,
                                    cholqr=cholqr, policy=policy)
         g = qr_mod._qr_complement_seed(q1, (m, n), m - n, mesh, policy)
-        q2, _ = qr_mod._qr_blocked(g, (m, m - n), mesh, p, qr_mod._PANEL,
+        q2, _ = qr_mod._qr_blocked(g, (m, m - n), mesh, qr_mod._PANEL,
                                    cholqr=cholqr, policy=policy)
         q = torch.cat([q1[:, :n], q2[:, :m - n]], dim=1)[:m]
         return dst.Array._from_logical(q, mesh), None
