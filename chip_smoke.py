@@ -115,6 +115,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import os
@@ -304,6 +305,9 @@ _T0 = time.perf_counter()
 # the models the phases fit, by class name, with their input width, for
 # the saving phase
 MODELS = {}
+# the one-rank fits of the forest, density and cascade phases, keyed by
+# estimator and sizes: the mesh phase holds its ranks to them
+MESH_ONE = {}
 # what the main path, the ivf and the als phases leave for the serving
 # phase
 SERVED = {}
@@ -366,6 +370,30 @@ def blobs(m, n, k, seed=0, std=0.08):
     lab = rng.randint(0, k, m)
     x = centers[lab] + std * rng.standard_normal((m, n)).astype(np.float32)
     return x.astype(np.float32), lab.astype(np.int64)
+
+
+def forest_data(m, n):
+    """bench_forest's draw: ``blobs(m, n, 8, seed=5)``, the classifier's
+    labels (the blob's parity) and the regressor's smooth target."""
+    import numpy as np
+    x, lab = blobs(m, n, 8, seed=5)
+    y = (lab % 2).astype(np.float32)[:, None]
+    yr = (np.sin(6.0 * x[:, 0]) + 2.0 * x[:, 1] ** 2
+          + x[:, 2]).astype(np.float32)[:, None]
+    return x, y, yr
+
+
+def csvm_data(m, n):
+    """bench_csvm's problem (seed 0): two blobs at ±2 in every feature,
+    labels ±1, rows shuffled."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    half = m // 2
+    x = np.vstack([rng.randn(half, n) + 2.0,
+                   rng.randn(m - half, n) - 2.0]).astype(np.float32)
+    y = np.r_[np.ones(half), -np.ones(m - half)].astype(np.float32)
+    perm = rng.permutation(m)
+    return x[perm], y[perm]
 
 
 def lr_data(m, n):
@@ -745,6 +773,50 @@ def gm_phase(dev, cuda_ms):
           "distances_sq at d = 50 should take the slices")
     entry["launches"] = launches_init["distances_sq"]
     return entry
+
+
+@contextlib.contextmanager
+def daura_launches(K, first=None):
+    """Inside the block, count each ``K.distances_sq`` call's launches
+    (the counter's rise across the call) by where the call is made: inside
+    an ε-pass of the streamed tiers (``ops/ring.ring_neigh_count_min`` or
+    ``ops/tiled.neigh_count_min``, as ``cluster/dbscan.streamed_setup``
+    calls them) under ``"eps"``, outside one (Daura's medoid columns)
+    under ``"col"``.  Yields the counts; ``first`` keeps each kind's first
+    inputs."""
+    from dislib_tpu_torch.cluster import dbscan
+    from dislib_tpu_torch.ops import tiled
+    split, inside = {"eps": 0, "col": 0}, [0]
+    orig = (K.distances_sq, dbscan.ring_neigh_count_min,
+            tiled.neigh_count_min)
+
+    def dist(*a, **kw):
+        key = "eps" if inside[0] else "col"
+        if first is not None:
+            first.setdefault(key, a)
+        before = K.LAUNCHES["distances_sq"]
+        try:
+            return orig[0](*a, **kw)
+        finally:
+            split[key] += K.LAUNCHES["distances_sq"] - before
+
+    def eps_pass(fn):
+        def wrapped(*a, **kw):
+            inside[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] -= 1
+        return wrapped
+
+    K.distances_sq = dist
+    dbscan.ring_neigh_count_min = eps_pass(orig[1])
+    tiled.neigh_count_min = eps_pass(orig[2])
+    try:
+        yield split
+    finally:
+        K.distances_sq, dbscan.ring_neigh_count_min, \
+            tiled.neigh_count_min = orig
 
 
 def dist_entry(K, tag, a, b, cuda_ms, reps):
@@ -1983,6 +2055,7 @@ def dbscan_phase(dev, cuda_ms):
           f"dbscan 200k: {launches} launches for {rounds} rounds")
     check(1 < est.n_clusters_ <= 64 and est.labels_.shape == (DB_M,),
           f"dbscan 200k: {est.n_clusters_} clusters")
+    MESH_ONE[("dbscan", DB_M, DB_N)] = est
     walls = [t1] + [fit(X)[1] for _ in range(2)]
     wall_us, busy, spans = profile_device(
         lambda: DBSCAN(eps=eps, min_samples=ms).fit(X))
@@ -2018,12 +2091,16 @@ def daura_phase(dev, cuda_ms):
     from dislib_tpu_torch.ops import tiled
     from dislib_tpu_torch.utils import profiling as prof
 
+    split = {}
+
     def fit(X):
         K.reset_launches()
         prof.reset_host_reads()
         t0 = time.perf_counter()
-        est = Daura(cutoff=DA_CUT).fit(X)
+        with daura_launches(K) as got:
+            est = Daura(cutoff=DA_CUT).fit(X)
         torch.cuda.synchronize()
+        split.update(got)
         return est, time.perf_counter() - t0, K.LAUNCHES["distances_sq"], \
             prof.HOST_READS.get("daura", 0)
 
@@ -2040,11 +2117,16 @@ def daura_phase(dev, cuda_ms):
     X = dst.array(x)
     Daura(cutoff=DA_CUT).fit(X)                              # warm
     est, t1, launches, reads = fit(X)
+    by_block = dict(split)
+    check(sum(by_block.values()) == launches,
+          f"daura 50k: launches by block {by_block} do not add up to "
+          f"{launches}")
     n_clusters = len(est.clusters_)
     check(1 < n_clusters < DA_M // 10,
           f"daura 50k: {n_clusters} clusters")
     check(all(est.labels_[c[0]] == i for i, c in enumerate(est.clusters_)),
           "daura 50k: a medoid outside its cluster")
+    MESH_ONE[("daura", DA_M, DA_N)] = est
     walls = [t1] + [fit(X)[1] for _ in range(2)]
     emit({"phase": "daura", "cutoff": DA_CUT,
           "gate": {"shape": [DA_GATE_M, DA_N], "clusters": n_cl,
@@ -2053,13 +2135,14 @@ def daura_phase(dev, cuda_ms):
           "timed": {"shape": [DA_M, DA_N], "wall_s_median_of_3":
                     float(np.median(walls)), "walls_s": walls,
                     "clusters": n_clusters, "host_reads": reads,
-                    "distances_sq_launches": launches}})
+                    "distances_sq_launches": launches,
+                    "distances_sq_launches_by_block": by_block}})
     xc = tiled.pad_cols(X._data)
     block = eps_entries(K, "daura eps-block", xc, X._data, cuda_ms,
-                        launches - n_clusters)
+                        by_block["eps"])
     col = dist_entry(K, "daura medoid column", xc, xc[:1].contiguous(),
                      cuda_ms, 20)
-    col["launches"] = n_clusters
+    col["launches"] = by_block["col"]
     return {"distances_sq/daura_eps_block": block,
             "distances_sq/daura_medoid": col}
 
@@ -2291,13 +2374,8 @@ def csvm_phase(dev, cuda_ms):
     from dislib_tpu_torch.ops import precision as px
     from dislib_tpu_torch.utils import profiling as prof
     t_phase = time.perf_counter()
-    rng = np.random.RandomState(0)
-    m, n, half = CSVM_M, CSVM_N, CSVM_M // 2
-    x = np.vstack([rng.randn(half, n) + 2.0,
-                   rng.randn(m - half, n) - 2.0]).astype(np.float32)
-    y = np.r_[np.ones(half), -np.ones(m - half)].astype(np.float32)
-    perm = rng.permutation(m)
-    x, y = x[perm], y[perm]
+    m, n = CSVM_M, CSVM_N
+    x, y = csvm_data(m, n)
     gamma = 1.0 / n
     X = dst.array(x, block_size=(CSVM_PART, n))
     Y = dst.array(y[:, None], block_size=(CSVM_PART, 1))
@@ -2354,6 +2432,7 @@ def csvm_phase(dev, cuda_ms):
                 main = {"est": est, "launches": launches}
         os.environ["DSLIB_CSVM_SOLVER"] = "pg"
         a, b = main["est"], fit()
+        MESH_ONE[("csvm", m, n, CSVM_PART, CSVM_ITERS)] = a
         check(np.array_equal(a._sv_idx, b._sv_idx)
               and np.array_equal(a._sv_alpha, b._sv_alpha)
               and np.array_equal(a._sv_x, b._sv_x),
@@ -4319,6 +4398,19 @@ MESH_KM_INERTIA = 1e-4
 # kNN grid (4 candidates × 3 folds) on _blobs(GS_M, GS_N, 8)
 MESH_A2B2_TOL = 1e-5
 MESH_MBK_BATCHES = -(-KM_M // MBK_BATCH)
+# A.2b's part (ii) on (4, 1) at the main path's sizes, each held to one
+# rank's fit under the CPU tests' gates: the 16-tree forest on
+# bench_forest's 1M x 100 bit-equal, the 8-tree depth-8 regressor's
+# edges bit-equal, each first differing split (all its ancestors equal)
+# a near tie within MESH_A2B3_TOL of the node's sum of w·y², and its
+# predictions within MESH_A2B3_TOL (absolutely and relatively) on the
+# rows whose paths cross no differing split (its leaves are not
+# compared: below a differing split the trees differ), DBSCAN
+# the same partition of the core points (noise within 1 %), Daura's
+# labels equal, and CascadeSVM's support vectors and iterations equal,
+# α and the decision values within MESH_A2B3_TOL · 10
+MESH_RF_T = RF_T
+MESH_A2B3_TOL = 1e-5
 MESH_GS_GRID = {"n_neighbors": [5, 15], "weights": ["uniform", "distance"]}
 
 
@@ -4335,7 +4427,10 @@ def mesh_sizes():
             "qr": list(QR_ECON), "svd": list(SVD_BLOCK),
             "polar": list(POLAR), "lanczos": list(LANCZOS),
             "lanczos_k": LANCZOS_K, "kron": [list(k) for k in KRON],
-            "gs_m": GS_M, "gs_n": GS_N}
+            "gs_m": GS_M, "gs_n": GS_N,
+            "rf": [RF_M, RF_N, MESH_RF_T], "rr": [RR_T, RR_DEPTH],
+            "db": [DB_M, DB_N, DB_EPS, DB_MIN], "da": [DA_M, DA_N, DA_CUT],
+            "csvm": [CSVM_M, CSVM_N, CSVM_PART, CSVM_ITERS]}
 
 
 def mesh_data(which, z):
@@ -4380,6 +4475,80 @@ def mesh_data(which, z):
     rng = np.random.RandomState(1)
     return (rng.rand(z["knn_mf"], z["knn_n"]).astype(np.float32),
             rng.rand(z["knn_mq"], z["knn_n"]).astype(np.float32))
+
+
+def mesh_a2b3_data(z):
+    """A.2b's part (ii)'s host inputs at sizes ``z``: the forest's draw
+    (:func:`forest_data`), DBSCAN's ``blobs(m, n, 16, seed=4)``, Daura's
+    ``blobs(m, n, 12, seed=7, std=0.05)`` and CascadeSVM's
+    (:func:`csvm_data`) — the dbscan, daura and csvm phases' data."""
+    return {"forest": forest_data(*z["rf"][:2]),
+            "db": blobs(z["db"][0], z["db"][1], 16, seed=4)[0],
+            "da": blobs(z["da"][0], z["da"][1], 12, seed=7, std=0.05)[0],
+            "sv": csvm_data(*z["csvm"][:2])}
+
+
+def mesh_a2b3_keys(z):
+    """The :data:`MESH_ONE` key of each of A.2b's part (ii)'s fits."""
+    return {"rf": ("rf", *z["rf"]), "rr": ("rr", *z["rf"][:2]),
+            "db": ("dbscan", *z["db"][:2]), "da": ("daura", *z["da"][:2]),
+            "sv": ("csvm", *z["csvm"])}
+
+
+def mesh_a2b3_fits(dst, z, data, only=None):
+    """The forest, the regressor, DBSCAN, Daura and CascadeSVM fitted on
+    the default mesh as the main path's phases fit them (``only``: the
+    names to fit)."""
+    from dislib_tpu_torch.classification import CascadeSVM
+    from dislib_tpu_torch.cluster import DBSCAN, Daura
+    from dislib_tpu_torch.trees import (RandomForestClassifier,
+                                        RandomForestRegressor)
+    only = {"rf", "rr", "db", "da", "sv"} if only is None else set(only)
+    out = {}
+    x, y, yr = data["forest"]
+    if only & {"rf", "rr"}:
+        X = dst.array(x)
+    if "rf" in only:
+        out["rf"] = RandomForestClassifier(
+            n_estimators=z["rf"][2], random_state=0).fit(X, dst.array(y))
+    if "rr" in only:
+        out["rr"] = RandomForestRegressor(
+            n_estimators=z["rr"][0], max_depth=z["rr"][1],
+            random_state=0).fit(X, dst.array(yr))
+    if "db" in only:
+        out["db"] = DBSCAN(eps=z["db"][2], min_samples=z["db"][3]).fit(
+            dst.array(data["db"]))
+    if "da" in only:
+        out["da"] = Daura(cutoff=z["da"][2]).fit(dst.array(data["da"]))
+    if "sv" in only:
+        sx, sy = data["sv"]
+        part, iters = z["csvm"][2:]
+        out["sv"] = CascadeSVM(
+            kernel="rbf", c=1.0, gamma=1.0 / sx.shape[1], max_iter=iters,
+            check_convergence=False).fit(
+                dst.array(sx, block_size=(part, sx.shape[1])),
+                dst.array(sy[:, None], block_size=(part, 1)))
+    return out
+
+
+def mesh_a2b3_arrays(fits):
+    """The fitted arrays of :func:`mesh_a2b3_fits`'s estimators as NumPy,
+    the ones a world of one must reproduce bit for bit."""
+    import numpy as np
+    out = {}
+    for k in ("rf", "rr"):
+        est = fits[k]
+        out[f"{k}_edges"] = est._edges.cpu().numpy()
+        out[f"{k}_leaves"] = est._leaves.cpu().numpy()
+        out[f"{k}_feats"], out[f"{k}_tbins"] = est._feats, est._tbins
+    out["db_labels"] = fits["db"].labels_
+    out["db_core"] = fits["db"].core_sample_indices_
+    out["da_labels"] = fits["da"].labels_
+    sv = fits["sv"]
+    out["sv_idx"], out["sv_alpha"], out["sv_x"] = (sv._sv_idx, sv._sv_alpha,
+                                                   sv._sv_x)
+    out["sv_n_iter"] = np.int64(sv.n_iter_)
+    return out
 
 
 def mesh_operands(dev, n):
@@ -4981,6 +5150,7 @@ def mesh_rank(argv) -> int:
     xg_shape = tuple(xg.shape)
     del xg, cg, G, est
     shapes = mesh_rank_a2b2(rank, z, dev, work, run, window, out)
+    shapes.update(mesh_rank_a2b3(rank, z, dev, work, run, window, out))
     out["shapes"] = {"summa_panel": [n // 2] * 3,
                      "kmeans": [m_loc, km_k, z["km_n"]],
                      "ring": ring_shape,
@@ -5343,6 +5513,393 @@ def mesh_rank_a2b2(rank, z, dev, work, run, window, out):
                             int(ft.shape[1])]}
 
 
+def mesh_rank_a2b3(rank, z, dev, work, run, window, out):
+    """A.2b's part (ii) on (4, 1), in one rank of the mesh phase, each fit
+    held to one rank's of ``work/a2b3.npz`` under the CPU tests' gates:
+    the forest bit-equal (edges, splits, leaves) with its score, the
+    regressor's edges bit-equal, each first differing split a near tie
+    within MESH_A2B3_TOL of the node's sum of w·y² (on the rank that
+    searched the node), and this rank's predictions within MESH_A2B3_TOL
+    on the rows whose paths cross no differing split, DBSCAN the same
+    partition of the core points,
+    Daura's labels equal, CascadeSVM's support vectors and iterations
+    equal and α and this rank's decision values within 10·MESH_A2B3_TOL.
+    Each kernel at its per-rank shape on this path — ``node_histogram``
+    at both forests' deepest level, ``distances_sq`` at the ring's ε-step
+    of DBSCAN and Daura and at Daura's medoid column,
+    ``distances_sq_batched`` at an owner's node batch and ``distances_sq``
+    at the cascade's decision block, each with the inputs the fit gave
+    it — against its plain version, timed with the card to this rank.
+    ``run``/``window``/``out`` are :func:`mesh_rank`'s.  Returns the
+    per-rank kernel shapes."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    one = dict(np.load(os.path.join(work, "a2b3.npz")))
+    mesh = dst.init((4, 1))
+    box, seen, shapes = {}, {}, {}
+    ph = out["phases"]
+    data = mesh_a2b3_data(z)
+
+    def spy(name, keep):
+        """Wrap ``K.<name>`` so that ``keep(args)`` sees each call's
+        inputs (the wrapper still counts its launches); returns the undo."""
+        orig = getattr(K, name)
+
+        def wrapped(*a, **kw):
+            keep(a, kw)
+            return orig(*a, **kw)
+
+        setattr(K, name, wrapped)
+        return lambda: setattr(K, name, orig)
+
+    def last_hist(key):
+        # the deepest level's inputs (node is updated in place after)
+        def keep(a, kw):
+            seen[key] = (a[0].clone(), *a[1:], kw)
+        return keep
+
+    def bits_equal(a, b):
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        return a.shape == b.shape and np.array_equal(a.view(np.uint8),
+                                                     b.view(np.uint8))
+
+    # -- the forest and the regressor on bench_forest's rows -----------------
+    x, y, yr = data["forest"]
+    X, Y, YR = dst.array(x), dst.array(y), dst.array(yr)
+    r0 = X._at[0]
+    rows = slice(r0, min(r0 + X._local.shape[0], x.shape[0]))
+    del x, y, yr
+
+    def rf():
+        undo = spy("node_histogram", last_hist("rf"))
+        try:
+            box["rf"] = dst.RandomForestClassifier(
+                n_estimators=z["rf"][2], random_state=0).fit(X, Y)
+        finally:
+            undo()
+        return {"shape": z["rf"][:2], "mesh": [4, 1],
+                "n_estimators": z["rf"][2], "depth": box["rf"]._depth}
+
+    run("forest", rf)
+    est = box.pop("rf")
+    same = {k: bits_equal(v, one[f"rf_{k}"]) for k, v in (
+        ("edges", est._edges.cpu().numpy()), ("feats", est._feats),
+        ("tbins", est._tbins), ("leaves", est._leaves.cpu().numpy()))}
+    check(all(same.values()), f"rank {rank}: the forest differs from one "
+          f"rank's: {same}")
+    score = est.score(X, Y)
+    check(abs(score - float(one["rf_score"])) <= 1e-6,
+          f"rank {rank}: forest score {score} vs one rank's "
+          f"{float(one['rf_score'])}")
+    ph["forest"].update(bit_equal_to_one_rank=True, score=score)
+    if dev.type == "cuda":
+        check(ph["forest"]["launches"]["node_histogram"] == est._depth,
+              f"rank {rank}: the forest launched node_histogram "
+              f"{ph['forest']['launches']['node_histogram']} times")
+    del est
+
+    dt = importlib.import_module("dislib_tpu_torch.trees.decision_tree")
+    splits_of = dt._splits
+    level_gains = []
+
+    def gains_spy(hist, scores, tf, min_gain, crit, nb):
+        # this rank's slice of a level: the gains as the search sees them
+        # and the nodes' stat totals
+        g, tot = dt._gain_and_split(hist, crit)
+        g = dt._mask_features(g, scores, tf)
+        level_gains.append((g.reshape(*g.shape[:2], -1), tot))
+        return splits_of(hist, scores, tf, min_gain, crit, nb)
+
+    def rr():
+        undo = spy("node_histogram", last_hist("rr"))
+        dt._splits = gains_spy
+        try:
+            box["rr"] = dst.RandomForestRegressor(
+                n_estimators=z["rr"][0], max_depth=z["rr"][1],
+                random_state=0).fit(X, YR)
+        finally:
+            undo()
+            dt._splits = splits_of
+        return {"shape": z["rf"][:2], "mesh": [4, 1],
+                "n_estimators": z["rr"][0], "depth": z["rr"][1]}
+
+    run("forest_regressor", rr)
+    est = box.pop("rr")
+    check(bits_equal(est._edges.cpu().numpy(), one["rr_edges"]),
+          f"rank {rank}: the regressor's edges differ from one rank's")
+    # the float sums are added in another order than one rank's, so a
+    # split whose best gains are a near tie may go the other way: every
+    # split that differs where all its ancestors agree must be a near tie
+    # by this rank's gains (within MESH_A2B3_TOL of the node's sum of
+    # w·y²); below it the trees are not comparable
+    depth, nb = est._depth, int(est._edges.shape[1]) + 1
+    differs = (est._feats != one["rr_feats"]) | (est._tbins
+                                                 != one["rr_tbins"])
+    first = differs.copy()
+    for lvl in range(1, depth):
+        first[:, lvl] &= ~_ancestors_differ(differs, lvl)
+    ties, worst = 0, 0.0
+    for t, lvl, node in np.argwhere(first):
+        g, tot = level_gains[lvl]
+        lo = mesh.coord[0] * g.shape[1]
+        if not lo <= node < lo + g.shape[1]:
+            continue                    # another rank searched this node
+        g, scale = g[t, node - lo], float(tot[t, node - lo, 2])
+        f1, b1 = int(one["rr_feats"][t, lvl, node]), int(
+            one["rr_tbins"][t, lvl, node])
+        g1 = float(g[f1 * nb + b1]) if b1 < nb - 1 else 0.0
+        gap = (float(g.max()) - max(g1, 0.0)) / max(scale, 1e-30)
+        worst = max(worst, gap)
+        ties += 1
+        check(gap <= MESH_A2B3_TOL, f"rank {rank}: the regressor's split "
+              f"(tree {t}, level {lvl}, node {node}) differs from one "
+              f"rank's and is no near tie: gap {gap} of the node's sum "
+              "of w·y²")
+    # the rows whose paths cross no differing split: the same leaves,
+    # their predictions within MESH_A2B3_TOL
+    ref = dst.from_fitted_arrays(dst.RandomForestRegressor, {
+        "_edges": one["rr_edges"], "_feats": one["rr_feats"],
+        "_tbins": one["rr_tbins"], "_depth": depth,
+        "_leaves": one["rr_leaves"], "n_features_": z["rf"][1]})
+    leaf = est._apply(X).cpu().numpy()[:, : rows.stop - rows.start]
+    clean = np.ones(leaf.shape[1], bool)
+    for lvl in range(depth):
+        node = leaf >> (depth - lvl)
+        clean &= ~np.take_along_axis(differs[:, lvl], node, axis=1).any(0)
+    pred = est.predict(X)._local[: leaf.shape[1], 0].cpu().numpy()
+    want = ref.predict(X)._local[: leaf.shape[1], 0].cpu().numpy()
+    p_err = mesh_close(pred[clean], want[clean], MESH_A2B3_TOL) \
+        if clean.any() else 0.0
+    check(p_err <= 1.0, f"rank {rank}: the regressor's predictions off one "
+          f"rank's by {p_err} of the tolerance on rows of equal paths")
+    del ref
+    ph["forest_regressor"].update(
+        splits_differing=int(differs.sum()), first_differing=int(
+            first.sum()), near_ties_checked_here=ties,
+        worst_tie_gap=worst, rows_on_equal_paths=int(clean.sum()),
+        rows=int(clean.size), pred_close_vs_one_rank=p_err)
+    del est, X, Y, YR, level_gains
+
+    # -- DBSCAN and Daura on the ring ----------------------------------------
+    db_x = dst.array(data["db"])
+
+    def first_dist(key):
+        def keep(a, kw):
+            if key not in seen:
+                seen[key] = a
+        return keep
+
+    def dbscan():
+        undo = spy("distances_sq", first_dist("db"))
+        try:
+            box["db"] = dst.DBSCAN(eps=z["db"][2],
+                                   min_samples=z["db"][3]).fit(db_x)
+        finally:
+            undo()
+        return {"shape": z["db"][:2], "mesh": [4, 1]}
+
+    run("dbscan", dbscan)
+    est = box.pop("db")
+    core = np.zeros(z["db"][0], bool)
+    core[one["db_core"]] = True
+    nd, n1 = int((est.labels_ < 0).sum()), int((one["db_labels"] < 0).sum())
+    check(same_partition_on_core(est.labels_, one["db_labels"], core)
+          and abs(nd - n1) <= max(5, 0.01 * z["db"][0]),
+          f"rank {rank}: DBSCAN's core partition differs from one rank's "
+          f"(noise {nd} vs {n1})")
+    ph["dbscan"].update(
+        same_core_partition=True, clusters=est.n_clusters_, noise=nd,
+        labels_equal=bool(np.array_equal(est.labels_, one["db_labels"])),
+        core_equal=bool(np.array_equal(est.core_sample_indices_,
+                                       one["db_core"])))
+    del est, db_x
+    da_x = dst.array(data["da"])
+
+    first, split = {}, {}
+
+    def daura():
+        with daura_launches(K, first) as got:
+            box["da"] = dst.Daura(cutoff=z["da"][2]).fit(da_x)
+        split.update(da=got["eps"], da_col=got["col"])
+        return {"shape": z["da"][:2], "mesh": [4, 1]}
+
+    run("daura", daura)
+    seen.update(da=first["eps"], da_col=first["col"])
+    ph["daura"]["distances_sq_launches_by_block"] = dict(split)
+    check(sum(split.values()) == ph["daura"]["launches"]["distances_sq"],
+          f"rank {rank}: Daura's distances_sq launches by block {split} "
+          f"do not add up to the phase's "
+          f"{ph['daura']['launches']['distances_sq']}")
+    est = box.pop("da")
+    check(np.array_equal(est.labels_, one["da_labels"]),
+          f"rank {rank}: Daura's labels differ from one rank's on "
+          f"{int((est.labels_ != one['da_labels']).sum())} frames")
+    n_clusters = len(est.clusters_)
+    ph["daura"].update(labels_equal=True, clusters=n_clusters)
+    del est, da_x
+
+    # -- dense CascadeSVM ----------------------------------------------------
+    sx, sy = data["sv"]
+    part, iters = z["csvm"][2:]
+    SX = dst.array(sx, block_size=(part, sx.shape[1]))
+    SY = dst.array(sy[:, None], block_size=(part, 1))
+
+    def csvm():
+        undo = spy("distances_sq_batched", first_dist("sv"))
+        try:
+            box["sv"] = dst.CascadeSVM(
+                kernel="rbf", c=1.0, gamma=1.0 / sx.shape[1],
+                max_iter=iters, check_convergence=False).fit(SX, SY)
+        finally:
+            undo()
+        return {"shape": z["csvm"][:2], "mesh": [4, 1], "part": part,
+                "iterations": iters}
+
+    run("csvm", csvm)
+    est = box.pop("sv")
+    a_err = float(np.abs(est._sv_alpha - one["sv_alpha"]).max()) \
+        if est._sv_alpha.shape == one["sv_alpha"].shape else float("inf")
+    check(np.array_equal(est._sv_idx, one["sv_idx"])
+          and est.n_iter_ == int(one["sv_n_iter"])
+          and a_err <= 10 * MESH_A2B3_TOL,
+          f"rank {rank}: CascadeSVM's {len(est._sv_idx)} support vectors "
+          f"(one rank: {len(one['sv_idx'])}), {est.n_iter_} iterations, "
+          f"alpha off by {a_err}")
+
+    def csvm_predict():
+        undo = spy("distances_sq", first_dist("sv_dec"))
+        try:
+            box["dec"] = est.decision_function(SX)
+        finally:
+            undo()
+        return {"queries": z["csvm"][0], "mesh": [4, 1]}
+
+    run("csvm_decision", csvm_predict)
+    dec = box.pop("dec")._local[: mesh_rows_of(SX), 0].cpu().numpy()
+    s_rows = slice(SX._at[0], SX._at[0] + len(dec))
+    d_err = float(np.abs(dec - one["sv_dec"][s_rows]).max())
+    check(d_err <= 10 * MESH_A2B3_TOL, f"rank {rank}: CascadeSVM's "
+          f"decision values off one rank's by {d_err}")
+    ph["csvm"].update(n_sv=len(est._sv_idx), n_iter=est.n_iter_,
+                      alpha_max_abs_err_vs_one_rank=a_err,
+                      decision_max_abs_err_vs_one_rank=d_err)
+    del est, SX, SY
+
+    # -- the kernels at their per-rank shapes, each against its plain -------
+    for key in ("rf", "rr"):
+        node, bx, w, st, nn, nb, kw = seen.pop(key)
+        integer = bool(kw.get("integer", False))
+        got = K.node_histogram(node, bx, w, st, nn, nb, integer=integer)
+        plain = K.node_histogram_plain(node, bx, w, st, nn, nb,
+                                       integer=integer)
+        if integer:
+            check(torch.equal(got, plain), f"rank {rank}: node_histogram "
+                  f"at the {key} deepest level: not bit-equal to plain")
+        else:
+            exact = K.node_histogram_plain(node, bx, w.double(),
+                                           st.double(), nn, nb)
+            scale = K.node_histogram_plain(node, bx, w, st.abs(), nn, nb)
+            check(bool(((got.double() - exact).abs() <= 1e-5 * scale).all()),
+                  f"rank {rank}: node_histogram at the {key} deepest level "
+                  "off the f64 sums by more than 1e-5 of sum |w*stats|")
+            del exact, scale
+        out["windows"][f"node_histogram_{key}_err"] = {
+            "max_abs_err": float((got - plain).abs().max())}
+        del got, plain
+        T, m_loc = node.shape
+        n, S = bx.shape[1], st.shape[1]
+        bins = bx.long()
+        feat = torch.arange(n, device=dev)[None, :].expand(m_loc, n)
+        contrib = w[:, :, None] * st[None]
+        lib_out = torch.zeros((T, nn, n, nb, S), device=dev)
+
+        def lib():
+            for t in range(T):
+                lib_out[t].index_put_(
+                    (node[t].long()[:, None].expand(m_loc, n), feat, bins),
+                    contrib[t][:, None, :].expand(m_loc, n, S),
+                    accumulate=True)
+
+        window(f"node_histogram_{key}", {
+            "ms": lambda: K.node_histogram(node, bx, w, st, nn, nb,
+                                           integer=integer),
+            "plain_ms": lambda: K.node_histogram_plain(
+                node, bx, w, st, nn, nb, integer=integer),
+            "library_ms": lib}, 2)
+        shapes[f"hist_{key}"] = [T, m_loc, n, nn, nb, S, int(integer)]
+        del node, bx, w, st, bins, feat, contrib, lib_out
+    for key in ("db", "da", "da_col", "sv_dec"):
+        a, b = seen.pop(key)[:2]
+        got, plain = K.distances_sq(a, b), K.distances_sq_plain(
+            a, b, "highest")
+        scale = float((a.double() ** 2).sum(1).max()
+                      + (b.double() ** 2).sum(1).max())
+        err = float((got.double() - plain.double()).abs().max()) / scale
+        check(err <= DIST_TOL, f"rank {rank}: distances_sq at "
+              f"{list(a.shape)}x{list(b.shape)} ({key}): error {err} vs "
+              f"plain > {DIST_TOL}")
+        out["windows"][f"distances_sq_{key}_err"] = {
+            "max_abs_err": float((got - plain).abs().max()),
+            "normalized_err_vs_plain": err}
+        del got, plain
+
+        def cdist(a=a, b=b):
+            with px.precise():
+                return torch.cdist(a, b,
+                                   compute_mode="use_mm_for_euclid_dist")
+
+        window(f"distances_sq_{key}", {
+            "ms": lambda a=a, b=b: K.distances_sq(a, b),
+            "plain_ms": lambda a=a, b=b: K.distances_sq_plain(a, b,
+                                                              "highest"),
+            "library_ms": cdist}, 10)
+        shapes[f"dist_{key}"] = [int(a.shape[0]), int(b.shape[0]),
+                                 int(a.shape[1])]
+    ga = seen.pop("sv")[0]
+    got = K.distances_sq_batched(ga, ga)
+    plain = K.distances_sq_batched_plain(ga, ga)
+    scale = float(2.0 * (ga.double() ** 2).sum(2).max())
+    err = float((got.double() - plain.double()).abs().max()) / scale
+    check(err <= DIST_TOL, f"rank {rank}: distances_sq_batched at "
+          f"{list(ga.shape)}: error {err} vs plain > {DIST_TOL}")
+    out["windows"]["distances_sq_sv_gram_err"] = {
+        "max_abs_err": float((got - plain).abs().max()),
+        "normalized_err_vs_plain": err}
+    del got, plain
+
+    def cdist_b():
+        with px.precise():
+            return torch.cdist(ga, ga,
+                               compute_mode="use_mm_for_euclid_dist").square()
+
+    window("distances_sq_sv_gram", {
+        "ms": lambda: K.distances_sq_batched(ga, ga),
+        "plain_ms": lambda: K.distances_sq_batched_plain(ga, ga),
+        "library_ms": cdist_b}, 20)
+    shapes["dist_sv_gram"] = [int(s) for s in ga.shape]
+    return shapes
+
+
+def _ancestors_differ(differs, lvl):
+    """(T, width): whether an ancestor of each node of level ``lvl``
+    differs in ``differs`` (T, depth, width)."""
+    import numpy as np
+    out = np.zeros((differs.shape[0], differs.shape[2]), bool)
+    node = np.arange(differs.shape[2])
+    for up in range(1, lvl + 1):
+        anc = node >> up
+        out |= differs[:, lvl - up][:, anc]
+    return out
+
+
+def mesh_rows_of(a) -> int:
+    """The logical rows of the ds-array ``a`` on this rank's block."""
+    return max(0, min(a._local.shape[0], a.shape[0] - a._at[0]))
+
+
 def mesh_nccl_pair(argv) -> int:
     """One of two processes that both ask for NCCL on one card
     (``chip_smoke.py --mesh-nccl-pair RANK DIR``): ``initialize`` must
@@ -5469,6 +6026,14 @@ def mesh_phase(dev, card):
         plain, km = one_rank()
         mbk_path = [np.stack([c for c, _ in mbk_states]),
                     np.stack([n for _, n in mbk_states])]
+        # A.2b's part (ii) on one rank: the main path's fits where the
+        # phases left them (MESH_ONE), else fitted here
+        data3 = mesh_a2b3_data(z)
+        keys3 = mesh_a2b3_keys(z)
+        one3 = {k: MESH_ONE[key] for k, key in keys3.items()
+                if key in MESH_ONE}
+        one3.update(mesh_a2b3_fits(dst, z, data3, only=set(keys3) - set(
+            one3)))
         backend = "nccl" if dev.type == "cuda" else "gloo"
         dd.reset_comm_stats()
         dd.initialize(f"file://{os.path.join(work, 'store1')}", 1, 0,
@@ -5479,9 +6044,30 @@ def mesh_phase(dev, card):
                   f"the world of one runs {mesh.backend}, not {backend}")
             job1, _ = one_rank()
             comm1 = dd.comm_stats()
+            dd.reset_comm_stats()
+            t3 = time.perf_counter()
+            job3 = mesh_a2b3_arrays(mesh_a2b3_fits(dst, z, data3))
+            t3 = time.perf_counter() - t3
+            comm3 = dd.comm_stats()
         finally:
             dd.shutdown()
             dst.init(device=dev)
+        arrays3 = mesh_a2b3_arrays(one3)
+        for key, want in arrays3.items():
+            got = job3[key]
+            check(got.shape == want.shape and np.array_equal(
+                np.ascontiguousarray(got).view(np.uint8),
+                np.ascontiguousarray(want).view(np.uint8)),
+                f"mesh: A.2b part (ii)'s {key} under a {backend} world of "
+                "one differs from no process group")
+        check(comm3.get("reduce_scatter", {}).get("calls", 0) >= 1
+              and comm3.get("all_to_all", {}).get("calls", 0) >= 1,
+              f"the world of one's forest and cascade ran no exchange: "
+              f"{comm3}")
+        emit({"phase": "mesh_world_of_one_a2b3", "backend": backend,
+              "bit_equal": sorted(arrays3), "fits_s": t3,
+              "collectives": comm3})
+        del job3
         for key, want in plain.items():
             check(torch.equal(job1[key], want), f"mesh: {key} under a "
                   f"{backend} world of one differs from no process group")
@@ -5579,6 +6165,15 @@ def mesh_phase(dev, card):
         # polar's U, which each rank reads its rows of
         np.save(os.path.join(work, "polar_u.npy"),
                 plain["polar_u"].cpu().numpy())
+        # A.2b's part (ii): one rank's fitted arrays, the forest's score
+        # and CascadeSVM's decision values
+        x3, y3, _ = data3["forest"]
+        X3 = dst.array(x3)
+        np.savez(os.path.join(work, "a2b3.npz"), **arrays3,
+                 rf_score=one3["rf"].score(X3, dst.array(y3)),
+                 sv_dec=one3["sv"].decision_function(dst.array(
+                     data3["sv"][0])).collect()[:, 0])
+        del X3, x3, y3, one3, data3, arrays3
         del job1, plain, a_h, b_h, t_h, g_h, rs, S, sv, pca, X, std, mm
         del G1, gi1, gi_lab, lx, ly, lyl, q_h, s_h, p_h, la4, xb, lab, gs
         X = dst.array(x_h)
@@ -5741,6 +6336,83 @@ def mesh_phase(dev, card):
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_basis": "3xTF32 at 495 TFLOP/s against 4 bytes per element "
                        "of q, f^T and the product",
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    # A.2b's part (ii): node_histogram at both forests' deepest level on
+    # a rank's rows, distances_sq at the ring's ε-step, Daura's medoid
+    # column and the cascade's decision block, the batched entry at an
+    # owner's node batch
+    for key, phase, at in (
+            ("rf", "forest", "the forest's deepest level"),
+            ("rr", "forest_regressor", "the regressor's deepest level")):
+        T, m, n, nn, nb, S, integer = shapes[f"hist_{key}"]
+        bound_ms, bound_by = bound(T * m * (n + 1) * S, 4.0 * (
+            m * n + 2 * T * m + m * S + T * nn * n * nb * S),
+            PEAK_FP32_FLOPS)
+        entries[f"node_histogram/mesh_{key}"] = {
+            "name": "node_histogram", "at": f"mesh (4, 1): {at} on each "
+            "rank's rows", "route": "cuda",
+            "source": "dislib_tpu_torch/csrc/node_histogram.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:149",
+            "shape": [T, m, n, nn, nb, S], "fixed_order": not integer,
+            "launches": launches(phase, "node_histogram"),
+            "launches_by_rank": [rr["phases"][phase]["launches"][
+                "node_histogram"] for rr in ranks],
+            **w0[f"node_histogram_{key}_err"], **w0[f"node_histogram_{key}"],
+            "library_call": "Tensor.index_put_(accumulate=True), one per "
+                            "tree",
+            "reduce_scatter": [rr["phases"][phase]["collectives"].get(
+                "reduce_scatter") for rr in ranks],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    for key, phase, at in (
+            ("db", "dbscan", "DBSCAN's ring ε-step (a visiting block "
+             "against a row tile)"),
+            ("da", "daura", "Daura's ring ε-step (a visiting block against "
+             "a row tile)"),
+            ("da_col", "daura", "Daura's medoid column on a rank's rows"),
+            ("sv_dec", "csvm_decision", "CascadeSVM's decision block on a "
+             "rank's rows")):
+        m, k, d = shapes[f"dist_{key}"]
+        bound_ms, bound_by = dist_bound(m, k, d,
+                                        4.0 * (m * d + k * d + m * k))
+        if phase == "daura":
+            by_rank = [rr["phases"][phase][
+                "distances_sq_launches_by_block"][key] for rr in ranks]
+        else:
+            by_rank = [rr["phases"][phase]["launches"]["distances_sq"]
+                       for rr in ranks]
+        entries[f"distances_sq/mesh_{key}"] = {
+            "name": "distances_sq", "at": f"mesh (4, 1): {at}",
+            "route": "cuda",
+            "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+            "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+            "shape": [m, k, d], "launches": sum(by_rank),
+            "launches_by_rank": by_rank,
+            **w0[f"distances_sq_{key}_err"], **w0[f"distances_sq_{key}"],
+            "library_call": "torch.cdist(a, b, compute_mode="
+                            "'use_mm_for_euclid_dist'), TF32 off (includes "
+                            "a square root)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_basis": DIST_BOUND_BASIS,
+            "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    nb_, cap, d = shapes["dist_sv_gram"]
+    bound_ms, bound_by = dist_bound(cap, cap, d, 4.0 * (
+        2 * nb_ * cap * d + nb_ * cap * cap), batch=nb_)
+    entries["distances_sq/mesh_csvm_gram"] = {
+        "name": "distances_sq", "at": "mesh (4, 1): CascadeSVM's sub-Grams "
+        "of an owner's node batch (batched entry, level 0)",
+        "route": "cuda", "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "entry": "dslib_distances_sq_f32_batched",
+        "shape": [nb_, cap, cap, d], "launches": launches("csvm",
+                                                          "distances_sq"),
+        "launches_by_rank": [rr["phases"]["csvm"]["launches"][
+            "distances_sq"] for rr in ranks],
+        **w0["distances_sq_sv_gram_err"], **w0["distances_sq_sv_gram"],
+        "library_call": "torch.cdist(a, a, compute_mode="
+                        "'use_mm_for_euclid_dist').square(), batched",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": DIST_BOUND_BASIS,
         "times_from": "rank 0, the card to itself (the ranks in turn)"}
     for e in entries.values():
         emit({"phase": "kernel", **e})
@@ -6486,8 +7158,7 @@ def main() -> int:
     from dislib_tpu_torch.trees import (DecisionTreeClassifier,
                                         RandomForestClassifier,
                                         RandomForestRegressor)
-    x_f, lab_f = blobs(RF_M, RF_N, 8, seed=5)
-    y_f = (lab_f % 2).astype(np.float32)[:, None]
+    x_f, y_f, y_r = forest_data(RF_M, RF_N)
     X, Y = dst.array(x_f), dst.array(y_f)
     torch.cuda.synchronize()
 
@@ -6501,6 +7172,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     MODELS["RandomForestClassifier"] = (rf, RF_N)
+    MESH_ONE[("rf", RF_M, RF_N, RF_T)] = rf
     launches_rf = dict(K.LAUNCHES)
     check(rf._depth == 12, f"default depth on 1M rows is {rf._depth}")
     check(launches_rf["node_histogram"] == rf._depth,
@@ -6589,8 +7261,6 @@ def main() -> int:
     del gpu, cpu
 
     # -- (7) RandomForestRegressor, 8 trees, depth 8, same x --------------------
-    y_r = (np.sin(6.0 * x_f[:, 0]) + 2.0 * x_f[:, 1] ** 2
-           + x_f[:, 2]).astype(np.float32)[:, None]
     Yr = dst.array(y_r)
 
     def fit_rr():
@@ -6624,6 +7294,7 @@ def main() -> int:
     check(abs(r2_of(got) - r2_of(want)) <= 1e-5,
           f"regressor R² {r2_of(got)} vs NumPy oracle {r2_of(want)}")
     check(r2 >= 0.5, f"regressor R² {r2} < 0.5")
+    MESH_ONE[("rr", RF_M, RF_N)] = rr
     rr2 = fit_rr()
     # the fixed-order sums of node_histogram and of the leaves make a
     # regressor fitted on the card reproducible per seed

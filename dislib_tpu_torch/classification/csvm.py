@@ -47,6 +47,23 @@ take the 2-D ``distances_sq`` kernel against the support vectors, sparse
 queries an ``ops/spmm`` cross term.  ``random_state`` is unused, as in
 the reference: the fit is deterministic.
 
+In a torch.distributed job (``parallel/distributed.py``) a dense fit
+runs its levels across the ranks along 'rows' (:func:`_solve_level_ranks`,
+the reference's ``dislib_tpu/classification/csvm.py:107-347``): the
+level-0 partition is the one-rank one (``min(_reg_shape[0],
+DSLIB_CSVM_MAX_PARTITION)`` rows a node, so a node may straddle ranks),
+node i belongs to the rank at index ``i mod R``, whose node rows come to
+it by one ``all_to_all`` with index lists every rank computes alike from
+the host node table; the owner solves its nodes in its own batches, and
+one ``all_gather`` of α and the objectives gives every rank the level,
+so every rank runs the same host merge.  The support vectors' rows reach
+every rank by one ``psum`` of the rows each holds, so the fitted model is
+the same on every rank; ``decision_function``/``predict`` run per rank
+on its own query rows and ``score`` sums its hits over 'rows'.  Per node
+the solve is the one-rank solve, so the fit is the one-rank fit.  A
+``SparseArray`` in a job (A.2c) and ``checkpoint=`` across ranks (A.11)
+raise.
+
 The cascade iterations run through
 :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`, one iteration a chunk,
 as the reference's do: the state (SV indices, their α, the last
@@ -80,7 +97,10 @@ from dislib_tpu_torch.ops.spmm import spmm_rows
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.dlog import verbose_logger
 from dislib_tpu_torch.utils import profiling as _prof
-from dislib_tpu_torch.utils.profiling import count_read
+from dislib_tpu_torch.utils.profiling import count_read, host_read
+from dislib_tpu_torch.data.array import _routing
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 
 #: the dual ascent's step cap and stopping threshold (the reference's)
 MAX_STEPS, DELTA_TOL = 500, 1e-6
@@ -154,7 +174,20 @@ class CascadeSVM(BaseEstimator):
         y_pm = np.where(y_host == classes[1], 1.0, -1.0).astype(np.float32)
         gamma = self._gamma_value(n)
         solver = "fista" if _use_fista() else "pg"
-        stage = _Staging(x, self.kernel, gamma)
+        mesh = x._mesh
+        if mesh.groups is not None:
+            if checkpoint is not None and mesh.world > 1:
+                raise NotImplementedError(
+                    "CascadeSVM(checkpoint=...) on a ds-array sharded over "
+                    "several ranks: snapshots of a multi-rank fit are "
+                    "ROADMAP.md A.11")
+            if isinstance(x, SparseArray):
+                raise NotImplementedError(
+                    "CascadeSVM on a SparseArray in a torch.distributed job "
+                    "is ROADMAP.md A.2c")
+            stage = _RankStaging(x, self.kernel, gamma)
+        else:
+            stage = _Staging(x, self.kernel, gamma)
         yv = torch.as_tensor(y_pm, device=x.device)
 
         part = min(max(1, x._reg_shape[0]), _max_partition())
@@ -212,8 +245,12 @@ class CascadeSVM(BaseEstimator):
             else:
                 nodes = nodes0
             while True:
-                alphas, objs = _solve_level_batched(
-                    stage, yv, nodes, float(self.c), n, solver)
+                if mesh.groups is not None:
+                    alphas, objs = _solve_level_ranks(
+                        stage, y_pm, nodes, float(self.c), n, solver)
+                else:
+                    alphas, objs = _solve_level_batched(
+                        stage, yv, nodes, float(self.c), n, solver)
                 if nodes.shape[0] == 1:
                     break
                 nodes = self._merge_level(nodes, alphas)
@@ -282,29 +319,44 @@ class CascadeSVM(BaseEstimator):
     # -- inference -----------------------------------------------------------
 
     def decision_function(self, x) -> Array:
-        """Signed margin per row, an (m, 1) float32 ds-array."""
+        """Signed margin per row, an (m, 1) float32 ds-array (across ranks
+        each rank computes its own rows)."""
+        return Array._from_rows(self._dec(x)[:, None], (x.shape[0], 1),
+                                x._mesh)
+
+    def _dec(self, x) -> torch.Tensor:
+        """The margins of this rank's query rows (every row on one
+        rank), on the device."""
         self._check_fitted()
         sv_x, sv_y, sv_alpha = self._predict_leaves(
             x.device, self._sv_x, self._sv_y, self._sv_alpha)
-        dec = _decision(x, sv_x, sv_y * sv_alpha, self.kernel,
-                        self._gamma_fit)
-        return Array._from_padded(dec[:, None], (x.shape[0], 1), x._mesh)
+        return _decision(x, sv_x, sv_y * sv_alpha, self.kernel,
+                         self._gamma_fit)
+
+    def _pred(self, x) -> torch.Tensor:
+        """The labels of this rank's query rows (every row on one rank),
+        on the device."""
+        up = self._dec(x) > 0
+        (classes,) = self._predict_leaves(x.device, self._classes_leaf())
+        return classes[up.to(torch.int64)]
 
     def predict(self, x) -> Array:
         """Class label per row, (m, 1): int32 for integer classes, else
         float32."""
-        dec = self.decision_function(x)._data[: x.shape[0], 0]
-        count_read("results")
-        labels = self._classes_leaf()[(dec > 0).cpu().numpy().astype(
-            np.int64)]
-        return Array._from_padded(
-            torch.as_tensor(labels[:, None], device=x.device),
-            (x.shape[0], 1), x._mesh)
+        return Array._from_rows(self._pred(x)[:, None].contiguous(),
+                                (x.shape[0], 1), x._mesh)
 
     def score(self, x, y) -> float:
-        pred = self.predict(x).collect().ravel()
-        truth = np.asarray(y.collect()).ravel()
-        return float(np.mean(pred == truth))
+        """Accuracy: the hits of each rank's rows summed over 'rows', one
+        read."""
+        pred = self._pred(x)
+        # y's block starts at the global row of x's (the same rows)
+        yv = y._row_block()[: pred.shape[0], 0]
+        valid = torch.arange(pred.shape[0], device=pred.device) \
+            < x.shape[0] - y._at[0]
+        hits = torch.sum((pred.double() == yv.double()) & valid)
+        hits = _dist.psum(hits.reshape(1), _mesh.ROWS, x._mesh)[0]
+        return float(host_read(hits, "results")) / x.shape[0]
 
     def _carry_in(self, arrays: dict, device):
         self._sv_x = np.array(arrays["_sv_x"], np.float32)
@@ -352,6 +404,15 @@ class _Staging:
     """Where a fit's node rows come from: ``"dense"`` (the fit set on its
     device), ``"ell"`` (a SparseArray's ELL buffers) or ``"csr"`` (a host
     CSR, kernel blocks computed with scipy)."""
+
+    @classmethod
+    def dense(cls, xv, kernel, gamma):
+        """A dense staging over the rows ``xv`` (rows, width), already
+        padded: an owner's node rows in a multi-rank fit."""
+        st = cls.__new__(cls)
+        st.kernel, st.gamma, st.device = kernel, gamma, xv.device
+        st.width, st.r, st.mode, st.xv = xv.shape[1], 0, "dense", xv
+        return st
 
     def __init__(self, x, kernel, gamma):
         self.kernel, self.gamma, self.device = kernel, gamma, x.device
@@ -417,6 +478,94 @@ class _Staging:
                                device=self.device)[None]
         count_read("results")
         return self.gather(safe)[0, :, :n].cpu().numpy()
+
+
+class _RankStaging:
+    """A dense fit's rows in a torch.distributed job: this rank's rows
+    with every feature (its block all-gathered over 'cols', the columns
+    padded as :class:`_Staging` pads them), the first global row
+    ``row0``.  An owner's node rows come to it by one ``all_to_all``
+    (:meth:`exchange`); the support vectors reach every rank by
+    :meth:`rows`."""
+
+    mode = "dense"
+
+    def __init__(self, x, kernel, gamma):
+        self.kernel, self.gamma, self.device = kernel, gamma, x.device
+        self.mesh = x._mesh
+        self.m, n = x.shape
+        self.width = n if x.device.type != "cuda" else -(-n // 4) * 4
+        self.r = 0
+        xv = x._row_block()[:, :n].to(torch.float32)
+        if self.width != n:
+            xv = torch.nn.functional.pad(xv, (0, self.width - n))
+        self.local = xv.contiguous()
+        self.row0 = x._at[0]
+
+    def exchange(self, need):
+        """The rows ``need[r]`` (sorted global row ids) of this rank's
+        mesh row r, (len(need[r]), width): each rank sends the rows it
+        holds of every owner's list by ONE ``all_to_all`` over 'rows'; the
+        index lists are the same host computation on every rank."""
+        R, r = self.mesh.rows, self.mesh.coord[0]
+        cap = max(1, max(len(nd) for nd in need))
+        src = np.concatenate(need)
+        dst = np.concatenate([d * cap + np.arange(len(nd))
+                              for d, nd in enumerate(need)])
+        send_idx, dst_idx = _routing(src, self.local.shape[0], cap, R, dst)
+        send = self.local[torch.as_tensor(send_idx[r], device=self.device)]
+        recv = _dist.all_to_all(send, _mesh.ROWS, self.mesh)
+        out = torch.zeros((cap + 1, self.width), dtype=torch.float32,
+                          device=self.device)
+        out[torch.as_tensor(dst_idx[r].reshape(-1), device=self.device)] = \
+            recv.reshape(-1, self.width)
+        return out[: len(need[r])]
+
+    def rows(self, idx, n):
+        """Host (len(idx), n) float32 rows ``idx`` on every rank: each rank
+        places the rows it holds, and one ``psum`` over 'rows' adds them
+        (one rank holds each: exact, up to the sign of a zero)."""
+        idx = np.asarray(idx, np.int64)
+        mine = (idx >= self.row0) & (idx < self.row0 + self.local.shape[0])
+        loc = torch.as_tensor(np.where(mine, idx - self.row0, 0),
+                              device=self.device)
+        own = torch.as_tensor(mine, device=self.device)[:, None]
+        part = torch.where(own, self.local[loc, :n],
+                           torch.zeros((), device=self.device))
+        count_read("results")
+        return _dist.psum(part, _mesh.ROWS, self.mesh).cpu().numpy()
+
+
+def _solve_level_ranks(stage, y_pm, nodes, c, n_feat, solver):
+    """One cascade level across the ranks along 'rows' (R of them): node
+    i belongs to the rank at index ``i mod R``, whose node rows (and
+    global row 0, what a padded slot stages) come to it by one
+    ``all_to_all`` (:meth:`_RankStaging.exchange`); each owner solves its
+    nodes in its own batches (:func:`_solve_level_batched`, one
+    ``distances_sq_batched`` launch a batch) on its local copy, and one
+    ``all_gather`` of α and the objectives gives every rank the whole
+    level, so every rank runs the same host merge.  Returns host
+    ``(alphas, objectives)`` as :func:`_solve_level_batched` does."""
+    mesh = stage.mesh
+    R, r = mesh.rows, mesh.coord[0]
+    n_nodes, cap = nodes.shape
+    owned = [nodes[d::R] for d in range(R)]
+    need = [np.union1d(o[o >= 0], [0]).astype(np.int64) for o in owned]
+    rows = stage.exchange(need)
+    mine = owned[r]
+    per = -(-n_nodes // R)
+    packed = np.zeros((per, cap + 1), np.float32)
+    if len(mine):
+        loc = np.where(mine >= 0, np.searchsorted(need[r], mine), -1)
+        own_stage = _Staging.dense(rows, stage.kernel, stage.gamma)
+        yv = torch.as_tensor(y_pm[need[r]], device=stage.device)
+        a, o = _solve_level_batched(own_stage, yv, loc, c, n_feat, solver)
+        packed[: len(mine), :cap], packed[: len(mine), cap] = a, o
+    got = _dist.all_gather(torch.as_tensor(packed, device=stage.device),
+                           _mesh.ROWS, 0, mesh).cpu().numpy()
+    # node i is row (i mod R)·per + i div R of the gathered table
+    order = (np.arange(n_nodes) % R) * per + np.arange(n_nodes) // R
+    return got[order, :cap], got[order, cap]
 
 
 @precise
@@ -550,7 +699,7 @@ def _decision(x, sv_x, coef, kernel, gamma):
         else:
             k = cross
     else:
-        qv = x._data[: x.shape[0], : x.shape[1]].contiguous()
+        qv = x._row_block()[:, : x.shape[1]].contiguous()
         if kernel == "rbf":
             k = torch.exp(-gamma * _k.distances_sq(qv, sv_x))
         else:

@@ -190,15 +190,22 @@ def _codes_of(yv, labels, codes):
     return codes[pos], labels[pos] == yv
 
 
-def _score_codes(pred, yp, labels, codes, mq, row0=0, mesh=None):
-    """Accuracy, a device scalar, of the predicted class codes ``pred``
-    (rows,) against the labels ``yp`` (rows, 1); the rows start at global
-    row ``row0``, and on a ``mesh`` the hits are summed over 'rows'."""
+def _hit_count(pred, yp, labels, codes, mq, row0=0, mesh=None):
+    """The number of rows, a device int64 scalar, whose predicted class
+    code in ``pred`` (rows,) matches the label in ``yp`` (rows, 1); the
+    rows start at global row ``row0``, and on a ``mesh`` the hits are
+    summed over 'rows'."""
     yv = yp[: pred.shape[0], 0].to(labels.dtype).contiguous()
     yc, seen = _codes_of(yv, labels, codes)
     valid = torch.arange(pred.shape[0], device=pred.device) < mq - row0
     hits = torch.sum((pred == yc) & seen & valid)
     if mesh is not None:
         hits = _dist.psum(hits, _mesh.ROWS, mesh)
-    return hits.to(torch.float32) / mq
+    return hits
+
+
+def _score_codes(pred, yp, labels, codes, mq, row0=0, mesh=None):
+    """Accuracy, a device float32 scalar: :func:`_hit_count` over ``mq``."""
+    return _hit_count(pred, yp, labels, codes, mq, row0, mesh).to(
+        torch.float32) / mq
 

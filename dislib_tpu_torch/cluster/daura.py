@@ -21,6 +21,18 @@ The tiers are DBSCAN's (``cluster/dbscan.py``), chosen the same way:
 - **ring**: the tiled tier's passes through
   ``ops/ring.ring_neigh_count_min``.
 
+Across ranks every fit takes the ring tier (as DBSCAN's does,
+``cluster/dbscan.streamed_setup``), following the reference's
+``dislib_tpu/cluster/daura.py:343-388``: each extraction is a ring pass
+for the active counts, the global argmax with ties to the lower index
+(``parallel/distributed.argmax``), the medoid's row sent from its owner
+to every rank (``distributed.masked_broadcast``: the owner is a device
+value, so naming it on the host would cost a second read), each rank's
+medoid column by ``distances_sq`` against its own rows, and the members
+found locally.  The loop stops when no rank has an active frame: the
+flag is ``pmax``-ed over the ranks and read once per cluster.
+``labels_``/``clusters_`` are the one-rank values on every rank.
+
 The reference loops until no frame is active with no host read.  A dense
 round is cheap, so rounds run masked in chunks of ``loop.EVERY``
 (``runtime/loop.run_chunked``, one read of ``any(active)`` a chunk, site
@@ -46,14 +58,14 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.dbscan import (
-    checked_fit, f32, labels_array, one_chunk_fit,
+    agreed_flag, checked_fit, f32, gathered_rows, labels_array,
+    one_chunk_fit, streamed_setup,
 )
 from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
-from dislib_tpu_torch.ops import overlap as _ov
-from dislib_tpu_torch.ops import tiled as _tiled
-from dislib_tpu_torch.ops.ring import ring_auto, ring_neigh_count_min
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime.elastic import fetch_packed
 from dislib_tpu_torch.runtime.loop import run_chunked
 from dislib_tpu_torch.utils.profiling import host_read
@@ -93,32 +105,29 @@ class Daura(BaseEstimator):
         if x.shape[1] % 3 != 0:
             raise ValueError("Daura expects rows of 3*n_atoms coordinates")
         n_atoms = x.shape[1] // 3
-        m, n = x.shape
+        m = x.shape[0]
         mesh = x._mesh
         cutoff = float(self.cutoff)
-        xv = _tiled.pad_cols(x._data[:m, :n])
-        ring = ring_auto(_RING, mesh, x._data.shape[0] > _DENSE_MAX)
-        if ring:
-            sched = _ov.resolve()
-
-            def ncm(*a, **kw):
-                return ring_neigh_count_min(*a, mesh=mesh, overlap=sched,
-                                            **kw)
-        else:
-            def ncm(*a, **kw):
-                return _tiled.neigh_count_min(*a, _tiled.TILE, **kw)
+        if checkpoint is not None and mesh.world > 1:
+            raise NotImplementedError(
+                "Daura(checkpoint=...) on a ds-array sharded over several "
+                "ranks: snapshots of a multi-rank fit are ROADMAP.md A.11")
+        streamed, ncm, xv, row0 = streamed_setup(x, _RING, _DENSE_MAX,
+                                                 "Daura")
         if checkpoint is not None:
             labels, medoids = self._fit_checkpointed(x, xv, n_atoms, ncm,
                                                      checkpoint, health)
         else:
-            if ring or x._data.shape[0] > _DENSE_MAX:
+            if streamed:
                 def run():
-                    return _daura_fit_streamed(xv, cutoff, n_atoms, ncm)
+                    labels, medoids = _daura_fit_streamed(
+                        xv, cutoff, n_atoms, ncm, m, row0, mesh)
+                    return gathered_rows(labels, m, mesh), medoids
             else:
                 def run():
                     return _daura_fit(xv, cutoff, n_atoms)
             (labels, medoids), self.fit_info_ = one_chunk_fit(
-                "daura", health, run, xv)
+                "daura", health, run, xv, mesh)
         self.labels_ = labels.astype(np.int64)
         clusters = []
         for cid in range(int(labels.max()) + 1 if labels.size else 0):
@@ -154,7 +163,7 @@ class Daura(BaseEstimator):
             active, labels, medoids, cid = state
             active, labels, medoids, cid, left = _daura_extract(
                 xv, cut2, ncm, active, labels, medoids, cid,
-                checkpoint.every, read)
+                checkpoint.every, read, m, 0, x._mesh)
             return (active, labels, medoids, cid), not left
 
         def snapshot(state):
@@ -208,43 +217,51 @@ def _daura_fit(xv, cutoff, n_atoms):
 
 
 def _daura_extract(xv, cut2, ncm, active, labels, medoids, cid, max_new,
-                   read):
+                   read, m, row0, mesh):
     """Up to ``max_new`` greedy extractions of the streamed tiers, one
-    ε-pass, one distance column and one read of ``any(active)`` each.
-    Returns ``(active, labels, medoids, cid, any_left)``; ``medoids`` is
-    updated in place."""
-    m = xv.shape[0]
-    ids = torch.arange(m, dtype=torch.int32, device=xv.device)
+    ε-pass, one distance column and one read of ``any(active)`` (agreed
+    over the ranks) each.  ``xv``, ``active``, ``labels``: this rank's
+    rows, global rows ``row0`` on, of ``m``; ``medoids`` (m,) is every rank's, updated in place.  Returns
+    ``(active, labels, medoids, cid, any_left)``."""
+    ml = xv.shape[0]
+    ids = row0 + torch.arange(ml, dtype=torch.int32, device=xv.device)
     left = True
     for _ in range(max_new):
         counts, _ = ncm(xv, cut2, ids, active, m, mins=False)
         counts = torch.where(active, counts, -1)
-        medoid = torch.argmax(counts)
+        medoid = _dist.argmax(counts, row0, _mesh.ROWS, mesh)
+        # the medoid's row, from the rank that holds it
+        loc = (medoid - row0).clamp(0, ml - 1)
+        mx = _dist.masked_broadcast(
+            xv.index_select(0, loc.view(1)),
+            (medoid >= row0) & (medoid < row0 + ml), _mesh.ROWS, mesh)
         # the medoid's neighbourhood: one distance column on the kernel
-        mrow = _k.distances_sq(xv, xv.index_select(0, medoid.view(1)))[:, 0]
+        mrow = _k.distances_sq(xv, mx)[:, 0]
         members = ((mrow <= cut2) | (ids == medoid)) & active
         labels = torch.where(members, cid, labels)
         medoids[cid] = medoid.to(torch.int32)
         active = active & ~members
         cid += 1
-        left = bool(read(active.any(), "daura"))
+        left = bool(read(agreed_flag(active.any(), mesh), "daura"))
         if not left:
             break
     return active, labels, medoids, cid, left
 
 
-def _daura_fit_streamed(xv, cutoff, n_atoms, ncm):
+def _daura_fit_streamed(xv, cutoff, n_atoms, ncm, m, row0, mesh):
     """The tiled and ring tiers: one ε-pass ``ncm`` (as in
     ``cluster/dbscan._dbscan_fit_streamed``) and one host read per
-    extracted cluster."""
-    m = xv.shape[0]
+    extracted cluster.  Returns this rank's labels and every rank's
+    medoids."""
+    ml = xv.shape[0]
     dev = xv.device
     cut2 = f32(f32(f32(cutoff) * f32(cutoff)) * n_atoms)
-    active = torch.ones(m, dtype=torch.bool, device=dev)
-    labels = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    active = row0 + torch.arange(ml, device=dev) < m
+    labels = torch.full((ml,), -1, dtype=torch.int32, device=dev)
     medoids = torch.full((m,), -1, dtype=torch.int32, device=dev)
     cid, left = 0, True
     while left:
         active, labels, medoids, cid, left = _daura_extract(
-            xv, cut2, ncm, active, labels, medoids, cid, 1, host_read)
+            xv, cut2, ncm, active, labels, medoids, cid, 1, host_read, m,
+            row0, mesh)
     return labels, medoids

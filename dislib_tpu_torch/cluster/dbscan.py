@@ -20,6 +20,21 @@ Three tiers, chosen as the reference chooses them:
   than one row above :data:`_DENSE_MAX`): the tiled tier's passes through
   ``ops/ring.ring_neigh_count_min``.
 
+Across ranks (a mesh of several ranks) every fit takes the ring tier,
+since the dense and tiled tiers need every row on one rank (``_RING =
+False`` there raises): each rank keeps its block's rows (with every
+feature, ``ops/ring.ring_rows``) and the row-sharded label vector; a
+round's pointer jump ``new[new]`` reads the label vector all-gathered
+over 'rows' (m int32), and the stop flag is ``pmax``-ed over every rank
+before its one read, as the reference's three ring phases
+(``dislib_tpu/cluster/dbscan.py:420-483``).  ``labels_``,
+``core_sample_indices_`` and ``n_clusters_`` are the same host values on
+every rank; ``fit_predict`` returns a row-sharded array.  The loop's
+verdict on the input's health vector is agreed over the ranks, so a
+non-finite coordinate in one rank's rows raises on every rank (on the
+others as the guard ``'peer'``).  The checkpointed fit raises there
+(snapshots across ranks are ROADMAP.md A.11).
+
 The reference's ``lax.while_loop`` stops when a round changes no label;
 here the host reads that flag (``utils/profiling.host_read``, site
 ``"dbscan"``).  The tiers read it differently because their rounds cost
@@ -57,7 +72,10 @@ from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import tiled as _tiled
-from dislib_tpu_torch.ops.ring import ring_auto, ring_neigh_count_min
+from dislib_tpu_torch.ops.ring import (ring_auto, ring_neigh_count_min,
+                                       ring_rows)
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.elastic import fetch_packed
@@ -74,13 +92,15 @@ _DENSE_MAX = 16384
 _RING = None
 
 
-def one_chunk_fit(name, health, run, xv):
+def one_chunk_fit(name, health, run, xv, mesh=None):
     """The unchecked fit of DBSCAN and Daura: one chunk of the fit loop
     running ``run()`` (a tuple of device tensors), judged on the health
     vector over the input ``xv`` (a non-finite coordinate raises
     ``NumericalDivergence``, guard ``"input-nonfinite"``), read with the
-    results in one transfer.  Returns ``(host results, fit_info)``."""
-    loop = _fitloop.ChunkedFitLoop(name, health=health)
+    results in one transfer.  On a ``mesh`` of several ranks the verdict
+    is agreed over them (``xv`` this rank's rows).  Returns ``(host
+    results, fit_info)``."""
+    loop = _fitloop.ChunkedFitLoop(name, health=health, mesh=mesh)
 
     def step(st, chunk):
         out = run()
@@ -125,6 +145,50 @@ def checked_fit(name, checkpoint, health, x, fp, init, chunk, snapshot,
     st = loop.run(init=lambda rem: _fitloop.LoopState((), extra=init()),
                   step=step, restore=_restore, snapshot=_snapshot)
     return st.extra, loop.info
+
+
+def streamed_setup(x, ring_flag, dense_max, name):
+    """The tier of a DBSCAN or Daura fit on ``x`` and its ε-pass: returns
+    ``(streamed, ncm, xv, row0)``.  ``streamed``: the tiled or ring tier
+    (else the dense one); ``ncm(xv, eps2, vals, colmask, sentinel,
+    counts=, mins=)`` the pass over this rank's rows ``xv``, whose first
+    row is global row ``row0``.  Across ranks every fit takes the ring
+    (the other tiers need every row on one rank)."""
+    mesh = x._mesh
+    if mesh.world > 1:
+        if ring_flag is False:
+            raise NotImplementedError(
+                f"{name} with _RING = False on a ds-array sharded over "
+                f"{mesh.world} ranks: the dense and tiled tiers need every "
+                "row on one rank, so the port runs the ring tier there")
+        ring = True
+    else:
+        ring = ring_auto(ring_flag, mesh, x._data.shape[0] > dense_max)
+    if ring:
+        sched = _ov.resolve()
+
+        def ncm(*a, **kw):
+            return ring_neigh_count_min(*a, mesh=mesh, overlap=sched, **kw)
+    else:
+        def ncm(*a, **kw):
+            return _tiled.neigh_count_min(*a, _tiled.TILE, **kw)
+    streamed = ring or x._data.shape[0] > dense_max
+    return streamed, ncm, ring_rows(x), x._at[0]
+
+
+def gathered_rows(t, m, mesh):
+    """The per-row vector ``t`` (this rank's rows) for every row on every
+    rank: all-gathered over 'rows' and cut to the ``m`` logical rows."""
+    if t.dtype == torch.bool:
+        return _dist.all_gather(t.to(torch.uint8), _mesh.ROWS, 0,
+                                mesh)[:m].to(torch.bool)
+    return _dist.all_gather(t, _mesh.ROWS, 0, mesh)[:m]
+
+
+def agreed_flag(flag, mesh):
+    """The device bool ``flag`` True on every rank when it is on any (a
+    ``pmax`` over every rank), to be read once."""
+    return _dist.pmax(flag.to(torch.int32).reshape(1), _dist.ALL, mesh)[0]
 
 
 def labels_array(labels: np.ndarray, mesh) -> Array:
@@ -173,29 +237,27 @@ class DBSCAN(BaseEstimator):
         m, n = x.shape
         mesh = x._mesh
         eps, ms = float(self.eps), int(self.min_samples)
-        xv = _tiled.pad_cols(x._data[:m, :n])
-        ring = ring_auto(_RING, mesh, x._data.shape[0] > _DENSE_MAX)
-        if ring:
-            sched = _ov.resolve()
-
-            def ncm(*a, **kw):
-                return ring_neigh_count_min(*a, mesh=mesh, overlap=sched,
-                                            **kw)
-        else:
-            def ncm(*a, **kw):
-                return _tiled.neigh_count_min(*a, _tiled.TILE, **kw)
+        if checkpoint is not None and mesh.world > 1:
+            raise NotImplementedError(
+                "DBSCAN(checkpoint=...) on a ds-array sharded over several "
+                "ranks: snapshots of a multi-rank fit are ROADMAP.md A.11")
+        streamed, ncm, xv, row0 = streamed_setup(x, _RING, _DENSE_MAX,
+                                                 "DBSCAN")
         if checkpoint is not None:
             raw, core = self._fit_checkpointed(x, xv, ncm, checkpoint,
                                                health)
         else:
-            if ring or x._data.shape[0] > _DENSE_MAX:
+            if streamed:
                 def run():
-                    return _dbscan_fit_streamed(xv, eps, ms, ncm)
+                    final, core = _dbscan_fit_streamed(xv, eps, ms, ncm, m,
+                                                       row0, mesh)
+                    return (gathered_rows(final, m, mesh),
+                            gathered_rows(core, m, mesh))
             else:
                 def run():
                     return _dbscan_fit(xv, eps, ms)
             (raw, core), self.fit_info_ = one_chunk_fit("dbscan", health,
-                                                        run, xv)
+                                                        run, xv, mesh)
         # renumber root labels compactly in order of first appearance
         clustered = raw >= 0
         roots, first, inverse = np.unique(raw[clustered], return_index=True,
@@ -219,7 +281,7 @@ class DBSCAN(BaseEstimator):
         fp = np.asarray([x.shape[0], x.shape[1], eps, ms], np.float64)
 
         def init():
-            return _streamed_setup(xv, eps2, ms, ncm)
+            return _streamed_setup(xv, eps2, ms, ncm, m)
 
         def restore(snap):
             lab = np.asarray(snap["label"])[:m]
@@ -233,7 +295,8 @@ class DBSCAN(BaseEstimator):
         def chunk(state, read):
             label, core = state
             label, changed = _streamed_rounds(xv, eps2, label, core, ncm,
-                                              checkpoint.every, read)
+                                              checkpoint.every, read, m,
+                                              x._mesh)
             return (label, core), not changed
 
         def snapshot(state):
@@ -251,10 +314,14 @@ class DBSCAN(BaseEstimator):
         return labels_array(self.labels_, x._mesh)
 
 
-def _jump(new, sentinel):
+def _jump(new, sentinel, mesh=None):
     """Pointer jump: follow each label one hop, ``new[min(new, mp − 1)]``
-    where it is below the sentinel (gathered at int64)."""
-    hop = new[new.clamp(max=new.shape[0] - 1).to(torch.int64)]
+    where it is below the sentinel (gathered at int64).  Across ranks
+    ``new`` is this rank's rows and the hop reads the label vector
+    all-gathered over 'rows'."""
+    full = new if mesh is None \
+        else _dist.all_gather(new, _mesh.ROWS, 0, mesh)
+    hop = full[new.clamp(max=full.shape[0] - 1).to(torch.int64)]
     return torch.minimum(new, torch.where(new < sentinel, hop, sentinel))
 
 
@@ -299,27 +366,30 @@ def _dbscan_fit(xv, eps, min_samples):
     return _final(label, core, border, sentinel), core
 
 
-def _streamed_setup(xv, eps2, min_samples, ncm):
+def _streamed_setup(xv, eps2, min_samples, ncm, m, row0=0):
     """The streamed tiers' setup: one ε-pass for the core counts; returns
-    ``(label, core)`` with every core point its own label."""
-    m = xv.shape[0]
-    ids = torch.arange(m, dtype=torch.int32, device=xv.device)
-    valid = torch.ones(m, dtype=torch.bool, device=xv.device)
+    ``(label, core)`` with every core point its own label.  ``xv``: this
+    rank's rows, the first global row ``row0`` of ``m`` (rows at or past
+    ``m`` are padding, never core); the sentinel is ``m``."""
+    ids = row0 + torch.arange(xv.shape[0], dtype=torch.int32,
+                              device=xv.device)
+    valid = ids < m
     counts, _ = ncm(xv, eps2, ids, valid, m, mins=False)
-    core = counts >= min_samples
+    core = (counts >= min_samples) & valid
     return torch.where(core, ids, m), core
 
 
-def _streamed_rounds(xv, eps2, label, core, ncm, max_rounds, read):
+def _streamed_rounds(xv, eps2, label, core, ncm, max_rounds, read, m,
+                     mesh):
     """Up to ``max_rounds`` propagation rounds, one ε-pass and one read of
-    ``changed`` each; returns ``(label, changed)`` (``changed`` False once
-    a round changed nothing)."""
-    m = xv.shape[0]
+    ``changed`` (agreed over the ranks) each; returns ``(label,
+    changed)`` (``changed`` False once a round changed nothing)."""
     changed = True
     for _ in range(max_rounds):
         _, neigh = ncm(xv, eps2, label, core, m, counts=False)
-        new = _jump(torch.where(core, torch.minimum(label, neigh), m), m)
-        flag = (new != label).any()
+        new = _jump(torch.where(core, torch.minimum(label, neigh), m), m,
+                    mesh)
+        flag = agreed_flag((new != label).any(), mesh)
         label = new
         changed = bool(read(flag, "dbscan"))
         if not changed:
@@ -327,17 +397,18 @@ def _streamed_rounds(xv, eps2, label, core, ncm, max_rounds, read):
     return label, changed
 
 
-def _dbscan_fit_streamed(xv, eps, min_samples, ncm):
+def _dbscan_fit_streamed(xv, eps, min_samples, ncm, m, row0, mesh):
     """The tiled and ring tiers: setup (one ε-pass for the core counts),
     propagation (one pass and one host read per round), finalize (one
     pass for the border labels).  ``ncm(xv, eps2, vals, colmask,
-    sentinel, counts=, mins=)`` is the ε-pass."""
-    m = xv.shape[0]
+    sentinel, counts=, mins=)`` is the ε-pass over this rank's rows
+    ``xv`` (global rows ``row0`` on, of ``m``).  Returns this rank's
+    (raw labels, core mask)."""
     eps2 = f32(f32(eps) * f32(eps))
-    label, core = _streamed_setup(xv, eps2, min_samples, ncm)
+    label, core = _streamed_setup(xv, eps2, min_samples, ncm, m, row0)
     changed = True
     while changed:
         label, changed = _streamed_rounds(xv, eps2, label, core, ncm, 1,
-                                          host_read)
+                                          host_read, m, mesh)
     _, border = ncm(xv, eps2, label, core, m, counts=False)
     return _final(label, core, border, m), core

@@ -13,9 +13,9 @@ device.  On a mesh of R x C ranks (a ``torch.distributed`` job, see
 block of it — the reference's ``P(ROWS, COLS)`` placement — and the
 global logical shape.  Ported code reads the rank's block through
 ``_local``; ``_data``, the whole padded tensor, exists only on a one-rank
-mesh and raises on a larger one, naming ROADMAP.md A.2b: every module not
-yet ported to the mesh reads ``_data``, so none of them computes on one
-rank's rows without knowing it.  Across ranks: the constructors place
+mesh and raises on a larger one, naming ROADMAP.md A.2c and A.11: every
+module not yet ported to the mesh reads ``_data``, so none of them
+computes on one rank's rows without knowing it.  Across ranks: the constructors place
 blocks (each rank takes its block of the same global input or draw),
 ``collect`` all-gathers them, the elementwise ops of equal shapes and
 scalars stay local, a (1, n), (m, 1) or (1, 1) operand of a broadcast
@@ -336,10 +336,11 @@ class Array:
                 "helpers, matmul, kron, qr, svd, polar, tsqr, random_svd, "
                 "lanczos_svd, PCA, KMeans, MiniBatchKMeans, "
                 "GaussianMixture, the scalers, LinearRegression, ADMM/Lasso, "
-                "NearestNeighbors, KNeighborsClassifier, the searches and "
-                "the shuffle (ROADMAP.md A.2b's part (ii) ports the trees, "
-                "DBSCAN/Daura and CascadeSVM, A.2c the sparse tier, ALS and "
-                "IVF)")
+                "NearestNeighbors, KNeighborsClassifier, the decision trees "
+                "and random forests, DBSCAN, Daura, dense CascadeSVM, the "
+                "searches and the shuffle (ROADMAP.md A.2c ports the sparse "
+                "tier, ALS and IVF; A.11 the re-layouts and the snapshots "
+                "of a multi-rank fit)")
         return self._local
 
     @property

@@ -30,11 +30,18 @@ as on the direct and chunked paths, where the reference's ring ranks the
 negative values; the distances returned are ``max(d², 0)`` on both.
 
 ``ring_neigh_count_min`` is the ε-neighbourhood pass of DBSCAN's and
-Daura's ring tier: the same ``panel_pipeline`` with the identity fetch,
-whose one step folds the home shard into the running (count, min) by
-``ops/tiled.neigh_count_min`` in row tiles of :data:`RING_TILE`.  It runs
-on one rank only until DBSCAN and Daura run across ranks (ROADMAP.md
-A.2b).
+Daura's ring tier, the reference's ``:150-265``: each rank's rows, with
+every feature (all-gathered over 'cols' once a fit and padded by
+``ops/tiled.pad_cols``: :func:`ring_rows`), stay home, while (rows,
+vals, colmask) rotate around 'rows' by ``ppermute`` in
+``panel_pipeline`` under the ``db`` and ``seq`` schedules; each visit
+folds the visiting block into the running (count, min) by
+``ops/tiled.neigh_count_min_pair`` in row tiles of :data:`RING_TILE`,
+the rows' global ids carried as their blocks' offsets (a block's rows
+are contiguous), so the structural diagonal is the ids' equality.  The
+counts and mins are ``pmax``/``pmin``-ed over 'cols', as the
+reference's are.  On one rank the fetch is never called and the one
+step folds the home rows into themselves.
 
 Not ported: ``comm_only=True`` of both kernels (a bench device: the
 rotation-only program that times the ring's communication alone, which
@@ -57,15 +64,6 @@ from dislib_tpu_torch.parallel import mesh as _mesh
 # inner streaming tile edge within one ring step (module-level so tests
 # can shrink it)
 RING_TILE = 2048
-
-
-def _one_rank(what, mesh):
-    nrows = mesh.shape[_mesh.ROWS]
-    if nrows != 1:
-        raise NotImplementedError(
-            f"{what} over {nrows} row shards: it runs one rank until DBSCAN "
-            "and Daura run across ranks (ROADMAP.md A.2b; see A.2)")
-    return nrows
 
 
 def ring_auto(flag, mesh, large):
@@ -121,34 +119,57 @@ def ring_kneighbors(qp, fp, mesh, k, m_fit, overlap="db"):
     return split_keys(best)
 
 
-def _identity_fetch(t, prev):
-    return prev                      # one rank: the panel is already home
+def ring_rows(x) -> torch.Tensor:
+    """The rows a ring ε-pass keeps home: this rank's rows of the ds-array
+    ``x`` with every feature — its block all-gathered over 'cols' (the
+    reference's ``:172``), the logical columns padded by
+    ``ops/tiled.pad_cols`` — once a fit: the block's rows, padding
+    included (the callers mask them by their global ids; one rank's block
+    has no padded rows)."""
+    return _tiled.pad_cols(x._row_block()[:, : x.shape[1]])
 
 
-def ring_neigh_count_min(xp, eps2, vals, colmask, sentinel, mesh,
+def ring_neigh_count_min(xv, eps2, vals, colmask, sentinel, mesh,
                          overlap="db", counts=True, mins=True):
-    """Per-row (ε-neighbour count int32 (mp,), min over neighbour vals
-    (mp,) of ``vals.dtype``) of ``xp`` (mp, np) against itself —
-    ``ops/tiled.neigh_count_min`` under the ring's schedule.  adj(i, j) =
-    (d²(i, j) ≤ eps2 ∨ i = j) ∧ colmask_j, the single-device contract;
-    zero pad columns change no distance.  ``overlap`` is a canonical
-    schedule of ``ops/overlap.SCHEDULES``; on one rank every schedule
-    consumes the one panel the same way.  ``counts=False`` or
-    ``mins=False`` skips a reduction the caller does not read (None in its
-    place), as in ``ops/tiled.neigh_count_min``."""
-    nrows = _one_rank("ring_neigh_count_min", mesh)
-    pan0 = (xp.contiguous(), vals, colmask)
+    """Per-row (ε-neighbour count int32 (ml,), min over neighbour vals
+    (ml,) of ``vals.dtype``) of this rank's rows ``xv`` (:func:`ring_rows`)
+    against every rank's — ``ops/tiled.neigh_count_min`` over the whole
+    dataset.  adj(i, j) = (d²(i, j) ≤ eps2 ∨ i = j) ∧ colmask_j, the
+    single-device contract; ``vals``/``colmask`` are this rank's (ml,)
+    and zero pad columns change no distance.  Home row i is global row
+    ``r·ml + i`` on mesh row r.  ``overlap`` is a canonical schedule of
+    ``ops/overlap.SCHEDULES``.  ``counts=False`` or ``mins=False`` skips
+    a reduction the caller does not read (None in its place), as in
+    ``ops/tiled.neigh_count_min``."""
+    nrows = mesh.shape[_mesh.ROWS]
+    my = mesh.coord[0]
+    ml = xv.shape[0]
+    tile = max(1, min(RING_TILE, ml))
+    # colmask travels as bytes (a bool collective is not every backend's)
+    pan0 = (xv.contiguous(), vals.contiguous(),
+            colmask.to(torch.uint8).contiguous())
+
+    def fetch(t, prev):
+        # one hop: the block of the rank t places back
+        return tuple(_dist.ppermute(p, _mesh.ROWS, 1, mesh, async_op=True)
+                     for p in _ov.landed(prev))
 
     def consume(t, acc, pan):
-        x, v, cm = pan
-        cnt, mn = _tiled.neigh_count_min(x, eps2, v, cm, sentinel,
-                                         max(1, min(RING_TILE, x.shape[0])),
-                                         counts=counts, mins=mins)
-        return (acc[0] + cnt if counts else None,
-                torch.minimum(acc[1], mn) if mins else None)
+        x, v, cm = _ov.landed(pan)
+        return _tiled.neigh_count_min_pair(
+            xv, my * ml, x, (my - t) % nrows * ml, eps2, v, cm, sentinel,
+            tile, counts=counts, mins=mins, acc=acc)
 
-    acc0 = (torch.zeros(xp.shape[0], dtype=torch.int32, device=xp.device),
-            torch.full((xp.shape[0],), sentinel, dtype=vals.dtype,
-                       device=xp.device))
-    return _ov.panel_pipeline(nrows, pan0, _identity_fetch, consume, acc0,
-                              _ov.overlapped(overlap))
+    acc0 = (torch.zeros(ml, dtype=torch.int32, device=xv.device)
+            if counts else None,
+            torch.full((ml,), sentinel, dtype=vals.dtype, device=xv.device)
+            if mins else None)
+    cnt, mn = _ov.panel_pipeline(nrows, pan0, fetch, consume, acc0,
+                                 _ov.overlapped(overlap))
+    # every rank of a mesh row computed the same rows from the gathered
+    # features; the reference makes that invariance explicit
+    if counts:
+        cnt = _dist.pmax(cnt, _mesh.COLS, mesh)
+    if mins:
+        mn = _dist.pmin(mn, _mesh.COLS, mesh)
+    return cnt, mn

@@ -80,27 +80,49 @@ def neigh_count_min(xv, eps2, vals, colmask, sentinel, tile, counts=True,
     ``tile`` (the last tile is ragged).  ``counts=False`` or
     ``mins=False`` skips a reduction the caller does not read and
     returns None in its place."""
-    mp = xv.shape[0]
-    dev = xv.device
-    xv = xv.contiguous()
+    return neigh_count_min_pair(xv, 0, xv, 0, eps2, vals, colmask, sentinel,
+                                tile, counts=counts, mins=mins)
+
+
+def neigh_count_min_pair(xr, row0, xc, col0, eps2, vals, colmask, sentinel,
+                         tile, counts=True, mins=True, acc=None):
+    """The home rows ``xr`` (mr, n) against a visiting block ``xc`` (mc,
+    n): per home row (count int32 (mr,), min (mr,) of ``vals.dtype``) over
+    the ε-adjacency to the visiting rows, ``vals``/``colmask`` (mc,) the
+    visiting rows'.  The rows carry their global ids as the offsets
+    ``row0`` and ``col0`` (home row i is global row ``row0 + i``, visiting
+    row j ``col0 + j``), so the structural diagonal is where the ids are
+    equal — the reference ring's ``pair_pass``.  ``acc``: a running
+    (count, min) to fold into (updated in place), else zeros and the
+    sentinel.  Each (column chunk, row tile) piece is one
+    ``distances_sq`` launch."""
+    mr, mc = xr.shape[0], xc.shape[0]
+    dev = xr.device
+    xr, xc = xr.contiguous(), xc.contiguous()
     colmask = colmask.to(torch.bool)
     sent = torch.tensor(sentinel, dtype=vals.dtype, device=dev)
-    cnt = torch.zeros(mp, dtype=torch.int32, device=dev) if counts else None
-    mn = torch.full((mp,), sentinel, dtype=vals.dtype, device=dev) \
-        if mins else None
+    if acc is None:
+        cnt = torch.zeros(mr, dtype=torch.int32, device=dev) \
+            if counts else None
+        mn = torch.full((mr,), sentinel, dtype=vals.dtype, device=dev) \
+            if mins else None
+    else:
+        cnt, mn = acc
     # a masked column can never give the min: fold the mask into vals
     vmask = torch.where(colmask, vals, sent) if mins else None
     chunk = max(1, int(BLOCK_BYTES) // (4 * tile))
-    for r0 in range(0, mp, tile):
-        r1 = min(r0 + tile, mp)
-        rows = xv[r0:r1]
-        for c0 in range(0, mp, chunk):
-            c1 = min(c0 + chunk, mp)
-            adj = _k.distances_sq(xv[c0:c1], rows) <= eps2   # (cols, rows)
-            lo, hi = max(r0, c0), min(r1, c1)
-            if lo < hi:                      # the structural diagonal
-                i = torch.arange(lo, hi, device=dev)
-                adj[i - c0, i - r0] = True
+    for r0 in range(0, mr, tile):
+        r1 = min(r0 + tile, mr)
+        rows = xr[r0:r1]
+        for c0 in range(0, mc, chunk):
+            c1 = min(c0 + chunk, mc)
+            adj = _k.distances_sq(xc[c0:c1], rows) <= eps2   # (cols, rows)
+            # the structural diagonal: global ids equal
+            lo = max(row0 + r0, col0 + c0)
+            hi = min(row0 + r1, col0 + c1)
+            if lo < hi:
+                g = torch.arange(lo, hi, device=dev)
+                adj[g - col0 - c0, g - row0 - r0] = True
             if counts:
                 cnt[r0:r1] += (adj & colmask[c0:c1, None]).sum(
                     0, dtype=torch.int32)

@@ -35,7 +35,16 @@ take a mesh (``parallel/mesh.Mesh``) and an axis name (``"rows"``,
 - :func:`broadcast_from` — the reference's masked-``psum`` broadcast;
 - :func:`all_gather` — ``lax.all_gather(..., tiled=True)``;
 - :func:`ppermute` — ``lax.ppermute`` by a shift, by ``batch_isend_irecv``;
-- :func:`all_to_all` — ``lax.all_to_all`` by ``all_to_all_single``.
+- :func:`all_to_all` — ``lax.all_to_all`` by ``all_to_all_single``;
+- :func:`reduce_scatter` — ``lax.psum_scatter`` over the leading
+  dimension, by one ``all_to_all_single``, the partials added in rank
+  order;
+- :func:`psum_ordered` — a ``psum`` whose float sum adds the ranks'
+  partials in rank order (an ``all_gather``, then the sum);
+- :func:`masked_broadcast` — the reference's masked-``psum`` broadcast
+  itself, for an owner known only on the device;
+- :func:`argmax` — ``jnp.argmax`` of a vector sharded over an axis, ties
+  to the lower global index.
 
 On a mesh with no process group (the one-process job) each is the
 identity on a one-rank mesh and raises, naming ROADMAP.md A.2, on any
@@ -509,3 +518,77 @@ def all_to_all(t: torch.Tensor, axis, mesh) -> torch.Tensor:
     _count("all_to_all", t.numel() * t.element_size(),
            time.perf_counter() - t0)
     return out
+
+
+def reduce_scatter(t: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """This rank's slice of the sum of ``t`` over the ranks along
+    ``axis`` (``lax.psum_scatter(..., scatter_dimension=0, tiled=True)``):
+    ``t`` (R·s, ...) is cut into R slices of s along its leading
+    dimension, slice d goes to the rank at index d by one
+    ``all_to_all_single``, and each rank adds the R partials it receives
+    in rank order, so the float sum does not depend on the backend's
+    summation order.  Each byte crosses the wire once, where an
+    all-reduce moves it twice.  The identity where the axis has one rank
+    (a world of one runs the exchange: the transport check)."""
+    ax = _axis(mesh, axis)
+    if ax is None:
+        return t
+    n = ax.size
+    if t.shape[0] % n:
+        raise ValueError(f"reduce_scatter: leading dim {t.shape[0]} is not "
+                         f"a multiple of the axis size {n}")
+    t0 = time.perf_counter()
+    send = _staged(t.contiguous(), mesh)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=ax.group)
+    parts = _unstaged(recv, t).reshape(n, t.shape[0] // n, *t.shape[1:])
+    out = parts[0].clone()
+    for s in range(1, n):
+        out += parts[s]
+    _count("reduce_scatter", t.numel() * t.element_size(),
+           time.perf_counter() - t0)
+    return out
+
+
+def psum_ordered(t: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """:func:`psum` with the ranks' partials added in rank order (one
+    ``all_gather``, then the sum): the same bits on every rank and on
+    every run, whatever order the backend's all-reduce takes.  For the
+    small float sums whose order a caller pins (a regressor's leaves)."""
+    ax = _axis(mesh, axis)
+    if ax is None:
+        return t
+    parts = all_gather(t.unsqueeze(0), axis, 0, mesh)
+    out = parts[0].clone()
+    for s in range(1, parts.shape[0]):
+        out += parts[s]
+    return out
+
+
+def masked_broadcast(t: torch.Tensor, owns, axis, mesh) -> torch.Tensor:
+    """``t`` of the rank along ``axis`` whose ``owns`` (a device bool) is
+    True, on every rank of the axis: one ``psum`` in which every other
+    rank adds zeros — the reference's masked-``psum`` broadcast, for an
+    owner that only the device knows (a medoid's row), so that no host
+    read is needed to name it.  Exactly one rank of the axis must own;
+    the sum is then exact, except that a −0.0 arrives as +0.0."""
+    if _axis(mesh, axis) is None:
+        return t
+    return psum(torch.where(owns, t, torch.zeros_like(t)), axis, mesh)
+
+
+def argmax(v: torch.Tensor, offset: int, axis, mesh) -> torch.Tensor:
+    """The global index (an int64 device scalar) of the largest entry of
+    a vector sharded over ``axis``, ``v`` this rank's slice starting at
+    global index ``offset``; ties go to the lower global index, which is
+    what ``jnp.argmax`` and ``torch.argmax`` on the whole vector return.
+    The value is ``pmax``-ed, then the index ``pmin``-ed among the ranks
+    that hold it."""
+    loc = torch.argmax(v)
+    if _axis(mesh, axis) is None:
+        return loc + offset
+    best = pmax(v[loc].reshape(1), axis, mesh)
+    big = torch.iinfo(torch.int64).max
+    idx = torch.where(v[loc] == best[0], loc + offset,
+                      torch.full_like(loc, big))
+    return pmin(idx.reshape(1), axis, mesh)[0]

@@ -17,8 +17,24 @@ level for the whole forest; CPU tensors take the kernel's plain version.
 
 The bootstrap weights and the per-node feature-sampling scores come from
 one ``torch.Generator`` on the data's device, seeded from
-``random_state``: the same seed gives the same forest on the same device,
-but not the reference's draws (``jax.random`` is another generator).
+``random_state``: the same seed gives the same forest on the same device
+(the weights drawn at the logical (trees, rows) shape), but not the
+reference's draws (``jax.random`` is another generator).
+
+Across the ranks of a mesh (``parallel/distributed.py``) each rank
+holds its rows with every feature (its block all-gathered over 'cols').
+The quantile edges are found exactly without gathering the data
+(:func:`_order_stats`), bit-equal to one rank's.  The bootstrap weights
+are drawn at the logical (trees, rows) shape from the agreed seed and
+each rank keeps its rows' columns, so a row's weight is the same on any
+mesh; the feature-sampling scores are drawn alike on every rank.  Each
+level's ``node_histogram`` runs on the rank's rows, the histograms are
+reduce-scattered over 'rows' along the node axis, each rank searches its
+slice of nodes and one ``all_gather`` shares the splits; the routing
+stays local.  The leaf sums are added over 'rows' in rank order.  A
+classifier's sums are integers, so its forest is bit-equal to one
+rank's; a regressor's float sums are deterministic but not bit-equal to
+one rank's.  The checkpointed growth raises there (ROADMAP.md A.11).
 
 ``fit`` is ``_fit_finalize(_fit_async(x, y))``: the search's async-trial
 hooks split it at the adoption, the fit's first host read; ``forest.py``
@@ -50,6 +66,8 @@ from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import dense_input
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
+from dislib_tpu_torch.parallel import distributed as _dist
+from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
 from dislib_tpu_torch.runtime.elastic import fetch as _fetch
@@ -70,7 +88,8 @@ _BIN_CHUNK = 1 << 26
 # device functions
 # ---------------------------------------------------------------------------
 
-def _quantile_bins(xp: torch.Tensor, shape, n_bins=N_BINS) -> torch.Tensor:
+def _quantile_bins(xp: torch.Tensor, shape, n_bins=N_BINS, row0=0,
+                   mesh=None) -> torch.Tensor:
     """Per-feature bin edges from quantiles of the valid rows:
     (n, n_bins-1), in the data's dtype.
 
@@ -85,10 +104,15 @@ def _quantile_bins(xp: torch.Tensor, shape, n_bins=N_BINS) -> torch.Tensor:
     product ``high·h`` rounded to f32, and the fused add done in f64 and
     rounded once to f32.  A column holding a NaN gets NaN edges, as in the
     reference.  f64 data is interpolated in f64, without the fused
-    rounding."""
+    rounding.  A zero enters as +0.0 (−0.0 and +0.0 are equal values, and
+    an order statistic at a zero is then one value on any mesh).
+
+    Across the ranks of a mesh of several rows, ``xp`` is this rank's
+    rows (the first global row ``row0``) and each order statistic is
+    found exactly without gathering the data (:func:`_order_stats`):
+    the edges are bit-equal to one rank's."""
     m, n = shape
-    xv = xp[:m, :n]
-    f32 = xv.dtype != torch.float64
+    f32 = xp.dtype != torch.float64
     fdt = np.float32 if f32 else np.float64
     i = np.arange(1, n_bins, dtype=fdt)
     qi = (i * fdt(fdt(100) * fdt(fdt(1) / fdt(n_bins)))).astype(fdt) \
@@ -97,12 +121,22 @@ def _quantile_bins(xp: torch.Tensor, shape, n_bins=N_BINS) -> torch.Tensor:
     lo = np.floor(qi)
     hw = (qi - lo).astype(fdt)
     lw = (fdt(1) - hw).astype(fdt)
+    lo_i = np.clip(lo, 0, m - 1).astype(np.int64)
+    hi_i = np.clip(np.ceil(qi), 0, m - 1).astype(np.int64)
+    xv = xp[: max(0, min(xp.shape[0], m - row0)), :n]
+    xv = xv.to(torch.float32) if f32 else xv
+    xv = torch.where(xv == 0, torch.zeros_like(xv), xv)
     dev = xv.device
-    lo_i = torch.as_tensor(np.clip(lo, 0, m - 1).astype(np.int64), device=dev)
-    hi_i = torch.as_tensor(np.clip(np.ceil(qi), 0, m - 1).astype(np.int64),
-                           device=dev)
-    xs = torch.sort(xv.to(torch.float32) if f32 else xv, dim=0).values
-    lv, hv = xs[lo_i], xs[hi_i]                       # (n_bins-1, n)
+    if mesh is None or mesh.rows == 1:
+        xs = torch.sort(xv, dim=0).values
+        lv = xs[torch.as_tensor(lo_i, device=dev)]        # (n_bins-1, n)
+        hv = xs[torch.as_tensor(hi_i, device=dev)]
+        nan = torch.isnan(xv).any(dim=0)
+    else:
+        vals = _order_stats(xv, np.concatenate([lo_i, hi_i]), mesh)
+        lv, hv = vals[:, : n_bins - 1].T, vals[:, n_bins - 1:].T
+        nan = _dist.psum(torch.isnan(xv).any(dim=0).to(torch.int32),
+                         _mesh.ROWS, mesh) > 0
     hw_t = torch.as_tensor(hw, device=dev)[:, None]
     lw_t = torch.as_tensor(lw, device=dev)[:, None]
     if f32:
@@ -110,9 +144,60 @@ def _quantile_bins(xp: torch.Tensor, shape, n_bins=N_BINS) -> torch.Tensor:
                  + (hv * hw_t).double()).to(torch.float32)
     else:
         edges = lv * lw_t + hv * hw_t
-    edges = torch.where(torch.isnan(xv).any(dim=0)[None, :],
-                        torch.full_like(edges, float("nan")), edges)
-    return edges.T.contiguous().to(xv.dtype)
+    edges = torch.where(nan[None, :], torch.full_like(edges, float("nan")),
+                        edges)
+    return edges.T.contiguous().to(xp.dtype)
+
+
+def _order_image(v: torch.Tensor) -> torch.Tensor:
+    """The order-preserving integer image (int64) of float32 or float64
+    values: the bits as a signed integer, the magnitude bits flipped for
+    negative values, so that a < b ⇔ image(a) < image(b).  Its own
+    inverse (:func:`_from_image`)."""
+    if v.dtype == torch.float64:
+        b = v.view(torch.int64)
+        return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
+    b = v.view(torch.int32).to(torch.int64)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _from_image(img: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype == torch.float64:
+        return (img ^ ((img >> 63) & 0x7FFFFFFFFFFFFFFF)).view(torch.float64)
+    b = img ^ ((img >> 31) & 0x7FFFFFFF)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def _order_stats(xv: torch.Tensor, ks, mesh) -> torch.Tensor:
+    """(n, len(ks)): the ks-th smallest (0-based) of each column over the
+    valid rows of every rank along 'rows', ``xv`` this rank's valid rows,
+    found exactly without gathering them.  Each rank sorts its columns'
+    order images (:func:`_order_image`) once; then every target bisects
+    the image range, one round a bit (32 for float32, 64 for float64):
+    the count of values at or below the midpoint is a ``searchsorted`` in
+    the local sorted columns, summed over the ranks by one ``psum`` of
+    the (n, len(ks)) int64 counts a round.  The bisection ends on the
+    smallest image whose count exceeds k: the k-th value itself."""
+    n = xv.shape[1]
+    dev = xv.device
+    srt = torch.sort(_order_image(xv), dim=0).values.T.contiguous()
+    k = torch.as_tensor(np.asarray(ks, np.int64), device=dev)[None, :] + 1
+    if xv.dtype == torch.float64:
+        bits, lo0, hi0 = 64, -(1 << 63), (1 << 63) - 1
+    else:
+        bits, lo0, hi0 = 32, -(1 << 31), (1 << 31) - 1
+    lo = torch.full((n, k.shape[1]), lo0, dtype=torch.int64, device=dev)
+    hi = torch.full_like(lo, hi0)
+    for _ in range(bits):
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)  # floor((lo+hi)/2)
+        if srt.shape[1]:
+            cnt = torch.searchsorted(srt, mid, right=True)
+        else:
+            cnt = torch.zeros_like(mid)
+        ge = _dist.psum(cnt, _mesh.ROWS, mesh) >= k
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid + 1)
+    return _from_image(lo, xv.dtype)
 
 
 def _bin_data(xp: torch.Tensor, shape, edges: torch.Tensor) -> torch.Tensor:
@@ -220,7 +305,7 @@ def _mask_features(gain: torch.Tensor, scores, try_features):
 
 
 def _forest_level(node, bx, w, stats, scores, n_nodes, try_features,
-                  min_gain, criterion, n_bins):
+                  min_gain, criterion, n_bins, mesh=None):
     """Grow one level of every tree.  ``node`` (T, m) int32, ``bx`` (m, n)
     int32 shared by the trees, ``w`` (T, m), ``stats`` (m, S), ``scores``
     (T, n_nodes, n) or None.  Returns ``(feat, tbin, is_split, node,
@@ -231,24 +316,21 @@ def _forest_level(node, bx, w, stats, scores, n_nodes, try_features,
     buffer, and nothing reads the old assignment afterwards.  The
     reference's per-level health vector is built by the caller, and only
     for a checkpointed growth, the loop's only reader of it; an unchecked
-    fit is judged at adoption, here too."""
-    T = node.shape[0]
+    fit is judged at adoption, here too.
+
+    The rows are this rank's on ``mesh`` (default: this process alone):
+    its histogram partial is reduce-scattered over 'rows' along the node
+    axis (:func:`_level_splits`), and the routing of the samples stays
+    local."""
     m, n = bx.shape
+    mesh = mesh if mesh is not None else _mesh.local_mesh(node.device)
     # gini's stats are one-hot classes and w Poisson counts: integers, and
-    # every sum below 2^24 at the sizes the forest takes
-    hist = _node_histogram(node, bx, w, stats, n_nodes, n_bins,
-                           integer=criterion == "gini")
-    gain, totals = _gain_and_split(hist, criterion)
-    del hist
-    gain = _mask_features(gain, scores, try_features)
-    flat = gain.reshape(T, n_nodes, -1)
-    best = torch.argmax(flat, dim=-1)                 # first of equal gains
-    best_gain = torch.take_along_dim(flat, best[..., None], dim=-1)[..., 0]
-    del gain, flat
-    is_split = best_gain > min_gain
-    # pass-through for non-splitting nodes: everything goes left
-    feat = torch.where(is_split, best // n_bins, 0).to(torch.int32)
-    tbin = torch.where(is_split, best % n_bins, n_bins - 1).to(torch.int32)
+    # every sum below 2^24 at the sizes the forest takes; the histogram is
+    # built inside _level_splits, which holds its only reference
+    feat, tbin, is_split, totals = _level_splits(
+        lambda: _node_histogram(node, bx, w, stats, n_nodes, n_bins,
+                                integer=criterion == "gini"),
+        scores, n_nodes, try_features, min_gain, criterion, n_bins, mesh)
     # route samples: right iff bin(x_f) > threshold bin
     nl = node.long()
     f_sel = torch.gather(feat, 1, nl)
@@ -260,7 +342,67 @@ def _forest_level(node, bx, w, stats, scores, n_nodes, try_features,
     return feat, tbin, is_split, node, totals
 
 
-def _leaf_stats(node, w, stats, n_leaves):
+def _splits(hist, scores, try_features, min_gain, criterion, n_bins):
+    """(feat, tbin, is_split, totals) of every node of a level histogram
+    (T, n_nodes, n, n_bins, S): the best (feature, bin) by gain, the first
+    of equal gains; a node that does not split passes everything left."""
+    T, nn = hist.shape[:2]
+    gain, totals = _gain_and_split(hist, criterion)
+    gain = _mask_features(gain, scores, try_features)
+    flat = gain.reshape(T, nn, -1)
+    best = torch.argmax(flat, dim=-1)                 # first of equal gains
+    best_gain = torch.take_along_dim(flat, best[..., None], dim=-1)[..., 0]
+    del gain, flat
+    is_split = best_gain > min_gain
+    # pass-through for non-splitting nodes: everything goes left
+    feat = torch.where(is_split, best // n_bins, 0).to(torch.int32)
+    tbin = torch.where(is_split, best % n_bins, n_bins - 1).to(torch.int32)
+    return feat, tbin, is_split, totals
+
+
+def _level_splits(make_hist, scores, n_nodes, try_features, min_gain,
+                  criterion, n_bins, mesh):
+    """:func:`_splits` across the ranks along 'rows'; ``make_hist()``
+    builds this rank's partial (T, n_nodes, n, n_bins, S), called here so
+    that the partial is freed once its exchange copy is made.  The node
+    axis is padded to a multiple of the R ranks and reduce-scattered over
+    'rows' (``distributed.reduce_scatter``: each rank adds the R partials
+    of its slice in rank order, so integer sums are exact and float sums
+    the same bits on every run); each rank searches its slice of nodes
+    (with its slice of the shared feature scores), and one ``all_gather``
+    over 'rows' gives every rank (feat, tbin, is_split, totals) for every
+    node — packed in float32, exact for the integer fields.  On one rank
+    each collective is the identity and the permute a view."""
+    hist = make_hist()
+    T = hist.shape[0]
+    R = mesh.rows
+    per = -(-n_nodes // R)
+    if per * R != n_nodes:
+        hist = torch.nn.functional.pad(
+            hist, (0, 0, 0, 0, 0, 0, 0, per * R - n_nodes))
+        if scores is not None:
+            scores = torch.nn.functional.pad(
+                scores, (0, 0, 0, per * R - n_nodes))
+    # node slice d of every tree, for the rank at index d
+    part = hist.reshape(T, R, per, *hist.shape[2:]).movedim(1, 0) \
+        .reshape(R * T, per, *hist.shape[2:])
+    del hist
+    mine = _dist.reduce_scatter(part, _mesh.ROWS, mesh)
+    del part
+    r = mesh.coord[0]
+    sc = None if scores is None else scores[:, r * per:(r + 1) * per]
+    feat, tbin, is_split, totals = _splits(mine, sc, try_features,
+                                           min_gain, criterion, n_bins)
+    del mine
+    packed = torch.cat([torch.stack([feat, tbin, is_split.to(torch.int32)],
+                                    dim=-1).to(torch.float32),
+                        totals.to(torch.float32)], dim=-1)
+    packed = _dist.all_gather(packed, _mesh.ROWS, 1, mesh)[:, :n_nodes]
+    return (packed[..., 0].to(torch.int32), packed[..., 1].to(torch.int32),
+            packed[..., 2] > 0, packed[..., 3:].to(totals.dtype))
+
+
+def _leaf_stats(node, w, stats, n_leaves, mesh=None):
     """Final-level per-leaf stat sums (T, n_leaves, S) f32, and the health
     vector over them.  The sums run in a fixed order on every device: the
     rows are sorted stably by (tree, leaf) and each stat's column is
@@ -268,7 +410,10 @@ def _leaf_stats(node, w, stats, n_leaves):
     CUDA one thread block per leaf, in a fixed order; on the CPU from zero
     in row order, the reference scatter's), so a regressor's non-integer
     sums give the same bits on every run (an ``index_add_`` adds with
-    atomics on CUDA)."""
+    atomics on CUDA).  The rows are this rank's on ``mesh`` (default:
+    this process alone), and the sums are added over 'rows' in rank order
+    (``distributed.psum_ordered``): deterministic, but across ranks a
+    regressor's are not bit-equal to one rank's."""
     T, S = node.shape[0], stats.shape[1]
     dev = node.device
     n_seg = T * n_leaves
@@ -282,6 +427,8 @@ def _leaf_stats(node, w, stats, n_leaves):
     leaves = torch.stack([torch.segment_reduce(c, "sum", lengths=lengths,
                                                unsafe=True) for c in cols],
                          dim=1).reshape(T, n_leaves, S)
+    mesh = mesh if mesh is not None else _mesh.local_mesh(dev)
+    leaves = _dist.psum_ordered(leaves, _mesh.ROWS, mesh)
     return leaves, _health.health_vec(carries=(leaves,))
 
 
@@ -363,8 +510,18 @@ class _BaseTreeEnsemble(BaseEstimator):
         depth = self._effective_depth(m)
         n_bins = self._n_bins()
         try_features = self._try_features_count(n)
-        xd = x._data
+        mesh = x._mesh
+        if checkpoint is not None and mesh.world > 1:
+            raise NotImplementedError(
+                f"{type(self).__name__}(checkpoint=...) on a ds-array "
+                "sharded over several ranks: snapshots of a multi-rank fit "
+                "are ROADMAP.md A.11")
+        # this rank's rows with every feature (the whole backing on one
+        # rank); the first is global row row0
+        xd = x._row_block()
+        row0 = x._at[0]
         dev, mp = xd.device, xd.shape[0]
+        n_valid = max(0, min(mp, m - row0))
         fp = digest = None
         if checkpoint is not None:
             tf, rs = try_features, self.random_state
@@ -377,12 +534,13 @@ class _BaseTreeEnsemble(BaseEstimator):
                              float(n_bins), float(dev.type == "cuda")],
                             np.float64)
             digest = data_digest(xd, stats=stats_host)
-        edges = _quantile_bins(xd, (m, n), n_bins)
+        edges = _quantile_bins(xd, (m, n), n_bins, row0, mesh)
         bx = _bin_data(xd, (m, n), edges)
-        stats = torch.as_tensor(np.asarray(stats_host, np.float32),
-                                device=dev)
+        # the stats of this rank's rows (zero past the logical rows)
+        sh = np.zeros((mp, np.shape(stats_host)[1]), np.float32)
+        sh[:n_valid] = np.asarray(stats_host, np.float32)[row0:row0 + n_valid]
+        stats = torch.as_tensor(sh, device=dev)
         gen = torch.Generator(device=dev)
-        valid = (torch.arange(mp, device=dev) < m).to(torch.float32)
         box = {"x": x, "feats": [], "tbins": []}
         loop = _fitloop.ChunkedFitLoop(
             "forest", checkpoint=checkpoint, health=health,
@@ -398,15 +556,19 @@ class _BaseTreeEnsemble(BaseEstimator):
 
         def init(rem):
             if "seed" not in box:       # chosen once; rollbacks replay it
-                box["seed"] = self.random_state \
-                    if self.random_state is not None \
+                seed = _dist.agreed_seed(self.random_state, mesh)
+                box["seed"] = seed if seed is not None \
                     else np.random.randint(0, 2**31 - 1)
             gen.manual_seed(int(box["seed"]))
             box["feats"], box["tbins"] = [], []
-            w = torch.ones((n_trees, mp), dtype=torch.float32, device=dev)
+            # drawn at the logical (trees, rows) on every rank, each rank
+            # keeping its rows' columns: a row's weight is the same on any
+            # mesh
+            w = torch.ones((n_trees, m), dtype=torch.float32, device=dev)
             if bootstrap:
                 w = torch.poisson(w, generator=gen)
-            w = w * valid[None, :]
+            w = torch.nn.functional.pad(w[:, row0:row0 + n_valid],
+                                        (0, mp - n_valid))
             if rem.attempt:             # from-scratch rollback perturbs w
                 w = rem.perturb(w)
             return _fitloop.LoopState(
@@ -438,7 +600,7 @@ class _BaseTreeEnsemble(BaseEstimator):
                                     device=dev)
             feat, tbin, _, node, totals = _forest_level(
                 st.extra, bx, w, stats, scores, 2 ** lvl, try_features, 0.0,
-                self._criterion, n_bins)
+                self._criterion, n_bins, mesh)
             box["feats"].append(feat)
             box["tbins"].append(tbin)
             hvec = None if checkpoint is None else \
@@ -475,7 +637,8 @@ class _BaseTreeEnsemble(BaseEstimator):
         st = loop.run(init=init, step=step, restore=restore,
                       snapshot=snapshot)
         self.fit_info_ = loop.info
-        leaves, hvec = _leaf_stats(st.extra, st.carries[0], stats, 2 ** depth)
+        leaves, hvec = _leaf_stats(st.extra, st.carries[0], stats, 2 ** depth,
+                                   mesh)
         return {"edges": edges, "feats": box["feats"],
                 "tbins": box["tbins"], "depth": depth, "leaves": leaves,
                 "n_features": n, "hvec": hvec}
@@ -535,18 +698,19 @@ class _BaseTreeEnsemble(BaseEstimator):
             self._adopt_forest(state)
 
     def _apply(self, x: Array):
-        """Leaf index of every row of x in every tree: (T, m_pad)."""
+        """Leaf index of every row of this rank's rows of x in every tree:
+        (T, rows) (every padded row on one rank)."""
         edges, feats, tbins = self._predict_leaves(
             x.device, self._edges, self._feats, self._tbins)
-        return _forest_apply_core(x._data, x.shape, edges, feats.long(),
-                                  tbins, self._depth)
+        return _forest_apply_core(x._row_block(), x.shape, edges,
+                                  feats.long(), tbins, self._depth)
 
     def _leaf_values(self, grown, x: Array) -> torch.Tensor:
-        """Per-tree leaf stats of every row of x under a grown (not yet
-        adopted) forest, (T, m_pad, S), on the device."""
+        """Per-tree leaf stats of this rank's rows of x under a grown (not
+        yet adopted) forest, (T, rows, S), on the device."""
         depth = grown["depth"]
         leaf = _forest_apply_core(
-            x._data, x.shape, grown["edges"],
+            x._row_block(), x.shape, grown["edges"],
             _pack_levels(grown["feats"], depth).long(),
             _pack_levels(grown["tbins"], depth), depth)
         return torch.take_along_dim(grown["leaves"], leaf[:, :, None], dim=1)

@@ -4,7 +4,10 @@ handling and voting.
 Counterpart of ``dislib_tpu/trees/forest.py``; the growth machinery is in
 ``decision_tree.py``.  The reference builds its predictions as lazy fused
 nodes of its array graph; here they run eagerly on the query's device and
-the result is wrapped with ``Array._from_padded``.
+the result is wrapped with ``Array._from_rows``.  Across ranks each rank
+predicts its own rows (a row-sharded result); ``score`` and
+``_score_async`` sum their hits (or the R² sums) over 'rows' and read
+once a score.
 
 :func:`~dislib_tpu_torch.base.from_fitted_arrays` (exported here too)
 builds a fitted port estimator from a fitted reference forest's arrays
@@ -19,10 +22,12 @@ import numpy as np
 import torch
 
 from dislib_tpu_torch.base import from_fitted_arrays
-from dislib_tpu_torch.classification.knn import _score_codes
-from dislib_tpu_torch.data.array import Array, _padded_dim, _place_region
+from dislib_tpu_torch.classification.knn import _hit_count
+from dislib_tpu_torch.data.array import Array
 from dislib_tpu_torch.data.sparse import dense_input
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
+from dislib_tpu_torch.utils.profiling import host_read
 from dislib_tpu_torch.trees.decision_tree import _BaseTreeEnsemble
 
 
@@ -43,12 +48,13 @@ def _reg_mean(stats: torch.Tensor) -> torch.Tensor:
         dim=0)
 
 
-def _mask_rows(vals: torch.Tensor, m: int) -> torch.Tensor:
-    """Zero rows at or past the logical row count: padded rows walk the
-    trees too and land in some leaf."""
-    if vals.shape[0] > m:
+def _mask_rows(vals: torch.Tensor, m: int, row0: int = 0) -> torch.Tensor:
+    """Zero rows at or past the logical row count (``vals`` rows start
+    at global row ``row0``): padded rows walk the trees too and land in
+    some leaf."""
+    if vals.shape[0] > m - row0:
         vals = vals.clone()
-        vals[m:] = 0
+        vals[max(0, m - row0):] = 0
     return vals
 
 
@@ -57,18 +63,19 @@ class _ClassifierMixin:
     _capturable = frozenset({"predict", "predict_proba"})
 
     def _encode_labels(self, x: Array, y: Array):
-        mp = x._data.shape[0]
+        """The one-hot class stats of the logical rows, (m, K); the growth
+        keeps its rank's rows."""
         y_host = np.asarray(y.collect()).ravel()
         self.classes_ = np.unique(y_host)
         enc = np.searchsorted(self.classes_, y_host)
-        onehot = np.zeros((mp, len(self.classes_)), np.float32)
+        onehot = np.zeros((len(enc), len(self.classes_)), np.float32)
         onehot[np.arange(len(enc)), enc] = 1.0
         return onehot
 
     _encode_stats = _encode_labels
 
     def _votes(self, x: Array) -> torch.Tensor:
-        """Per-tree leaf counts of every query row: (T, mq_pad, K)."""
+        """Per-tree leaf counts of this rank's query rows: (T, rows, K)."""
         (leaves,) = self._predict_leaves(x.device, self._leaves)
         leaf = self._apply(x)
         return torch.take_along_dim(leaves, leaf[:, :, None], dim=1)
@@ -80,40 +87,47 @@ class _ClassifierMixin:
         counts = self._votes(x)
         probs = counts / torch.clamp_min(counts.sum(dim=2, keepdim=True),
                                          1e-12)
-        mean = _mask_rows(probs.mean(dim=0), x.shape[0])     # (mq_pad, K)
-        out_pshape = (x._pshape[0], _padded_dim(k, _mesh.pad_quantum(
-            x._mesh)))
-        return Array._from_padded(_place_region(mean, out_pshape),
-                                  (x.shape[0], k), x._mesh)
+        mean = _mask_rows(probs.mean(dim=0), x.shape[0], x._at[0])
+        return Array._from_rows(mean, (x.shape[0], k), x._mesh)
+
+    def _codes(self, x: Array) -> torch.Tensor:
+        """Winning class code of each of this rank's query rows."""
+        return _cls_enc(self._votes(x), bool(getattr(self, "hard_vote",
+                                                     False)))
 
     def predict(self, x: Array) -> Array:
         """Class label per row, (m, 1): int32 for integer classes, else
         float32."""
         self._check_fitted()
         (classes,) = self._predict_leaves(x.device, self._classes_leaf())
-        enc = _cls_enc(self._votes(x), bool(getattr(self, "hard_vote",
-                                                    False)))
-        pred = _mask_rows(classes[enc][:, None], x.shape[0])
-        return Array._from_padded(pred.contiguous(), (x.shape[0], 1),
-                                  x._mesh)
+        pred = _mask_rows(classes[self._codes(x)][:, None], x.shape[0],
+                          x._at[0])
+        return Array._from_rows(pred.contiguous(), (x.shape[0], 1), x._mesh)
 
     def score(self, x: Array, y: Array) -> float:
-        """Accuracy."""
-        pred = self.predict(x).collect().ravel()
-        truth = np.asarray(y.collect()).ravel()
-        return float(np.mean(pred == truth))
+        """Accuracy: the hits summed over 'rows', one read."""
+        self._check_fitted()
+        x = dense_input(x, type(self).__name__)
+        hits = host_read(self._hits(self._codes(x), x, y), "results")
+        return float(hits) / x.shape[0]
+
+    def _hits(self, enc, x, y):
+        """The hits of the class codes ``enc`` of this rank's rows against
+        ``y``, a device int64 scalar summed over 'rows'."""
+        classes_dev = torch.as_tensor(np.asarray(self.classes_),
+                                      dtype=y.dtype, device=y.device)
+        codes = torch.arange(len(self.classes_), dtype=torch.int32,
+                             device=y.device)
+        return _hit_count(enc.to(torch.int32), y._row_block(), classes_dev,
+                          codes, x.shape[0], x._at[0], x._mesh)
 
     def _score_async(self, state, x, y=None):
         if state is None or y is None:
             return super()._score_async(state, x, y)
-        enc = _cls_enc(self._leaf_values(state, x),
-                       bool(getattr(self, "hard_vote", False)))
-        classes_dev = torch.as_tensor(np.asarray(self.classes_),
-                                      dtype=y._data.dtype, device=y.device)
-        codes = torch.arange(len(self.classes_), dtype=torch.int32,
-                             device=y.device)
-        return _score_codes(enc.to(torch.int32), y._data, classes_dev, codes,
-                            x.shape[0])
+        hits = self._hits(_cls_enc(self._leaf_values(state, x),
+                                   bool(getattr(self, "hard_vote", False))),
+                          x, y)
+        return hits.to(torch.float32) / x.shape[0]
 
 
 class _RegressorMixin:
@@ -121,12 +135,12 @@ class _RegressorMixin:
     _capturable = frozenset({"predict"})
 
     def _encode_targets(self, x: Array, y: Array):
-        mp = x._data.shape[0]
+        """The [w, wy, wy²] stats of the logical rows, (m, 3)."""
         y_host = np.asarray(y.collect()).ravel().astype(np.float32)
-        stats = np.zeros((mp, 3), np.float32)               # [w, wy, wy²]
-        stats[: len(y_host), 0] = 1.0
-        stats[: len(y_host), 1] = y_host
-        stats[: len(y_host), 2] = y_host * y_host
+        stats = np.zeros((len(y_host), 3), np.float32)
+        stats[:, 0] = 1.0
+        stats[:, 1] = y_host
+        stats[:, 2] = y_host * y_host
         return stats
 
     _encode_stats = _encode_targets
@@ -136,30 +150,42 @@ class _RegressorMixin:
         (leaves,) = self._predict_leaves(x.device, self._leaves)
         stats = torch.take_along_dim(leaves, self._apply(x)[:, :, None],
                                      dim=1)
-        pred = _mask_rows(_reg_mean(stats)[:, None], x.shape[0])
-        return Array._from_padded(pred.contiguous(), (x.shape[0], 1),
-                                  x._mesh)
+        pred = _mask_rows(_reg_mean(stats)[:, None], x.shape[0], x._at[0])
+        return Array._from_rows(pred.contiguous(), (x.shape[0], 1), x._mesh)
 
     def score(self, x: Array, y: Array) -> float:
-        """R² (sklearn convention)."""
-        pred = self.predict(x).collect().ravel()
-        truth = np.asarray(y.collect()).ravel()
-        ss_res = float(np.sum((truth - pred) ** 2))
-        ss_tot = float(np.sum((truth - truth.mean()) ** 2))
-        return 1.0 - ss_res / max(ss_tot, 1e-12)
+        """R² (sklearn convention), one read."""
+        self._check_fitted()
+        x = dense_input(x, type(self).__name__)
+        (leaves,) = self._predict_leaves(x.device, self._leaves)
+        pred = _reg_mean(torch.take_along_dim(
+            leaves, self._apply(x)[:, :, None], dim=1))
+        return float(host_read(self._r2(pred, x, y), "results"))
+
+    @staticmethod
+    def _r2(pred, x, y):
+        """R² of the predictions ``pred`` of this rank's rows against
+        ``y``, a device scalar; the mean and the two sums of squares are
+        summed over 'rows' in rank order."""
+        mesh = x._mesh
+        row0 = x._at[0]
+        yv = y._row_block()[: pred.shape[0], 0]
+        w = (torch.arange(pred.shape[0], device=pred.device)
+             < x.shape[0] - row0).to(yv.dtype)
+
+        def total(t):
+            return _dist.psum_ordered(t.reshape(1), _mesh.ROWS, mesh)[0]
+
+        resid = total(torch.sum(((yv - pred) * w) ** 2))
+        ymean = total(torch.sum(yv * w)) / x.shape[0]
+        tot = total(torch.sum(((yv - ymean) * w) ** 2))
+        return 1.0 - resid / torch.clamp_min(tot, 1e-12)
 
     def _score_async(self, state, x, y=None):
         """R² of a grown forest, a device scalar."""
         if state is None or y is None:
             return super()._score_async(state, x, y)
-        pred = _reg_mean(self._leaf_values(state, x))          # (mq_pad,)
-        yv = y._data[: pred.shape[0], 0]
-        w = (torch.arange(pred.shape[0], device=pred.device)
-             < x.shape[0]).to(yv.dtype)
-        resid = torch.sum(((yv - pred) * w) ** 2)
-        ymean = torch.sum(yv * w) / x.shape[0]
-        total = torch.sum(((yv - ymean) * w) ** 2)
-        return 1.0 - resid / torch.clamp_min(total, 1e-12)
+        return self._r2(_reg_mean(self._leaf_values(state, x)), x, y)
 
 
 class RandomForestClassifier(_ClassifierMixin, _BaseTreeEnsemble):

@@ -60,12 +60,34 @@ CPU devices, restored afterwards) and holds the ranks to it:
   rank's (relative), the same ``best_params_`` and host reads;
   GaussianMixture's async-trial hooks: the score the sharded fit's, the
   model the reference's diagonal fit (rtol/atol 1e-4, ``n_iter_`` equal);
-- every estimator not yet ported to the mesh raises NotImplementedError.
+- the quantile edges (a tie column, zeros of both signs, a NaN column)
+  bit-equal to one rank's ``_quantile_bins``, NaN edges for the NaN
+  column and every zero edge a +0.0;
+- ``DecisionTreeClassifier``: edges, splits, leaves and predictions
+  bit-equal to the reference's; ``DecisionTreeRegressor``: the splits
+  equal, leaves within 1e-5 of the largest and predictions within 1e-5;
+- a bootstrap ``RandomForestClassifier`` (``try_features="sqrt"``)
+  bit-equal to the port's one-rank forest of the same ``random_state``,
+  its ``predict_proba``, score, search hooks and a ``GridSearchCV`` over
+  it equal to one rank's;
+- a reference forest and CascadeSVM carried in (written by this test to
+  ``carry.npz`` while the ranks run) predicting the reference's
+  predictions on the sharded queries;
+- DBSCAN and Daura equal to the reference's ring tier (``_RING = True``)
+  and to the port's one-rank fit, on data with no pair within 1e-3
+  (d²) of the threshold; the non-ring tiers raise across ranks; a NaN in
+  one mesh row's data raises on every rank;
+- dense ``CascadeSVM`` (rbf and linear, block rows 64): SV indices and
+  ``n_iter_`` equal to one rank's, α within ``ALPHA_TOL`` and the
+  decision values within ``DEC_TOL`` (``tests/test_torch_csvm.py``'s);
+- every estimator not yet ported to the mesh raises NotImplementedError,
+  and the checkpointed fits of the ones ported here name A.11.
 
 A rank that hangs fails the test in seconds: the job's collectives time
 out after 60 s at most and the test kills its ranks at :data:`WAIT_S`.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -83,6 +105,12 @@ from dislib_tpu.neighbors import NearestNeighbors as RefNN
 from dislib_tpu.preprocessing import MinMaxScaler, StandardScaler
 from dislib_tpu.regression import Lasso as RefLasso
 from dislib_tpu.regression import LinearRegression as RefLR
+from dislib_tpu.classification import CascadeSVM as RefCSVM
+from dislib_tpu.cluster import DBSCAN as RefDBSCAN
+from dislib_tpu.cluster import Daura as RefDaura
+from dislib_tpu.trees import DecisionTreeClassifier as RefDTC
+from dislib_tpu.trees import DecisionTreeRegressor as RefDTR
+from dislib_tpu.trees import RandomForestClassifier as RefRFC
 
 from dislib_tpu_torch.ops.precision import ERROR_BOUNDS
 
@@ -90,24 +118,33 @@ import torch_mesh_worker as W
 
 WAIT_S = 90
 WORLD = 4
+# the reference forest the ranks carry in
+CARRY_RF = dict(n_estimators=3, max_depth=3, random_state=0,
+                n_bins=W.TREE_BINS)
+ALPHA_TOL, DEC_TOL = 1e-4, 1e-4       # tests/test_torch_csvm.py's
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run_ranks(tmp, rows, cols):
-    """Run the 4 ranks to their end; returns each rank's npz as a dict.
-    random_svd's test matrix is the reference's draw (JAX's stream is not
-    reproducible in torch), handed to the ranks in ``omega.npz``."""
+def _start_ranks(tmp, rows, cols):
+    """Start the 4 ranks; returns their processes.  random_svd's test
+    matrix is the reference's draw (JAX's stream is not reproducible in
+    torch), handed to the ranks in ``omega.npz``."""
     np.savez(os.path.join(tmp, "omega.npz"), **{
         f"{W.SV_SEED}_{W.SV_SHAPE[1]}_{W.SV_SKETCH}": np.array(
             jax.random.normal(jax.random.PRNGKey(W.SV_SEED),
                               (W.SV_SHAPE[1], W.SV_SKETCH), np.float32))})
     store = os.path.join(tmp, "store")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, os.path.join(REPO, "tests", "torch_mesh_worker.py"),
          str(r), str(WORLD), store, tmp, str(rows), str(cols)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)]
+
+
+def _wait_ranks(tmp, procs):
+    """Wait for the ranks to their end (killed at :data:`WAIT_S`); returns
+    each rank's npz as a dict."""
     logs = []
     try:
         for p in procs:
@@ -123,11 +160,13 @@ def _run_ranks(tmp, rows, cols):
             for r in range(WORLD)]
 
 
-def _reference(rows, cols, inp):
-    """The reference's results on a (rows, cols) mesh of 4 CPU devices."""
+def _reference(rows, cols, inp, tmp):
+    """The reference's results on a (rows, cols) mesh of 4 CPU devices;
+    first the models the ranks carry in (``tmp/carry.npz``)."""
     ref = {}
     ds.init((rows, cols), devices=jax.devices()[:WORLD])
     try:
+        _reference_carry(ref, inp, tmp)
         x = ds.array(inp["x"])
         ref["x_padded"] = np.asarray(x._data)
         for kind in ("sum", "mean", "min", "max", "norm"):
@@ -149,6 +188,7 @@ def _reference(rows, cols, inp):
         ref["knn_idx"], ref["knn_dist"] = i.collect(), d.collect()
         _reference_a2b(ref, inp)
         _reference_a2b2(ref, inp)
+        _reference_a2b3(ref, inp)
     finally:
         ds.init()
     return ref
@@ -198,18 +238,71 @@ def _reference_a2b2(ref, inp):
     ref["knn_pred"] = np.asarray(knn.predict(ds.array(inp["q"])).collect())
 
 
+def _reference_carry(ref, inp, tmp):
+    """A reference forest and CascadeSVM fitted on the current mesh, their
+    arrays written to ``tmp/carry.npz`` (in one rename: the ranks wait
+    for it), and their predictions on the queries."""
+    x = ds.array(inp["tree_x"])
+    rf = RefRFC(**CARRY_RF).fit(x, ds.array(inp["tree_yc"]))
+    sv = RefCSVM().fit(ds.array(inp["csvm_x"], block_size=(
+        W.CSVM_BLOCK, W.CSVM_SHAPE[1])), ds.array(inp["csvm_y"]))
+    arrays = {f"rf_{k}": np.asarray(getattr(rf, k)) for k in (
+        "_edges", "_feats", "_tbins", "_depth", "_leaves", "n_features_",
+        "classes_")}
+    arrays.update({f"sv_{k}": np.asarray(getattr(sv, k)) for k in (
+        "_sv_x", "_sv_y", "_sv_alpha", "_sv_idx", "_gamma_fit",
+        "classes_")})
+    part = os.path.join(tmp, "carry_part.npz")
+    np.savez(part, **arrays)
+    os.replace(part, os.path.join(tmp, "carry.npz"))
+    ref["carried_rf_pred"] = np.asarray(rf.predict(x).collect())
+    ref["carried_rf_proba"] = np.asarray(rf.predict_proba(x).collect())
+    q = ds.array(inp["csvm_q"])
+    ref["carried_sv_dec"] = np.asarray(sv.decision_function(q).collect())
+    ref["carried_sv_pred"] = np.asarray(sv.predict(q).collect())
+
+
+def _reference_a2b3(ref, inp):
+    """The reference's trees, and its DBSCAN and Daura ring tier, on the
+    current mesh."""
+    x = ds.array(inp["tree_x"])
+    for name, cls, ykey, kw in (("dtc", RefDTC, "tree_yc", W.DTC_KW),
+                                ("dtr", RefDTR, "tree_yr", W.DTR_KW)):
+        est = cls(n_bins=W.TREE_BINS, **kw).fit(x, ds.array(inp[ykey]))
+        for attr in ("_edges", "_feats", "_tbins", "_leaves"):
+            ref[f"{name}{attr}"] = np.asarray(getattr(est, attr))
+        ref[f"{name}_pred"] = np.asarray(est.predict(x).collect())
+    dbscan = importlib.import_module("dislib_tpu.cluster.dbscan")
+    daura = importlib.import_module("dislib_tpu.cluster.daura")
+    saved = dbscan._RING, daura._RING
+    dbscan._RING = daura._RING = True
+    try:
+        est = RefDBSCAN(eps=W.DB_EPS, min_samples=W.DB_MIN).fit(
+            ds.array(inp["db"]))
+        ref["db_labels"] = est.labels_
+        ref["db_core"] = est.core_sample_indices_
+        est = RefDaura(cutoff=W.DA_CUT).fit(ds.array(inp["da"]))
+        ref["da_labels"] = est.labels_
+        ref["da_clusters"] = np.concatenate([np.r_[len(c), c]
+                                             for c in est.clusters_])
+    finally:
+        dbscan._RING, daura._RING = saved
+
+
 @pytest.fixture(scope="module", params=[(2, 2), (4, 1)],
                 ids=["mesh2x2", "mesh4x1"])
 def job(request, tmp_path_factory):
     rows, cols = request.param
     inp = W.inputs()
-    ranks = _run_ranks(str(tmp_path_factory.mktemp(f"ranks{rows}x{cols}")),
-                       rows, cols)
+    tmp = str(tmp_path_factory.mktemp(f"ranks{rows}x{cols}"))
+    procs = _start_ranks(tmp, rows, cols)
+    # the reference runs while the ranks do
     os.environ["DSLIB_OVERLAP"] = "db"
     try:
-        ref = _reference(rows, cols, inp)
+        ref = _reference(rows, cols, inp, tmp)
     finally:
         del os.environ["DSLIB_OVERLAP"]
+        ranks = _wait_ranks(tmp, procs)
     metas = [json.loads(r["meta"].tobytes()) for r in ranks]
     return {"rows": rows, "cols": cols, "inp": inp, "ranks": ranks,
             "ref": ref, "metas": metas}
@@ -755,3 +848,137 @@ def test_gm_search_hooks_are_the_sharded_fit(job):
             ref[f"gm_diag_{attr}"], rtol=1e-4, atol=1e-4, err_msg=attr)
     np.testing.assert_allclose(float(_same_on_every_rank(
         job, "gm_hook_lb")), ref["gm_diag_lb"], rtol=1e-4, atol=1e-4)
+
+
+# -- A.2b's part (ii) -------------------------------------------------------------
+
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+def test_quantile_edges_are_the_one_rank_edges_bit_for_bit(job):
+    got = _same_on_every_rank(job, "edges_ranks")
+    one = _same_on_every_rank(job, "edges_one")
+    assert got.shape == (W.TREE_SHAPE[1] + 1, W.TREE_BINS - 1)
+    np.testing.assert_array_equal(_bits(got), _bits(one))
+    # the column holding a NaN has NaN edges, the others none
+    assert np.isnan(got[-1]).all() and not np.isnan(got[:-1]).any()
+    # a zero enters as +0.0: the column of both zeros has a zero edge,
+    # and no edge is a -0.0
+    assert (got[3] == 0).any()
+    assert not np.signbit(got[got == 0]).any()
+
+
+@pytest.mark.parametrize("name", ["dtc", "dtr"])
+def test_decision_trees_match_the_reference(job, name):
+    ref = job["ref"]
+    for attr in ("_edges", "_feats", "_tbins"):
+        np.testing.assert_array_equal(
+            _same_on_every_rank(job, f"{name}_ranks{attr}"),
+            ref[f"{name}{attr}"], err_msg=attr)
+    leaves = _same_on_every_rank(job, f"{name}_ranks_leaves")
+    pred = _same_on_every_rank(job, f"{name}_ranks_pred")
+    if name == "dtc":
+        # integer histograms: the reference's tree, bit for bit
+        np.testing.assert_array_equal(leaves, ref["dtc_leaves"])
+        np.testing.assert_array_equal(pred, ref["dtc_pred"])
+    else:
+        # the ranks' float sums are added in rank order
+        assert _rel_to_largest(leaves, ref["dtr_leaves"]) <= 1e-5
+        np.testing.assert_allclose(pred, ref["dtr_pred"], rtol=1e-5,
+                                   atol=1e-5)
+    # one rank's tree too, and its score
+    for attr in ("_edges", "_feats", "_tbins"):
+        np.testing.assert_array_equal(
+            _same_on_every_rank(job, f"{name}_ranks{attr}"),
+            _same_on_every_rank(job, f"{name}_one{attr}"))
+    assert abs(float(_same_on_every_rank(job, f"{name}_ranks_score"))
+               - float(_same_on_every_rank(job, f"{name}_one_score"))) <= 1e-6
+    _blocks_hold_a_zero_pad(job, f"{name}_pred_block", pred.shape)
+
+
+def test_bootstrap_forest_is_the_one_rank_forest(job):
+    for attr in ("_edges", "_feats", "_tbins", "_leaves"):
+        np.testing.assert_array_equal(
+            _bits(_same_on_every_rank(job, f"rf_ranks{attr}")),
+            _bits(_same_on_every_rank(job, f"rf_one{attr}")), err_msg=attr)
+    proba = _same_on_every_rank(job, "rf_ranks_proba")
+    np.testing.assert_array_equal(proba, _same_on_every_rank(
+        job, "rf_one_proba"))
+    _blocks_hold_a_zero_pad(job, "rf_proba_block", proba.shape)
+    score = float(_same_on_every_rank(job, "rf_ranks_score"))
+    assert abs(score - float(_same_on_every_rank(job, "rf_one_score"))) \
+        <= 1e-6
+    # the search hooks: the same score (the hook's is float32, as the
+    # reference's), and a search over the forest scores every fold as one
+    # rank does
+    assert float(_same_on_every_rank(job, "rf_ranks_score_async")) == \
+        float(np.float32(score))
+    np.testing.assert_array_equal(_same_on_every_rank(job, "rf_ranks_gs"),
+                                  _same_on_every_rank(job, "rf_one_gs"))
+
+
+def test_carried_reference_models_predict_the_reference(job):
+    ref = job["ref"]
+    np.testing.assert_array_equal(
+        _same_on_every_rank(job, "carried_rf_pred"), ref["carried_rf_pred"])
+    np.testing.assert_allclose(_same_on_every_rank(job, "carried_rf_proba"),
+                               ref["carried_rf_proba"], rtol=0, atol=1e-6)
+    dec = _same_on_every_rank(job, "carried_sv_dec")
+    np.testing.assert_allclose(dec, ref["carried_sv_dec"], rtol=0,
+                               atol=DEC_TOL)
+    clear = np.abs(ref["carried_sv_dec"].ravel()) > 1e-3
+    np.testing.assert_array_equal(
+        _same_on_every_rank(job, "carried_sv_pred").ravel()[clear],
+        ref["carried_sv_pred"].ravel()[clear])
+
+
+def test_dbscan_and_daura_match_the_reference_ring(job):
+    ref = job["ref"]
+    for key in ("db_labels", "db_core", "da_labels", "da_clusters"):
+        got = _same_on_every_rank(job, key.replace("_", "_ranks_", 1))
+        np.testing.assert_array_equal(got, ref[key], err_msg=key)
+        np.testing.assert_array_equal(
+            got, _same_on_every_rank(job, key.replace("_", "_one_", 1)),
+            err_msg=key)
+    assert int(_same_on_every_rank(job, "db_ranks_n")) == \
+        len(np.unique(ref["db_labels"][ref["db_labels"] >= 0]))
+    lab = _same_on_every_rank(job, "db_fit_predict")
+    np.testing.assert_array_equal(lab.ravel(), ref["db_labels"])
+    _blocks_hold_a_zero_pad(job, "db_fit_predict_block", lab.shape)
+    # the dense and tiled tiers need every row on one rank: forced, they
+    # raise across ranks
+    for got in job["ranks"]:
+        assert got["db_no_ring"].tobytes() == b"raised"
+
+
+def test_a_density_trip_on_one_mesh_row_raises_on_every_rank(job):
+    # a NaN in a row of mesh row 1: its ranks trip on their input, the
+    # others as peers
+    guards = [got["db_trip_guard"].tobytes().decode()
+              for got in job["ranks"]]
+    want = ["input-nonfinite" if r // job["cols"] == 1 else "peer"
+            for r in range(WORLD)]
+    assert guards == want
+
+
+@pytest.mark.parametrize("kernel", ["rbf", "linear"])
+def test_cascade_svm_is_the_one_rank_cascade(job, kernel):
+    a, b = f"sv_{kernel}_ranks", f"sv_{kernel}_one"
+    np.testing.assert_array_equal(_same_on_every_rank(job, f"{a}_idx"),
+                                  _same_on_every_rank(job, f"{b}_idx"))
+    assert int(_same_on_every_rank(job, f"{a}_n_iter")) == \
+        int(_same_on_every_rank(job, f"{b}_n_iter"))
+    np.testing.assert_allclose(_same_on_every_rank(job, f"{a}_alpha"),
+                               _same_on_every_rank(job, f"{b}_alpha"),
+                               rtol=0, atol=ALPHA_TOL)
+    dec = _same_on_every_rank(job, f"{a}_dec")
+    one = _same_on_every_rank(job, f"{b}_dec")
+    np.testing.assert_allclose(dec, one, rtol=0, atol=DEC_TOL)
+    clear = np.abs(one.ravel()) > 1e-3
+    np.testing.assert_array_equal(
+        _same_on_every_rank(job, f"{a}_pred").ravel()[clear],
+        _same_on_every_rank(job, f"{b}_pred").ravel()[clear])
+    assert abs(float(_same_on_every_rank(job, f"{a}_score"))
+               - float(_same_on_every_rank(job, f"{b}_score"))) <= 1e-6
+    _blocks_hold_a_zero_pad(job, f"sv_{kernel}_dec_block", dec.shape)

@@ -7,7 +7,9 @@
 - ``initialize``: no job without a launch variable, the backend rule,
   the one-rank-per-card check of NCCL, and ``init()``'s default mesh;
 - a gloo job of ONE rank (a FileStore under ``tmp_path``): SUMMA, KMeans,
-  the ring, tsqr, GaussianMixture, random_svd, PCA and a scaler run their
+  the ring, tsqr, GaussianMixture, random_svd, PCA, a scaler, the linear
+  models, MiniBatchKMeans, qr, svd, polar, lanczos_svd, a forest, a
+  regression tree, DBSCAN and Daura on the ring and CascadeSVM run their
   collectives over groups of one, and must be bit-equal to the same calls
   with no process group;
 - the ``random_array`` draw: the same logical values at the pad quanta
@@ -34,6 +36,8 @@ from dislib_tpu_torch.parallel import mesh as port_mesh
 # the module (``dislib_tpu_torch.data.array`` is also the function's name)
 port_array = importlib.import_module("dislib_tpu_torch.data.array")
 port_qr = importlib.import_module("dislib_tpu_torch.math.qr")
+port_dbscan = importlib.import_module("dislib_tpu_torch.cluster.dbscan")
+port_daura = importlib.import_module("dislib_tpu_torch.cluster.daura")
 
 
 @pytest.fixture(autouse=True)
@@ -89,7 +93,7 @@ def test_block_geometry_and_the_data_guard():
     assert a._pshape == (6, 8)
     assert a._at == (3, 4)
     assert a._local is block
-    with pytest.raises(NotImplementedError, match="A.2b"):
+    with pytest.raises(NotImplementedError, match="A.2c"):
         a._data
     with pytest.raises(NotImplementedError, match="A.11"):
         a.T
@@ -210,6 +214,29 @@ def _one_rank_results():
     out["svd_s"] = dst.svd(w)[1].collect()
     out["polar_u"] = dst.polar(w)[0].collect()
     out["lanczos_s"] = dst.lanczos_svd(w, k=3, random_state=0)[1].collect()
+    # A.2b's part (ii): a bootstrap forest and a regression tree, DBSCAN
+    # and Daura on the ring, CascadeSVM
+    yc = dst.array((rng.rand(120, 1) > 0.5).astype(np.float32))
+    rf = dst.RandomForestClassifier(n_estimators=3, max_depth=3,
+                                    random_state=0).fit(x, yc)
+    out["rf_leaves"], out["rf_feats"] = rf._leaves.numpy(), rf._feats
+    out["rf_proba"] = rf.predict_proba(x).collect()
+    dtr = dst.DecisionTreeRegressor(max_depth=3).fit(x, y)
+    out["dtr_leaves"] = dtr._leaves.numpy()
+    out["dtr_score"] = np.float64(dtr.score(x, y))
+    saved = port_dbscan._RING, port_daura._RING
+    port_dbscan._RING = port_daura._RING = True
+    try:
+        out["db_labels"] = dst.DBSCAN(eps=0.3, min_samples=4).fit(x).labels_
+        out["da_labels"] = dst.Daura(cutoff=0.3).fit(dst.array(
+            rng.rand(60, 6).astype(np.float32))).labels_
+    finally:
+        port_dbscan._RING, port_daura._RING = saved
+    sv = dst.CascadeSVM(max_iter=2).fit(
+        dst.array(rng.rand(120, 6).astype(np.float32), block_size=(32, 6)),
+        yc)
+    out["sv_alpha"], out["sv_idx"] = sv._sv_alpha, sv._sv_idx
+    out["sv_dec"] = sv.decision_function(x).collect()
     return out
 
 
@@ -231,6 +258,8 @@ def test_a_gloo_world_of_one_is_bit_equal_to_no_job(tmp_path):
     # the collectives ran, over groups of one rank
     assert comm["broadcast"]["calls"] == 4 and comm["psum"]["calls"] > 8
     assert comm["all_gather"]["calls"] > 0 and comm["pmax"]["calls"] > 0
+    assert comm["reduce_scatter"]["calls"] > 0 \
+        and comm["all_to_all"]["calls"] > 0
     for key, want in plain.items():
         np.testing.assert_array_equal(job[key], want, err_msg=key)
     assert not dd.is_initialized()
