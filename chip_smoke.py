@@ -2794,14 +2794,13 @@ def ivf_floor(mq, nprobe, cap, d):
     return 1e3 * 3 * 4.0 * mq * nprobe * cap * d / PEAK_BYTES
 
 
-def als_ratings():
+def als_ratings(m=ALS_M, n=ALS_N, nnz=ALS_NNZ, f=ALS_F):
     """bench_als_sparse's draw: 100 random items a user, a planted rank-16
     score plus noise; the CSR sums the repeated (user, item) draws."""
     import numpy as np
     import scipy.sparse as sp
-    m, n, f = ALS_M, ALS_N, ALS_F
     rng = np.random.RandomState(2)
-    rows = np.repeat(np.arange(m), ALS_NNZ)
+    rows = np.repeat(np.arange(m), nnz)
     cols = rng.randint(0, n, rows.shape[0])
     u_true = rng.standard_normal((m, f)).astype(np.float32)
     v_true = rng.standard_normal((n, f)).astype(np.float32)
@@ -2958,6 +2957,46 @@ def als_phase(dev, cuda_ms):
     phase_wall("als", t_phase)
 
 
+def ivf_draw(m, d, nq, lists):
+    """bench_ann's catalog (m, d) of ``lists`` blobs (centres x4) and ``nq``
+    queries drawn from the same blobs (seed 3)."""
+    import numpy as np
+    rng = np.random.RandomState(3)
+    centers = rng.standard_normal((lists, d)).astype(np.float32) * 4.0
+    x = (centers[rng.randint(0, lists, m)]
+         + rng.standard_normal((m, d))).astype(np.float32)
+    q = (centers[rng.randint(0, lists, nq)]
+         + rng.standard_normal((nq, d))).astype(np.float32)
+    return x, q
+
+
+def ivf_kth(x, q, k, dev, block=128):
+    """The float64 k-th smallest squared distance of each query row of
+    ``q`` to the catalog ``x`` (host arrays), on ``dev``: the threshold of
+    the tie-tolerant recall@k."""
+    import torch
+    x64 = torch.from_numpy(x).to(dev).double()
+    x_sq = (x64 * x64).sum(1)
+    out = []
+    for s0 in range(0, q.shape[0], block):
+        q64 = torch.from_numpy(q[s0:s0 + block]).to(dev).double()
+        d2 = (q64 * q64).sum(1)[:, None] - 2.0 * q64 @ x64.T + x_sq[None]
+        out.append(torch.kthvalue(d2, k, dim=1).values)
+    return torch.cat(out).cpu().numpy()
+
+
+def ivf_recall(x, q, ids, kth):
+    """Recall@k of the found ``ids`` (rows of q, -1 unfilled) against the
+    float64 thresholds ``kth`` of the first ``len(kth)`` queries: a found
+    row counts where its float64 distance is within ``kth`` (+1e-4)."""
+    import numpy as np
+    g = len(kth)
+    found = ids[:g].astype(np.int64)
+    d = ((q[:g, None, :].astype(np.float64)
+          - x[np.maximum(found, 0)].astype(np.float64)) ** 2).sum(-1)
+    return float(((d <= kth[:, None] + 1e-4) & (found >= 0)).mean())
+
+
 def ivf_phase(dev, cuda_ms):
     """The IVF index at bench_ann's size: the fit (its quantizer's E-step
     on ``distances_sq``), the lists against a NumPy bucketing of the
@@ -2972,13 +3011,7 @@ def ivf_phase(dev, cuda_ms):
     from dislib_tpu_torch.ops import precision as px
     from dislib_tpu_torch.retrieval import IVFIndex
     t_phase = time.perf_counter()
-    rng = np.random.RandomState(3)
-    centers = rng.standard_normal((IVF_LISTS, IVF_D)).astype(np.float32) \
-        * 4.0
-    x = (centers[rng.randint(0, IVF_LISTS, IVF_M)]
-         + rng.standard_normal((IVF_M, IVF_D))).astype(np.float32)
-    q = (centers[rng.randint(0, IVF_LISTS, IVF_Q)]
-         + rng.standard_normal((IVF_Q, IVF_D))).astype(np.float32)
+    x, q = ivf_draw(IVF_M, IVF_D, IVF_Q, IVF_LISTS)
     X, Q = dst.array(x), dst.array(q)
     xd, qd = X._data, Q._data
 
@@ -4412,6 +4445,21 @@ MESH_MBK_BATCHES = -(-KM_M // MBK_BATCH)
 MESH_RF_T = RF_T
 MESH_A2B3_TOL = 1e-5
 MESH_GS_GRID = {"n_neighbors": [5, 15], "weights": ["uniform", "distance"]}
+# A.2c at the one-card phases' sizes (bench.py's), each held to one rank's
+# call in the same run: the SpMM (on (2, 2), B's columns split over
+# 'cols', and on (4, 1)) within MESH_A2C_SPMM of the largest entry; sparse
+# KMeans' first step within MESH_KM_TOL and a 20-step fit's inertia within
+# MESH_KM_INERTIA; the sparse kNN's squared distances within 1e-5 of
+# 2 max |x|² (the magnitudes that cancel) and its indices where the k-th
+# and (k+1)-th distances stand apart; ALS's factors and RMSE, and an item
+# half-step against float64, within MESH_A2C_ALS; the IVF search from one
+# rank's labels and centers (ids at clear places, squared distances within
+# DIST_TOL of max |q|² + max |x|²) and the full fit's recall@10 at least
+# 0.95 and within MESH_A2C_RECALL of one rank's; sparse CascadeSVM's SVs
+# and iterations equal and α within MESH_A2C_ALS
+MESH_A2C_SPMM = 1e-5
+MESH_A2C_ALS = 1e-4
+MESH_A2C_RECALL = 0.01
 
 
 def mesh_sizes():
@@ -4430,7 +4478,15 @@ def mesh_sizes():
             "gs_m": GS_M, "gs_n": GS_N,
             "rf": [RF_M, RF_N, MESH_RF_T], "rr": [RR_T, RR_DEPTH],
             "db": [DB_M, DB_N, DB_EPS, DB_MIN], "da": [DA_M, DA_N, DA_CUT],
-            "csvm": [CSVM_M, CSVM_N, CSVM_PART, CSVM_ITERS]}
+            "csvm": [CSVM_M, CSVM_N, CSVM_PART, CSVM_ITERS],
+            "spmm": [SPMM_M, SPMM_K, SPMM_N, SPMM_DENSITY],
+            "sv": [SV_M, SV_N, SV_NNZ], "skm": [SKM_K, SKM_ITERS],
+            "sknn": [SKNN_Q, SKNN_K],
+            "als": [ALS_M, ALS_N, ALS_NNZ, ALS_F, ALS_LAM, ALS_ITERS,
+                    ALS_HOLD_I],
+            "ivf": [IVF_M, IVF_D, IVF_Q, IVF_K, IVF_LISTS, IVF_PROBE,
+                    IVF_ITERS, IVF_GATE_Q],
+            "ssv": [CSVM_SP_M, CSVM_PART, CSVM_SP_ITERS]}
 
 
 def mesh_data(which, z):
@@ -4549,6 +4605,87 @@ def mesh_a2b3_arrays(fits):
                                                    sv._sv_x)
     out["sv_n_iter"] = np.int64(sv.n_iter_)
     return out
+
+
+def mesh_a2c_data(z):
+    """A.2c's host inputs at sizes ``z``, the same in the parent and in
+    every rank: the sparse phase's SpMM operands (seed 0), the svmlight
+    rows (seed 8) for sparse KMeans and the sparse kNN (its query rows,
+    seed 9), bench_als_sparse's ratings, bench_ann's catalog and queries,
+    and the sparse CascadeSVM's rows and labels (seeds 12, 13)."""
+    import numpy as np
+    import scipy.sparse as sp
+    m, k, n, dens = z["spmm"]
+    sm, sn, snnz = z["sv"]
+    cols, vals, _ = svmlight_draw(sm, sn, snnz, seed=8)
+    ivf_x, ivf_q = ivf_draw(*z["ivf"][:3], z["ivf"][4])
+    cm = z["ssv"][0]
+    c_cols, c_vals, _ = svmlight_draw(cm, sn, snnz, seed=12)
+    ssv = draw_csr(c_cols, c_vals, sn)
+    score = ssv @ np.random.RandomState(13).randn(sn)
+    return {"spmm": sp.random(m, k, density=dens, random_state=0,
+                              dtype=np.float32).tocsr(),
+            "spmm_b": np.random.RandomState(0).rand(k, n).astype(np.float32),
+            "sv": draw_csr(cols, vals, sn),
+            "sknn_rows": np.sort(np.random.RandomState(9).choice(
+                sm, z["sknn"][0], replace=False)),
+            "als": als_ratings(*z["als"][:4]), "ivf_x": ivf_x,
+            "ivf_q": ivf_q, "ssv": ssv,
+            "ssv_y": (score > np.median(score)).astype(np.float32)[:, None]}
+
+
+def mesh_a2c_fits(dst, z, data):
+    """A.2c's calls on the default mesh, as the ranks make them: the SpMM,
+    sparse KMeans (its init, one step from it, the fit), the sparse kNN
+    (k + 1 neighbours, sparse and dense queries), ALS sparse and dense,
+    the IVF index (fit, then searches under ``db`` and ``kernel``, k + 1)
+    and sparse CascadeSVM.  Returns NumPy arrays, the ones a world of one
+    must reproduce bit for bit, and the IVF index."""
+    from dislib_tpu_torch.classification import CascadeSVM
+    from dislib_tpu_torch.cluster import KMeans
+    from dislib_tpu_torch.ops.spmm import spmm
+    from dislib_tpu_torch.recommendation import ALS
+    from dislib_tpu_torch.retrieval import IVFIndex
+    out = {"spmm": spmm(dst.SparseArray.from_scipy(data["spmm"]),
+                        dst.array(data["spmm_b"])).collect()}
+    x = dst.SparseArray.from_scipy(data["sv"])
+    k, iters = z["skm"]
+    c0 = KMeans(n_clusters=k, random_state=0)._init_centers(x)
+    out["skm_c0"] = c0.cpu().numpy()
+    out["skm_centers1"] = KMeans(n_clusters=k, init=out["skm_c0"],
+                                 max_iter=1, tol=0.0).fit(x).centers_
+    km = KMeans(n_clusters=k, random_state=0, max_iter=iters,
+                tol=0.0).fit(x)
+    out["skm_centers"], out["skm_inertia"] = km.centers_, km.inertia_
+    qs = x[data["sknn_rows"]]
+    nn = dst.NearestNeighbors(n_neighbors=z["sknn"][1] + 1).fit(x)
+    for name, q in (("sparse", qs), ("dense", qs.to_dense())):
+        d, i = nn.kneighbors(q)
+        out[f"sknn_{name}_d"], out[f"sknn_{name}_i"] = (d.collect(),
+                                                        i.collect())
+    a = dst.SparseArray.from_scipy(data["als"])
+    _, _, _, f, lam, sweeps, _ = z["als"]
+    for name, arr in (("sparse", a), ("dense", a.to_dense())):
+        als = ALS(n_f=f, lambda_=lam, tol=0.0, max_iter=sweeps,
+                  random_state=0).fit(arr)
+        out[f"als_{name}_u"], out[f"als_{name}_v"] = als.users_, als.items_
+        out[f"als_{name}_hist"] = als.history_
+    _, _, _, kq, lists, nprobe, ivf_iters, _ = z["ivf"]
+    ix = IVFIndex(n_lists=lists, nprobe=nprobe, kmeans_max_iter=ivf_iters,
+                  random_state=0).fit(dst.array(data["ivf_x"]))
+    out["ivf_labels"], out["ivf_centers"] = ix._labels_h, ix._centers_h
+    q = dst.array(data["ivf_q"])
+    for route in ("db", "kernel"):
+        d, i = ix.search(q, k=kq + 1, overlap=route)
+        out[f"ivf_{route}_d"], out[f"ivf_{route}_i"] = (d.collect(),
+                                                        i.collect())
+    cm, part, sv_iters = z["ssv"]
+    sv = CascadeSVM(max_iter=sv_iters, check_convergence=False).fit(
+        dst.SparseArray.from_scipy(data["ssv"], block_size=(
+            part, data["ssv"].shape[1])), dst.array(data["ssv_y"]))
+    out["ssv_idx"], out["ssv_alpha"] = sv._sv_idx, sv._sv_alpha
+    out["ssv_n_iter"] = sv.n_iter_
+    return out, ix
 
 
 def mesh_operands(dev, n):
@@ -5151,6 +5288,7 @@ def mesh_rank(argv) -> int:
     del xg, cg, G, est
     shapes = mesh_rank_a2b2(rank, z, dev, work, run, window, out)
     shapes.update(mesh_rank_a2b3(rank, z, dev, work, run, window, out))
+    shapes.update(mesh_rank_a2c(rank, z, dev, work, run, window, out))
     out["shapes"] = {"summa_panel": [n // 2] * 3,
                      "kmeans": [m_loc, km_k, z["km_n"]],
                      "ring": ring_shape,
@@ -5883,6 +6021,357 @@ def mesh_rank_a2b3(rank, z, dev, work, run, window, out):
     return shapes
 
 
+def mesh_rank_a2c(rank, z, dev, work, run, window, out):
+    """A.2c in one rank of the mesh phase, each call held to one rank's of
+    ``work/a2c.npz`` (:data:`MESH_A2C_SPMM` and the gates beside it): the
+    SpMM at bench_sparse's size on (2, 2) and on (4, 1); on (4, 1) sparse
+    KMeans on the svmlight rows (its init one rank's to the bit), the
+    sparse kNN (1,000 of those rows as sparse and dense queries), ALS at
+    bench_als_sparse's size sparse and dense (with one item half-step
+    against float64), the IVF index at bench_ann's size (the full fit
+    searched under ``db`` and ``kernel``, then a layout from one rank's
+    labels and centers), and sparse CascadeSVM.  ``panel_gemm`` and
+    ``distances_sq`` at the IVF's per-rank shapes are held against their
+    plain versions and timed with the card to this rank.
+    ``run``/``window``/``out`` are :func:`mesh_rank`'s.  Returns the
+    per-rank kernel shapes."""
+    import numpy as np
+    import torch
+    import dislib_tpu_torch as dst
+    from dislib_tpu_torch.classification import CascadeSVM
+    from dislib_tpu_torch.cluster import KMeans
+    from dislib_tpu_torch.ops import kernels as K
+    from dislib_tpu_torch.ops import precision as px
+    from dislib_tpu_torch.ops.spmm import spmm, spmm_steps
+    from dislib_tpu_torch.recommendation import ALS
+    from dislib_tpu_torch.recommendation import als as als_mod
+    from dislib_tpu_torch.retrieval import IVFIndex
+    one = dict(np.load(os.path.join(work, "a2c.npz")))
+    data = mesh_a2c_data(z)
+    ph = out["phases"]
+    box, shapes = {}, {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def rows_of(a):
+        """(first global row, live rows) of this rank's block of ``a``."""
+        r0 = a._at[0]
+        held = a._m_local if isinstance(a, dst.SparseArray) \
+            else a._local.shape[0]
+        return r0, max(0, min(held, a.shape[0] - r0))
+
+    def clear_of(od, k):
+        """Where the one-rank (k+1)-neighbour distances ``od`` leave the
+        k-th and (k+1)-th (and each neighbour's next) apart: 1e-5 of the
+        largest distance."""
+        gap = np.diff(od, axis=1) > 1e-5 * max(float(od.max()), 1e-30)
+        return np.concatenate([gap[:, :1], gap[:, :-1] & gap[:, 1:]],
+                              axis=1)[:, :k]
+
+    # -- the SpMM on (2, 2), B's columns over 'cols', and on (4, 1) ---------
+    m, kk, nb, dens = z["spmm"]
+    want = one["spmm"]
+    scale = float(np.abs(want).max())
+    for shape in ((2, 2), (4, 1)):
+        dst.init(shape)
+        X = dst.SparseArray.from_scipy(data["spmm"])
+        B = dst.array(data["spmm_b"])
+        name = f"spmm_{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        spmm(X, B)               # the shard and its panel view, built once
+        sync()
+        first_s = time.perf_counter() - t0
+
+        def call(X=X, B=B, shape=shape, first_s=first_s):
+            box["c"] = spmm(X, B)
+            return {"shape": [m, kk, nb], "density": dens,
+                    "mesh": list(shape), "panels": spmm_steps(),
+                    "first_call_s": first_s}
+
+        run(name, call)
+        c = box.pop("c")
+        (r0, c0), blk = c._at, c._local.cpu().numpy()
+        got = blk[: max(0, min(blk.shape[0], m - r0)),
+                  : max(0, min(blk.shape[1], nb - c0))]
+        err = float(np.abs(got - want[r0:r0 + got.shape[0],
+                                      c0:c0 + got.shape[1]]).max()) / scale
+        check(err <= MESH_A2C_SPMM, f"rank {rank}: SpMM on {shape} off one "
+              f"rank's by {err} of the largest entry")
+        ph[name]["max_abs_err_of_largest_vs_one_rank"] = err
+        del X, B, c
+    free()
+
+    # -- sparse KMeans on the svmlight rows, (4, 1) ----------------------------
+    S = dst.SparseArray.from_scipy(data["sv"])
+    k, iters = z["skm"]
+
+    def skm():
+        box["km"] = KMeans(n_clusters=k, random_state=0, max_iter=iters,
+                           tol=0.0).fit(S)
+        return {"shape": list(S.shape), "nnz": S.nnz, "k": k,
+                "iters": iters, "mesh": [4, 1]}
+
+    run("sparse_kmeans", skm)
+    km = box.pop("km")
+    c0 = KMeans(n_clusters=k, random_state=0)._init_centers(S).cpu().numpy()
+    check(np.array_equal(c0, one["skm_c0"]), f"rank {rank}: sparse KMeans' "
+          "init rows differ from one rank's")
+    km1 = KMeans(n_clusters=k, init=one["skm_c0"], max_iter=1,
+                 tol=0.0).fit(S)
+    c1_err = float(np.abs(km1.centers_ - one["skm_centers1"]).max())
+    i_err = abs(km.inertia_ - float(one["skm_inertia"])) / float(
+        one["skm_inertia"])
+    check(c1_err <= MESH_KM_TOL and i_err <= MESH_KM_INERTIA,
+          f"rank {rank}: sparse KMeans' first step off one rank's by "
+          f"{c1_err}, its {iters}-step inertia by {i_err}")
+    ph["sparse_kmeans"].update(one_step_centers_max_abs_err_vs_one_rank=c1_err,
+                               inertia_rel_err_vs_one_rank=i_err)
+
+    # -- the sparse kNN: the array as the fit set, 1,000 of its rows --------
+    kq = z["sknn"][1]
+
+    def sknn():
+        qs = S[data["sknn_rows"]]
+        nn = dst.NearestNeighbors(n_neighbors=kq).fit(S)
+        box["sparse"], box["dense"] = nn.kneighbors(qs), \
+            nn.kneighbors(qs.to_dense())
+        return {"fit_shape": list(S.shape), "queries": z["sknn"][0],
+                "k": kq, "mesh": [4, 1]}
+
+    run("sparse_knn", sknn)
+    # squared distances against 2 max |x|², the magnitudes that cancel in
+    # |q|² − 2 q·x + |x|² (a query's own row comes out near, not at, 0,
+    # and the GEMM of a rank's 250 dense query rows rounds otherwise than
+    # one rank's 1,000), as the sparse_knn phase holds them; and, as that
+    # phase does, the distances clear of that cancellation (one rank's
+    # squared distance at least 1e-2 of 2 max |x|²) to a relative 1e-5
+    sv = data["sv"]
+    d_scale = 2.0 * float(np.asarray(sv.multiply(sv).sum(1)).max())
+    res = {}
+    for name in ("sparse", "dense"):
+        d_arr, i_arr = box.pop(name)
+        q0, live = rows_of(d_arr)
+        od = one[f"sknn_{name}_d"][q0:q0 + live].astype(np.float64)
+        oi = one[f"sknn_{name}_i"][q0:q0 + live]
+        gd = d_arr._local[:live, :kq].cpu().numpy().astype(np.float64)
+        gi = i_arr._local[:live, :kq].cpu().numpy()
+        d2_err = float(np.abs(gd ** 2 - od[:, :kq] ** 2).max()) / d_scale \
+            if live else 0.0
+        far = od[:, :kq] ** 2 >= 1e-2 * d_scale
+        rel = float((np.abs(gd - od[:, :kq])[far] / od[:, :kq][far]).max()) \
+            if far.any() else 0.0
+        clear = clear_of(od, kq)
+        bad = int((gi[clear] != oi[:, :kq][clear]).sum())
+        check(d2_err <= 1e-5 and rel <= 1e-5 and bad == 0
+              and (far.any() or not live),
+              f"rank {rank}: the sparse kNN ({name} queries) off one "
+              f"rank's: squared distances by {d2_err} of 2 max |x|^2, "
+              f"distances clear of 0 by rtol {rel}, {bad} indices at clear "
+              "places")
+        res[name] = {"d2_err_of_2_max_row_sq_vs_one_rank": d2_err,
+                     "d_rel_err_vs_one_rank": rel,
+                     "max_abs_dist_err_vs_one_rank": float(np.abs(
+                         gd - od[:, :kq]).max()) if live else 0.0,
+                     "far_places": int(far.sum()),
+                     "clear_places": int(clear.sum()), "rows": live}
+    ph["sparse_knn"]["vs_one_rank"] = res
+    del S
+    free()
+
+    # -- ALS at bench_als_sparse's size, sparse and dense (1 GB a rank) -----
+    am, an, _, f, lam, sweeps, hold = z["als"]
+    A = dst.SparseArray.from_scipy(data["als"])
+    Ad = A.to_dense()
+    for name, arr in (("sparse", A), ("dense", Ad)):
+        def fit(arr=arr, name=name):
+            box["als"] = ALS(n_f=f, lambda_=lam, tol=0.0, max_iter=sweeps,
+                             random_state=0).fit(arr)
+            return {"shape": [am, an], "n_f": f, "sweeps": sweeps,
+                    "ratings": name, "mesh": [4, 1]}
+
+        run(f"als_{name}", fit)
+        est = box.pop("als")
+        errs = {"users": rel_err(est.users_, one[f"als_{name}_u"]),
+                "items": rel_err(est.items_, one[f"als_{name}_v"]),
+                "rmse": rel_err(est.history_, one[f"als_{name}_hist"])}
+        check(max(errs.values()) <= MESH_A2C_ALS, f"rank {rank}: ALS "
+              f"({name}) off one rank's by {errs}")
+        ph[f"als_{name}"]["rel_err_vs_one_rank"] = errs
+    del Ad
+    free()
+    # one item half-step (the psum over 'rows') against float64 NumPy
+    users, items = als_mod._half_steps(A, f, lam)
+    r0, live = rows_of(A)
+    u_loc = torch.zeros((A._m_local, f), device=dev)
+    u_loc[:live] = torch.from_numpy(one["als_sparse_u"][r0:r0 + live]).to(
+        dev)
+    hold_i = np.sort(np.random.RandomState(6).choice(an, hold,
+                                                     replace=False))
+    got_i = items.solve(u_loc)[torch.as_tensor(hold_i, device=dev)]
+    csc = data["als"][:, hold_i].tocsc()
+    want_i = numpy_normal_solve(
+        [(csc.indices[csc.indptr[j]:csc.indptr[j + 1]],
+          csc.data[csc.indptr[j]:csc.indptr[j + 1]].astype(np.float64))
+         for j in range(len(hold_i))],
+        one["als_sparse_u"].astype(np.float64), lam)
+    h_err = rel_err(got_i.cpu().numpy(), want_i)
+    check(h_err <= MESH_A2C_ALS, f"rank {rank}: the item half-step across "
+          f"ranks off float64 by {h_err}")
+    ph["als_sparse"]["item_half_step_err_vs_f64"] = h_err
+    del A, users, items, u_loc
+    free()
+
+    # -- the IVF index at bench_ann's size --------------------------------------
+    _, d_ivf, nq, k_ivf, lists, nprobe, ivf_iters, _ = z["ivf"]
+    x_h, q_h = data["ivf_x"], data["ivf_q"]
+    X, Q = dst.array(x_h), dst.array(q_h)
+
+    def ivf():
+        ix = box["ix"] = IVFIndex(n_lists=lists, nprobe=nprobe,
+                                  kmeans_max_iter=ivf_iters,
+                                  random_state=0).fit(X)
+        for route in ("db", "kernel"):
+            box[route] = ix.search(Q, k=k_ivf, overlap=route)
+        return {"catalog": [int(X.shape[0]), d_ivf], "queries": nq,
+                "k": k_ivf, "n_lists": lists, "nprobe": nprobe,
+                "kmeans_max_iter": ivf_iters, "mesh": [4, 1]}
+
+    run("ivf", ivf)
+    ix = box.pop("ix")
+    if dev.type == "cuda":
+        la = ph["ivf"]["launches"]
+        check(la["distances_sq"] >= ivf_iters and la["panel_gemm"] == 1,
+              f"rank {rank}: the IVF fit and searches launched {la}")
+    rec = {}
+    for route in ("db", "kernel"):
+        ids = box.pop(route)[1].collect()
+        rec[route] = ivf_recall(x_h, q_h, ids, one["ivf_kth"])
+        gap = abs(rec[route] - float(one[f"ivf_{route}_recall"]))
+        check(rec[route] >= 0.95 and gap <= MESH_A2C_RECALL,
+              f"rank {rank}: IVF recall@{k_ivf} ({route}) {rec[route]}, "
+              f"one rank's {float(one[f'ivf_{route}_recall'])}")
+    ph["ivf"].update(recall=rec, one_rank_recall={
+        r: float(one[f"ivf_{r}_recall"]) for r in ("db", "kernel")},
+        pad_waste=ix.pad_waste)
+    # the search from one rank's labels and centers: one rank's results
+    seam = IVFIndex(n_lists=lists, nprobe=nprobe)._build(
+        x_h, one["ivf_labels"], one["ivf_centers"])
+
+    def seam_search():
+        for route in ("db", "kernel"):
+            box[route] = seam.search(Q, k=k_ivf, overlap=route)
+        return {"queries": nq, "k": k_ivf, "nprobe": nprobe,
+                "layout": "one rank's labels and centers", "mesh": [4, 1]}
+
+    run("ivf_from_one_rank_layout", seam_search)
+    # squared distances against max |q|² + max |x|² (DIST_TOL's scale)
+    d_scale = float((q_h.astype(np.float64) ** 2).sum(1).max()
+                    + (x_h.astype(np.float64) ** 2).sum(1).max())
+    res = {}
+    for route in ("db", "kernel"):
+        d_arr, i_arr = box.pop(route)
+        q0, live = rows_of(d_arr)
+        od = one[f"ivf_{route}_d"][q0:q0 + live].astype(np.float64)
+        oi = one[f"ivf_{route}_i"][q0:q0 + live]
+        gd = d_arr._local[:live, :k_ivf].cpu().numpy().astype(np.float64)
+        gi = i_arr._local[:live, :k_ivf].cpu().numpy()
+        d2_err = float(np.abs(gd ** 2 - od[:, :k_ivf] ** 2).max()) / d_scale
+        clear = clear_of(od, k_ivf)
+        bad = int((gi[clear] != oi[:, :k_ivf][clear]).sum())
+        check(d2_err <= DIST_TOL and bad == 0, f"rank {rank}: the IVF "
+              f"search ({route}) from one rank's layout: squared distances "
+              f"off by {d2_err} of max |q|^2 + max |x|^2, {bad} ids at "
+              "clear places")
+        res[route] = {"d2_err_of_scale_vs_one_rank": d2_err,
+                      "max_abs_dist_err_vs_one_rank": float(np.abs(
+                          gd - od[:, :k_ivf]).max()),
+                      "clear_places": int(clear.sum()), "rows": live}
+    ph["ivf_from_one_rank_layout"]["vs_one_rank"] = res
+    # the kernels at the IVF's per-rank shapes, with the card to this rank
+    qd, ct = Q._local.contiguous(), ix._cents_t
+    kern = K.panel_gemm(qd, ct, px.FLOAT32)
+    plain = K.panel_gemm_plain(qd, ct, px.FLOAT32)
+    g_abs = float((kern - plain).abs().max())
+    g_err = g_abs / float(torch.linalg.norm(qd.double())
+                          * torch.linalg.norm(ct.double())
+                          / qd.shape[1] ** 0.5)
+    check(g_err <= px.ERROR_BOUNDS[("matmul", "float32")],
+          f"rank {rank}: panel_gemm at the IVF's {list(qd.shape)}x"
+          f"{list(ct.shape)}: normalized error {g_err} vs plain")
+    out["windows"]["panel_gemm_ivf_err"] = {
+        "max_abs_err": g_abs, "normalized_err_vs_plain": g_err}
+
+    def mm():
+        with px.precise():
+            return torch.mm(qd, ct)
+
+    window("panel_gemm_ivf", {
+        "ms": lambda: K.panel_gemm(qd, ct, px.FLOAT32),
+        "plain_ms": lambda: K.panel_gemm_plain(qd, ct, px.FLOAT32),
+        "library_ms": mm}, 50)
+    shapes["ivf_gemm"] = [int(qd.shape[0]), int(qd.shape[1]),
+                          int(ct.shape[1])]
+    xl = X._local[:, :d_ivf].contiguous()
+    cent = torch.from_numpy(ix.quantizer_.centers_).to(dev).contiguous()
+    kern, plain = K.distances_sq(xl, cent), K.distances_sq_plain(
+        xl, cent, "highest")
+    d_scale = float((xl.double() ** 2).sum(1).max()
+                    + (cent.double() ** 2).sum(1).max())
+    k_err = float((kern.double() - plain.double()).abs().max()) / d_scale
+    check(k_err <= DIST_TOL, f"rank {rank}: distances_sq at the IVF "
+          f"quantizer's {list(xl.shape)}x{list(cent.shape)}: error {k_err} "
+          f"vs plain > {DIST_TOL}")
+    out["windows"]["distances_sq_ivf_err"] = {
+        "max_abs_err": float((kern - plain).abs().max()),
+        "normalized_err_vs_plain": k_err}
+    del kern, plain
+
+    def cdist():
+        with px.precise():
+            return torch.cdist(xl, cent,
+                               compute_mode="use_mm_for_euclid_dist")
+
+    window("distances_sq_ivf", {
+        "ms": lambda: K.distances_sq(xl, cent),
+        "plain_ms": lambda: K.distances_sq_plain(xl, cent, "highest"),
+        "library_ms": cdist}, 10)
+    shapes["ivf_dist"] = [int(xl.shape[0]), int(cent.shape[0]), d_ivf]
+    del X, Q, ix, seam, qd, ct, xl, cent
+    free()
+
+    # -- sparse CascadeSVM on 8,192 svmlight-style rows ---------------------
+    cm, part, sv_iters = z["ssv"]
+    xs = dst.SparseArray.from_scipy(data["ssv"], block_size=(
+        part, data["ssv"].shape[1]))
+    ys = dst.array(data["ssv_y"])
+
+    def csvm():
+        box["sv"] = CascadeSVM(max_iter=sv_iters,
+                               check_convergence=False).fit(xs, ys)
+        return {"shape": list(xs.shape), "nnz": xs.nnz, "part": part,
+                "max_iter": sv_iters, "mesh": [4, 1]}
+
+    run("csvm_sparse", csvm)
+    sv = box.pop("sv")
+    same = np.array_equal(sv._sv_idx, one["ssv_idx"]) \
+        and sv.n_iter_ == int(one["ssv_n_iter"])
+    a_err = float(np.abs(sv._sv_alpha - one["ssv_alpha"]).max()) \
+        if same else float("inf")
+    check(same and a_err <= MESH_A2C_ALS, f"rank {rank}: sparse CascadeSVM "
+          f"off one rank's (SVs and iterations equal: {same}, α by {a_err})")
+    ph["csvm_sparse"].update(n_sv=int(len(sv._sv_idx)),
+                             alpha_max_abs_err_vs_one_rank=a_err)
+    del xs, ys, sv
+    free()
+    return shapes
+
+
 def _ancestors_differ(differs, lvl):
     """(T, width): whether an ancestor of each node of level ``lvl``
     differs in ``differs`` (T, depth, width)."""
@@ -5957,8 +6446,11 @@ def mesh_phase(dev, card):
     lanczos_svd, kron and the search over the kNN classifier on (4, 1),
     each rank's blocks against the one-rank results.  The world of one
     also holds LinearRegression, Lasso, the MiniBatchKMeans stream, qr,
-    svd and polar bit-equal.  Returns the kernels-line entries at the
-    per-rank shapes."""
+    svd and polar bit-equal, and (A.2c) the SpMM, sparse KMeans, the
+    sparse kNN, ALS sparse and dense, the IVF index and sparse
+    CascadeSVM, whose one-rank results the ranks are held to
+    (:func:`mesh_rank_a2c`: the SpMM on (2, 2) and (4, 1), the rest on
+    (4, 1)).  Returns the kernels-line entries at the per-rank shapes."""
     import numpy as np
     import torch
     import dislib_tpu_torch as dst
@@ -6034,6 +6526,11 @@ def mesh_phase(dev, card):
                 if key in MESH_ONE}
         one3.update(mesh_a2b3_fits(dst, z, data3, only=set(keys3) - set(
             one3)))
+        # A.2c on one rank: the oracle of the ranks and of the world of one
+        data_c = mesh_a2c_data(z)
+        t_c = time.perf_counter()
+        one_c, _ = mesh_a2c_fits(dst, z, data_c)
+        one_c_s = time.perf_counter() - t_c
         backend = "nccl" if dev.type == "cuda" else "gloo"
         dd.reset_comm_stats()
         dd.initialize(f"file://{os.path.join(work, 'store1')}", 1, 0,
@@ -6049,6 +6546,11 @@ def mesh_phase(dev, card):
             job3 = mesh_a2b3_arrays(mesh_a2b3_fits(dst, z, data3))
             t3 = time.perf_counter() - t3
             comm3 = dd.comm_stats()
+            dd.reset_comm_stats()
+            t_c = time.perf_counter()
+            job_c, _ = mesh_a2c_fits(dst, z, data_c)
+            t_c = time.perf_counter() - t_c
+            comm_c = dd.comm_stats()
         finally:
             dd.shutdown()
             dst.init(device=dev)
@@ -6068,6 +6570,21 @@ def mesh_phase(dev, card):
               "bit_equal": sorted(arrays3), "fits_s": t3,
               "collectives": comm3})
         del job3
+        for key, want in one_c.items():
+            got = np.asarray(job_c[key])
+            want = np.asarray(want)
+            check(got.shape == want.shape and np.array_equal(
+                np.ascontiguousarray(got).view(np.uint8),
+                np.ascontiguousarray(want).view(np.uint8)),
+                f"mesh: A.2c's {key} under a {backend} world of one "
+                "differs from no process group")
+        check(all(comm_c.get(name, {}).get("calls", 0) >= 1
+                  for name in ("psum", "all_gather", "all_to_all")),
+              f"the world of one's A.2c calls ran no collective: {comm_c}")
+        emit({"phase": "mesh_world_of_one_a2c", "backend": backend,
+              "bit_equal": sorted(one_c), "one_rank_s": one_c_s,
+              "fits_s": t_c, "collectives": comm_c})
+        del job_c
         for key, want in plain.items():
             check(torch.equal(job1[key], want), f"mesh: {key} under a "
                   f"{backend} world of one differs from no process group")
@@ -6174,6 +6691,16 @@ def mesh_phase(dev, card):
                  sv_dec=one3["sv"].decision_function(dst.array(
                      data3["sv"][0])).collect()[:, 0])
         del X3, x3, y3, one3, data3, arrays3
+        # A.2c: one rank's results, the IVF gate queries' float64 k-th
+        # distances and one rank's recall under each route
+        kq, gate_q = z["ivf"][3], z["ivf"][7]
+        kth = ivf_kth(data_c["ivf_x"], data_c["ivf_q"][:gate_q], kq, dev)
+        np.savez(os.path.join(work, "a2c.npz"), **one_c, ivf_kth=kth,
+                 **{f"ivf_{r}_recall": ivf_recall(
+                     data_c["ivf_x"], data_c["ivf_q"],
+                     one_c[f"ivf_{r}_i"][:, :kq], kth)
+                    for r in ("db", "kernel")})
+        del one_c, data_c, kth
         del job1, plain, a_h, b_h, t_h, g_h, rs, S, sv, pca, X, std, mm
         del G1, gi1, gi_lab, lx, ly, lyl, q_h, s_h, p_h, la4, xb, lab, gs
         X = dst.array(x_h)
@@ -6411,6 +6938,44 @@ def mesh_phase(dev, card):
         **w0["distances_sq_sv_gram_err"], **w0["distances_sq_sv_gram"],
         "library_call": "torch.cdist(a, a, compute_mode="
                         "'use_mm_for_euclid_dist').square(), batched",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": DIST_BOUND_BASIS,
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    # A.2c: the IVF's centroid product and its quantizer's E-step on a
+    # rank's queries and rows
+    mq, kk, nl = shapes["ivf_gemm"]
+    bound_ms, bound_by = bound(3 * 2.0 * mq * kk * nl,
+                               4.0 * (mq * kk + kk * nl + mq * nl),
+                               PEAK_TF32_FLOPS)
+    entries["panel_gemm/mesh_ivf"] = {
+        "name": "panel_gemm", "at": "mesh (4, 1): the IVF centroid product "
+        "on each rank's queries (overlap='kernel')", "policy": "float32",
+        "route": "cuda", "source": "dislib_tpu_torch/csrc/panel_gemm.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:76",
+        "shape": shapes["ivf_gemm"], "launches": launches("ivf",
+                                                          "panel_gemm"),
+        "launches_by_rank": [rr["phases"]["ivf"]["launches"]["panel_gemm"]
+                             for rr in ranks],
+        **w0["panel_gemm_ivf_err"], **w0["panel_gemm_ivf"],
+        "library_call": "torch.mm (f32, TF32 off)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_basis": "3xTF32 at 495 TFLOP/s against 4 bytes per element "
+                       "of q, the centroids^T and the product",
+        "times_from": "rank 0, the card to itself (the ranks in turn)"}
+    m, k, d = shapes["ivf_dist"]
+    bound_ms, bound_by = dist_bound(m, k, d, 4.0 * (m * d + k * d + m * k))
+    entries["distances_sq/mesh_ivf_kmeans"] = {
+        "name": "distances_sq", "at": "mesh (4, 1): the IVF quantizer's "
+        "E-step on each rank's catalog rows", "route": "cuda",
+        "source": "dislib_tpu_torch/csrc/distances_sq.cu",
+        "replaces": "dislib_tpu/ops/pallas_kernels.py:112",
+        "shape": [m, k, d], "launches": launches("ivf", "distances_sq"),
+        "launches_by_rank": [rr["phases"]["ivf"]["launches"][
+            "distances_sq"] for rr in ranks],
+        **w0["distances_sq_ivf_err"], **w0["distances_sq_ivf"],
+        "library_call": "torch.cdist(a, b, compute_mode="
+                        "'use_mm_for_euclid_dist'), TF32 off (includes a "
+                        "square root)",
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_basis": DIST_BOUND_BASIS,
         "times_from": "rank 0, the card to itself (the ranks in turn)"}

@@ -61,8 +61,12 @@ every rank by one ``psum`` of the rows each holds, so the fitted model is
 the same on every rank; ``decision_function``/``predict`` run per rank
 on its own query rows and ``score`` sums its hits over 'rows'.  Per node
 the solve is the one-rank solve, so the fit is the one-rank fit.  A
-``SparseArray`` in a job (A.2c) and ``checkpoint=`` across ranks (A.11)
-raise.
+sparse fit runs the same way: a node's entries travel to its owner (one
+``all_to_all`` of entries, ``SparseArray._gather_rows``), which stages
+them as one card does (the ELL gather, or the host-CSR kernel blocks
+past the ELL budget; a padded slot is row 0), and the support vectors'
+rows come from their owner ranks by one ``psum``.  ``checkpoint=``
+across ranks raises (A.11).
 
 The cascade iterations run through
 :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`, one iteration a chunk,
@@ -181,10 +185,6 @@ class CascadeSVM(BaseEstimator):
                     "CascadeSVM(checkpoint=...) on a ds-array sharded over "
                     "several ranks: snapshots of a multi-rank fit are "
                     "ROADMAP.md A.11")
-            if isinstance(x, SparseArray):
-                raise NotImplementedError(
-                    "CascadeSVM on a SparseArray in a torch.distributed job "
-                    "is ROADMAP.md A.2c")
             stage = _RankStaging(x, self.kernel, gamma)
         else:
             stage = _Staging(x, self.kernel, gamma)
@@ -481,12 +481,14 @@ class _Staging:
 
 
 class _RankStaging:
-    """A dense fit's rows in a torch.distributed job: this rank's rows
-    with every feature (its block all-gathered over 'cols', the columns
-    padded as :class:`_Staging` pads them), the first global row
-    ``row0``.  An owner's node rows come to it by one ``all_to_all``
-    (:meth:`exchange`); the support vectors reach every rank by
-    :meth:`rows`."""
+    """A fit's rows in a torch.distributed job: a dense fit's are this
+    rank's rows with every feature (its block all-gathered over 'cols',
+    the columns padded as :class:`_Staging` pads them), the first global
+    row ``row0``; a sparse fit's the ``SparseArray`` itself.  An owner's
+    node rows come to it by one ``all_to_all`` (:meth:`exchange`: dense
+    rows, or a sparse array's entries, which the owner stages as one
+    card's :class:`_Staging` does, ELL or host CSR); the support vectors
+    reach every rank by :meth:`rows`."""
 
     mode = "dense"
 
@@ -496,19 +498,43 @@ class _RankStaging:
         self.m, n = x.shape
         self.width = n if x.device.type != "cuda" else -(-n // 4) * 4
         self.r = 0
+        self.sparse = x if isinstance(x, SparseArray) else None
+        if self.sparse is not None:
+            return
         xv = x._row_block()[:, :n].to(torch.float32)
         if self.width != n:
             xv = torch.nn.functional.pad(xv, (0, self.width - n))
         self.local = xv.contiguous()
         self.row0 = x._at[0]
 
+    def owner(self, rows):
+        """The owner's staging of the rows :meth:`exchange` brought it:
+        dense rows, or the one-card staging of a sparse array of them."""
+        if self.sparse is None:
+            return _Staging.dense(rows, self.kernel, self.gamma)
+        return _Staging(rows, self.kernel, self.gamma)
+
     def exchange(self, need):
         """The rows ``need[r]`` (sorted global row ids) of this rank's
         mesh row r, (len(need[r]), width): each rank sends the rows it
         holds of every owner's list by ONE ``all_to_all`` over 'rows'; the
-        index lists are the same host computation on every rank."""
+        index lists are the same host computation on every rank.  A
+        sparse fit's come as a one-rank ``SparseArray`` of those rows
+        (their entries moved by ``SparseArray._gather_rows``)."""
         R, r = self.mesh.rows, self.mesh.coord[0]
         cap = max(1, max(len(nd) for nd in need))
+        if self.sparse is not None:
+            # owner d's rows at [d·cap, d·cap + len(need[d])) of a
+            # R·cap-row array whose row shards are exactly cap rows
+            q = _mesh.pad_quantum(self.mesh)
+            while R * cap % q:
+                cap += 1
+            src = np.concatenate(need)
+            dst = np.concatenate([d * cap + np.arange(len(nd))
+                                  for d, nd in enumerate(need)])
+            got = self.sparse._gather_rows(src, dst, R * cap)._local_view()
+            return SparseArray(got._rows, got._cols, got._vals,
+                               (len(need[r]), got.shape[1]), got._mesh)
         src = np.concatenate(need)
         dst = np.concatenate([d * cap + np.arange(len(nd))
                               for d, nd in enumerate(need)])
@@ -526,6 +552,10 @@ class _RankStaging:
         places the rows it holds, and one ``psum`` over 'rows' adds them
         (one rank holds each: exact, up to the sign of a zero)."""
         idx = np.asarray(idx, np.int64)
+        if self.sparse is not None:
+            count_read("results")
+            return self.sparse._dense_rows(idx)[:, :n].to(
+                torch.float32).cpu().numpy()
         mine = (idx >= self.row0) & (idx < self.row0 + self.local.shape[0])
         loc = torch.as_tensor(np.where(mine, idx - self.row0, 0),
                               device=self.device)
@@ -557,7 +587,7 @@ def _solve_level_ranks(stage, y_pm, nodes, c, n_feat, solver):
     packed = np.zeros((per, cap + 1), np.float32)
     if len(mine):
         loc = np.where(mine >= 0, np.searchsorted(need[r], mine), -1)
-        own_stage = _Staging.dense(rows, stage.kernel, stage.gamma)
+        own_stage = stage.owner(rows)
         yv = torch.as_tensor(y_pm[need[r]], device=stage.device)
         a, o = _solve_level_batched(own_stage, yv, loc, c, n_feat, solver)
         packed[: len(mine), :cap], packed[: len(mine), cap] = a, o

@@ -21,7 +21,8 @@ winning codes back to labels on the host.
 
 A sparse fit set or sparse queries (a ``SparseArray``) go through the
 sparse neighbour stream ``neighbors/base._kneighbors_sparse`` and the same
-vote, as in the reference.
+vote, as in the reference: ``_kneighbors_rows`` runs that stream on each
+rank's query rows, on one rank on the whole arrays.
 
 Across ranks the fit all-gathers ``y`` once and every rank maps all the
 labels to codes, so the vote can read any neighbour's code; the
@@ -78,12 +79,8 @@ class KNeighborsClassifier(BaseEstimator):
         """Winning class code of each query row this rank holds (every
         padded query row on one rank; the rows of its row block across
         ranks, from global row ``x._at[0]``), int32, 0 on padded rows."""
-        f = self._fit_x
-        if isinstance(f, SparseArray) or isinstance(x, SparseArray):
-            dist_k, idx = _nb._kneighbors_sparse(x, f, self.n_neighbors)
-            return _vote(dist_k, idx, self._codes,
-                         self.weights == "distance")
-        dist_k, idx, row0 = _nb._kneighbors_rows(x, f, self.n_neighbors)
+        dist_k, idx, row0 = _nb._kneighbors_rows(x, self._fit_x,
+                                                 self.n_neighbors)
         winner = _vote(dist_k, idx, self._codes, self.weights == "distance")
         winner[max(0, x.shape[0] - row0):] = 0
         return winner
@@ -92,8 +89,7 @@ class KNeighborsClassifier(BaseEstimator):
         """Label per row, (m, 1): int32 for integer classes, else
         float32."""
         self._check_predict(x)
-        live = max(0, min(x._local.shape[0], x.shape[0] - x._at[0])) \
-            if x._mesh.world > 1 else x.shape[0]
+        live = max(0, min(_rows_held(x), x.shape[0] - x._at[0]))
         codes = self._predict_codes(x)[:live].cpu().numpy()
         labels = self.classes_[codes]
         dt = np.int32 if np.issubdtype(labels.dtype, np.integer) \
@@ -133,10 +129,6 @@ class KNeighborsClassifier(BaseEstimator):
         self._check_predict(x)
         # labels compared in y's dtype, as the reference compares classes_
         labels, codes = self._sorted
-        f = self._fit_x
-        if isinstance(f, SparseArray) or isinstance(x, SparseArray):
-            return _score_codes(self._predict_codes(x), y._data,
-                                labels.to(y._data.dtype), codes, x.shape[0])
         yp = y._row_block()
         return _score_codes(self._predict_codes(x), yp, labels.to(yp.dtype),
                             codes, x.shape[0], x._at[0], x._mesh)
@@ -151,6 +143,11 @@ class KNeighborsClassifier(BaseEstimator):
         self._sorted = (torch.as_tensor(np.array(self.classes_),
                                         device=device),
                         torch.arange(n, dtype=torch.int32, device=device))
+
+
+def _rows_held(x) -> int:
+    """The rows of ``x``'s block on this rank (padding included)."""
+    return x._m_local if isinstance(x, SparseArray) else x._local.shape[0]
 
 
 def _label_codes(yv):

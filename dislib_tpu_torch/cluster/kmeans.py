@@ -36,7 +36,8 @@ entries made once per fit — no atomics, so two fits with one seed are
 bit-identical on the card.  The loop is ``run_chunked``, as the dense
 fit's; ``predict`` and ``score`` take a SparseArray too.  The random
 init gathers its k rows from the array's host CSR mirror, as the
-reference gathers them from its host triplets.
+reference gathers them from its host triplets (across ranks from their
+owner ranks, ``SparseArray._dense_rows``).
 
 ``fit`` runs through :class:`~dislib_tpu_torch.runtime.ChunkedFitLoop`,
 checkpointed or not, as the reference's does: one chunk of ``max_iter``
@@ -60,8 +61,12 @@ shift, the health vector and every decision taken from them; the loop's
 preemption flag is agreed across ranks (``distributed.any_rank``).
 ``predict`` returns a row-sharded label array and ``score`` is a
 ``psum``; the search hooks run the same sharded fit and score.
+The sparse fit runs the same way on each rank's entries (the
+reference's ``_kmeans_fit_sparse_sharded``): the E-step's SpMM on the
+rank's rows against the replicated centersᵀ, the per-cluster column sums
+local and in a fixed order, then the one packed ``psum``.
 ``checkpoint=`` raises there, naming ROADMAP.md A.11 (snapshots of
-several ranks), as does the sparse fit (A.2c).
+several ranks).
 """
 
 from __future__ import annotations
@@ -153,9 +158,8 @@ class KMeans(BaseEstimator):
         # sample k distinct rows — the same draw as the reference
         idx = rng.choice(x.shape[0], size=min(k, x.shape[0]), replace=False)
         if isinstance(x, SparseArray):
-            # the k chosen rows, duplicates summed, from the host CSR
-            rows = torch.from_numpy(x._csr()[np.sort(idx)].toarray().astype(
-                np.float32)).to(x.device)
+            # the k chosen rows, duplicates summed, from their owner ranks
+            rows = x._dense_rows(np.sort(idx)).to(torch.float32)
         else:
             rows = x[np.sort(idx), :]._gathered()[: len(idx), : n]
         if len(idx) < k:  # fewer samples than clusters: top up with jitter
@@ -279,7 +283,7 @@ class KMeans(BaseEstimator):
             return super()._score_async(state, x, y)
         self._check_supported(x)
         if isinstance(x, SparseArray):
-            return -torch.sum(_sparse_distances(x, state[0]).amin(1))
+            return _sparse_score(x, state[0])
         return _dist.psum(_kmeans_score(x._row_block(), x.shape, state[0],
                                         x._at[0]), _mesh.ROWS, x._mesh)
 
@@ -292,8 +296,9 @@ class KMeans(BaseEstimator):
         self._check_supported(x)
         if isinstance(x, SparseArray):
             d = _sparse_distances(x, self._centers_on(x))
-            return Array._from_logical(
-                torch.argmin(d, dim=1).to(torch.int32)[:, None], x._mesh)
+            labels = torch.argmin(d, dim=1).to(torch.int32)[:, None]
+            # this rank's rows, pad rows zeroed
+            return Array._from_rows(labels, (x.shape[0], 1), x._mesh)
         labels = _kmeans_predict(x._row_block(), x.shape, self._centers_on(x),
                                  x._at[0])
         if x._mesh.world > 1:
@@ -307,8 +312,7 @@ class KMeans(BaseEstimator):
         self._check_fitted()
         self._check_supported(x)
         if isinstance(x, SparseArray):
-            return -float(torch.sum(_sparse_distances(
-                x, self._centers_on(x)).amin(1)))
+            return float(_sparse_score(x, self._centers_on(x)))
         return float(_dist.psum(
             _kmeans_score(x._row_block(), x.shape, self._centers_on(x),
                           x._at[0]), _mesh.ROWS, x._mesh))
@@ -441,14 +445,34 @@ def _sparse_distances(x: SparseArray, centers, rowsq=None):
     return torch.clamp_min(rowsq[:, None] - 2.0 * cross + c_sq[None, :], 0.0)
 
 
+def _row_weights(x: SparseArray):
+    """(m_local,) 1 on this rank's rows of the matrix, 0 on its padding
+    rows (on one rank all 1: no padding rows)."""
+    return (torch.arange(x._m_local, device=x.device)
+            < x._live_rows()).to(torch.float32)
+
+
+def _sparse_score(x: SparseArray, centers):
+    """Negative inertia of the sparse ``x`` (a device scalar; across
+    ranks each rank's rows, then one ``psum`` over 'rows')."""
+    d = _sparse_distances(x, centers).amin(1)
+    w = _row_weights(x)
+    return -_dist.psum(torch.sum(d * w).reshape(1), _mesh.ROWS, x._mesh)[0]
+
+
 def _kmeans_fit_sparse(x: SparseArray, centers0, max_iter, tol, read=None):
     """Lloyd steps on the sparse ``x`` (the reference's
-    ``_kmeans_fit_sparse_sharded`` on one shard), masked and chunked as
+    ``_kmeans_fit_sparse_sharded``), masked and chunked as
     :func:`_kmeans_fit`.  The per-cluster sums ``xᵀ onehot`` are one
     fixed-order column reduce: the entries sorted by column once, each
-    column's products summed in order.  Returns the reference's 6-tuple."""
+    column's products summed in order.  On every mesh each rank runs the
+    E-step on its rows (padding rows weighted 0) and ONE packed ``psum``
+    over 'rows' a step carries (sums, counts, inertia): the identity on
+    one rank.  Returns the reference's 6-tuple."""
     dev, dt = x.device, torch.float32
-    k = centers0.shape[0]
+    mesh = x._mesh
+    w = _row_weights(x)
+    k, n = centers0.shape
     rowsq = x.row_norms_sq()
     c_rows, _, c_vals, col_len = x._by_col()
     c_rows = c_rows.to(torch.int64)
@@ -465,16 +489,23 @@ def _kmeans_fit_sparse(x: SparseArray, centers0, max_iter, tol, read=None):
         d = _sparse_distances(x, centers, rowsq)
         min_d, labels = torch.min(d, dim=1)   # first index on ties
         onehot = (labels[:, None] == cluster_ids).to(dt)
+        onehot = onehot * w[:, None]
         counts = onehot.sum(dim=0)
         # sums[c] = Σ over the entries of column c of val · onehot[row]
+        # (padding rows have no entries)
         part = (labels[c_rows][:, None] == cluster_ids).to(dt) \
             * c_vals[:, None]
         sums = seg_sum(part, col_len).T                   # (k, n)
+        step_inertia = torch.sum(min_d * w)
+        packed = _dist.psum(torch.cat([sums.reshape(-1), counts,
+                                       step_inertia.reshape(1)]),
+                            _mesh.ROWS, mesh)
+        sums = packed[: k * n].view(k, n)
+        counts, step_inertia = packed[k * n: k * n + k], packed[-1]
         new_centers = torch.where(
             counts[:, None] > 0,
             sums / torch.clamp_min(counts, 1.0)[:, None], centers)
         step_shift = torch.sum((new_centers - centers) ** 2)
-        step_inertia = torch.sum(min_d)
         centers = torch.where(active, new_centers, centers).contiguous()
         shift = torch.where(active, step_shift, shift)
         inertia = torch.where(active, step_inertia, inertia)

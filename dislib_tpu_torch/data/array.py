@@ -13,9 +13,13 @@ device.  On a mesh of R x C ranks (a ``torch.distributed`` job, see
 block of it — the reference's ``P(ROWS, COLS)`` placement — and the
 global logical shape.  Ported code reads the rank's block through
 ``_local``; ``_data``, the whole padded tensor, exists only on a one-rank
-mesh and raises on a larger one, naming ROADMAP.md A.2c and A.11: every
-module not yet ported to the mesh reads ``_data``, so none of them
-computes on one rank's rows without knowing it.  Across ranks: the constructors place
+mesh and raises on a larger one, naming ROADMAP.md A.11
+(:func:`_whole_array_guard`): every module not yet ported to the mesh
+reads ``_data``, so none of them computes on one rank's rows without
+knowing it.  Across ranks run the ds-array and the sparse ds-array, and
+every estimator of the package (the guard's message lists them); A.11
+holds the re-layouts, the snapshots of a multi-rank fit and serving
+across ranks.  Across ranks: the constructors place
 blocks (each rank takes its block of the same global input or draw),
 ``collect`` all-gathers them, the elementwise ops of equal shapes and
 scalars stay local, a (1, n), (m, 1) or (1, 1) operand of a broadcast
@@ -180,6 +184,24 @@ def _guard(what, item="A.11"):
         f"yet (ROADMAP.md {item})")
 
 
+def _whole_array_guard(mesh):
+    """The error of an operation that reads the whole padded backing
+    (``_data``) of an array sharded over several ranks: a module not
+    ported to the mesh."""
+    return NotImplementedError(
+        "this operation reads the whole ds-array and the array is sharded "
+        f"over a {(mesh.rows, mesh.cols)} mesh of ranks; across ranks run "
+        "so far: the ds-array and its helpers, the sparse ds-array "
+        "(SparseArray), matmul and the SpMM, kron, qr, svd, polar, tsqr, "
+        "random_svd, lanczos_svd, PCA, KMeans (dense and sparse), "
+        "MiniBatchKMeans, GaussianMixture, the scalers, LinearRegression, "
+        "ADMM/Lasso, NearestNeighbors (dense and sparse), "
+        "KNeighborsClassifier, the decision trees and random forests, "
+        "DBSCAN, Daura, CascadeSVM (dense and sparse), ALS, IVFIndex, the "
+        "searches and the shuffle (ROADMAP.md A.11 ports the re-layouts, "
+        "the snapshots of a multi-rank fit and serving across ranks)")
+
+
 def _routing(src, m_in_loc, m_out_loc, p, dst=None):
     """Host routing plan of ``out[dst[i]] = x[src[i]]`` (``dst`` default
     ``arange``: ``out[i] = x[src[i]]``) between contiguous row shards,
@@ -329,18 +351,7 @@ class Array:
         not yet ported to the mesh reads this, so on a mesh of several
         ranks it raises instead of computing on one rank's block."""
         if _sharded(self._mesh):
-            raise NotImplementedError(
-                "this operation reads the whole ds-array and the array is "
-                f"sharded over a {(self._mesh.rows, self._mesh.cols)} mesh "
-                "of ranks; across ranks run so far: the ds-array and its "
-                "helpers, matmul, kron, qr, svd, polar, tsqr, random_svd, "
-                "lanczos_svd, PCA, KMeans, MiniBatchKMeans, "
-                "GaussianMixture, the scalers, LinearRegression, ADMM/Lasso, "
-                "NearestNeighbors, KNeighborsClassifier, the decision trees "
-                "and random forests, DBSCAN, Daura, dense CascadeSVM, the "
-                "searches and the shuffle (ROADMAP.md A.2c ports the sparse "
-                "tier, ALS and IVF; A.11 the re-layouts and the snapshots "
-                "of a multi-rank fit)")
+            raise _whole_array_guard(self._mesh)
         return self._local
 
     @property

@@ -33,9 +33,13 @@ into the same row windows.  The cross term is one GEMM with TF32 off for
 dense queries (outside any kernel, as in the reference) and
 ``ops/spmm.spmm_rows`` against the window's transpose for sparse
 queries.  The running merge is ``ops/base.merge_smallest``, ties to the
-lower index.  The reference's ``shard_map`` variants exist only for a
-mesh of more than one row; on one rank a sharded-backed query takes the
-same stream.  A ``SparseArray`` across ranks is ROADMAP.md A.2c.
+lower index.  Across ranks (the reference's ``_kneighbors_sparse_sharded_q``
+and ``_sq``): a sparse fit set's entries are all-gathered over 'rows'
+once and kept (``SparseArray._gathered_view``), so its streamed windows
+are the same on every rank (a dense fit set is all-gathered); the queries
+stay on their rank (a dense query block with its columns gathered over
+'cols'), each rank runs the one-rank stream on its own query rows, and
+the results are row-sharded like the queries, padded query rows 0.
 """
 
 from __future__ import annotations
@@ -140,6 +144,15 @@ def _kneighbors_rows(x, f, k, ring=None):
         raise ValueError("kneighbors: the queries and the fit set live on "
                          "different meshes")
     row0 = x._at[0]
+    if isinstance(x, SparseArray) or isinstance(f, SparseArray):
+        fs = f._gathered_view() if isinstance(f, SparseArray) else Array(
+            f._gathered(), f.shape, _mesh.local_mesh(f.device))
+        q = x._local_view() if isinstance(x, SparseArray) \
+            else x._row_block()[:, : x.shape[1]]
+        d, idx = _kneighbors_sparse(q, fs, k)
+        live = max(0, x.shape[0] - row0)          # padded query rows: 0
+        d[live:], idx[live:] = 0.0, 0
+        return d, idx, row0
     mq_loc = max(0, min(x._local.shape[0], x.shape[0] - row0))
     if ring_auto(ring, mesh, f.shape[0] >= _RING_MIN) \
             and mesh.shape[_mesh.ROWS] > 1:
@@ -219,7 +232,8 @@ def _kneighbors_sparse(x, f, k):
     nearest rows of ``f`` for each row of ``x``, one or both a
     ``SparseArray``: a running top-k over the fit set's windows
     (:func:`_fit_windows`), whose cross term against the queries is one
-    GEMM (dense queries) or one SpMM (sparse queries)."""
+    GEMM (dense queries) or one SpMM (sparse queries).  ``x`` may also be
+    the dense queries as an (mq, n) tensor."""
     mq = x.shape[0]
     chunk = min(_CHUNK, max(1, f.shape[0]))
     if isinstance(x, SparseArray):
@@ -230,7 +244,7 @@ def _kneighbors_sparse(x, f, k):
             return spmm_rows(q._row_len, q._cols, q._vals,
                              win.T.contiguous())
     else:
-        qv = x._data[:mq, : x.shape[1]]
+        qv = x if isinstance(x, torch.Tensor) else x._data[:mq, : x.shape[1]]
         q_sq = torch.sum(qv * qv, dim=1)
 
         def cross(win):

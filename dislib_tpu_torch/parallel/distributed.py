@@ -393,23 +393,22 @@ def _done(t):
 # the collectives
 # ---------------------------------------------------------------------------
 
-def _reduce(t, axis, mesh, op, name):
+def _reduce(t, axis, mesh, op, name, async_op=False):
     ax = _axis(mesh, axis)
     if ax is None:
-        return t
+        return _done(t) if async_op else t
     t0 = time.perf_counter()
     buf = _staged(t, mesh)
     buf = buf.clone() if buf is t else buf
-    dist.all_reduce(buf, op=op, group=ax.group)
-    out = _unstaged(buf, t)
-    _count(name, t.numel() * t.element_size(), time.perf_counter() - t0)
-    return out
+    work = dist.all_reduce(buf, op=op, group=ax.group, async_op=True)
+    p = Pending((work,), buf, t, name, t.numel() * t.element_size(), t0)
+    return p if async_op else p.wait()
 
 
-def psum(t: torch.Tensor, axis, mesh) -> torch.Tensor:
+def psum(t: torch.Tensor, axis, mesh, async_op: bool = False):
     """The sum of ``t`` over the ranks along ``axis`` (``lax.psum``),
-    on every one of them."""
-    return _reduce(t, axis, mesh, dist.ReduceOp.SUM, "psum")
+    on every one of them; ``async_op`` returns a :class:`Pending`."""
+    return _reduce(t, axis, mesh, dist.ReduceOp.SUM, "psum", async_op)
 
 
 def pmax(t: torch.Tensor, axis, mesh) -> torch.Tensor:

@@ -11,7 +11,9 @@ range vectors are made on each rank's block.
 Sparse input, as in the reference: ``StandardScaler(with_mean=False)``
 fits a ``SparseArray`` by the one-pass moments ``mean``, ``square().mean``
 and ``var = E[x²] − μ²`` (fixed-order column sums of the nonzeros) and
-transforms it by ``scale_cols``, staying sparse; centering a
+transforms it by ``scale_cols``, staying sparse (across ranks the
+moments are the sparse ds-array's reduced sums and each rank scales its
+own entries by the whole (1, n) vector); centering a
 ``SparseArray`` raises ``ValueError``, and ``MinMaxScaler`` (whose shift
 densifies) raises ``TypeError`` on one.
 """
@@ -162,8 +164,8 @@ class MinMaxScaler(BaseEstimator):
 
 def _sqrt_vec(v: Array) -> torch.Tensor:
     """(n,) sqrt(max(v, 0)) with zeros → 1 (a no-op scale), for the
-    sparse path (one rank)."""
-    return _safe_sqrt(v)._data[0, : v._shape[1]]
+    sparse path (on every rank)."""
+    return _safe_sqrt(v)._gathered()[0, : v._shape[1]]
 
 
 def _safe_sqrt(v: Array) -> Array:

@@ -34,10 +34,11 @@ dense mask and in the sparse entries alike.
   results come back in one transfer (``HOST_READS["results"]``); a
   sparse fit also reads its row and column entry counts once each
   (``HOST_READS["sparse"]``) to plan its chunks.
-- **Random draws.** V₀ is :func:`_draw_items`, a uniform draw from a
-  ``torch.Generator`` seeded with ``random_state`` (the reference draws
-  threefry ``uniform``; the parity tests hand that draw in here).  U₀ is
-  never read before the first user half-step overwrites it.
+- **Random draws.** V₀ is :func:`_draw_items` at the logical (n, f), a
+  uniform draw from a ``torch.Generator`` seeded with ``random_state``
+  (the reference draws threefry ``uniform``; the parity tests hand that
+  draw in here), the same on every mesh.  U₀ is never read before the
+  first user half-step overwrites it.
 - **Fold-in** (``fold_in``, ``_fold_in_device``, ``_fold_in_body``):
   new users' normal equations against the frozen item factors, solved
   and scored in one pass, the top ``top_n`` items picked in the same
@@ -57,8 +58,21 @@ dense mask and in the sparse entries alike.
   factors (with the logical ``m``, ``n``) are the chunk's own host
   copies.  The ``'halve'`` action scales λ by ``rem.damping``.
 
-Not ported: the multi-rank sparse fit (the reference's ``shard_map`` with
-one ``psum`` per item half-step, ROADMAP.md A.2).
+- **Across ranks** (a mesh of several ranks, and a world of one, whose
+  collectives run over groups of one).  Dense (the reference's
+  ``_als_fit`` with the ratings held to the data sharding): each rank's
+  (m_local, n_local) block of ratings and mask; the user half-step's
+  ``mask @ (v ⊗ v)``, ``r @ v`` and counts are ONE packed ``psum`` over
+  'cols', the item half-step's ``maskᵀ @ (u ⊗ u)``, ``rᵀ @ u`` and counts
+  one over 'rows'; V (n, f) is replicated (each rank's solved items
+  all-gathered over 'cols'), U holds the mesh row's users.  Sparse (the
+  reference's ``_als_fit_sparse``): the user half-step is local to the
+  rank, whose entries are its users'; the item half-step sums the rank's
+  column-sorted partials (A, b), then one ``psum`` over 'rows' (the item
+  counts once a fit).  The RMSE's sums are ``psum``-ed, so every rank
+  takes the same stop decision.  At the end U is all-gathered over
+  'rows': ``users_`` and ``items_`` are the full host arrays on every
+  rank.  ``checkpoint=`` across ranks raises (ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -70,11 +84,12 @@ import torch
 
 from dislib_tpu_torch.base import BaseEstimator
 from dislib_tpu_torch.cluster.kmeans import _to_host
-from dislib_tpu_torch.data.array import Array
+from dislib_tpu_torch.data.array import Array, _block_geom
 from dislib_tpu_torch.data.sparse import SparseArray, nse_quantum
 from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.ops.base import cholesky_nan, precise
 from dislib_tpu_torch.ops.spmm import seg_sum
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
 from dislib_tpu_torch.runtime import fitloop as _fitloop
 from dislib_tpu_torch.runtime import health as _health
@@ -144,6 +159,10 @@ class ALS(BaseEstimator):
         if not sparse_in and not isinstance(x, Array):
             raise TypeError(f"ALS takes a ds-array or a SparseArray, got "
                             f"{type(x).__name__}")
+        if checkpoint is not None and x._mesh.world > 1:
+            raise NotImplementedError(
+                "ALS(checkpoint=...) on ratings sharded over several ranks: "
+                "snapshots of a multi-rank fit are ROADMAP.md A.11")
         m, n = x.shape
         nf = int(self.n_f)
         seed = self.random_state if self.random_state is not None else 0
@@ -151,8 +170,8 @@ class ALS(BaseEstimator):
             t = x if test is None else _test_sparse(test, x)
             rows_u, rows_v = m, n
         else:
-            t = x._data if test is None else _test_dense(test, x)
-            rows_u, rows_v = x._data.shape
+            t = x._local if test is None else _test_dense(test, x)
+            rows_u, rows_v = x._pshape
         box = {"lam": float(self.lambda_), "rmse": np.inf}
         log = verbose_logger("als", self.verbose)
         loop = _fitloop.ChunkedFitLoop(
@@ -163,7 +182,7 @@ class ALS(BaseEstimator):
             # logical dims and the factor width are pinned
             snapshot_expect={"m": int(m), "n": int(n),
                              "users": (None, nf), "items": (None, nf)},
-            elastic=_fitloop.data_rebind({"x": x}))
+            elastic=_fitloop.data_rebind({"x": x}), mesh=x._mesh)
 
         def init(rem):
             box["lam"] = float(self.lambda_) * rem.damping
@@ -192,8 +211,9 @@ class ALS(BaseEstimator):
                 out = _als_fit_sparse(x, t, *args, init_state=state,
                                       read=loop.guard.read)
             else:
-                out = _als_fit(x._data, t, *args, init_state=state,
-                               read=loop.guard.read)
+                out = _als_fit(x._local, t, *args, init_state=state,
+                               read=loop.guard.read, shape=x.shape,
+                               mesh=x._mesh)
             pack = fetch_packed(*out)
 
             def commit():
@@ -245,8 +265,9 @@ class ALS(BaseEstimator):
             t = x if test is None else _test_sparse(test, x)
             out = _als_fit_sparse(x, t, *args)
         elif isinstance(x, Array):
-            test_p = x._data if test is None else _test_dense(test, x)
-            out = _als_fit(x._data, test_p, *args)
+            test_p = x._local if test is None else _test_dense(test, x)
+            out = _als_fit(x._local, test_p, *args, shape=x.shape,
+                           mesh=x._mesh)
         else:
             raise TypeError(f"ALS takes a ds-array or a SparseArray, got "
                             f"{type(x).__name__}")
@@ -340,17 +361,19 @@ def _host_ratings(t):
 
 
 def _test_dense(test, x: Array) -> torch.Tensor:
-    """Held-out ratings on ``x``'s device at its padded shape (zero
-    outside the logical region)."""
+    """Held-out ratings on ``x``'s device as ``x``'s block of the padded
+    shape (zero outside the logical region; every rank its block)."""
     import scipy.sparse as sp
+    if isinstance(test, Array) and test._mesh == x._mesh \
+            and test.shape == x.shape:
+        return test._local.to(x.dtype)
     t = _host_ratings(test)
     t = np.asarray(t.toarray() if sp.issparse(t) else t, np.float32)
     if t.shape != tuple(x.shape):
         raise ValueError(f"test ratings shape {t.shape} != ratings shape "
                          f"{tuple(x.shape)}")
-    out = torch.zeros(x._data.shape, dtype=x._data.dtype, device=x.device)
-    out[: t.shape[0], : t.shape[1]] = torch.from_numpy(t).to(x.device)
-    return out
+    return Array._from_logical(torch.from_numpy(t), x._mesh)._local.to(
+        x.dtype)
 
 
 def _test_sparse(test, x: SparseArray) -> SparseArray:
@@ -361,14 +384,14 @@ def _test_sparse(test, x: SparseArray) -> SparseArray:
         t = test
     else:
         h = _host_ratings(test)
-        t = SparseArray.from_scipy(h if sp.issparse(h)
-                                   else sp.csr_matrix(h), device=x.device)
+        t = SparseArray._on_mesh(h if sp.issparse(h) else sp.csr_matrix(h),
+                                 x._mesh)
     if tuple(t.shape) != tuple(x.shape):
         raise ValueError(f"test ratings shape {tuple(t.shape)} != ratings "
                          f"shape {tuple(x.shape)}")
-    if t.device != x.device:
+    if t.device != x.device or t._mesh != x._mesh:
         raise ValueError(f"test ratings live on {t.device}, the ratings on "
-                         f"{x.device}")
+                         f"{x.device} (or on another mesh)")
     return t
 
 
@@ -437,27 +460,37 @@ def _chol_solve(a, b):
     return torch.linalg.solve_triangular(low.mT, y, upper=True)[..., 0]
 
 
-def _solve_factors(r, mask, v, lambda_, n_f):
+def _solve_factors(r, mask, v, lambda_, n_f, reduce=None):
     """Every row's regularised least squares at once: ``a = mask @ (v ⊗
     v)`` as one (m, n)×(n, f²) product, ``b = r @ v``, then the batched
-    Cholesky solve."""
+    Cholesky solve.  ``reduce``: across ranks, sums a block's partials
+    (a, b and the counts, packed in one vector) over the ranks that hold
+    the row's other blocks — one ``psum``."""
     counts = torch.sum(mask, dim=1)
     b = px.pdot(r, v)                                     # (m, f)
     vv = (v[:, :, None] * v[:, None, :]).reshape(v.shape[0], n_f * n_f)
-    a = px.pdot(mask, vv).reshape(-1, n_f, n_f)
+    a = px.pdot(mask, vv)
+    if reduce is not None:
+        k = r.shape[0]
+        packed = reduce(torch.cat([a.reshape(-1), b.reshape(-1), counts]))
+        a = packed[: k * n_f * n_f]
+        b = packed[k * n_f * n_f: k * n_f * (n_f + 1)].reshape(k, n_f)
+        counts = packed[k * n_f * (n_f + 1):]
     reg = lambda_ * torch.clamp_min(counts, 1.0)
-    a = a + reg[:, None, None] * torch.eye(n_f, dtype=a.dtype,
-                                           device=a.device)
+    a = a.reshape(-1, n_f, n_f) + reg[:, None, None] * torch.eye(
+        n_f, dtype=a.dtype, device=a.device)
     return _chol_solve(a, b)
 
 
-def _sweeps(solve, rmse, u, v, tol, max_iter, prev0=None, read=None):
+def _sweeps(solve, rmse, u, v, tol, max_iter, prev0=None, read=None,
+            finish=None):
     """The fit loop: ``solve(v) -> (u, v)`` one sweep, ``rmse(u, v)`` its
     convergence RMSE; masked sweeps in chunks (:func:`run_chunked`) until
     |ΔRMSE| < tol or ``max_iter``.  ``prev0``: the RMSE the first sweep is
     compared with (a resumed chunk's); ``read``: the loop's stop-flag
-    read.  Returns the reference's ``(u, v, rmse, n_iter, converged, hist,
-    hvec)`` as device tensors."""
+    read; ``finish``: maps the rank's U to the whole U at the end (across
+    ranks).  Returns the reference's ``(u, v, rmse, n_iter, converged,
+    hist, hvec)`` as device tensors."""
     dev, dt = v.device, v.dtype
     prev = torch.full((), float("inf") if prev0 is None else prev0,
                       dtype=dt, device=dev)
@@ -481,44 +514,65 @@ def _sweeps(solve, rmse, u, v, tol, max_iter, prev0=None, read=None):
     # runs max_iter sweeps with no read
     run_chunked(step, None if tol <= 0 else lambda: ~conv, max_iter, "als",
                 read=read)
+    if finish is not None:
+        u = finish(u)
     hvec = _health.health_vec(carries=(u, v), hist=hist, n_done=n_iter)
     return u, v, prev, n_iter, conv, hist, hvec
 
 
 @precise
 def _als_fit(rp, test_p, n_f, lambda_, tol, max_iter, seed, init_state=None,
-             read=None):
+             read=None, shape=None, mesh=None):
     """The dense fit on the padded ratings ``rp`` (zero = unobserved, the
     padding included) with held-out ratings ``test_p`` of the same shape.
     ``init_state``: ``(u, v, rmse)`` to resume from (a chunk of the
-    checked fit), else V₀ is drawn from ``seed``."""
+    checked fit), else V₀ is drawn from ``seed``.  ``shape``: the logical
+    (m, n).  On a ``mesh`` of several ranks (or a world of one) ``rp`` and
+    ``test_p`` are this rank's blocks and each half-step's partials are
+    reduced over the ranks (:func:`_solve_factors`' ``reduce``); U comes
+    back whole.  With no process group the collectives are the
+    identity."""
     dt = rp.dtype
     mask = (rp != 0).to(dt)
     tmask = (test_p != 0).to(dt)
-    t_count = torch.clamp_min(torch.sum(tmask), 1.0)
-    u0, v0, prev0 = _start(init_state, rp.shape[0], rp.shape[1], n_f,
-                           seed, dt, rp.device)
+    mesh = _mesh.local_mesh(rp.device) if mesh is None else mesh
+    m, n = shape if shape is not None else rp.shape
+    r0, c0, m_loc, n_loc = _block_geom((m, n), mesh)
+    n_pad = n_loc * mesh.cols
+    t_count = torch.clamp_min(_dist.psum(torch.sum(tmask).reshape(1),
+                                         _dist.ALL, mesh)[0], 1.0)
+    u0, v0, prev0 = _start(init_state, m_loc, n_pad, n_f, seed, dt,
+                           rp.device, n, r0)
 
     def solve(v):
-        u = _solve_factors(rp, mask, v, lambda_, n_f)
-        return u, _solve_factors(rp.T, mask.T, u, lambda_, n_f)
+        u = _solve_factors(rp, mask, v[c0:c0 + n_loc], lambda_, n_f,
+                           lambda t: _dist.psum(t, _mesh.COLS, mesh))
+        vb = _solve_factors(rp.T, mask.T, u, lambda_, n_f,
+                            lambda t: _dist.psum(t, _mesh.ROWS, mesh))
+        return u, _dist.all_gather(vb, _mesh.COLS, 0, mesh)
 
     def rmse(u, v):
-        se = ((px.pdot(u, v.T) - test_p) * tmask) ** 2
-        return torch.sqrt(torch.sum(se) / t_count)
+        se = ((px.pdot(u, v[c0:c0 + n_loc].T) - test_p) * tmask) ** 2
+        tot = _dist.psum(torch.sum(se).reshape(1), _dist.ALL, mesh)[0]
+        return torch.sqrt(tot / t_count)
 
-    return _sweeps(solve, rmse, u0, v0, tol, max_iter, prev0, read)
+    return _sweeps(solve, rmse, u0, v0, tol, max_iter, prev0, read,
+                   finish=lambda u: _dist.all_gather(u, _mesh.ROWS, 0, mesh))
 
 
-def _start(init_state, m, n, n_f, seed, dt, device):
-    """``(u0, v0, prev_rmse)`` of a fit or chunk: the carried state, or
-    zeros, the seeded V₀ draw and no previous RMSE.  U₀ is never read
+def _start(init_state, m, n, n_f, seed, dt, device, n_draw=None, row0=0):
+    """``(u0, v0, prev_rmse)`` of a fit or chunk of ``m`` user rows and
+    ``n`` item rows: the carried state (its U cut to the rows from
+    ``row0``), or zeros, the seeded V₀ draw at the logical ``n_draw``
+    items (zero rows past them) and no previous RMSE.  U₀ is never read
     before the first user half-step overwrites it."""
     if init_state is not None:
         u, v, prev = init_state
-        return u.to(dt), v.to(dt), float(prev)
-    return (torch.zeros((m, n_f), dtype=dt, device=device),
-            _draw_items(seed, n, n_f, device).to(dt), None)
+        return u[row0:row0 + m].to(dt), v.to(dt), float(prev)
+    n_draw = n if n_draw is None else int(n_draw)
+    v0 = torch.zeros((n, n_f), dtype=dt, device=device)
+    v0[:n_draw] = _draw_items(seed, n_draw, n_f, device).to(dt)
+    return torch.zeros((m, n_f), dtype=dt, device=device), v0, None
 
 
 def _row_chunks(lengths: np.ndarray, max_entries: int):
@@ -543,18 +597,24 @@ class _HalfStep:
     """One side of the sparse fit: the normal equations of each of
     ``lengths.shape[0]`` rows, whose entries lie contiguous and in order
     in ``other_idx`` (the other factor's row of each entry), ``vals`` and
-    ``w``."""
+    ``w``.  ``mesh``: the item side's, whose rows' entries are spread
+    over the mesh rows, so the partials and counts are ``psum``-ed over
+    'rows'; None for the user side, whose rows are this rank's."""
 
     def __init__(self, lengths_dev, lengths_host, other_idx, vals, w,
-                 n_f, lambda_):
+                 n_f, lambda_, mesh=None):
         self.lengths = lengths_dev
         self.idx = other_idx.to(torch.int64)
         self.w = w
         self.vw = vals * w
         self.n_f = n_f
+        self.mesh = mesh
         self.chunks = _row_chunks(lengths_host, max(
             1, SPARSE_BUDGET_BYTES // (4 * n_f * n_f)))
-        reg = lambda_ * torch.clamp_min(seg_sum(w, lengths_dev), 1.0)
+        count = seg_sum(w, lengths_dev)
+        if mesh is not None:            # the item side: counts over ranks
+            count = _dist.psum(count, _mesh.ROWS, mesh)
+        reg = lambda_ * torch.clamp_min(count, 1.0)
         self.reg = reg[:, None, None] * torch.eye(n_f, dtype=w.dtype,
                                                   device=w.device)
 
@@ -568,22 +628,29 @@ class _HalfStep:
             a_parts.append(seg_sum(outer, lens))
             b_parts.append(seg_sum(self.vw[e0:e1, None] * g, lens))
         nseg = self.reg.shape[0]
-        a = (torch.cat(a_parts) if a_parts else other.new_zeros(
-            (nseg, f * f))).reshape(nseg, f, f) + self.reg
+        a = torch.cat(a_parts) if a_parts else other.new_zeros((nseg, f * f))
         b = torch.cat(b_parts) if b_parts else other.new_zeros((nseg, f))
-        return _chol_solve(a, b)
+        if self.mesh is not None:
+            # the rank's partials, then ONE psum over 'rows'
+            packed = _dist.psum(torch.cat([a.reshape(-1), b.reshape(-1)]),
+                                _mesh.ROWS, self.mesh)
+            a = packed[: nseg * f * f]
+            b = packed[nseg * f * f:].reshape(nseg, f)
+        return _chol_solve(a.reshape(nseg, f, f) + self.reg, b)
 
 
 def _half_steps(x: SparseArray, n_f, lambda_):
     """The user and the item :class:`_HalfStep` of the sparse fit on the
-    entries of ``x``: the row-sorted entries, and the column-sorted copy
-    (one read of its column counts, to plan the chunks)."""
+    entries of ``x`` (this rank's): the row-sorted entries, and the
+    column-sorted copy (one read of its column counts, to plan the
+    chunks).  The item half-step is reduced over 'rows' (the identity with
+    no process group)."""
     users = _HalfStep(x._row_len, x._row_nnz(), x._cols, x._vals,
                       (x._vals != 0).to(x.dtype), n_f, lambda_)
     c_rows, _, c_vals, col_len = x._by_col()
     count_read("sparse")
     items = _HalfStep(col_len, col_len.cpu().numpy(), c_rows, c_vals,
-                      (c_vals != 0).to(x.dtype), n_f, lambda_)
+                      (c_vals != 0).to(x.dtype), n_f, lambda_, x._mesh)
     return users, items
 
 
@@ -594,13 +661,15 @@ def _als_fit_sparse(x: SparseArray, t: SparseArray, n_f, lambda_, tol,
     convergence RMSE over the entries of ``t`` (``x`` itself without
     held-out ratings)."""
     m, n = x.shape
-    dev = x.device
+    dev, mesh = x.device, x._mesh
     users, items = _half_steps(x, n_f, lambda_)
     t_rows = t._rows.to(torch.int64)
     t_cols = t._cols.to(torch.int64)
     tw = (t._vals != 0).to(t.dtype)
-    t_count = torch.clamp_min(torch.sum(tw), 1.0)
-    u0, v0, prev0 = _start(init_state, m, n, n_f, seed, x.dtype, dev)
+    t_count = torch.clamp_min(_dist.psum(torch.sum(tw).reshape(1),
+                                         _mesh.ROWS, mesh)[0], 1.0)
+    u0, v0, prev0 = _start(init_state, x._m_local, n, n_f, seed, x.dtype,
+                           dev, row0=x._row0)
 
     def solve(v):
         u = users.solve(v)
@@ -608,9 +677,12 @@ def _als_fit_sparse(x: SparseArray, t: SparseArray, n_f, lambda_, tol,
 
     def rmse(u, v):
         pred = torch.sum(u[t_rows] * v[t_cols], dim=1)
-        return torch.sqrt(torch.sum(tw * (pred - t._vals) ** 2) / t_count)
+        se = _dist.psum(torch.sum(tw * (pred - t._vals) ** 2).reshape(1),
+                        _mesh.ROWS, mesh)[0]
+        return torch.sqrt(se / t_count)
 
-    return _sweeps(solve, rmse, u0, v0, tol, max_iter, prev0, read)
+    return _sweeps(solve, rmse, u0, v0, tol, max_iter, prev0, read,
+                   finish=lambda u: _dist.all_gather(u, _mesh.ROWS, 0, mesh))
 
 
 @precise

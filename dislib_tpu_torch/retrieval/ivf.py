@@ -1,15 +1,19 @@
-"""IVF approximate nearest-neighbour index on one card.
+"""IVF approximate nearest-neighbour index.
 
 Counterpart of ``dislib_tpu/retrieval/ivf.py``.  ``fit`` clusters the
 catalog with the port's :class:`~dislib_tpu_torch.cluster.KMeans` (its
 E-step is the hand kernel ``distances_sq``), then lays the inverted lists
-out on the host as the reference's ``_build`` does, with one shard
-(p = 1): the catalog rows ordered by (list, row id), each list padded to
-a multiple of the list quantum (``list_quantum``, else
+out on the host as the reference's ``_build`` does, striped over the p
+row shards of the mesh (p = the mesh's rows; 1 on one card): entry j of
+list ℓ (in row-id order) goes to shard j % p, each (shard, list)
+sub-list padded to a multiple of the list quantum (``list_quantum``, else
 ``DSLIB_IVF_LIST_QUANTUM``, else 8) with pad slots of id −1, zero vector
-and zero norm.  ``pad_waste`` measures what the padding costs.
+and zero norm.  ``pad_waste`` measures what the padding costs.  Across
+ranks each rank keeps only its mesh row's stripe, its features split over
+'cols' as the reference's ``P(ROWS, COLS)``; the whole catalog and the
+labels are collected once for the host layout.
 
-``search`` is the reference's ``_ivf_topk`` at one rank:
+``search`` is the reference's ``_ivf_topk``:
 
 - (a) the centroid distances ‖q‖² − 2q·cᵀ + ‖c‖², the cross term on the
   hand kernel ``panel_gemm`` (FLOAT32) under ``overlap="kernel"`` (or its
@@ -29,18 +33,23 @@ and zero norm.  ``pad_waste`` measures what the padding costs.
 - (d) ``sqrt`` of the clamped d².  Slots the probed lists cannot fill
   carry +∞ and id −1.
 
-On one rank the reference's ring over striped shards
-(``ops/overlap.panel_pipeline``) has one step, so the scan runs once over
-the one shard and ``db`` and ``seq`` are the same computation; the
-striped shards and their ring hop over NCCL are ROADMAP.md A.2.  Where
-the port departs: a d² below 0 (cancellation) ranks as 0, as in
-``ops/ring.py``, and the lists and the merge keys are float32 (the
-reference keeps a float64 catalog in float64).
+Across ranks the queries stay on their rank (its block of rows and
+features): the norms and the centroid cross term are per rank and
+``psum``-ed over 'cols' (the cross term on ``panel_gemm`` under
+``kernel``), and the stripes go round the 'rows' ring by ``ppermute``,
+R − 1 hops through ``ops/overlap.panel_pipeline`` (under ``db`` the next
+stripe is in flight while this one is scanned); each hop's scan merges
+into the running top-k, ties to the lower id whatever the hop order (the
+reference's ring keeps the earlier arrival).  On one rank the ring has
+one step, so ``db`` and ``seq`` are the same computation.  Where the port
+departs: a d² below 0 (cancellation) ranks as 0, as in ``ops/ring.py``,
+and the lists and the merge keys are float32 (the reference keeps a
+float64 catalog in float64).
 
 ``fit(checkpoint=, health=)`` hands both to the quantizer's KMeans fit
 loop.  ``retrieval/serving.RetrievalPipeline`` serves the search as one
-CUDA-graph replay a batch.  Not ported: ``rebind_mesh`` onto any mesh
-but (1, 1) (ROADMAP.md A.2).
+CUDA-graph replay a batch.  Not ported: ``rebind_mesh`` onto another
+mesh shape than the index's (the elastic re-stripe, ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -52,12 +61,14 @@ import numpy as np
 import torch
 
 from dislib_tpu_torch.base import BaseEstimator
-from dislib_tpu_torch.data.array import Array, array as _mk_array
+from dislib_tpu_torch.data.array import Array, _block_with, \
+    _padded_shape, array as _mk_array
 from dislib_tpu_torch.ops import kernels as _k
 from dislib_tpu_torch.ops import overlap as _ov
 from dislib_tpu_torch.ops import precision as px
 from dislib_tpu_torch.ops.base import _keys, merge_keyed, precise, \
     split_keys
+from dislib_tpu_torch.parallel import distributed as _dist
 from dislib_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["IVFIndex"]
@@ -127,16 +138,13 @@ class IVFIndex(BaseEstimator):
     # -- build ---------------------------------------------------------------
 
     def fit(self, items, y=None, checkpoint=None, health=None):
-        """Build the index: the KMeans quantizer on the catalog's device
+        """Build the index: the KMeans quantizer on the catalog's mesh
         (its fit loop takes ``checkpoint=``/``health=``, as any KMeans
-        fit), one labels pass, then the host layout of the lists."""
+        fit), one labels pass, then the host layout of the lists (across
+        ranks the catalog and the labels collected on every rank)."""
         from dislib_tpu_torch.cluster import KMeans
         arr = items if isinstance(items, Array) \
             else _mk_array(np.atleast_2d(np.asarray(items, np.float32)))
-        if arr._mesh.world > 1:
-            raise NotImplementedError(
-                "IVFIndex over a catalog sharded across ranks: the lists "
-                "striped over the row shards are ROADMAP.md A.2c")
         n = arr.shape[0]
         if n < 1:
             raise ValueError("cannot index an empty catalog")
@@ -147,14 +155,16 @@ class IVFIndex(BaseEstimator):
                     random_state=self.random_state, verbose=self.verbose)
         km.fit(arr, checkpoint=checkpoint, health=health)
         labels = km.predict(arr).collect().ravel()
-        self._build(arr.collect(), labels, km.centers_, device=arr.device)
+        self._build(arr.collect(), labels, km.centers_, mesh=arr._mesh)
         self.quantizer_ = km
         return self
 
-    def _build(self, items_h, labels_h, centers_h, device=None):
+    def _build(self, items_h, labels_h, centers_h, device=None, mesh=None):
         """The layout seam: host items, labels and centroids in, device
-        lists out (``device``: the default mesh's when None).  Every
-        length and offset is computed on the host."""
+        lists out, striped over ``mesh``'s row shards (default: the
+        default mesh, or a one-rank mesh on ``device`` when given); this
+        rank keeps its stripe.  Every length and offset is computed on
+        the host."""
         items_h = np.atleast_2d(np.asarray(items_h))
         labels_h = np.asarray(labels_h).ravel().astype(np.int64)
         centers_h = np.atleast_2d(np.asarray(centers_h))
@@ -168,36 +178,51 @@ class IVFIndex(BaseEstimator):
         if n and (labels_h.min() < 0 or labels_h.max() >= nlist):
             raise ValueError(f"labels must lie in [0, {nlist})")
         quantum = _list_quantum(self.list_quantum)
-        mesh = _mesh.get_mesh() if device is None \
-            else _mesh.local_mesh(device)
+        if mesh is None:
+            mesh = _mesh.get_mesh() if device is None \
+                else _mesh.local_mesh(device)
+        p, s = mesh.rows, mesh.coord[0]
+        d_pad = _padded_shape((1, d), _mesh.pad_quantum(mesh))[1]
+        d_loc = d_pad // mesh.cols
+        c0 = mesh.coord[1] * d_loc
 
+        # striped sub-list lengths: entry rank j of list l → shard j % p
         counts_l = np.bincount(labels_h, minlength=nlist)       # (nlist,)
-        pad_l = -(-counts_l // quantum) * quantum
-        cap = max(int(pad_l.max(initial=0)), quantum)
-        offs_l = np.zeros(nlist, np.int64)
-        offs_l[1:] = np.cumsum(pad_l)[:-1]
-        e_pad = max(int(pad_l.sum()), cap)
+        sh = np.arange(p, dtype=np.int64)
+        cnt_ls = np.clip((counts_l[:, None] - sh[None, :] + p - 1) // p, 0,
+                         None)                                  # (nlist, p)
+        pad_ls = -(-cnt_ls // quantum) * quantum
+        cap = max(int(pad_ls.max(initial=0)), quantum)
+        offs_ls = np.zeros((nlist, p), np.int64)
+        offs_ls[1:] = np.cumsum(pad_ls, axis=0)[:-1]
+        e_pad = max(int(pad_ls.sum(axis=0).max(initial=0)), cap)
         # entries ordered by (list, row id): rank j of list l → slot
-        # offs[l] + j
+        # offs[l, j % p] + j // p of shard j % p; this rank keeps shard s
         order = np.argsort(labels_h, kind="stable")
         lbl_sorted = labels_h[order]
         starts = np.zeros(nlist + 1, np.int64)
         starts[1:] = np.cumsum(counts_l)
-        slot = offs_l[lbl_sorted] + np.arange(n) - starts[lbl_sorted]
-        vecs_h = np.zeros((e_pad, d), np.float32)
+        rank = np.arange(n, dtype=np.int64) - starts[lbl_sorted]
+        mine = rank % p == s
+        slot = offs_ls[lbl_sorted[mine], s] + rank[mine] // p
+        vecs_h = np.zeros((e_pad, d_pad), np.float32)
         ids_h = np.full(e_pad, -1, np.int32)
-        vecs_h[slot] = items_h[order]
-        ids_h[slot] = order
+        vecs_h[slot, :d] = items_h[order[mine]]
+        ids_h[slot] = order[mine]
 
         dev = mesh.device
-        self._vecs = torch.from_numpy(vecs_h).to(dev)
+        vecs = torch.from_numpy(vecs_h).to(dev)
+        self._vsq = torch.sum(vecs * vecs, dim=1)           # pads: 0
+        self._vecs = vecs[:, c0:c0 + d_loc].contiguous()   # its features
         self._ids = torch.from_numpy(ids_h).to(dev)
-        self._vsq = torch.sum(self._vecs * self._vecs, dim=1)  # pads: 0
-        self._offs = torch.from_numpy(offs_l).to(dev)
-        self._cnts = torch.from_numpy(counts_l.astype(np.int64)).to(dev)
-        cents = torch.from_numpy(centers_h.astype(np.float32)).to(dev)
-        self._cents_t = cents.T.contiguous()        # (d, nlist) row-major
+        self._offs = torch.from_numpy(offs_ls[:, s].copy()).to(dev)
+        self._cnts = torch.from_numpy(cnt_ls[:, s].astype(np.int64)).to(dev)
+        cents_h = np.zeros((nlist, d_pad), np.float32)
+        cents_h[:, :d] = centers_h
+        cents = torch.from_numpy(cents_h).to(dev)
         self._c_sq = torch.sum(cents * cents, dim=1)
+        # (d_loc, nlist) row-major: this rank's features
+        self._cents_t = cents[:, c0:c0 + d_loc].T.contiguous()
         self._cap = int(cap)
         self._mesh = mesh
         self.d = int(d)
@@ -208,21 +233,26 @@ class IVFIndex(BaseEstimator):
         self._centers_h = centers_h
         self.pad_waste = {
             "entries": int(n),
-            "buffer_rows": int(e_pad),
-            "list_pad_entries": int(pad_l.sum() - n),
-            "balance_pad_rows": int(e_pad - pad_l.sum()),
-            "waste_frac": float(1.0 - n / float(e_pad)),
+            "buffer_rows": int(p * e_pad),
+            "list_pad_entries": int(pad_ls.sum() - n),
+            "balance_pad_rows": int(p * e_pad - pad_ls.sum()),
+            "waste_frac": float(1.0 - n / float(p * e_pad)),
             "cap": int(cap),
             "quantum": int(quantum),
-            "per_shard_entries": [int(n)],
+            "per_shard_entries": [int(v) for v in cnt_ls.sum(axis=0)],
         }
         return self
 
     def _carry_in(self, arrays: dict, device):
+        # onto the default mesh when it is on ``device`` (across ranks the
+        # lists stripe onto the job's mesh), else one rank on ``device``
         self.quantizer_ = arrays.get("quantizer_")
         if "_items_h" in arrays:
+            mesh = _mesh.get_mesh()
             self._build(arrays["_items_h"], arrays["_labels_h"],
-                        arrays["_centers_h"], device=device)
+                        arrays["_centers_h"],
+                        mesh=mesh if mesh.device == torch.device(device)
+                        else _mesh.local_mesh(device))
 
     # the served buffers, in the order a deployment bundle carries them
     _SERVED = ("_vecs", "_ids", "_vsq", "_offs", "_cnts", "_cents_t",
@@ -251,17 +281,17 @@ class IVFIndex(BaseEstimator):
         return self
 
     def rebind_mesh(self, mesh) -> bool:
-        """The reference's elastic re-stripe onto another mesh.  One card
-        has one mesh shape: ``None`` and a (1, 1) mesh re-lay nothing
-        (returns False); any other mesh raises."""
+        """The reference's elastic re-stripe onto another mesh: ``None``
+        and a mesh of the index's own shape re-lay nothing (returns
+        False); another shape raises, naming ROADMAP.md A.11."""
         if mesh is None or getattr(self, "n_items", None) is None:
             return False
         shape = _mesh.mesh_shape(mesh)
-        if shape != (1, 1):
+        if shape != _mesh.mesh_shape(self._mesh):
             raise NotImplementedError(
-                f"IVFIndex.rebind_mesh onto a {shape} mesh: the port runs "
-                "one device; striped lists over several ranks are "
-                "ROADMAP.md A.2")
+                f"IVFIndex.rebind_mesh onto a {shape} mesh from the "
+                f"{_mesh.mesh_shape(self._mesh)} it was striped for: the "
+                "elastic re-stripe is ROADMAP.md A.11")
         return False
 
     def _check_fitted(self):
@@ -281,15 +311,23 @@ class IVFIndex(BaseEstimator):
         (``overlap="kernel"``/``"pallas"``: the centroid product on the
         hand kernel ``panel_gemm``)."""
         self._check_fitted()
+        mesh = self._mesh
+        if not isinstance(queries, Array) and mesh.world > 1:
+            queries = Array._from_logical(torch.as_tensor(np.atleast_2d(
+                np.asarray(queries, np.float32))), mesh)
         if isinstance(queries, Array):
-            if queries.device != self._mesh.device:
+            if queries.device != mesh.device:
                 raise ValueError(f"queries live on {queries.device}, the "
-                                 f"index on {self._mesh.device}")
+                                 f"index on {mesh.device}")
+            if mesh.world > 1 and queries._mesh != mesh:
+                raise ValueError("the queries and the index live on "
+                                 "different meshes")
             mq, d = queries.shape
-            qv = queries._data[:mq, :d]
+            # across ranks this rank's block: its query rows, its features
+            qv = queries._local if mesh.world > 1 else queries._data[:mq, :d]
         else:
             qv = torch.as_tensor(np.atleast_2d(np.asarray(queries)),
-                                 device=self._mesh.device)
+                                 device=mesh.device)
             mq, d = qv.shape
         if d != self.d:
             raise ValueError(f"queries have {d} features, the index holds "
@@ -303,9 +341,15 @@ class IVFIndex(BaseEstimator):
             qv.to(torch.float32).contiguous(), self._vecs, self._ids,
             self._vsq, self._offs, self._cnts, self._cents_t, self._c_sq,
             k, nprobe, self._cap, _ov.resolve(overlap),
-            px.resolve(precision))
-        return (Array._from_logical(torch.sqrt(d2), self._mesh),
-                Array._from_logical(idx, self._mesh))
+            px.resolve(precision), mesh=mesh)
+        if mesh.world > 1:      # this rank's query rows, row-sharded
+            at = (queries._at[0], 0)
+            return (Array(_block_with(torch.sqrt(d2), at, (mq, k), mesh),
+                          (mq, k), mesh),
+                    Array(_block_with(idx, at, (mq, k), mesh), (mq, k),
+                          mesh))
+        return (Array._from_logical(torch.sqrt(d2), mesh),
+                Array._from_logical(idx, mesh))
 
 
 def _dead_keys(rows, k, device) -> torch.Tensor:
@@ -317,20 +361,27 @@ def _dead_keys(rows, k, device) -> torch.Tensor:
 
 @precise
 def _ivf_topk(q, vecs, ids, vsq, offs, cnts, cents_t, c_sq, k, nprobe, cap,
-              overlap="db", policy=px.FLOAT32):
+              overlap="db", policy=px.FLOAT32, mesh=None):
     """(d² (mq, k) float32 ≥ 0, ids (mq, k) int32) of the approximate k
     nearest catalog rows of each query row of ``q`` (mq, d) float32: the
     probe, the chunked scan and the merge of the module docstring.
-    ``overlap`` is a canonical schedule of ``ops/overlap.SCHEDULES``."""
+    ``overlap`` is a canonical schedule of ``ops/overlap.SCHEDULES``.  On
+    a ``mesh`` with a process group ``q`` and the stripe are this rank's
+    (its features), the feature sums are ``psum``-ed over 'cols' and the
+    stripes go round the 'rows' ring."""
     mq, d = q.shape
-    e_pad = vecs.shape[0]
-    q_sq = torch.sum(q * q, dim=1)
+    ranks = mesh is not None and mesh.groups is not None
+
+    def cols_sum(t):
+        return _dist.psum(t, _mesh.COLS, mesh) if ranks else t
+
+    q_sq = cols_sum(torch.sum(q * q, dim=1))
     # (a) the coarse quantizer, (b) the probes
     if overlap == "kernel":
         cpart = _k.panel_gemm(q, cents_t, px.FLOAT32)
     else:
         cpart = px.pdot(q, cents_t, policy)
-    cd = q_sq[:, None] - 2.0 * cpart + c_sq[None, :]
+    cd = q_sq[:, None] - 2.0 * cols_sum(cpart) + c_sq[None, :]
     probes = torch.topk(cd, nprobe, dim=1, largest=False,
                         sorted=True).indices                 # (mq, nprobe)
 
@@ -343,7 +394,9 @@ def _ivf_topk(q, vecs, ids, vsq, offs, cnts, cents_t, c_sq, k, nprobe, cap,
     slot = torch.arange(cap, device=q.device)
     rows_per_block = max(1, PANEL_BYTES // (pc * cap * d * 4))
 
-    def scan(r0, best):
+    def scan(stripe, r0, best):
+        vecs, ids, vsq, offs, cnts = stripe
+        e_pad = vecs.shape[0]
         qb = q[r0: r0 + rows_per_block]
         b = qb.shape[0]
         for c in range(n_chunks):
@@ -351,7 +404,8 @@ def _ivf_topk(q, vecs, ids, vsq, offs, cnts, cents_t, c_sq, k, nprobe, cap,
             cnt = torch.where(probe_ok[c * pc:(c + 1) * pc], cnts[pr], 0)
             flat = (offs[pr][:, :, None] + slot).clamp_(0, e_pad - 1) \
                 .reshape(b, pc * cap)
-            cross = px.peinsum("qd,qcd->qc", qb, vecs[flat], policy)
+            cross = cols_sum(px.peinsum("qd,qcd->qc", qb, vecs[flat],
+                                        policy))
             d2 = q_sq[r0: r0 + b, None] - 2.0 * cross + vsq[flat]
             gi = ids[flat]
             live = (slot < cnt[:, :, None]).reshape(b, pc * cap) & (gi >= 0)
@@ -360,8 +414,19 @@ def _ivf_topk(q, vecs, ids, vsq, offs, cnts, cents_t, c_sq, k, nprobe, cap,
                 torch.where(live, gi, -1), k)
         return best
 
-    keys = _dead_keys(mq, k, q.device)
-    for r0 in range(0, mq, rows_per_block):
-        keys[r0: r0 + rows_per_block] = scan(
-            r0, keys[r0: r0 + rows_per_block])
+    def fetch(t, prev):
+        # one hop: the stripe of the rank t places back along 'rows'
+        return tuple(_dist.ppermute(p, _mesh.ROWS, 1, mesh, async_op=True)
+                     for p in _ov.landed(prev))
+
+    def consume(t, keys, pan):
+        stripe = _ov.landed(pan)
+        for r0 in range(0, mq, rows_per_block):
+            keys[r0: r0 + rows_per_block] = scan(
+                stripe, r0, keys[r0: r0 + rows_per_block])
+        return keys
+
+    keys = _ov.panel_pipeline(
+        mesh.rows if ranks else 1, (vecs, ids, vsq, offs, cnts), fetch,
+        consume, _dead_keys(mq, k, q.device), _ov.overlapped(overlap))
     return split_keys(keys)

@@ -85,9 +85,9 @@ class RetrievalPipeline(ProgramHost):
 
     def rebind_mesh(self, mesh):
         """The reference's elastic rebind: delegate the index's
-        re-stripe.  On one card only the (1, 1) mesh is accepted (nothing
-        to re-lay, returns False); any other raises, naming ROADMAP.md
-        A.2."""
+        re-stripe.  A mesh of the index's own shape is accepted (nothing
+        to re-lay, returns False); another raises, naming ROADMAP.md
+        A.11."""
         return self.index.rebind_mesh(mesh)
 
     def _steps(self):

@@ -8,6 +8,8 @@ the reference.  On a mesh of several ranks it is the reference's
 exchange: the routing plan (``data/array._routing``, the reference's
 ``_routing``) is made on the host, and ONE ``all_to_all`` over 'rows'
 moves the rows (``data/array._gather_rows``); ``y`` reuses ``x``'s plan.
+A ``SparseArray`` moves its entries by one ``all_to_all`` of its own
+(``SparseArray._gather_rows``).
 The rows are copied, never computed, so the result is bit-equal to the
 NumPy permutation.
 """
@@ -31,11 +33,13 @@ def _take(x, y, idx):
     plan serves both."""
     if x._mesh.world == 1:
         return x[idx, :], None if y is None else y[idx, :]
+    if y is not None and y._mesh != x._mesh:
+        raise ValueError("x and y live on different meshes")
+    if not isinstance(x, Array):          # a SparseArray: its entries move
+        return x[idx], None if y is None else _gather_rows(y, idx)[0]
     xs, plan = _gather_rows(x, idx)
     if y is None:
         return xs, None
-    if y._mesh != x._mesh:
-        raise ValueError("x and y live on different meshes")
     return xs, _gather_rows(y, idx, plan)[0]
 
 

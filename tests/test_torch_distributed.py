@@ -80,6 +80,24 @@ CPU devices, restored afterwards) and holds the ranks to it:
 - dense ``CascadeSVM`` (rbf and linear, block rows 64): SV indices and
   ``n_iter_`` equal to one rank's, α within ``ALPHA_TOL`` and the
   decision values within ``DEC_TOL`` (``tests/test_torch_csvm.py``'s);
+- the sparse ds-array (A.2c): ``collect`` bit-equal to the scipy input,
+  each rank's ``ShardedSparse`` shard and ``panel_view`` the reference's
+  shard bit for bit, ``to_dense``, ``sum``/``mean`` and the sparse
+  scaler's moments within 1e-6 of the reference's, row indexing and
+  ``shuffle`` the NumPy rows, the densify route into
+  ``LinearRegression``;
+- SpMM at 2 and 4 panels: two runs, ``db``/``seq`` bit-equal, both
+  layouts within 1e-5 of the reference's largest entry, and B's columns
+  folded in slices bit-equal to one slice;
+- sparse KMeans and the sparse kNN (sparse and dense queries) against the
+  reference; dense ALS against the reference (its threefry V₀ handed to
+  ``_draw_items``) and sparse ALS against C.2's substitute oracle (the
+  port's dense fit of the densified ratings and its one-rank sparse fit);
+- the IVF index from the reference's labels and centers: ``pad_waste``,
+  each rank's stripe, the searches under ``db``/``seq``/``kernel``, a
+  carried index and the ranks' own fit searched exactly;
+- sparse CascadeSVM (ELL and host-CSR staging) against the reference's
+  sparse cascade on the same mesh and against one rank;
 - every estimator not yet ported to the mesh raises NotImplementedError,
   and the checkpointed fits of the ones ported here name A.11.
 
@@ -111,6 +129,9 @@ from dislib_tpu.cluster import Daura as RefDaura
 from dislib_tpu.trees import DecisionTreeClassifier as RefDTC
 from dislib_tpu.trees import DecisionTreeRegressor as RefDTR
 from dislib_tpu.trees import RandomForestClassifier as RefRFC
+from dislib_tpu.recommendation import ALS as RefALS
+from dislib_tpu.retrieval import IVFIndex as RefIVF
+from dislib_tpu.ops.spmm import spmm as ref_spmm
 
 from dislib_tpu_torch.ops.precision import ERROR_BOUNDS
 
@@ -133,6 +154,12 @@ def _start_ranks(tmp, rows, cols):
         f"{W.SV_SEED}_{W.SV_SHAPE[1]}_{W.SV_SKETCH}": np.array(
             jax.random.normal(jax.random.PRNGKey(W.SV_SEED),
                               (W.SV_SHAPE[1], W.SV_SKETCH), np.float32))})
+    # the reference's dense ALS draws V₀ at its padded item count
+    q = int(np.lcm(rows, cols))
+    n_pad = max(q, -(-W.ALS_SHAPE[1] // q) * q)
+    _, kv = jax.random.split(jax.random.PRNGKey(W.ALS_KW["random_state"]))
+    np.save(os.path.join(tmp, "als_v0.npy"), np.array(jax.random.uniform(
+        kv, (n_pad, W.ALS_F), np.float32)))
     store = os.path.join(tmp, "store")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     return [subprocess.Popen(
@@ -167,6 +194,7 @@ def _reference(rows, cols, inp, tmp):
     ds.init((rows, cols), devices=jax.devices()[:WORLD])
     try:
         _reference_carry(ref, inp, tmp)
+        _reference_a2c(ref, inp, tmp)
         x = ds.array(inp["x"])
         ref["x_padded"] = np.asarray(x._data)
         for kind in ("sum", "mean", "min", "max", "norm"):
@@ -287,6 +315,67 @@ def _reference_a2b3(ref, inp):
                                              for c in est.clusters_])
     finally:
         dbscan._RING, daura._RING = saved
+
+
+def _reference_a2c(ref, inp, tmp):
+    """The reference's A.2c on the current mesh: first the IVF index, whose
+    labels and centers go to ``tmp/ivf.npz`` (one rename: the ranks wait
+    for it), then the sparse ds-array, SpMM, sparse KMeans, the sparse kNN,
+    dense ALS and sparse CascadeSVM."""
+    ix = RefIVF(n_lists=W.IVF_LISTS, nprobe=W.IVF_PROBE,
+                random_state=0).fit(ds.array(inp["ivf"]))
+    part = os.path.join(tmp, "ivf_part.npz")
+    np.savez(part, labels=ix._labels_h, centers=ix._centers_h)
+    os.replace(part, os.path.join(tmp, "ivf.npz"))
+    ref["ivf_pad_waste"] = ix.pad_waste
+    for name in ("_vecs", "_ids", "_vsq", "_offs", "_cnts"):
+        ref[f"ivf{name}"] = np.asarray(getattr(ix, name))
+    q = ds.array(inp["ivf_q"])
+    for nprobe in (W.IVF_PROBE, W.IVF_LISTS):
+        dist, idx = ix.search(q, k=W.IVF_K, nprobe=nprobe, overlap="db")
+        ref[f"ivf_{nprobe}_dist"] = np.asarray(dist.collect())
+        ref[f"ivf_{nprobe}_idx"] = np.asarray(idx.collect())
+    x = ds.SparseArray.from_scipy(W.sparse_of(inp["sp_x"]))
+    rep = x.sharded()
+    for name in ("data", "lrows", "cols", "counts_dev"):
+        ref[f"sh_{name}"] = np.asarray(getattr(rep, name))
+    pv = rep.panel_view(2, 20)
+    for name in ("data", "lrows", "cols", "counts_dev"):
+        ref[f"pv_{name}"] = np.asarray(getattr(pv, name))
+    ref["sp_dense"] = np.asarray(x.to_dense().collect())
+    for axis in (0, 1, None):
+        ref[f"sp_sum_{axis}"] = np.asarray(x.sum(axis).collect())
+        ref[f"sp_mean_{axis}"] = np.asarray(x.mean(axis).collect())
+    sc = StandardScaler(with_mean=False).fit(x)
+    ref["sp_sc_mean"] = np.asarray(sc.mean_.collect())
+    ref["sp_sc_var"] = np.asarray(sc.var_.collect())
+    b = ds.array(inp["sp_b"])
+    for panels in W.SP_PANELS:
+        ref[f"spmm_{panels}"] = np.asarray(ref_spmm(x, b, panels=panels)
+                                           .collect())
+    kx = ds.SparseArray.from_scipy(W.sparse_of(inp["skm"]))
+    km = RefKMeans(n_clusters=W.SKM_K, random_state=0, max_iter=20,
+                   tol=1e-4).fit(kx)
+    ref["skm_centers"], ref["skm_inertia"] = km.centers_, km.inertia_
+    ref["skm_labels"] = np.asarray(km.predict(kx).collect())
+    f = ds.SparseArray.from_scipy(W.sparse_of(inp["fit"]
+                                              * (inp["fit"] > 0.3)))
+    qd = inp["q"] * (inp["q"] > 0.3)
+    for name, qq in (("sparse", ds.SparseArray.from_scipy(W.sparse_of(qd))),
+                     ("dense", ds.array(qd))):
+        dist, idx = RefNN(n_neighbors=W.NN_K).fit(f).kneighbors(qq)
+        ref[f"sknn_{name}_dist"] = np.asarray(dist.collect())
+        ref[f"sknn_{name}_idx"] = np.asarray(idx.collect())
+    als = RefALS(**W.ALS_KW).fit(ds.array(inp["als"]))
+    ref["als_users"], ref["als_items"] = als.users_, als.items_
+    ref["als_history"], ref["als_n_iter"] = als.history_, als.n_iter_
+    sx = ds.SparseArray.from_scipy(W.sparse_of(inp["ssv"]), block_size=(
+        W.SSV_BLOCK, W.SSV_SHAPE[1]))
+    sv = RefCSVM(max_iter=W.CSVM_ITERS).fit(sx, ds.array(inp["ssv_y"]))
+    ref["ssv_idx"], ref["ssv_alpha"] = (np.asarray(sv._sv_idx),
+                                        np.asarray(sv._sv_alpha))
+    ref["ssv_n_iter"] = sv.n_iter_
+    ref["ssv_dec"] = np.asarray(sv.decision_function(sx).collect())
 
 
 @pytest.fixture(scope="module", params=[(2, 2), (4, 1)],
@@ -982,3 +1071,199 @@ def test_cascade_svm_is_the_one_rank_cascade(job, kernel):
     assert abs(float(_same_on_every_rank(job, f"{a}_score"))
                - float(_same_on_every_rank(job, f"{b}_score"))) <= 1e-6
     _blocks_hold_a_zero_pad(job, f"sv_{kernel}_dec_block", dec.shape)
+
+
+# -- A.2c: the sparse tier, ALS, the IVF index and sparse CascadeSVM --------
+
+def _mesh_row(job, rank):
+    return divmod(rank, job["cols"])[0]
+
+
+def test_sparse_array_and_its_shards_match_the_reference(job):
+    inp, ref = job["inp"], job["ref"]
+    mat = W.sparse_of(inp["sp_x"])
+    for key, want in (("sp_indptr", mat.indptr), ("sp_indices", mat.indices),
+                      ("sp_data", mat.data)):
+        np.testing.assert_array_equal(_same_on_every_rank(job, key), want)
+    for rank, got in enumerate(job["ranks"]):
+        r = _mesh_row(job, rank)
+        for name in ("data", "lrows", "cols"):
+            np.testing.assert_array_equal(got[f"sh_{name}"],
+                                          ref[f"sh_{name}"][r:r + 1])
+        np.testing.assert_array_equal(got["sh_counts"],
+                                      ref["sh_counts_dev"][r:r + 1])
+        for name in ("data", "lrows", "cols", "counts_dev"):
+            np.testing.assert_array_equal(got[f"pv_{name}"],
+                                          ref[f"pv_{name}"][r:r + 1])
+    dense = _same_on_every_rank(job, "sp_dense")
+    np.testing.assert_array_equal(dense, mat.toarray())
+    np.testing.assert_allclose(dense, ref["sp_dense"], rtol=1e-6, atol=1e-6)
+    _blocks_hold_a_zero_pad(job, "sp_dense_block", W.SP_SHAPE)
+    for kind in ("sum", "mean"):
+        for axis in (0, 1, None):
+            key = f"sp_{kind}_{axis}"
+            np.testing.assert_allclose(_same_on_every_rank(job, key),
+                                       ref[key], rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(_same_on_every_rank(job, "sp_rows"),
+                                  mat[[5, 200, 0, 77, 77]].toarray())
+    perm = np.random.RandomState(3).permutation(W.SP_SHAPE[0])
+    np.testing.assert_array_equal(_same_on_every_rank(job, "sp_shuffle"),
+                                  mat[perm].toarray())
+    for key in ("sp_sc_mean", "sp_sc_var"):
+        np.testing.assert_allclose(_same_on_every_rank(job, key), ref[key],
+                                   rtol=1e-6, atol=1e-6)
+    scale = np.sqrt(ref["sp_sc_var"].astype(np.float64))
+    np.testing.assert_allclose(_same_on_every_rank(job, "sp_sc_t"),
+                               mat.toarray() / np.where(scale == 0, 1, scale),
+                               rtol=1e-5, atol=1e-6)
+    # the densify route: y = x₀ + x₁ fitted exactly
+    want = np.zeros((W.SP_SHAPE[1], 1))
+    want[:2] = 1.0
+    np.testing.assert_allclose(_same_on_every_rank(job, "sp_lr_coef"), want,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("panels", W.SP_PANELS)
+def test_spmm_matches_the_reference_and_its_schedules_agree(job, panels):
+    want = job["ref"][f"spmm_{panels}"]
+    scale = float(np.abs(want).max())
+    base = _same_on_every_rank(job, f"spmm_{panels}_slots_db")
+    np.testing.assert_array_equal(
+        _same_on_every_rank(job, f"spmm_{panels}_again"), base)
+    for lay in ("slots", "masked"):
+        got = _same_on_every_rank(job, f"spmm_{panels}_{lay}_db")
+        np.testing.assert_array_equal(
+            _same_on_every_rank(job, f"spmm_{panels}_{lay}_seq"), got)
+        assert np.abs(got - want).max() <= 1e-5 * scale, lay
+        _blocks_hold_a_zero_pad(job, f"spmm_{panels}_{lay}_db_block",
+                                want.shape)
+    for key in ("spmm_matmul", "spmm_densify"):
+        got = _same_on_every_rank(job, key)
+        assert np.abs(got - want).max() <= 1e-5 * scale, key
+    # each panel's fold takes B's columns in slices of BLOCK_BYTES of
+    # products (here one to three columns): the same sums, bit for bit, as
+    # one slice, and the slices of each panel cover the rank's columns
+    np.testing.assert_array_equal(
+        _same_on_every_rank(job, f"spmm_{panels}_sliced"), base)
+    for r in job["ranks"]:
+        widths = r[f"spmm_{panels}_sliced_widths"]
+        n_loc = int(r["spmm_n_local"])
+        steps = int(r[f"spmm_{panels}_sliced_steps"])
+        assert n_loc > 3 and widths.max() <= 3, widths
+        assert widths.sum() == steps * n_loc, (widths, steps, n_loc)
+
+
+def test_sparse_kmeans_matches_the_reference(job):
+    ref = job["ref"]
+    np.testing.assert_allclose(_same_on_every_rank(job, "skm_centers"),
+                               ref["skm_centers"], atol=1e-5)
+    np.testing.assert_array_equal(_same_on_every_rank(job, "skm_labels"),
+                                  ref["skm_labels"])
+    inertia = float(_same_on_every_rank(job, "skm_inertia"))
+    assert abs(inertia - ref["skm_inertia"]) <= 1e-5 * ref["skm_inertia"]
+    assert abs(-float(_same_on_every_rank(job, "skm_score")) - inertia) \
+        <= 1e-5 * inertia
+    _blocks_hold_a_zero_pad(job, "skm_labels_block", (W.SKM_SHAPE[0], 1))
+
+
+@pytest.mark.parametrize("q", ["sparse", "dense"])
+def test_sparse_knn_matches_the_reference(job, q):
+    ref = job["ref"]
+    np.testing.assert_array_equal(_same_on_every_rank(job, f"sknn_{q}_idx"),
+                                  ref[f"sknn_{q}_idx"])
+    np.testing.assert_allclose(_same_on_every_rank(job, f"sknn_{q}_dist"),
+                               ref[f"sknn_{q}_dist"], atol=1e-5)
+    _blocks_hold_a_zero_pad(job, f"sknn_{q}_idx_block", (W.NN_Q[0], W.NN_K))
+
+
+def test_dense_als_matches_the_reference(job):
+    ref = job["ref"]
+    for name in ("users", "items"):
+        got = _same_on_every_rank(job, f"als_dense_{name}")
+        want = ref[f"als_{name}"]
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), name
+    np.testing.assert_allclose(_same_on_every_rank(job, "als_dense_history"),
+                               ref["als_history"], atol=1e-5)
+    assert int(_same_on_every_rank(job, "als_dense_n_iter")) \
+        == ref["als_n_iter"] < W.ALS_KW["max_iter"]
+
+
+def test_sparse_als_matches_its_substitute_oracle(job):
+    # the reference's sparse fit fails (ROADMAP.md C.2): the oracles are
+    # the port's dense fit of the densified ratings on the same mesh and
+    # the port's one-rank sparse fit
+    for oracle in ("densified", "sparse_one"):
+        for name in ("users", "items"):
+            got = _same_on_every_rank(job, f"als_sparse_{name}")
+            want = _same_on_every_rank(job, f"als_{oracle}_{name}")
+            assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), \
+                (oracle, name)
+        np.testing.assert_allclose(
+            _same_on_every_rank(job, "als_sparse_history"),
+            _same_on_every_rank(job, f"als_{oracle}_history"), atol=1e-4)
+        assert int(_same_on_every_rank(job, "als_sparse_n_iter")) \
+            == int(_same_on_every_rank(job, f"als_{oracle}_n_iter"))
+    assert _same_on_every_rank(job, "als_fold_in").shape \
+        == (5, W.ALS_SHAPE[1])
+
+
+def test_ivf_layout_and_search_match_the_reference(job):
+    ref, rows, cols = job["ref"], job["rows"], job["cols"]
+    for meta in job["ranks"]:
+        assert json.loads(meta["ivf_pad_waste"].tobytes()) \
+            == ref["ivf_pad_waste"]
+    e_pad = ref["ivf_ids"].shape[0] // rows
+    d_loc = ref["ivf_vecs"].shape[1] // cols
+    for rank, got in enumerate(job["ranks"]):
+        r, c = divmod(rank, cols)
+        np.testing.assert_array_equal(
+            got["ivf_vecs"], ref["ivf_vecs"][r * e_pad:(r + 1) * e_pad,
+                                             c * d_loc:(c + 1) * d_loc])
+        np.testing.assert_array_equal(
+            got["ivf_ids"], ref["ivf_ids"][r * e_pad:(r + 1) * e_pad])
+        np.testing.assert_allclose(
+            got["ivf_vsq"], ref["ivf_vsq"][r * e_pad:(r + 1) * e_pad],
+            rtol=1e-6)
+        for name in ("offs", "cnts"):
+            np.testing.assert_array_equal(got[f"ivf_{name}"],
+                                          ref[f"ivf_{name}"][r])
+    for nprobe in (W.IVF_PROBE, W.IVF_LISTS):
+        for sched in ("db", "seq", "kernel"):
+            key = f"ivf_{nprobe}_{sched}"
+            np.testing.assert_array_equal(
+                _same_on_every_rank(job, f"{key}_idx"),
+                ref[f"ivf_{nprobe}_idx"], err_msg=key)
+            np.testing.assert_allclose(
+                _same_on_every_rank(job, f"{key}_dist"),
+                ref[f"ivf_{nprobe}_dist"], atol=1e-5, err_msg=key)
+    _blocks_hold_a_zero_pad(job, "ivf_idx_block", (W.IVF_Q, W.IVF_K))
+    # a carried reference index, and the ranks' own fit searched exactly
+    for key, nprobe in (("ivf_carried", W.IVF_PROBE),
+                        ("ivf_fit_exact", W.IVF_LISTS)):
+        np.testing.assert_array_equal(_same_on_every_rank(job, f"{key}_idx"),
+                                      ref[f"ivf_{nprobe}_idx"])
+        np.testing.assert_allclose(_same_on_every_rank(job, f"{key}_dist"),
+                                   ref[f"ivf_{nprobe}_dist"], atol=1e-5)
+
+
+@pytest.mark.parametrize("staging", ["ell", "csr"])
+def test_sparse_cascade_svm_is_the_one_rank_cascade(job, staging):
+    # against the reference's sparse cascade on the same mesh, and against
+    # the port's one-rank fit
+    one = f"ssv_{staging}_one"
+    got = f"ssv_{staging}_ranks"
+    ref = job["ref"]
+    for r in job["ranks"]:
+        np.testing.assert_array_equal(r[f"{got}_idx"], ref["ssv_idx"])
+        assert int(r[f"{got}_n_iter"]) == int(ref["ssv_n_iter"])
+        np.testing.assert_allclose(r[f"{got}_alpha"], ref["ssv_alpha"],
+                                   rtol=0, atol=ALPHA_TOL)
+        np.testing.assert_allclose(r[f"{got}_dec"], ref["ssv_dec"],
+                                   rtol=0, atol=DEC_TOL)
+        np.testing.assert_array_equal(r[f"{got}_idx"], r[f"{one}_idx"])
+        assert int(r[f"{got}_n_iter"]) == int(r[f"{one}_n_iter"])
+        np.testing.assert_allclose(r[f"{got}_alpha"], r[f"{one}_alpha"],
+                                   atol=ALPHA_TOL)
+        np.testing.assert_allclose(r[f"{got}_dec"], r[f"{one}_dec"],
+                                   atol=DEC_TOL)
+        assert float(r[f"{got}_score"]) == float(r[f"{one}_score"])

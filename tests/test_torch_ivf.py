@@ -186,7 +186,7 @@ def test_default_n_lists_and_errors(blobs, tmp_path):
     assert ck.quantizer_.fit_info_["chunks"] == 2
     np.testing.assert_array_equal(ck.quantizer_.centers_,
                                   ix.quantizer_.centers_)
-    with pytest.raises(NotImplementedError, match="A.2"):
+    with pytest.raises(NotImplementedError, match="A.11"):
         ix.rebind_mesh(port_mesh.Mesh(2, 1, torch.device("cpu")))
     assert ix.rebind_mesh(port_mesh.make_mesh((1, 1), "cpu")) is False
     with pytest.raises(ValueError, match="list quantum"):

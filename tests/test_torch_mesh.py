@@ -9,9 +9,10 @@
 - a gloo job of ONE rank (a FileStore under ``tmp_path``): SUMMA, KMeans,
   the ring, tsqr, GaussianMixture, random_svd, PCA, a scaler, the linear
   models, MiniBatchKMeans, qr, svd, polar, lanczos_svd, a forest, a
-  regression tree, DBSCAN and Daura on the ring and CascadeSVM run their
-  collectives over groups of one, and must be bit-equal to the same calls
-  with no process group;
+  regression tree, DBSCAN and Daura on the ring, CascadeSVM (dense and
+  sparse), sparse KMeans, the sparse kNN, ALS (dense and sparse) and the
+  IVF index run their collectives over groups of one, and must be
+  bit-equal to the same calls with no process group;
 - the ``random_array`` draw: the same logical values at the pad quanta
   of the (1, 1), (2, 2) and (4, 1) meshes;
 - the exchange plan of the shuffle: the reference's ``_routing`` plan.
@@ -93,7 +94,7 @@ def test_block_geometry_and_the_data_guard():
     assert a._pshape == (6, 8)
     assert a._at == (3, 4)
     assert a._local is block
-    with pytest.raises(NotImplementedError, match="A.2c"):
+    with pytest.raises(NotImplementedError, match="A.11"):
         a._data
     with pytest.raises(NotImplementedError, match="A.11"):
         a.T
@@ -237,6 +238,30 @@ def _one_rank_results():
         yc)
     out["sv_alpha"], out["sv_idx"] = sv._sv_alpha, sv._sv_idx
     out["sv_dec"] = sv.decision_function(x).collect()
+    # A.2c: SpMM, sparse KMeans, the sparse kNN, ALS (dense and sparse),
+    # the IVF index and sparse CascadeSVM
+    import scipy.sparse as sp
+    mat = sp.random(90, 12, density=0.3, random_state=1, dtype=np.float32,
+                    format="csr")
+    xs = dst.SparseArray.from_scipy(mat)
+    out["spmm"] = dst.matmul(xs, dst.array(rng.randn(12, 5).astype(
+        np.float32))).collect()
+    skm = KMeans(n_clusters=3, random_state=0, max_iter=5, tol=0).fit(xs)
+    out["skm_centers"], out["skm_labels"] = (skm.centers_,
+                                             skm.predict(xs).collect())
+    d, i = dst.NearestNeighbors(n_neighbors=3).fit(xs).kneighbors(xs[:7])
+    out["sknn_d"], out["sknn_i"] = d.collect(), i.collect()
+    for name, arr in (("als_sparse", xs), ("als_dense", xs.to_dense())):
+        als = dst.ALS(n_f=2, max_iter=3, tol=0, random_state=0).fit(arr)
+        out[f"{name}_u"], out[f"{name}_v"] = als.users_, als.items_
+    ix = dst.IVFIndex(n_lists=4, nprobe=2, random_state=0).fit(x)
+    for ov in ("db", "kernel"):
+        d, i = ix.search(x[:9], k=3, overlap=ov)
+        out[f"ivf_{ov}_d"], out[f"ivf_{ov}_i"] = d.collect(), i.collect()
+    ssv = dst.CascadeSVM(max_iter=2).fit(dst.SparseArray.from_scipy(
+        sp.csr_matrix(rng.rand(120, 6).astype(np.float32)
+                      * (rng.rand(120, 6) > 0.4)), block_size=(32, 6)), yc)
+    out["ssv_alpha"], out["ssv_idx"] = ssv._sv_alpha, ssv._sv_idx
     return out
 
 

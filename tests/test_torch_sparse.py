@@ -177,15 +177,22 @@ def test_sharded_layout_and_knobs(monkeypatch):
 
 
 def test_unported_layouts_name_the_roadmap_items():
-    # the on-device reshard stays A.11 and panel_view waits for the
-    # multi-rank mesh with the multi-panel SpMM (A.2); ell and row_steps
-    # are ported: bit-equal to the reference's
+    # the on-device reshard stays A.11; panel_view (the multi-panel SpMM's
+    # layout), ell and row_steps are ported: bit-equal to the reference's
+    # (panel_view on a one-device mesh: one shard)
+    import jax
     ref, port = _both(_mat())
     with pytest.raises(NotImplementedError, match="A.11"):
         port.resharded()
-    with pytest.raises(NotImplementedError,
-                       match="multi-panel SpMM.*ROADMAP.md A.2"):
-        port.sharded().panel_view(4, 8)
+    one = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                            ("rows", "cols"))
+    got, want = port.sharded().panel_view(4, 8), \
+        ref.sharded(one).panel_view(4, 8)
+    assert (got.nse_p, got.steps, got.h) == (want.nse_p, want.steps,
+                                             want.h)
+    for name in ("data", "lrows", "cols", "counts_dev"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)))
     for got, want in zip(port.ell(), ref.ell()):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     for got, want in zip(port.row_steps(8), ref.row_steps(8)):

@@ -119,6 +119,65 @@ def inputs_a2b3():
                 csvm_q=cq.astype(np.float32))
 
 
+# A.2c: a (203, 37) sparse matrix (~15 % dense) and SpMM's (37, 19)
+# right-hand side at DSLIB_SPMM_PANELS 2 and 4; sparse KMeans on
+# separated sparse blobs (300 × 20, k = 4); the sparse kNN on sparse
+# versions of the kNN fit rows and queries; ALS on (70, 30) low-rank
+# ratings (n_f = 3, 8 sweeps at tol 1e-3: the stop stands clear of the
+# tolerance), the reference's V₀ handed in by ``job_dir/als_v0.npz``; the
+# IVF index on a (300, 6) catalog (8 lists), built from the reference's
+# labels and centers in ``job_dir/ivf.npz``, and 37 queries, k = 4;
+# sparse CascadeSVM on (256, 30) blobs ~60 % zeros, block rows 64,
+# staged by ELL and by the host CSR
+SP_SHAPE, SP_B = (203, 37), 19
+SP_PANELS = (2, 4)
+SKM_SHAPE, SKM_K = (300, 20), 4
+ALS_SHAPE, ALS_F = (70, 30), 3
+ALS_KW = dict(n_f=ALS_F, lambda_=0.065, tol=1e-3, max_iter=8,
+              random_state=0)
+IVF_SHAPE, IVF_Q, IVF_LISTS, IVF_K, IVF_PROBE = (300, 6), 37, 8, 4, 3
+SSV_SHAPE, SSV_BLOCK = (256, 30), 64
+
+
+def inputs_a2c():
+    """A.2c's inputs, from fixed seeds (sparse ones as dense arrays with
+    zeros: each side makes its scipy CSR)."""
+    rng = np.random.RandomState(19)
+    sp_x = rng.rand(*SP_SHAPE).astype(np.float32)
+    sp_x[rng.rand(*SP_SHAPE) > 0.15] = 0
+    sp_b = rng.randn(SP_SHAPE[1], SP_B).astype(np.float32)
+    m, n = SKM_SHAPE
+    cen = np.where(rng.rand(SKM_K, n) < 0.4, 3.0 * rng.rand(SKM_K, n), 0.0)
+    lab = rng.randint(0, SKM_K, m)
+    skm = np.where(cen[lab] > 0, cen[lab] + 0.1 * rng.randn(m, n), 0.0)
+    u, v = rng.rand(ALS_SHAPE[0], ALS_F), rng.rand(ALS_SHAPE[1], ALS_F)
+    full = u @ v.T
+    full = 1.0 + 4.0 * (full - full.min()) / (full.max() - full.min())
+    mask = rng.rand(*ALS_SHAPE) < 0.4
+    mask[np.arange(ALS_SHAPE[0]), rng.randint(0, ALS_SHAPE[1],
+                                              ALS_SHAPE[0])] = True
+    mask[rng.randint(0, ALS_SHAPE[0], ALS_SHAPE[1]),
+         np.arange(ALS_SHAPE[1])] = True
+    cm, cd = SSV_SHAPE
+    ssv = np.vstack([rng.standard_normal((cm // 2, cd)),
+                     rng.standard_normal((cm // 2, cd)) + 0.8])
+    ssv[np.abs(ssv) < 0.85] = 0
+    ssv_y = np.r_[np.zeros(cm // 2), np.ones(cm // 2)]
+    perm = rng.permutation(cm)
+    return dict(sp_x=sp_x, sp_b=sp_b, skm=skm.astype(np.float32),
+                als=(full * mask).astype(np.float32),
+                ivf=rng.randn(*IVF_SHAPE).astype(np.float32),
+                ivf_q=rng.randn(IVF_Q, IVF_SHAPE[1]).astype(np.float32),
+                ssv=ssv[perm].astype(np.float32),
+                ssv_y=ssv_y[perm].astype(np.float32)[:, None])
+
+
+def sparse_of(a):
+    """The scipy CSR of a dense input (its zeros unstored)."""
+    import scipy.sparse as sp
+    return sp.csr_matrix(a)
+
+
 def inputs():
     """Every input, made from fixed seeds with NumPy."""
     rng = np.random.RandomState(0)
@@ -148,7 +207,7 @@ def inputs():
     q_y = rng.randint(0, KNN_CLASSES, (NN_Q[0], 1)).astype(np.float32)
     return dict(x=x, y=y, a=a, b=b, km=km, fit=fit, q=q, short=short,
                 sv=sv, gm=gm, qr=qr_a, wide=wide, svb=svb, ka=ka, kb=kb,
-                fit_y=fit_y, q_y=q_y, **inputs_a2b3())
+                fit_y=fit_y, q_y=q_y, **inputs_a2b3(), **inputs_a2c())
 
 
 def unported(dst, x, y):
@@ -158,6 +217,7 @@ def unported(dst, x, y):
     from dislib_tpu_torch import cluster, trees, classification, \
         recommendation, retrieval
     box = {}
+    inp_x = x.collect()
 
     def ckpt(call):
         def run():
@@ -189,8 +249,14 @@ def unported(dst, x, y):
         "CascadeSVM(checkpoint=)": ckpt(
             lambda: classification.CascadeSVM().fit(x, y,
                                                     checkpoint=object())),
-        "ALS": lambda: recommendation.ALS(n_f=2).fit(x),
-        "IVFIndex": lambda: retrieval.IVFIndex(n_lists=2).fit(x),
+        "ALS(checkpoint=)": ckpt(lambda: recommendation.ALS(n_f=2).fit(
+            x, checkpoint=object())),
+        "SparseArray.T": ckpt(lambda: dst.SparseArray.from_scipy(
+            sparse_of(inp_x)).T),
+        "IVFIndex.rebind_mesh": ckpt(lambda: retrieval.IVFIndex(
+            n_lists=2, random_state=0).fit(x).rebind_mesh(
+                type(dst.get_mesh())(1, dst.get_mesh().world,
+                                     dst.get_mesh().device))),
         "transpose": lambda: x.T,
         "KMeans(checkpoint=)": lambda: cluster.KMeans(
             n_clusters=2).fit(x, checkpoint=object()),
@@ -742,6 +808,179 @@ def run_a2b3(dst, inp, job_dir):
     return out
 
 
+def run_a2c(dst, inp, job_dir):
+    """A.2c: the sparse ds-array and its ShardedSparse shard, SpMM, the
+    densify route and the sparse scaler, sparse KMeans, the sparse kNN,
+    ALS (dense and sparse), the IVF index and sparse CascadeSVM across
+    ranks; where the test holds a call to one rank, that call runs here
+    too on ``device="cpu"`` arrays."""
+    import torch
+    from dislib_tpu_torch import classification, preprocessing, retrieval
+    from dislib_tpu_torch.base import from_fitted_arrays
+    from dislib_tpu_torch.cluster import KMeans
+    from dislib_tpu_torch.neighbors import NearestNeighbors
+    from dislib_tpu_torch.recommendation import ALS
+    als_mod = importlib.import_module("dislib_tpu_torch.recommendation.als")
+    spmm_mod = importlib.import_module("dislib_tpu_torch.ops.spmm")
+    mesh = dst.get_mesh()
+    out = {}
+    mat = sparse_of(inp["sp_x"])
+    x = dst.SparseArray.from_scipy(mat)
+    c = x.collect()
+    out["sp_indptr"], out["sp_indices"], out["sp_data"] = (
+        c.indptr, c.indices, c.data)
+    out["sp_local"] = np.stack([x._rows.numpy(), x._cols.numpy(),
+                                x._vals.view(torch.int32).numpy()])
+    rep = x.sharded()
+    for name in ("data", "lrows", "cols"):
+        out[f"sh_{name}"] = getattr(rep, name).numpy()
+    out["sh_counts"] = rep.counts_dev.numpy()
+    pv = rep.panel_view(2, 20)
+    for name in ("data", "lrows", "cols", "counts_dev"):
+        out[f"pv_{name}"] = getattr(pv, name).numpy()
+    d = x.to_dense()
+    out["sp_dense"], out["sp_dense_block"] = d.collect(), d._local.numpy()
+    for axis in (0, 1, None):
+        out[f"sp_sum_{axis}"] = x.sum(axis).collect()
+        out[f"sp_mean_{axis}"] = x.mean(axis).collect()
+    out["sp_rows"] = x[np.array([5, 200, 0, 77, 77])].collect().toarray()
+    xs = dst.shuffle(x, random_state=3)
+    out["sp_shuffle"] = xs.collect().toarray()
+    sc = preprocessing.StandardScaler(with_mean=False).fit(x)
+    out["sp_sc_mean"], out["sp_sc_var"] = (sc.mean_.collect(),
+                                           sc.var_.collect())
+    out["sp_sc_t"] = sc.transform(x).collect().toarray()
+    # the densify route into an estimator with no sparse path
+    out["sp_lr_coef"] = dst.LinearRegression().fit(
+        x, dst.array(inp["sp_x"][:, :2].sum(1, keepdims=True))).coef_
+    # -- SpMM: both layouts and schedules, two panel counts -----------------
+    b = dst.array(inp["sp_b"])
+    for panels in SP_PANELS:
+        for lay in ("slots", "masked"):
+            for sched in ("db", "seq"):
+                r = spmm_mod.spmm(x, b, panels=panels, layout=lay,
+                                  overlap=sched)
+                key = f"spmm_{panels}_{lay}_{sched}"
+                out[key], out[f"{key}_block"] = r.collect(), r._local.numpy()
+        out[f"spmm_{panels}_again"] = spmm_mod.spmm(
+            x, b, panels=panels).collect()
+    # B's columns in slices: a BLOCK_BYTES that holds the products of three
+    # columns of the sparsest panel of any rank, so every panel folds in
+    # slices of one to three columns, the last one short
+    block, fold = spmm_mod.BLOCK_BYTES, spmm_mod._fold
+    for panels in SP_PANELS:
+        steps = spmm_mod._fit_steps(panels, b._pshape[0])
+        cnt = x.sharded().panel_counts(steps, b._pshape[0] // steps)
+        widths = []
+
+        def counted(*args):
+            widths.append(args[3].shape[1])
+            return fold(*args)
+        spmm_mod.BLOCK_BYTES = 4 * 3 * int(cnt[cnt > 0].min())
+        spmm_mod._fold = counted
+        try:
+            out[f"spmm_{panels}_sliced"] = spmm_mod.spmm(
+                x, b, panels=panels).collect()
+        finally:
+            spmm_mod.BLOCK_BYTES, spmm_mod._fold = block, fold
+        out[f"spmm_{panels}_sliced_widths"] = np.array(widths, np.int64)
+        out[f"spmm_{panels}_sliced_steps"] = np.int64(steps)
+    out["spmm_n_local"] = np.int64(b._local.shape[1])
+    out["spmm_matmul"] = dst.matmul(x, b).collect()
+    out["spmm_densify"] = dst.matmul(x, b, algorithm="densify").collect()
+    # -- sparse KMeans --------------------------------------------------------
+    kx = dst.SparseArray.from_scipy(sparse_of(inp["skm"]))
+    km = KMeans(n_clusters=SKM_K, random_state=0, max_iter=20,
+                tol=1e-4).fit(kx)
+    out["skm_centers"], out["skm_inertia"] = km.centers_, np.float64(
+        km.inertia_)
+    out["skm_n_iter"] = np.int64(km.n_iter_)
+    lab = km.predict(kx)
+    out["skm_labels"], out["skm_labels_block"] = (lab.collect(),
+                                                  lab._local.numpy())
+    out["skm_score"] = np.float64(km.score(kx))
+    # -- the sparse kNN: sparse and dense queries ----------------------------
+    f = dst.SparseArray.from_scipy(sparse_of(inp["fit"] * (inp["fit"] > 0.3)))
+    qd = inp["q"] * (inp["q"] > 0.3)
+    for name, q in (("sparse", dst.SparseArray.from_scipy(sparse_of(qd))),
+                    ("dense", dst.array(qd))):
+        dist, idx = NearestNeighbors(n_neighbors=NN_K).fit(f).kneighbors(q)
+        out[f"sknn_{name}_dist"], out[f"sknn_{name}_idx"] = (dist.collect(),
+                                                            idx.collect())
+        out[f"sknn_{name}_idx_block"] = idx._local.numpy()
+    # -- ALS: dense against the reference, sparse against its oracle --------
+    v0 = np.load(os.path.join(job_dir, "als_v0.npy"))
+    als_mod._draw_items = lambda seed, n, n_f, device: torch.from_numpy(
+        v0[:n]).to(device)
+    r_h = inp["als"]
+    for name, arr in (("dense", dst.array(r_h)),
+                      ("sparse", dst.SparseArray.from_scipy(sparse_of(r_h))),
+                      ("sparse_one", dst.SparseArray.from_scipy(
+                          sparse_of(r_h), device="cpu")),
+                      ("densified", dst.SparseArray.from_scipy(
+                          sparse_of(r_h)).to_dense())):
+        est = ALS(**ALS_KW).fit(arr)
+        out[f"als_{name}_users"], out[f"als_{name}_items"] = (est.users_,
+                                                            est.items_)
+        out[f"als_{name}_history"] = est.history_
+        out[f"als_{name}_n_iter"] = np.int64(est.n_iter_)
+    out["als_fold_in"] = est.fold_in(sparse_of(r_h[:5]))
+    # -- the IVF index: the reference's layout, its search and a carry ------
+    ref = _wait_for(os.path.join(job_dir, "ivf.npz"))
+    items, q = inp["ivf"], dst.array(inp["ivf_q"])
+    ix = retrieval.IVFIndex(n_lists=IVF_LISTS, nprobe=IVF_PROBE)._build(
+        items, ref["labels"], ref["centers"])
+    out["ivf_pad_waste"] = np.frombuffer(json.dumps(
+        ix.pad_waste, sort_keys=True).encode(), np.uint8)
+    for name in ("_vecs", "_ids", "_vsq", "_offs", "_cnts"):
+        out[f"ivf{name}"] = getattr(ix, name).numpy()
+    for nprobe in (IVF_PROBE, IVF_LISTS):
+        for sched in ("db", "seq", "kernel"):
+            dist, idx = ix.search(q, k=IVF_K, nprobe=nprobe, overlap=sched)
+            key = f"ivf_{nprobe}_{sched}"
+            out[f"{key}_dist"], out[f"{key}_idx"] = (dist.collect(),
+                                                     idx.collect())
+    out["ivf_idx_block"] = idx._local.numpy()
+    carried = from_fitted_arrays(retrieval.IVFIndex, {
+        "_items_h": items, "_labels_h": ref["labels"],
+        "_centers_h": ref["centers"]}, nprobe=IVF_PROBE)
+    dist, idx = carried.search(q, k=IVF_K)
+    out["ivf_carried_dist"], out["ivf_carried_idx"] = (dist.collect(),
+                                                       idx.collect())
+    fitted = retrieval.IVFIndex(n_lists=IVF_LISTS, random_state=0).fit(
+        dst.array(items))
+    dist, idx = fitted.search(q, k=IVF_K, nprobe=IVF_LISTS)
+    out["ivf_fit_exact_dist"], out["ivf_fit_exact_idx"] = (dist.collect(),
+                                                           idx.collect())
+    # -- sparse CascadeSVM: ELL staging, then the host CSR ------------------
+    blk = (SSV_BLOCK, SSV_SHAPE[1])
+    smat = sparse_of(inp["ssv"])
+    for staging in ("ell", "csr"):
+        saved = os.environ.get("DSLIB_SPARSE_ELL_BUDGET")
+        if staging == "csr":
+            os.environ["DSLIB_SPARSE_ELL_BUDGET"] = "1"
+        try:
+            for where, dev in (("ranks", None), ("one", "cpu")):
+                sx = dst.SparseArray.from_scipy(smat, block_size=blk,
+                                                device=dev)
+                est = classification.CascadeSVM(max_iter=CSVM_ITERS).fit(
+                    sx, dst.array(inp["ssv_y"], device=dev))
+                key = f"ssv_{staging}_{where}"
+                out[f"{key}_idx"], out[f"{key}_alpha"] = (est._sv_idx,
+                                                          est._sv_alpha)
+                out[f"{key}_n_iter"] = np.int64(est.n_iter_)
+                out[f"{key}_dec"] = est.decision_function(sx).collect()
+                out[f"{key}_score"] = np.float64(est.score(
+                    sx, dst.array(inp["ssv_y"], device=dev)))
+        finally:
+            if saved is None:
+                os.environ.pop("DSLIB_SPARSE_ELL_BUDGET", None)
+            else:
+                os.environ["DSLIB_SPARSE_ELL_BUDGET"] = saved
+    del mesh
+    return out
+
+
 def main(argv):
     rank, world, store, out_dir, rows, cols = argv[1:7]
     rank, world, rows, cols = int(rank), int(world), int(rows), int(cols)
@@ -756,6 +995,7 @@ def main(argv):
     out.update(run_a2b(dst, inp, out_dir))
     out.update(run_a2b2(dst, inp))
     out.update(run_a2b3(dst, inp, out_dir))
+    out.update(run_a2c(dst, inp, out_dir))
     x = dst.array(inp["x"])
     y = dst.array((inp["y"][:, :1] > 0.5).astype(np.float32))
     missed = unported(dst, x, y)
